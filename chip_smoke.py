@@ -1,0 +1,519 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (piquant_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # needs one CUDA card
+
+Phases (any failure exits non-zero):
+  1. card: name and power limit from nvidia-smi;
+  2. build: the hand-written kernels from piquant_tpu_torch/csrc with nvcc;
+  3. kernels: each kernel's wrapper against its plain PyTorch version at
+     the Llama-3-8B main-path shapes (decode batch 8), with its time, its
+     bound and a one-call PyTorch yardstick;
+  4. engine: the port's Engine serving 16 requests on Llama-3-8B at full
+     width (random INT4 codes from a seed), launch counts of every kernel,
+     engine tokens against the port's own single-request generation, and
+     decode / prefill throughput and TTFT;
+then one JSON line with the kernels, and a last JSON line
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
+NEAR_TIE = 0.02               # tests/token_guard.py MARGIN
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean DEVICE time of fn(i) over `iters` calls: the calls are captured
+    into one CUDA graph and its replay is timed with CUDA events, so the
+    host's launch cost (Python wrapper, allocation) is not in the number."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Mean wall time of fn(i) called eagerly, synchronised at the end:
+    what one call costs on the main path, launch overhead included."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def copy_bandwidth(torch, dev) -> float:
+    """Device-to-device copy rate of a 1 GiB buffer (bytes read + written
+    per second): the card's own memory-bandwidth reading."""
+    src = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda i: dst.copy_(src), 10)
+    return 2 * src.numel() / (ms * 1e-3)
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def hold(torch, name, got, want, atol, rtol) -> float:
+    """Element by element |got - want| <= atol + rtol |want|, failing on
+    any NaN or inf; returns the max abs error."""
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                               msg=lambda m: f"{name} disagrees: {m}")
+    return float((got - want).abs().max())
+
+
+# (K, N, uses per decode layer) of the Llama-3-8B projections
+W4_SHAPES = ((4096, 4096, 2), (4096, 1024, 2), (4096, 14336, 2),
+             (14336, 4096, 1))
+
+
+def check_w4_gemv(torch, dev, gen):
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+
+    m = 8
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, eager_ms=0.0,
+               nbytes=0.0, flops=0.0)
+    err = 0.0
+    for k, n, uses in W4_SHAPES:
+        # enough distinct weights that the timed loop streams from HBM,
+        # not from the 50 MB L2
+        copies = max(2, -(-256 * 2**20 // (k * n // 2)))
+        data = [torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                              dtype=torch.uint8) for _ in range(copies)]
+        # a scale and zero point of their own per column, so a kernel that
+        # reads another column's shows
+        scale = ((torch.rand(n, generator=gen, device=dev) + 0.5)
+                 * (2.0 / 15 / k ** 0.5))
+        zp = torch.randint(0, 16, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        xsum = x.float().sum(1, keepdim=True)
+        got = Q.w4_gemv(x, data[0], scale, zp, xsum, torch.bfloat16).float()
+        want = Q.w4_gemv_plain(x, data[0], scale, zp, xsum,
+                               torch.bfloat16).float()
+        # atol 2e-2, rtol 1e-2: the quantized_matmul bound of the JAX tests
+        e = hold(torch, f"w4_gemv K={k} N={n}", got, want, 2e-2, 1e-2)
+        print(f"w4_gemv K={k} N={n}: max_abs_err {e:.3e}", flush=True)
+        err = max(err, e)
+        w_bf16 = [((torch.cat([d & 15, d >> 4]).float() - zp) * scale)
+                  .to(torch.bfloat16) for d in data[:2]]
+        call = lambda i: Q.w4_gemv(x, data[i % copies], scale, zp,  # noqa: E731
+                                   xsum, torch.bfloat16)
+        t_k = cuda_ms(call, 50)
+        tot["eager_ms"] += uses * host_ms(call)
+        t_p = cuda_ms(lambda i: Q.w4_gemv_plain(x, data[i % copies], scale,
+                                                zp, xsum, torch.bfloat16), 5)
+        t_l = cuda_ms(lambda i: torch.matmul(x, w_bf16[i % 2]), 20)
+        print(f"w4_gemv K={k} N={n}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"torch.matmul(bf16 W) {t_l:.4f} ms", flush=True)
+        tot["ms"] += uses * t_k
+        tot["plain_ms"] += uses * t_p
+        tot["library_ms"] += uses * t_l
+        tot["nbytes"] += uses * (k * n / 2 + m * k * 2 + m * n * 2 + n * 8)
+        tot["flops"] += uses * 2 * m * k * n
+        del data, w_bf16
+    b, by = bound_ms(tot["nbytes"], tot["flops"])
+    return dict(name="w4_gemv", route="cuda",
+                source="piquant_tpu_torch/csrc/qmatmul_w4.cu",
+                replaces="piquant_tpu/ops/pallas/qmatmul.py:46 (_w4_kernel), "
+                         "piquant_tpu/ops/pallas/qmatmul.py:350 "
+                         "(_w4_kernel_ksplit)",
+                max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=b, bound_by=by, library_ms=tot["library_ms"],
+                eager_ms=tot["eager_ms"],
+                timed="one decode layer: 7 projections at M=8")
+
+
+def check_decode_attn2(torch, dev, gen):
+    import torch.nn.functional as F
+
+    from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+
+    nl, b, hkv, rep, s, d = 32, 8, 8, 4, 2048, 128
+    shape = (nl, b, hkv, s, d)
+    kc = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    vc = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(shape[:-1] + (1,), generator=gen, device=dev) * 0.02
+    vs = torch.rand(shape[:-1] + (1,), generator=gen, device=dev) * 0.02
+    q = torch.randn((b, hkv, rep, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([0, 300, 2047, 1000, 1500, 511, 273, 1800],
+                       dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 0, 0, 1100, 0, 0, 0], dtype=torch.int32,
+                         device=dev)
+    sm = d ** -0.5
+    err = 0.0
+    for layer in (0, 17, 31):
+        acc, m, l = DA.decode_attn2(q, kc, ks, vc, vs, pos, start, sm, layer)
+        pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                             sm, layer)
+        torch.cuda.synchronize()
+        if not (bool((m[0] == -1e30).all()) and bool((l[0] == 0).all())
+                and bool((acc[0] == 0).all())):
+            raise AssertionError("decode_attn2: pos=0 row lost the sentinel")
+        # m to f32 rounding; l within 2e-2 and the normalized context within
+        # atol 2e-3, rtol 2e-2: bf16 probabilities before the PV product at
+        # other running maxima in the two
+        name = f"decode_attn2 layer {layer}"
+        hold(torch, name + " m", m, pm, 1e-5, 1e-5)
+        hold(torch, name + " l", l, pl, 0.0, 2e-2)
+        e = hold(torch, name + " context", acc[1:] / l[1:],
+                 pacc[1:] / pl[1:], 2e-3, 2e-2)
+        err = max(err, e)
+    print(f"decode_attn2: max_abs_err (normalized context) {err:.3e}",
+          flush=True)
+    call = lambda i: DA.decode_attn2(q, kc, ks, vc, vs, pos, start,  # noqa: E731
+                                     sm, i % nl)
+    t_k = cuda_ms(call, 64)
+    t_e = host_ms(call)
+    t_p = cuda_ms(lambda i: DA.decode_attn2_plain(q, kc, ks, vc, vs, pos,
+                                                  start, sm, i % nl), 4)
+    # yardstick: SDPA over a pre-dequantized bf16 cache of one layer
+    kf = (kc[5].float() * ks[5]).to(torch.bfloat16)
+    vf = (vc[5].float() * vs[5]).to(torch.bfloat16)
+    idx = torch.arange(s, device=dev)
+    mask = ((idx[None] >= start[:, None]) & (idx[None] < pos[:, None])
+            | (idx[None] == 0))[:, None, None, :]   # keep row 0 defined
+    q4 = q.reshape(b, hkv * rep, 1, d)
+    t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q4, kf, vf, attn_mask=mask, enable_gqa=True), 20)
+    live_pos = float((pos - start).clamp(min=0).sum())
+    nbytes = (live_pos * hkv * (2 * d + 2 * 4) + q.numel() * 2
+              + b * hkv * rep * (d + 2) * 4)
+    bnd, by = bound_ms(nbytes, 4 * live_pos * rep * hkv * d)
+    print(f"decode_attn2: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"sdpa(bf16 cache) {t_l:.4f} ms, live positions {live_pos:.0f}",
+          flush=True)
+    del kc, vc, ks, vs, kf, vf
+    return dict(name="decode_attn2", route="cuda",
+                source="piquant_tpu_torch/csrc/decode_attn2.cu",
+                replaces="piquant_tpu/ops/pallas/decode_attn2.py:76 (_kernel, "
+                         "kv8)",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                bound_by=by, library_ms=t_l, eager_ms=t_e,
+                timed="one layer: B=8, Hkv=8, rep=4, S=2048, mixed positions")
+
+
+def check_flash(torch, dev, gen):
+    import torch.nn.functional as F
+
+    from piquant_tpu_torch.ops.cuda import flash as FL
+
+    b, hkv, rep, t, d = 8, 8, 4, 1024, 128
+    q = torch.randn((b, hkv, rep, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    sm = d ** -0.5
+    got = FL.flash_attn(q, k, v, sm)
+    want = FL.flash_attn_plain(q, k, v, sm)
+    # element by element, atol 2e-3, rtol 2e-2: bf16 probabilities before
+    # the PV product in both, at running maxima of another tile order
+    err = hold(torch, "flash_prefill", got, want, 2e-3, 2e-2)
+    print(f"flash_prefill: max_abs_err {err:.3e}", flush=True)
+    # a ragged T is masked by the kernel itself
+    tr = 200
+    e_r = hold(torch, "flash_prefill at ragged T",
+               FL.flash_attn(q[:1, :, :, :tr], k[:1, :, :tr], v[:1, :, :tr],
+                             sm),
+               FL.flash_attn_plain(q[:1, :, :, :tr], k[:1, :, :tr],
+                                   v[:1, :, :tr], sm), 2e-3, 2e-2)
+    print(f"flash_prefill T={tr}: max_abs_err {e_r:.3e}", flush=True)
+    err = max(err, e_r)
+    del got, want
+    t_k = cuda_ms(lambda i: FL.flash_attn(q, k, v, sm), 10)
+    t_e = host_ms(lambda i: FL.flash_attn(q, k, v, sm), 10)
+    t_p = cuda_ms(lambda i: FL.flash_attn_plain(q, k, v, sm), 2, warmup=1)
+    q4 = q.reshape(b, hkv * rep, t, d)
+    t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q4, k, v, is_causal=True, enable_gqa=True), 10)
+    flops = 4.0 * d * (t * (t + 1) / 2) * b * hkv * rep
+    nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4
+    bnd, by = bound_ms(nbytes, flops)
+    print(f"flash_prefill: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"sdpa(causal, gqa) {t_l:.4f} ms", flush=True)
+    return dict(name="flash_prefill", route="cuda",
+                source="piquant_tpu_torch/csrc/flash.cu",
+                replaces="piquant_tpu/ops/pallas/flash.py:57 (_kernel; also "
+                         "the JAX-shipped causal kernel called at "
+                         "piquant_tpu/ops/flash_prefill.py:77)",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                bound_by=by, library_ms=t_l, eager_ms=t_e,
+                timed="one layer: B=8, T=1024, Hkv=8, rep=4")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the engine at full Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+def generate_single(torch, M, cfg, params, prompt, n_new, dev):
+    """The port's own single-request greedy prefill + decode."""
+    cache = M.init_kv_cache(cfg, 1, max_len=len(prompt) + n_new, device=dev)
+    logits, cache = M.prefill(cfg, params, torch.tensor([prompt], device=dev,
+                                                        dtype=torch.int32),
+                              cache)
+    toks = []
+    tok = int(logits.argmax(-1)[0])
+    pos = len(prompt)
+    for _ in range(n_new):
+        toks.append(tok)
+        if len(toks) == n_new:
+            break
+        logits, cache = M.decode_step(
+            cfg, params, torch.tensor([tok], device=dev, dtype=torch.int32),
+            torch.tensor([pos], device=dev, dtype=torch.int32), cache)
+        tok = int(logits.argmax(-1)[0])
+        pos += 1
+    return toks
+
+
+def check_tokens_guarded(torch, M, cfg, params, prompt, got, want, dev):
+    """got == want, or they fork first at a step whose reference top-2
+    margin is below NEAR_TIE (tests/token_guard.py, in torch)."""
+    if got == want:
+        return "equal"
+    seq = list(prompt) + list(want[:-1])
+    logits, _ = M.forward(cfg, params, torch.tensor([seq], device=dev,
+                                                    dtype=torch.int32))
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            top2 = torch.topk(logits[0, len(prompt) - 1 + i].float(), 2).values
+            margin = float(top2[0] - top2[1])
+            if margin >= NEAR_TIE:
+                raise AssertionError(f"engine diverged at step {i} with a "
+                                     f"decisive margin {margin}")
+            return f"near-tie fork at step {i} (margin {margin:.4f})"
+    raise AssertionError("token lists differ in length")
+
+
+def profile_decode(torch, M, cfg, params, dev):
+    """Device busy share and top kernels over 4 eager decode steps at batch
+    8 (positions ~512), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = M.init_kv_cache(cfg, 8, max_len=2048, device=dev)
+    tok = torch.ones(8, dtype=torch.int32, device=dev)
+    pos = torch.arange(500, 516, 2, dtype=torch.int32, device=dev)
+    M.decode_step(cfg, params, tok, pos, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(4):
+            M.decode_step(cfg, params, tok, pos + i, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel rows only: the CPU-side op rows repeat their kernels' time
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    if not rows:
+        print("profile: no device time in the trace (not measured)",
+              flush=True)
+        return
+    busy = sum(r[1] for r in rows)
+    print(f"profile: 4 decode steps, wall {wall_ms:.2f} ms, kernels "
+          f"{busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
+          f"{sum(r[2] for r in rows)} kernel launches", flush=True)
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"profile:   {ms:8.3f} ms  x{n:<6d} {name[:90]}", flush=True)
+
+
+def run_engine(torch, dev, args):
+    import numpy as np
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+    from piquant_tpu_torch.ops.cuda import flash as FL
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+    from piquant_tpu_torch.quant.linear import QuantizedLinear
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    cfg = M.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = M.random_quantized_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for layer in params["layers"]
+                 for w in layer.values() if isinstance(w, QuantizedLinear)
+                 for t in (w.data, w.scale, w.zero_point))
+    hbytes = params["lm_head"].numel() * params["lm_head"].element_size()
+    print(f"engine: Llama-3-8B random INT4 params built in "
+          f"{time.perf_counter() - t0:.1f} s; per decode step the weight "
+          f"stream is {wbytes / 1e9:.3f} GB INT4 + {hbytes / 1e9:.3f} GB "
+          f"bf16 lm_head, floor {(wbytes + hbytes) / args.bw * 1e3:.3f} ms "
+          f"at the measured copy bandwidth", flush=True)
+    ec = EngineConfig(batch_slots=8, max_seq_len=2048, prefill_pad=128,
+                      decode_block=16)
+    eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
+    rng = np.random.default_rng(args.seed)
+    n_new = 64
+    reqs = []
+    for i in range(16):
+        plen = int(rng.integers(128, 1025))
+        prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, plen)]
+        sp = (SamplingParams(max_new_tokens=n_new) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_p=0.95,
+                             max_new_tokens=n_new))
+        reqs.append(Request(rid=i, prompt=prompt, sampling=sp))
+
+    counts = {"blocks": 0, "prefills": 0}
+    dispatch, admit = eng._dispatch_block, eng._admit_one_shot
+
+    def counted_dispatch():
+        counts["blocks"] += 1
+        return dispatch()
+
+    def counted_admit(batch):
+        counts["prefills"] += 1
+        return admit(batch)
+
+    eng._dispatch_block, eng._admit_one_shot = counted_dispatch, counted_admit
+    for r in reqs:
+        eng.submit(r)
+    Q.w4_gemv.launches = DA.decode_attn2.launches = FL.flash_attn.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"w4_gemv": Q.w4_gemv.launches,
+                "decode_attn2": DA.decode_attn2.launches,
+                "flash_prefill": FL.flash_attn.launches}
+
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
+    for r in done:
+        if len(r.tokens) != n_new:
+            raise AssertionError(f"request {r.rid}: {len(r.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {r.rid}: token outside the vocab")
+        if not all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs):
+            raise AssertionError(f"request {r.rid}: non-finite logits")
+    steps = counts["blocks"] * ec.decode_block
+    expect = {"w4_gemv": 7 * cfg.n_layers * steps,
+              "decode_attn2": cfg.n_layers * steps,
+              "flash_prefill": cfg.n_layers * counts["prefills"]}
+    print(f"engine: {counts['blocks']} decode blocks ({steps} steps), "
+          f"{counts['prefills']} prefill calls, launches {launches}, "
+          f"expected {expect}", flush=True)
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != {expect}")
+
+    for r in [r for r in done if r.sampling.temperature <= 0][:2]:
+        want = generate_single(torch, M, cfg, params, r.prompt, n_new, dev)
+        verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
+                                       r.tokens, want, dev)
+        print(f"engine: request {r.rid} (prompt {len(r.prompt)}) vs "
+              f"single-request generation: {verdict}", flush=True)
+
+    profile_decode(torch, M, cfg, params, dev)
+    m = eng.metrics
+    summary = {"card": card_line(), **m.to_dict(), "wall_s": wall,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    print("engine_metrics " + json.dumps(summary), flush=True)
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    # the package must be the checkout's own, beside this script (never an
+    # installed copy): the kernels are built from its sources
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here))
+    try:
+        from piquant_tpu_torch.ops.cuda import _build
+    except ImportError as e:
+        print(f"chip_smoke: the piquant_tpu_torch package is missing ({e})",
+              file=sys.stderr)
+        return 2
+    if not _build.CSRC.is_relative_to(here):
+        print(f"chip_smoke: piquant_tpu_torch comes from {_build.CSRC.parent}"
+              f", not from the checkout at {here}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(card_line(), flush=True)   # name, power limit (nvidia-smi)
+    print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+    args.bw = copy_bandwidth(torch, dev)
+    print(f"card: copy bandwidth {args.bw / 1e9:.1f} GB/s (data sheet "
+          f"{HBM_BYTES_PER_S / 1e9:.0f})", flush=True)
+
+    build = _build.build()
+    print(f"build: {build.path.name} in {build.seconds:.1f} s", flush=True)
+    for line in build.log.splitlines():
+        if "registers" in line or line.startswith("=="):
+            print("  " + line.strip(), flush=True)
+    _build.library()
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    kernels = [check_w4_gemv(torch, dev, gen), check_decode_attn2(torch, dev, gen),
+               check_flash(torch, dev, gen)]
+    torch.cuda.empty_cache()
+    launches = run_engine(torch, dev, args)
+    for kern in kernels:
+        kern["launches"] = launches[kern["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""Carry parameters, caches and configs across from the JAX package.
+
+Nothing here imports JAX or piquant_tpu: leaves are read with `np.asarray`
+(which JAX arrays support) and structured leaves by duck typing, so the
+same numbers reach both packages in the tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from piquant_tpu_torch._device import DeviceLike, resolve_device
+from piquant_tpu_torch.models.llama import Llama3Rope, LlamaConfig
+from piquant_tpu_torch.quant.kv_cache import KVCache
+from piquant_tpu_torch.quant.linear import QuantizedLinear
+
+_CONFIG_FIELDS = ("vocab_size", "d_model", "n_layers", "n_heads",
+                  "n_kv_heads", "d_ff", "rope_theta", "rms_eps",
+                  "max_seq_len", "head_dim_override", "kv_bits")
+
+
+def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
+    """Any array-like (numpy, JAX, ml_dtypes bfloat16) -> torch tensor."""
+    a = np.array(a, order="C")   # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _is_quantized_linear(leaf) -> bool:
+    return all(hasattr(leaf, a) for a in
+               ("data", "scale", "zero_point", "bits", "k", "group_size"))
+
+
+def _linear(leaf, device: torch.device) -> QuantizedLinear:
+    if (leaf.group_size is not None or getattr(leaf, "codebook", None)
+            or leaf.bits not in (4, 8)):
+        raise NotImplementedError(
+            f"only channelwise/per-tensor INT4/INT8 weights are ported "
+            f"(got bits={leaf.bits}, group_size={leaf.group_size})")
+    return QuantizedLinear(
+        data=tensor_from_numpy(leaf.data, device).to(torch.uint8),
+        scale=tensor_from_numpy(leaf.scale, device).to(torch.float32),
+        zero_point=tensor_from_numpy(leaf.zero_point, device).to(torch.int32),
+        bits=int(leaf.bits), k=int(leaf.k))
+
+
+def params_from_jax(tree, *, device: DeviceLike = None):
+    """The JAX package's parameter pytree (dicts and lists of arrays and
+    quantized linears) -> the port's, leaf for leaf."""
+    dev = resolve_device(device)
+
+    def conv(leaf):
+        if isinstance(leaf, dict):
+            return {k: conv(v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            return [conv(v) for v in leaf]
+        if _is_quantized_linear(leaf):
+            return _linear(leaf, dev)
+        return tensor_from_numpy(leaf, dev)
+
+    return conv(tree)
+
+
+def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:
+    """A JAX KVCache (kv8, stacked or not) -> the port's."""
+    dev = resolve_device(device)
+    if np.asarray(cache.k_codes).dtype != np.int8:
+        raise NotImplementedError("only kv8 caches are ported")
+    return KVCache(*(tensor_from_numpy(getattr(cache, f), dev) for f in
+                     ("k_codes", "v_codes", "k_scale", "v_scale", "length")))
+
+
+def config_from_jax(jcfg) -> LlamaConfig:
+    """The JAX package's LlamaConfig -> the port's.  Every model-family
+    flag the port does not have yet (qkv_bias, sliding_window, softcaps,
+    sinks, MoE, Llama-4 / Gemma / Phi / Granite options, act-quant, kv4,
+    ...) raises NotImplementedError when set off its default."""
+    kw = {f: getattr(jcfg, f) for f in _CONFIG_FIELDS}
+    handled = set(_CONFIG_FIELDS) | {"llama3_rope", "dtype"}
+    unsupported = [f.name for f in dataclasses.fields(jcfg)
+                   if f.name not in handled
+                   and getattr(jcfg, f.name) != f.default]
+    if unsupported:
+        raise NotImplementedError(
+            f"LlamaConfig flags not ported yet: {unsupported}")
+    if jcfg.llama3_rope is not None:
+        r = jcfg.llama3_rope
+        kw["llama3_rope"] = Llama3Rope(
+            r.factor, r.low_freq_factor, r.high_freq_factor,
+            r.original_max_position_embeddings)
+    name = np.dtype(jcfg.dtype).name
+    kw["dtype"] = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    return LlamaConfig(**kw)

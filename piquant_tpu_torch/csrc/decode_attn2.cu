@@ -1,0 +1,270 @@
+// decode_attn2: flash-decode over the stacked INT8 KV cache (kv8).
+//
+// Replaces piquant_tpu/ops/pallas/decode_attn2.py::_kernel in its kv8 form.
+// For every (batch row b, kv head h) it returns the UNNORMALIZED flash state
+// over the live cache window start[b] <= p < pos[b]:
+//   m   = max_p s_p,   l = sum_p exp(s_p - m),
+//   acc = sum_p bf16(exp(s_p - m) * vs_p) * v_codes[p],
+//   s_p = (q . k_codes[p]) * (ks_p * sm_scale)
+// for the rep query heads of h at once.  A row with no live position gets
+// the same sentinel as the TPU kernel: m = -1e30, l = 0, acc = 0 (a -inf
+// would turn the caller's fold with the current token into NaN).
+//
+// Bound on the H100: the live K/V code bytes plus their f32 scales (the
+// cache is int8; q and the outputs are a few KB).  Design:
+//   * the cache is the STACKED buffer [L, B, Hkv, S, D] and the layer is a
+//     pointer offset, so no per-layer copy is ever made;
+//   * the grid is (B * Hkv, S / 256): each block takes one 256-position
+//     chunk of one (b, h) and returns at once if the chunk holds no live
+//     position, so dead chunks cost no reads;
+//   * the rep query heads share every K/V load: a group of 8 lanes reads
+//     one 128-byte cache row (16 codes a lane) and forms all rep dots;
+//   * per-chunk (m, l, acc) partials are merged by a second small kernel
+//     that reads only the live chunks.
+// Products: bf16 q times int8 codes (exact) with f32 sums, probabilities
+// scaled by the V scale and rounded to bf16 before the PV sum, as the TPU
+// kernel does.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kD = 128;
+constexpr int kChunk = 256;               // cache positions per block
+constexpr int kThreads = 128;             // 4 warps x 4 groups of 8 lanes
+constexpr int kGroups = kThreads / 8;     // 16 position groups
+constexpr int kPerGroup = kChunk / kGroups;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ void codes16(const int8_t* p, float* out) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[i * 4 + j] = (float)(int8_t)((words[i] >> (8 * j)) & 0xff);
+}
+
+template <int REP>
+__global__ void __launch_bounds__(kThreads)
+decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
+                   const int8_t* __restrict__ kc,         // [L,B,H,S,D]
+                   const float* __restrict__ ks,          // [L,B,H,S]
+                   const int8_t* __restrict__ vc,
+                   const float* __restrict__ vs,
+                   const int* __restrict__ pos,           // [B]
+                   const int* __restrict__ start,         // [B]
+                   float* __restrict__ part_acc,          // [B,H,nsplit,REP,D]
+                   float* __restrict__ part_ml,           // [B,H,nsplit,REP,2]
+                   int layer, int nb, int nh, int s_len, float sm_scale) {
+  __shared__ float sc[REP][kChunk];
+  __shared__ float red[4][REP][kD];
+  __shared__ float row_m[REP];
+
+  const int bh = blockIdx.x;
+  const int b = bh / nh;
+  const int split = blockIdx.y;
+  const int nsplit = gridDim.y;
+  const int c0 = split * kChunk;
+  const int lo = max(start[b], c0);
+  const int hi = min(min(pos[b], s_len), c0 + kChunk);
+  if (lo >= hi) return;   // dead chunk: the merge kernel skips it
+
+  const size_t row0 = ((size_t)layer * nb * nh + bh) * s_len;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gl = lane % 8;                   // 16-dim slice of a row
+  const int grp = warp * 4 + lane / 8;       // position group
+
+  // ---- scores: s[r][p] for the live positions of the chunk ------------
+  {
+    float qf[REP][16];
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        qf[r][j] = __bfloat162float(q[((size_t)bh * REP + r) * kD + gl * 16 + j]);
+#pragma unroll 4
+    for (int i = 0; i < kPerGroup; ++i) {
+      const int p = c0 + grp + kGroups * i;
+      const bool live = p >= lo && p < hi;
+      float dot[REP];
+#pragma unroll
+      for (int r = 0; r < REP; ++r) dot[r] = 0.f;
+      if (live) {
+        float kf[16];
+        codes16(kc + (row0 + p) * kD + gl * 16, kf);
+#pragma unroll
+        for (int r = 0; r < REP; ++r)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) dot[r] = fmaf(qf[r][j], kf[j], dot[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 4);
+        dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
+        dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
+      }
+      if (gl == 0) {
+        const float kscale = live ? ks[row0 + p] * sm_scale : 0.f;
+#pragma unroll
+        for (int r = 0; r < REP; ++r)
+          sc[r][p - c0] = live ? dot[r] * kscale : kNegInf;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- chunk softmax: m, l, and bf16(p * vs) in place of the scores ----
+  for (int r = warp; r < REP; r += 4) {
+    float mx = kNegInf;
+    for (int j = lane; j < kChunk; j += 32) mx = fmaxf(mx, sc[r][j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int j = lane; j < kChunk; j += 32) {
+      const int p = c0 + j;
+      const bool live = p >= lo && p < hi;
+      const float e = live ? expf(sc[r][j] - mx) : 0.f;
+      sum += e;
+      sc[r][j] = live ? __bfloat162float(__float2bfloat16(e * vs[row0 + p]))
+                      : 0.f;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      row_m[r] = mx;
+      float* ml = part_ml + (((size_t)bh * nsplit + split) * REP + r) * 2;
+      ml[0] = mx;
+      ml[1] = sum;
+    }
+  }
+  __syncthreads();
+
+  // ---- PV: acc[r][d] = sum_p pv[r][p] * v_codes[p][d] ------------------
+  float acc[REP][16];
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < kPerGroup; ++i) {
+    const int p = c0 + grp + kGroups * i;
+    if (p < lo || p >= hi) continue;
+    float vf[16];
+    codes16(vc + (row0 + p) * kD + gl * 16, vf);
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float pv = sc[r][p - c0];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[r][j] = fmaf(pv, vf[j], acc[r][j]);
+    }
+  }
+  // the 4 groups of a warp hold the same dims: fold them by shuffles, then
+  // the 4 warps through shared memory
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], 8);
+      acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], 16);
+    }
+  if (lane < 8) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) red[warp][r][gl * 16 + j] = acc[r][j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < REP * kD; i += kThreads) {
+    const int r = i / kD, d = i % kD;
+    const float s = red[0][r][d] + red[1][r][d] + red[2][r][d] + red[3][r][d];
+    part_acc[(((size_t)bh * nsplit + split) * REP + r) * kD + d] = s;
+  }
+}
+
+// Merge the live chunks of each (b, h): one block per (b, h), one thread
+// per head dim.
+template <int REP>
+__global__ void decode_attn2_merge(const float* __restrict__ part_acc,
+                                   const float* __restrict__ part_ml,
+                                   const int* __restrict__ pos,
+                                   const int* __restrict__ start,
+                                   float* __restrict__ acc,   // [B,H,REP,D]
+                                   float* __restrict__ m_out, // [B,H,REP]
+                                   float* __restrict__ l_out,
+                                   int nh, int nsplit, int s_len) {
+  const int bh = blockIdx.x;
+  const int b = bh / nh;
+  const int d = threadIdx.x;
+  const int lo = start[b];
+  const int hi = min(pos[b], s_len);
+  for (int r = 0; r < REP; ++r) {
+    float m = kNegInf;
+    for (int sp = 0; sp < nsplit; ++sp) {
+      const int c0 = sp * kChunk;
+      if (max(lo, c0) >= min(hi, c0 + kChunk)) continue;
+      m = fmaxf(m, part_ml[(((size_t)bh * nsplit + sp) * REP + r) * 2]);
+    }
+    float l = 0.f, a = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) {
+      const int c0 = sp * kChunk;
+      if (max(lo, c0) >= min(hi, c0 + kChunk)) continue;
+      const size_t i = ((size_t)bh * nsplit + sp) * REP + r;
+      const float e = expf(part_ml[i * 2] - m);
+      l += part_ml[i * 2 + 1] * e;
+      a += part_acc[i * kD + d] * e;
+    }
+    acc[((size_t)bh * REP + r) * kD + d] = a;
+    if (d == 0) {
+      m_out[(size_t)bh * REP + r] = m;
+      l_out[(size_t)bh * REP + r] = l;
+    }
+  }
+}
+
+template <int REP>
+void launch(const void* q, const void* kc, const void* ks, const void* vc,
+            const void* vs, const void* pos, const void* start, void* acc,
+            void* m, void* l, void* part_acc, void* part_ml, int layer,
+            int nb, int nh, int s_len, float sm_scale, cudaStream_t st) {
+  const int nsplit = (s_len + kChunk - 1) / kChunk;
+  decode_attn2_chunk<REP><<<dim3(nb * nh, nsplit), kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+      static_cast<const float*>(vs), static_cast<const int*>(pos),
+      static_cast<const int*>(start), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), layer, nb, nh, s_len, sm_scale);
+  decode_attn2_merge<REP><<<nb * nh, kD, 0, st>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<const int*>(pos), static_cast<const int*>(start),
+      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+      nh, nsplit, s_len);
+}
+
+}  // namespace
+
+// q [B,H,rep,128] bf16; k/v codes [L,B,H,S,128] int8; k/v scales [L,B,H,S]
+// f32; pos/start [B] int32; outputs acc [B,H,rep,128], m/l [B,H,rep] f32;
+// scratch part_acc [B,H,ceil(S/256),rep,128], part_ml [B,H,ceil(S/256),rep,2].
+// rep must be 1, 2, 4 or 8.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unsupported rep.
+extern "C" int pq_decode_attn2(const void* q, const void* kc, const void* ks,
+                               const void* vc, const void* vs, const void* pos,
+                               const void* start, void* acc, void* m, void* l,
+                               void* part_acc, void* part_ml, int layer,
+                               int nb, int nh, int rep, int s_len,
+                               float sm_scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (rep) {
+    case 1: launch<1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 2: launch<2>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 4: launch<4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 8: launch<8>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

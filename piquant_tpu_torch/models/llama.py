@@ -1,0 +1,439 @@
+"""Llama-3 dense model, weight-only quantized: the serving subset of
+piquant_tpu/models/llama.py.
+
+Params are a plain dict of tensors / QuantizedLinear (the reference
+pytree's layout), and the functions take an explicit config.  Decode uses
+the deferred-append path (the current token's K/V join the softmax from
+registers; all layers' cache writes happen in one scatter after the layer
+loop) with the flash-decode kernel over the stacked cache; prefill
+attends over the in-layer K/V with the flash-prefill kernel while filling
+the cache.  The reference's cast points are kept: rms_norm casts before the
+weight multiply, SiLU runs in f32 then casts, and the attention context is
+cast to the model dtype before `wo`.
+
+Model-family flags (Gemma, Mistral, Qwen, GPT-OSS, Llama-4, MoE, ...),
+activation-quantized matmuls, kv4 and caller-supplied masks are not ported
+yet; see piquant_tpu_torch.convert.config_from_jax for the flags that raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from piquant_tpu_torch._device import DeviceLike, resolve_device
+from piquant_tpu_torch.ops.cuda.decode_attn2 import decode_attention_state
+from piquant_tpu_torch.ops.cuda.flash import flash_prefill_masked
+from piquant_tpu_torch.quant.kv_cache import (
+    KVCache,
+    _quantize_sym,
+    kv_cache_append_stacked,
+    kv_cache_append_stacked_batch,
+    kv_cache_init,
+)
+from piquant_tpu_torch.quant.linear import (
+    QuantizedLinear,
+    dot_f32,
+    quantize_linear_weight,
+    quantized_matmul,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Llama3Rope:
+    """Llama-3.1 rope scaling (transformers _compute_llama3_parameters)."""
+
+    factor: float = 8.0
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position_embeddings: int = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14_336
+    rope_theta: float = 500_000.0
+    rms_eps: float = 1e-5
+    max_seq_len: int = 8192
+    head_dim_override: Optional[int] = None
+    llama3_rope: Optional[Llama3Rope] = None
+    kv_bits: int = 8
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.kv_bits != 8:
+            raise NotImplementedError("only the kv8 cache is ported")
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.d_model // self.n_heads
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny(vocab: int = 256, **kw) -> "LlamaConfig":
+        """Small config for tests."""
+        return LlamaConfig(vocab_size=vocab, d_model=256, n_layers=2,
+                           n_heads=8, n_kv_heads=4, d_ff=512,
+                           max_seq_len=256, **kw)
+
+
+# ---------------------------------------------------------------------------
+# init / quantize
+# ---------------------------------------------------------------------------
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+
+
+def _shapes(cfg: LlamaConfig):
+    hd = cfg.head_dim
+    d, f = cfg.d_model, cfg.d_ff
+    return {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+            "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
+            "w1": (d, f), "w3": (d, f), "w2": (f, d)}
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, *,
+                device: DeviceLike = None) -> Dict:
+    """Random float init (std 0.02, ones for the norms), from a seed."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.dtype
+
+    def dense(din, dout):
+        return (torch.randn((din, dout), generator=gen, device=dev)
+                * 0.02).to(dt)
+
+    params = {
+        "embed": dense(cfg.vocab_size, cfg.d_model),
+        "final_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
+        "lm_head": dense(cfg.d_model, cfg.vocab_size),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        layer = {"attn_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
+                 "mlp_norm": torch.ones(cfg.d_model, dtype=dt, device=dev)}
+        for name, (din, dout) in _shapes(cfg).items():
+            layer[name] = dense(din, dout)
+        params["layers"].append(layer)
+    return params
+
+
+def random_quantized_params(cfg: LlamaConfig, seed: int = 0, bits: int = 4,
+                            *, device: DeviceLike = None) -> Dict:
+    """INT-quantized params built directly from random codes (never a float
+    weight), so a full-width model fits for speed measurements; the scale
+    and zero point are the reference's (`random_quantized_params`)."""
+    if bits not in (4, 8):
+        raise NotImplementedError("random INT4/INT8 weights only")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.dtype
+
+    def qlin(din, dout):
+        rows = din // 2 if bits == 4 else din
+        data = torch.randint(0, 256, (rows, dout), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        scale = torch.full((1, dout), 2.0 / ((1 << bits) - 1) / din ** 0.5,
+                           dtype=torch.float32, device=dev)
+        zp = torch.full((1, dout), 1 << (bits - 1), dtype=torch.int32,
+                        device=dev)
+        return QuantizedLinear(data=data, scale=scale, zero_point=zp,
+                               bits=bits, k=din)
+
+    def dense(din, dout):
+        return (torch.randn((din, dout), generator=gen, device=dev)
+                * 0.02).to(dt)
+
+    params = {
+        "embed": dense(cfg.vocab_size, cfg.d_model),
+        "final_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
+        "lm_head": dense(cfg.d_model, cfg.vocab_size),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        layer = {"attn_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
+                 "mlp_norm": torch.ones(cfg.d_model, dtype=dt, device=dev)}
+        for name, (din, dout) in _shapes(cfg).items():
+            layer[name] = qlin(din, dout)
+        params["layers"].append(layer)
+    return params
+
+
+def quantize_params(params: Dict, bits: int = 4, *, channelwise: bool = True,
+                    quantize_lm_head: bool = False) -> Dict:
+    """Weight-only quantization of every projection; norms and embeddings
+    stay float (and the lm_head too unless `quantize_lm_head`: INT8)."""
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        ql = dict(layer)
+        for k in _QUANT_KEYS:
+            if k in layer:
+                ql[k] = quantize_linear_weight(layer[k], bits,
+                                               channelwise=channelwise)
+        out["layers"].append(ql)
+    if quantize_lm_head:
+        out["lm_head"] = quantize_linear_weight(params["lm_head"], 8,
+                                                channelwise=channelwise)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def _mm(x: torch.Tensor, w, out_dtype) -> torch.Tensor:
+    if isinstance(w, QuantizedLinear):
+        return quantized_matmul(x, w, out_dtype)
+    # the reference casts both operands to out_dtype; bf16 operands are
+    # exact in f32, so an f32 output (the lm_head) keeps them bf16: the
+    # same products, without an f32 copy of the weight every step
+    op = (torch.bfloat16 if out_dtype == torch.float32
+          and x.dtype == w.dtype == torch.bfloat16 else out_dtype)
+    return dot_f32(x.to(op), w.to(op)).to(out_dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return normed * w
+
+
+def _llama3_inv_freq(cfg: LlamaConfig, inv: torch.Tensor) -> torch.Tensor:
+    """transformers _compute_llama3_parameters, re-derived."""
+    r = cfg.llama3_rope
+    old_len = r.original_max_position_embeddings
+    low_wl = old_len / r.low_freq_factor
+    high_wl = old_len / r.high_freq_factor
+    wavelen = 2 * math.pi / inv
+    scaled = torch.where(wavelen > low_wl, inv / r.factor, inv)
+    smooth = ((old_len / wavelen - r.low_freq_factor)
+              / (r.high_freq_factor - r.low_freq_factor))
+    smoothed = (1 - smooth) / r.factor * inv + smooth * inv
+    medium = (wavelen >= high_wl) & (wavelen <= low_wl)
+    return torch.where(medium, smoothed, scaled)
+
+
+def _rope_freqs(cfg: LlamaConfig, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    rd = cfg.head_dim
+    inv = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, rd, 2, dtype=torch.float32, device=positions.device)
+        / rd))
+    if cfg.llama3_rope is not None:
+        inv = _llama3_inv_freq(cfg, inv)
+    ang = positions[..., None].float() * inv          # [..., T, rd/2]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: [B, H, T, D]; cos/sin: [B, T, D/2] -> rotate pairs (even, odd)."""
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    c, s = cos[:, None], sin[:, None]
+    r1 = x1 * c - x2 * s
+    r2 = x2 * c + x1 * s
+    return torch.stack([r1, r2], dim=-1).reshape(xf.shape).to(x.dtype)
+
+
+def _dot_bf16(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with bf16-rounded operands and f32 accumulation."""
+    return torch.einsum(eq, a.to(torch.bfloat16).float(),
+                        b.to(torch.bfloat16).float())
+
+
+def _attention(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
+               positions: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
+               cache: KVCache, layer_idx: int, mask: torch.Tensor,
+               attend_in_layer: bool, kv_write_start: Optional[int],
+               pending: Optional[list], flash_ok: bool) -> torch.Tensor:
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    dt = cfg.dtype
+    ascale = hd ** -0.5
+    rep = cfg.n_heads // cfg.n_kv_heads
+
+    q = _mm(x, layer["wq"], dt).reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
+    k = _mm(x, layer["wk"], dt).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = _mm(x, layer["wv"], dt).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = apply_rope(q, *rope)
+    k = apply_rope(k, *rope)
+    qg = q.reshape(b, cfg.n_kv_heads, rep, t, hd)       # grouped heads
+
+    if cache is not None and pending is None:
+        kv_cache_append_stacked(cache, layer_idx, k, v, positions,
+                                contiguous_start=kv_write_start)
+    elif pending is not None:
+        kc_s, ks_s = _quantize_sym(k)   # [B,Hkv,1,D] / [B,Hkv,1,1]
+        vc_s, vs_s = _quantize_sym(v)
+        pending.append((kc_s, ks_s, vc_s, vs_s))
+
+    if cache is not None and not attend_in_layer:
+        kq, ksq, vq, vsq = pending[-1]
+        st = decode_attention_state(
+            qg[:, :, :, 0], cache.k_codes, cache.k_scale, cache.v_codes,
+            cache.v_scale, positions[:, 0], ascale, layer=layer_idx)
+        if st is not None:
+            # fold the current token (not in the cache yet) into the
+            # kernel's unnormalized state: a two-part logsumexp
+            acc, m_c, l_c = st                  # [B,Hkv,rep,D], [..,1] x2
+            s_self = _dot_bf16("bhrtd,bhsd->bhrts", qg, kq)
+            s_self = (s_self * ksq[:, :, None] * ascale)[:, :, :, 0, :]
+            m2 = torch.maximum(m_c, s_self)     # [B, Hkv, rep, 1]
+            ec = torch.exp(m_c - m2)
+            es = torch.exp(s_self - m2)
+            denom = l_c * ec + es
+            v_self = vq.float() * vsq           # [B, Hkv, 1, D]
+            ctx = ((acc * ec + es * v_self) / denom)[:, :, :, None]
+        else:
+            # materialized split softmax over the whole cache (geometries
+            # the kernel gate refuses)
+            kc = cache.k_codes[layer_idx]       # [B, Hkv, S, D] int8
+            vc = cache.v_codes[layer_idx]
+            ks = cache.k_scale[layer_idx][:, :, None, None, :, 0]
+            vs = cache.v_scale[layer_idx][..., 0]   # [B, Hkv, S]
+            scores = _dot_bf16("bhrtd,bhsd->bhrts", qg, kc) * ks * ascale
+            scores = scores + mask[:, None]
+            s_self = _dot_bf16("bhrtd,bhsd->bhrts", qg, kq) * ksq[:, :, None]
+            s_self = s_self * ascale
+            m = torch.maximum(scores.amax(dim=-1, keepdim=True), s_self)
+            ec = torch.exp(scores - m)
+            es = torch.exp(s_self - m)
+            denom = ec.sum(dim=-1, keepdim=True) + es
+            pscaled = (ec / denom * vs[:, :, None, None, :]).to(torch.bfloat16)
+            ctx = _dot_bf16("bhrts,bhsd->bhrtd", pscaled, vc)
+            ps_self = (es / denom * vsq[:, :, None]).to(torch.bfloat16)
+            ctx = ctx + ps_self.float() * vq.float()[:, :, None]
+    else:
+        # in-layer attention (fresh prefill) over the float k/v
+        ctx = None
+        if flash_ok:
+            ctx = flash_prefill_masked(qg, k, v, ascale, pos0=positions[:, 0])
+        if ctx is None:
+            scores = _dot_bf16("bhrtd,bhsd->bhrts", qg, k) * ascale
+            scores = scores + mask[:, None]
+            probs = torch.softmax(scores, dim=-1)
+            ctx = _dot_bf16("bhrts,bhsd->bhrtd", probs, v)
+
+    ctx = ctx.to(dt).reshape(b, cfg.n_heads, t, hd).transpose(1, 2)
+    return _mm(ctx.reshape(b, t, cfg.n_heads * hd), layer["wo"], dt)
+
+
+def _mlp(cfg: LlamaConfig, layer: Dict, x: torch.Tensor) -> torch.Tensor:
+    dt = cfg.dtype
+    g = _mm(x, layer["w1"], dt)
+    u = _mm(x, layer["w3"], dt)
+    h = (F.silu(g.float()) * u.float()).to(dt)
+    return _mm(h, layer["w2"], dt)
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            cache: Optional[KVCache] = None,
+            attend_in_layer: bool = False,
+            logit_positions: Optional[torch.Tensor] = None,
+            kv_write_start: Optional[int] = None,
+            ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """(logits [B, T, V] f32 — or [B, 1, V] with logit_positions — and the
+    cache, updated in place).  With a cache and T == 1 the step takes the
+    deferred-append decode path; with attend_in_layer it is a fresh
+    prefill that attends over its own K/V while filling the cache."""
+    b, t = tokens.shape
+    dt = cfg.dtype
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=tokens.device).expand(b, t)
+    if cache is not None and t > 1 and not attend_in_layer:
+        raise NotImplementedError("multi-token steps against the cache "
+                                  "(chunked prefill) are not ported yet")
+
+    x = params["embed"][tokens.long()].to(dt)
+    defer = t == 1 and cache is not None and not attend_in_layer
+    pending: Optional[list] = [] if defer else None
+    flash_ok = t > 1
+
+    if attend_in_layer or cache is None:
+        qp = positions[:, None, :, None]
+        kp = positions[:, None, None, :]
+        ok = kp <= qp
+    else:
+        # decode against the cache: STRICT < (the current token is not in
+        # the cache yet; it joins the softmax from registers)
+        kp = torch.arange(cache.max_len, device=tokens.device)[None, None, None]
+        ok = kp < positions[:, None, :, None]
+    mask = torch.where(ok, 0.0, -1e9).float()
+    rope = _rope_freqs(cfg, positions)   # the same for every layer
+
+    for i, layer in enumerate(params["layers"]):
+        h = _attention(cfg, layer, rms_norm(x, layer["attn_norm"], cfg.rms_eps),
+                       positions, rope, cache, i, mask, attend_in_layer,
+                       kv_write_start, pending, flash_ok)
+        x = x + h
+        x = x + _mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
+
+    if pending:
+        kv_cache_append_stacked_batch(
+            cache,
+            torch.stack([p[0] for p in pending]),   # [L, B, Hkv, 1, D] int8
+            torch.stack([p[1] for p in pending]),   # [L, B, Hkv, 1, 1] f32
+            torch.stack([p[2] for p in pending]),
+            torch.stack([p[3] for p in pending]),
+            positions)
+
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if logit_positions is not None:
+        x = x[torch.arange(b, device=x.device), logit_positions.long()][:, None]
+    logits = _mm(x, params["lm_head"], torch.float32)
+    return logits, cache
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int,
+                  max_len: Optional[int] = None, *,
+                  device: DeviceLike = None) -> KVCache:
+    """Stacked per-layer kv8 cache: leaves have a leading n_layers axis."""
+    one = kv_cache_init(batch, cfg.n_kv_heads, max_len or cfg.max_seq_len,
+                        cfg.head_dim, cfg.kv_bits, device=device)
+    return KVCache(*(torch.stack([t] * cfg.n_layers) for t in one.tensors()))
+
+
+def prefill(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
+            cache: KVCache, last_positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompt through the model, filling the cache.  Returns logits
+    at `last_positions` (default: the final position) [B, V] and the
+    cache."""
+    b, t = tokens.shape
+    if last_positions is None:
+        last_positions = torch.full((b,), t - 1, dtype=torch.int32,
+                                    device=tokens.device)
+    logits, cache = forward(cfg, params, tokens, cache=cache,
+                            attend_in_layer=True,
+                            logit_positions=last_positions, kv_write_start=0)
+    return logits[:, 0], cache
+
+
+def decode_step(cfg: LlamaConfig, params: Dict, token: torch.Tensor,
+                position: torch.Tensor, cache: KVCache
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """One autoregressive step: token [B] int32, position [B] int32."""
+    logits, cache = forward(cfg, params, token[:, None],
+                            positions=position[:, None], cache=cache)
+    return logits[:, 0], cache

@@ -1,0 +1,88 @@
+"""GQA-native flash-attention prefill (counterpart of
+piquant_tpu/ops/pallas/flash.py: `flash_prefill_masked` and `_kernel`).
+
+`flash_attn` launches the hand-written kernel (csrc/flash.cu) on CUDA
+tensors and runs `flash_attn_plain`, the same function in plain PyTorch, on
+CPU tensors.  Both take the plain causal mask only; the reference's sliding
+window, Llama-4 chunk, logit softcap and sinks raise NotImplementedError on
+every device until the kernel takes them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from piquant_tpu_torch.ops.cuda import _build
+
+_D = 128
+
+
+def flash_attn_plain(q, k, v, sm_scale: float) -> torch.Tensor:
+    """q [B,Hkv,rep,T,D], k/v [B,Hkv,T,D] -> [B,Hkv,rep,T,D] f32: bf16
+    operands, f32 softmax, inclusive causal mask kp <= qp, probabilities
+    rounded to bf16 for the PV product, denominator from the unrounded
+    ones."""
+    t = q.shape[-2]
+    qb, kb, vb = (a.to(torch.bfloat16).float() for a in (q, k, v))
+    s = torch.einsum("bhrtd,bhsd->bhrts", qb, kb) * sm_scale
+    idx = torch.arange(t, device=q.device)
+    s = s.masked_fill(idx[None, :] > idx[:, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhrts,bhsd->bhrtd", p.to(torch.bfloat16).float(), vb)
+    return acc / l
+
+
+def flash_attn(q, k, v, sm_scale: float) -> torch.Tensor:
+    """Kernel wrapper; see `flash_attn_plain` for the function."""
+    if not q.is_cuda:
+        return flash_attn_plain(q, k, v, sm_scale)
+    b, hkv, rep, t, d = q.shape
+    if d != _D:
+        raise NotImplementedError(f"flash_attn: head_dim {d} (the kernel "
+                                  "takes 128)")
+    if rep not in (1, 2, 4, 8):
+        raise NotImplementedError(f"flash_attn: GQA rep {rep} (the kernel "
+                                  "takes 1, 2, 4 or 8)")
+    if k.shape != (b, hkv, t, d) or v.shape != k.shape:
+        raise ValueError("flash_attn: q/k/v shapes disagree")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attn: q/k/v on different devices")
+    qb, kb, vb = (a.to(torch.bfloat16).contiguous() for a in (q, k, v))
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _build.library().pq_flash_prefill(
+        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), b, hkv,
+        rep, t, float(sm_scale), _build.stream_ptr(q))
+    _build.check(err, "flash_attn")
+    flash_attn.launches += 1
+    return out
+
+
+flash_attn.launches = 0
+
+
+def flash_prefill_masked(
+    q: torch.Tensor,                  # [B, Hkv, rep, T, D]
+    k: torch.Tensor,                  # [B, Hkv, T, D]
+    v: torch.Tensor,                  # [B, Hkv, T, D]
+    sm_scale: float,
+    *,
+    pos0: Optional[torch.Tensor] = None,    # [B] position of index 0
+    window: Optional[int] = None,
+    chunk: Optional[int] = None,
+    softcap: Optional[float] = None,
+    sinks: Optional[torch.Tensor] = None,
+) -> Optional[torch.Tensor]:
+    """[B, Hkv, rep, T, D] f32 context, or None where the reference gate
+    has no kernel (head_dim % 128, T % 128, T < 128).  `pos0` only moves
+    the reference's chunk mask, so the causal function does not read it."""
+    if (window, chunk, softcap, sinks) != (None, None, None, None):
+        raise NotImplementedError("flash_prefill_masked: window / chunk / "
+                                  "softcap / sinks are not ported yet")
+    d, t = q.shape[-1], q.shape[-2]
+    if d % 128 or t % 128 or t < 128:
+        return None
+    return flash_attn(q, k, v, sm_scale)
