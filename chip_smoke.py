@@ -6,10 +6,16 @@
 Phases (any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the hand-written kernels from piquant_tpu_torch/csrc with nvcc;
-  3. kernels: each kernel's wrapper against its plain PyTorch version at
-     the Llama-3-8B main-path shapes (decode batch 8), with its time, its
-     bound and a one-call PyTorch yardstick;
-  4. engine: the port's Engine serving 16 requests on Llama-3-8B at full
+  3. kernels: each serving kernel's wrapper against its plain PyTorch
+     version at the Llama-3-8B main-path shapes (decode batch 8), with its
+     time, its bound and a one-call PyTorch yardstick;
+  4. library core: the quantize / dequantize / requantize / min-max kernels
+     bit for bit against their plain versions over f32/bf16 x {u8, i8, u16,
+     i16, uint4, int4, uint2} at numel 27,264,000 (bench.py's protocol) and
+     a ragged tail, with the edge values (ties, NaN, +-inf, 3e9); then the
+     public API end to end at that size with launch counts; then each
+     kernel's time, bound, plain time and PyTorch yardstick;
+  5. engine: the port's Engine serving 16 requests on Llama-3-8B at full
      width (random INT4 codes from a seed), launch counts of every kernel,
      engine tokens against the port's own single-request generation, and
      decode / prefill throughput and TTFT;
@@ -28,6 +34,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 NEAR_TIE = 0.02               # tests/token_guard.py MARGIN
 
 
@@ -89,9 +96,27 @@ def copy_bandwidth(torch, dev) -> float:
     return 2 * src.numel() / (ms * 1e-3)
 
 
-def bound_ms(nbytes: float, flops: float):
+def event_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn(i) launched eagerly back to back, between two
+    CUDA events: for the PyTorch yardsticks, which need not be capturable
+    in a CUDA graph."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -288,7 +313,318 @@ def check_flash(torch, dev, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the engine at full Llama-3-8B width
+# phase 4: the library core
+# ---------------------------------------------------------------------------
+
+LIB_N = 27_264_000            # bench.py's protocol: f32 -> uint8 at this numel
+LIB_CODES = ("uint8", "int8", "uint16", "int16", "uint4", "int4", "uint2")
+# ties, the f32 add that rounds 0.49999997 + 0.5 up to 1, NaN, +-inf,
+# values past int32, a denormal and -0
+EDGE = (0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.49999997, -0.49999997,
+        float("nan"), float("inf"), float("-inf"), 3e9, -3e9, 1e-45, -0.0,
+        7.5, -7.5, 128.5, -128.5)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper by its name in the kernels line; each counts its
+    launches in `.launches`."""
+    from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+    from piquant_tpu_torch.ops.cuda import dequantize as DQ
+    from piquant_tpu_torch.ops.cuda import flash as FL
+    from piquant_tpu_torch.ops.cuda import minmax as MM
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+    from piquant_tpu_torch.ops.cuda import quantize as QK
+    from piquant_tpu_torch.ops.cuda import requantize as RQ
+
+    return {"w4_gemv": Q.w4_gemv, "decode_attn2": DA.decode_attn2,
+            "flash_prefill": FL.flash_attn, "quantize": QK.quantize,
+            "dequantize": DQ.dequantize, "requantize": RQ.requantize,
+            "min_max": MM.min_max}
+
+
+def zero_counts() -> None:
+    """Set every wrapper's launch count to 0 (just before a path runs)."""
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def same(torch, name, got, want, equal_nan=False) -> float:
+    """Bit for bit: floats by assert_close at atol = rtol = 0 (which fails
+    on NaN unless asked not to), codes by torch.equal on their bits.
+    Returns the max abs difference, measured before the check (0 when it
+    passes; equal infinities and, with equal_nan, NaN pairs count 0)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} against "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if got.dtype.is_floating_point:
+        g, w = got.double(), want.double()
+        d = torch.where((g == w) | (g.isnan() & w.isnan()), 0.0,
+                        (g - w).abs())
+        err = float(d.max()) if d.numel() else 0.0
+        torch.testing.assert_close(got, want, atol=0, rtol=0,
+                                   equal_nan=equal_nan,
+                                   msg=lambda m: f"{name} disagrees: {m}")
+        return err
+    if got.dtype == torch.uint16:    # no comparison kernels for uint16
+        got, want = got.view(torch.int16), want.view(torch.int16)
+        g, w = got.int() & 0xFFFF, want.int() & 0xFFFF
+    else:
+        g, w = got.int(), want.int()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{name}: {bad} codes differ")
+    return err
+
+
+def check_library(torch, dev, gen, n_full):
+    """Every library-core kernel bit for bit against its plain version on
+    the card: f32/bf16 x the seven kernel code types, nearest and
+    stochastic, SET and ADD, at n_full and n_full + 77 elements, with the
+    edge values at the head of the vector and a device-resident scale and
+    zero point; the edge vector alone at host scale 1; min/max with and
+    without a NaN.  Returns the max abs error per kernel."""
+    from piquant_tpu_torch.dtypes import DTYPES
+    from piquant_tpu_torch.ops import reference as ref
+    from piquant_tpu_torch.ops.cuda import dequantize as DQ
+    from piquant_tpu_torch.ops.cuda import minmax as MM
+    from piquant_tpu_torch.ops.cuda import quantize as QK
+    from piquant_tpu_torch.ops.cuda import requantize as RQ
+
+    checks = dict.fromkeys(("quantize", "dequantize", "requantize",
+                            "min_max"), 0)
+    errs = dict.fromkeys(checks, 0.0)
+
+    def hold(kernel, name, got, want, equal_nan=False):
+        e = same(torch, f"{kernel} {name}", got, want, equal_nan)
+        checks[kernel] += 1
+        errs[kernel] = max(errs[kernel], e)
+
+    f32, bf16 = DTYPES["f32"], DTYPES["bf16"]
+    edge = torch.tensor(EDGE, device=dev)
+    for fd in (torch.float32, torch.bfloat16):
+        e = edge.to(fd)
+        for qn in LIB_CODES:
+            dt = DTYPES[qn]
+            for zp in (7, -5):
+                for st in (False, True):
+                    name = f"edge {fd} -> {qn} zp {zp} stochastic {st}"
+                    hold("quantize", name, QK.quantize(e, 1.0, zp, dt, st, 11),
+                         QK.quantize_plain(e, 1.0, zp, dt, st, 11))
+                    hold("requantize", name,
+                         RQ.requantize(e, 1.0, zp, dt, st, 11),
+                         RQ.requantize_plain(e, 1.0, zp, dt, st, 11))
+    for n in (n_full, n_full + 77):
+        clean = torch.rand(n, generator=gen, device=dev) * 8 - 3
+        for fd in (torch.float32, torch.bfloat16):
+            xc = clean.to(fd)
+            got = MM.min_max(xc)
+            hold("min_max", f"{fd} n={n}", got, MM.min_max_plain(xc))
+            xn = xc.clone()
+            xn[n // 3] = float("nan")
+            got_n = MM.min_max(xn)
+            if not bool(got_n.isnan().all()):
+                raise AssertionError("min_max dropped a NaN")
+            hold("min_max", f"{fd} NaN n={n}", got_n, MM.min_max_plain(xn),
+                 equal_nan=True)
+            x = xc.clone()
+            x[:len(EDGE)] = edge.to(fd)
+            for qn in LIB_CODES:
+                dt = DTYPES[qn]
+                scale, zp = ref.params_from_min_max(got[0], got[1], dt)
+                for st in (False, True):
+                    name = f"{fd} -> {qn} n={n} stochastic {st}"
+                    codes = QK.quantize(x, scale, zp, dt, st, n)
+                    hold("quantize", name, codes,
+                         QK.quantize_plain(x, scale, zp, dt, st, n))
+                    for add in (False, True):
+                        # two copies of one accumulator: ADD is in place
+                        acc, acc2 = ((clean.to(fd, copy=True),
+                                      clean.to(fd, copy=True)) if add
+                                     else (None, None))
+                        hold("requantize", f"{name} add {add}",
+                             RQ.requantize(x, scale, zp, dt, st, n, acc),
+                             RQ.requantize_plain(x, scale, zp, dt, st, n,
+                                                 acc2))
+                    if fd != torch.float32:
+                        continue
+                    for odt in (f32, bf16):
+                        for add in (False, True):
+                            acc, acc2 = ((clean.to(odt.storage, copy=True),
+                                          clean.to(odt.storage, copy=True))
+                                         if add else (None, None))
+                            hold("dequantize", f"{qn} -> {odt.name} n={n} "
+                                 f"stochastic {st} add {add}",
+                                 DQ.dequantize(codes, n, scale, zp, dt, odt,
+                                               acc),
+                                 DQ.dequantize_plain(codes, n, scale, zp, dt,
+                                                     odt, acc2))
+    torch.cuda.synchronize()
+    print(f"library: bit for bit against the plain versions, checks "
+          f"{checks}, max abs error {errs}", flush=True)
+    return errs
+
+
+def run_library(torch, dev, gen, n, seed):
+    """The public API end to end at numel n on f32 input, the path a user
+    calls: compute_quant_params -> quantize -> dequantize (SET, then ADD
+    into a second buffer); requantize nearest and stochastic;
+    quantize_tensor -> dequantize_tensor for uint4.  Returns the launches of
+    the library kernels in this run."""
+    import piquant_tpu_torch as pq
+    from piquant_tpu_torch.ops import reference as ref
+
+    x = torch.rand(n, generator=gen, device=dev) * 8 - 3
+    torch.cuda.synchronize()
+    zero_counts()
+    scale, zp = pq.compute_quant_params(x, "uint8")
+    q = pq.quantize(x, scale, zp, "uint8")
+    dq = pq.dequantize(q, scale, zp, "uint8")
+    acc = torch.ones(n, device=dev)
+    pq.dequantize(q, scale, zp, "uint8", reduce_op="add", out=acc)
+    fq = pq.requantize(x, scale, zp, "uint8")
+    fqs = pq.requantize(x, scale, zp, "uint8", "stochastic",
+                        generator=torch.Generator().manual_seed(seed))
+    qt = pq.quantize_tensor(x, "uint4")
+    dq4 = pq.dequantize_tensor(qt)
+    torch.cuda.synchronize()
+    expect = {"quantize": 2, "dequantize": 3, "requantize": 2, "min_max": 2}
+    launches = {k: kernel_wrappers()[k].launches for k in expect}
+    print(f"library: API run at numel {n}, launches {launches}, expected "
+          f"{expect}", flush=True)
+    if launches != expect:
+        raise AssertionError(f"library launches {launches} != {expect}")
+
+    # the parameters are the reference's formula on the data's min and max
+    ws, wz = ref.params_from_min_max(x.amin(), x.amax(), "uint8")
+    same(torch, "compute_quant_params scale", scale, ws)
+    same(torch, "compute_quant_params zero point", zp, wz)
+    if q.shape != (n,) or q.dtype != torch.uint8:
+        raise AssertionError(f"quantize gave {q.dtype}{tuple(q.shape)}")
+    for name, y in (("dequantize", dq), ("requantize", fq), ("uint4", dq4),
+                    ("requantize stochastic", fqs)):
+        if y.shape != (n,) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: non-finite or misshapen output")
+    # nearest: within half a step of the input (the data lies inside
+    # [rmin, rmax], so nothing clips), plus the f32 roundings of x / scale
+    # and of the product
+    s = float(scale)
+    slack = x.abs() * 2.0 ** -21
+    for name, y, st in (("uint8", dq, s), ("uint4", dq4, float(qt.scale))):
+        if not bool(((x - y).abs() <= st * 0.5 * (1 + 2.0 ** -20) + slack)
+                    .all()):
+            raise AssertionError(f"{name}: |x - dq| above scale / 2")
+    same(torch, "requantize == dequantize(quantize)", fq, dq)
+    same(torch, "dequantize ADD == 1 + dequantize", acc, 1 + dq)
+    err = fqs - x
+    if not bool((err.abs() <= s * (1 + 2.0 ** -20) + slack).all()):
+        raise AssertionError("stochastic requantize: more than a step off")
+    bias = float(err.mean())
+    if abs(bias) > 6 * s / (2 * n ** 0.5):
+        raise AssertionError(f"stochastic requantize biased: {bias}")
+    if qt.data.numel() != -(-n // 2):
+        raise AssertionError(f"uint4: {qt.data.numel()} bytes for {n} codes")
+    print(f"library: scale {s:.9g} zp {int(zp)}, max |x - dq| "
+          f"{float((x - dq).abs().max()):.6g} (scale / 2 = {s / 2:.6g}), "
+          f"stochastic mean error {bias:.3e}", flush=True)
+    return launches
+
+
+def time_library(torch, dev, gen, n, errs):
+    """Device ms of each library kernel at numel n (f32 input, uint8 codes),
+    its plain version, its host cost per eager call, and one PyTorch call
+    computing the same function as a yardstick (never used by the port)."""
+    from piquant_tpu_torch.dtypes import DTYPES
+    from piquant_tpu_torch.ops import reference as ref
+    from piquant_tpu_torch.ops.cuda import dequantize as DQ
+    from piquant_tpu_torch.ops.cuda import minmax as MM
+    from piquant_tpu_torch.ops.cuda import quantize as QK
+    from piquant_tpu_torch.ops.cuda import requantize as RQ
+
+    u8, u4, f32 = DTYPES["uint8"], DTYPES["uint4"], DTYPES["f32"]
+    x = torch.rand(n, generator=gen, device=dev) * 8 - 3
+    mm = MM.min_max_plain(x)
+    scale, zp = ref.params_from_min_max(mm[0], mm[1], u8)
+    sf, zi = float(scale), int(zp)
+    codes = QK.quantize(x, scale, zp, u8)
+    acc = torch.zeros(n, device=dev)
+    qx = torch.quantize_per_tensor(x, sf, zi, torch.quint8)
+    card = card_line()
+    rows = []
+
+    def row(name, source, replaces, call, plain, lib, lib_name, nbytes, ops,
+            timed):
+        t_k = cuda_ms(call, 50)
+        t_e = host_ms(call)
+        t_p = cuda_ms(plain, 5)
+        t_l = event_ms(lib, 50)
+        b, by = bound_ms(nbytes, ops * n, F32_FLOP_PER_S)
+        print(f"{name}: kernel {t_k:.4f} ms, bound {b:.4f} ms ({by}), plain "
+              f"{t_p:.4f} ms, {lib_name} {t_l:.4f} ms, eager {t_e:.4f} ms "
+              f"[{timed}; {card}]", flush=True)
+        rows.append(dict(name=name, route="cuda",
+                         source=f"piquant_tpu_torch/csrc/{source}",
+                         replaces=replaces, max_abs_err=errs[name], ms=t_k,
+                         plain_ms=t_p, bound_ms=b, bound_by=by,
+                         library_ms=t_l, library_call=lib_name, eager_ms=t_e,
+                         timed=timed))
+        return t_k
+
+    row("quantize", "quantize.cu",
+        "piquant_tpu/ops/pallas/quantize.py:51 (_direct_kernel), "
+        "piquant_tpu/ops/pallas/quantize.py:82 (_mxu_pack_kernel)",
+        lambda i: QK.quantize(x, scale, zp, u8),
+        lambda i: QK.quantize_plain(x, scale, zp, u8),
+        lambda i: torch.quantize_per_tensor(x, sf, zi, torch.quint8),
+        "torch.quantize_per_tensor (half to even)", 5.0 * n, 6,
+        f"f32 -> uint8, numel {n}")
+
+    def variant(tag, call, plain, nbytes):
+        """Another path of the last row's kernel: its ms, plain ms, bound."""
+        t_k = cuda_ms(call, 50)
+        t_p = cuda_ms(plain, 5)
+        b, _ = bound_ms(nbytes, 0)
+        print(f"{rows[-1]['name']} {tag}: kernel {t_k:.4f} ms, bound {b:.4f} "
+              f"ms, plain {t_p:.4f} ms [{card}]", flush=True)
+        rows[-1].setdefault("variants", {})[tag] = dict(
+            ms=t_k, plain_ms=t_p, bound_ms=b)
+
+    variant("f32 -> uint4", lambda i: QK.quantize(x, scale, zp, u4),
+            lambda i: QK.quantize_plain(x, scale, zp, u4), 4.5 * n)
+    codes4 = QK.quantize(x, scale, zp, u4)
+    row("dequantize", "dequantize.cu",
+        "piquant_tpu/ops/pallas/dequantize.py:39 (_direct_kernel), "
+        "piquant_tpu/ops/pallas/dequantize.py:76 (_mxu_unpack_kernel)",
+        lambda i: DQ.dequantize(codes, n, scale, zp, u8, f32),
+        lambda i: DQ.dequantize_plain(codes, n, scale, zp, u8, f32),
+        lambda i: torch.dequantize(qx), "torch.dequantize (quint8)",
+        5.0 * n, 2, f"uint8 -> f32 SET, numel {n}")
+    variant("uint8 -> f32 ADD",
+            lambda i: DQ.dequantize(codes, n, scale, zp, u8, f32, acc),
+            lambda i: DQ.dequantize_plain(codes, n, scale, zp, u8, f32, acc),
+            9.0 * n)
+    variant("uint4 -> f32 SET",
+            lambda i: DQ.dequantize(codes4, n, scale, zp, u4, f32),
+            lambda i: DQ.dequantize_plain(codes4, n, scale, zp, u4, f32),
+            4.5 * n)
+    row("requantize", "requantize.cu",
+        "piquant_tpu/ops/pallas/requantize.py:34 (_requant_kernel)",
+        lambda i: RQ.requantize(x, scale, zp, u8),
+        lambda i: RQ.requantize_plain(x, scale, zp, u8),
+        lambda i: torch.fake_quantize_per_tensor_affine(x, sf, zi, 0, 255),
+        "torch.fake_quantize_per_tensor_affine", 8.0 * n, 8,
+        f"f32 uint8 SET, numel {n}")
+    row("min_max", "minmax.cu",
+        "piquant_tpu/ops/pallas/minmax.py:29 (_minmax_kernel)",
+        lambda i: MM.min_max(x), lambda i: MM.min_max_plain(x),
+        lambda i: torch.aminmax(x), "torch.aminmax", 4.0 * n, 2,
+        f"f32, numel {n}")
+    del qx
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the engine at full Llama-3-8B width
 # ---------------------------------------------------------------------------
 
 def generate_single(torch, M, cfg, params, prompt, n_new, dev):
@@ -417,7 +753,7 @@ def run_engine(torch, dev, args):
     eng._dispatch_block, eng._admit_one_shot = counted_dispatch, counted_admit
     for r in reqs:
         eng.submit(r)
-    Q.w4_gemv.launches = DA.decode_attn2.launches = FL.flash_attn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
@@ -505,7 +841,11 @@ def main() -> int:
     kernels = [check_w4_gemv(torch, dev, gen), check_decode_attn2(torch, dev, gen),
                check_flash(torch, dev, gen)]
     torch.cuda.empty_cache()
-    launches = run_engine(torch, dev, args)
+    errs = check_library(torch, dev, gen, LIB_N)
+    launches = run_library(torch, dev, gen, LIB_N, args.seed)
+    kernels += time_library(torch, dev, gen, LIB_N, errs)
+    torch.cuda.empty_cache()
+    launches.update(run_engine(torch, dev, args))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from piquant_tpu_torch._device import DeviceLike, resolve_device
+from piquant_tpu_torch.api import QuantizedTensor
+from piquant_tpu_torch.dtypes import dtype_of
 from piquant_tpu_torch.models.llama import Llama3Rope, LlamaConfig
 from piquant_tpu_torch.quant.kv_cache import KVCache
 from piquant_tpu_torch.quant.linear import QuantizedLinear
@@ -63,6 +65,20 @@ def params_from_jax(tree, *, device: DeviceLike = None):
         return tensor_from_numpy(leaf, dev)
 
     return conv(tree)
+
+
+def quantized_tensor_from_jax(qt, *, device: DeviceLike = None
+                              ) -> QuantizedTensor:
+    """A JAX QuantizedTensor -> the port's, byte for byte: the packed data
+    in the registry's storage dtype, f32 scale, int32 zero point."""
+    dev = resolve_device(device)
+    dt = dtype_of(qt.qdtype)
+    data = np.ascontiguousarray(np.asarray(qt.data).reshape(-1))
+    return QuantizedTensor(
+        data=tensor_from_numpy(data, dev).view(dt.storage),
+        scale=tensor_from_numpy(np.asarray(qt.scale, np.float32), dev),
+        zero_point=tensor_from_numpy(np.asarray(qt.zero_point, np.int32), dev),
+        qdtype=dt.name, shape=tuple(int(s) for s in qt.shape))
 
 
 def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:

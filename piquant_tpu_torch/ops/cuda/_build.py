@@ -24,12 +24,15 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("qmatmul_w4.cu", "decode_attn2.cu", "flash.cu")
+SOURCES = ("qmatmul_w4.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
+           "dequantize.cu", "requantize.cu", "minmax.cu")
+HEADERS = ("pq_quant.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64, _U64 = ctypes.c_int64, ctypes.c_uint64
 SIGNATURES = {
     # x, w, scale, zp, xsum, out, partial, m, k, n, ksplit, rows, out_bf16,
     # stream
@@ -39,6 +42,18 @@ SIGNATURES = {
     "pq_decode_attn2": [_P] * 12 + [_I] * 5 + [_F, _P],
     # q, k, v, out, nb, nh, rep, t, sm_scale, stream
     "pq_flash_prefill": [_P] * 4 + [_I] * 4 + [_F, _P],
+    # x, out, n, in_bf16, bits, is_signed, scale_ptr, scale_val, zp_ptr,
+    # zp_val, stochastic, seed, stream
+    "pq_quantize": [_P, _P, _I64, _I, _I, _I, _P, _F, _P, _I, _I, _U64, _P],
+    # q, out, n, bits, is_signed, out_bf16, scale_ptr, scale_val, zp_ptr,
+    # zp_val, add, stream
+    "pq_dequantize": [_P, _P, _I64, _I, _I, _I, _P, _F, _P, _I, _I, _P],
+    # x, out, n, is_bf16, bits, is_signed, scale_ptr, scale_val, zp_ptr,
+    # zp_val, stochastic, seed, add, stream
+    "pq_requantize": [_P, _P, _I64, _I, _I, _I, _P, _F, _P, _I, _I, _U64,
+                      _I, _P],
+    # x, part, out, n, in_bf16, blocks, stream
+    "pq_minmax": [_P, _P, _P, _I64, _I, _I, _P],
 }
 
 
@@ -61,7 +76,7 @@ def build() -> Build:
     """Compile the sources (if this exact build is not on disk yet)."""
     srcs = [CSRC / s for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + [CSRC / s for s in HEADERS]:
         h.update(p.read_bytes())
     lib = BUILD_DIR / f"libpiquant_kernels_{h.hexdigest()[:16]}.so"
     if lib.exists():
@@ -114,3 +129,8 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -9,7 +9,6 @@ CPU tensors.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -49,11 +48,6 @@ def split_k(m: int, k: int, n: int, sms: int):
     return -(-kh // rows), rows
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def w4_gemv(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
             zp: torch.Tensor, xsum: torch.Tensor, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `w4_gemv_plain` for the function."""
@@ -74,7 +68,7 @@ def w4_gemv(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
         if not t.is_contiguous() or t.device != x2.device:
             raise ValueError("w4_gemv: operands must be contiguous and on "
                              "one device")
-    ksplit, rows = split_k(m, k, n, _sm_count(x2.device.index))
+    ksplit, rows = split_k(m, k, n, _build.sm_count(x2.device.index))
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     partial = (torch.empty((ksplit, m, n), dtype=torch.float32,
                            device=x2.device) if ksplit > 1 else out)

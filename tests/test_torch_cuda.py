@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU,
 at shapes beyond the main path (several row tiles, every GQA rep the
-kernels take, ragged T) and for the inputs the kernels refuse.
+kernels take, ragged T; for the library core: tails, misaligned slices, ADD
+into views, device-resident scales) and for the inputs the kernels refuse.
 
 These tests need a CUDA card and skip elsewhere.  On a GPU machine without
 JAX (this file imports none of it), run them without the suite's conftest:
@@ -11,7 +12,12 @@ JAX (this file imports none of it), run them without the suite's conftest:
 import pytest
 import torch
 
+from piquant_tpu_torch.dtypes import DTYPES
 from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+from piquant_tpu_torch.ops.cuda import dequantize as DQ
+from piquant_tpu_torch.ops.cuda import minmax as MM
+from piquant_tpu_torch.ops.cuda import quantize as QK
+from piquant_tpu_torch.ops.cuda import requantize as RQ
 from piquant_tpu_torch.ops.cuda import flash as FL
 from piquant_tpu_torch.ops.cuda import qmatmul as Q
 from piquant_tpu_torch.quant.linear import QuantizedLinear
@@ -131,3 +137,158 @@ def test_flash_refuses(dev):
         FL.flash_attn(torch.zeros((1, 1, 3, 128, 128), device=dev),
                       torch.zeros((1, 1, 128, 128), device=dev),
                       torch.zeros((1, 1, 128, 128), device=dev), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the library core: every kernel bit for bit against its plain version
+# ---------------------------------------------------------------------------
+
+CODES = ["uint8", "int8", "uint16", "int16", "uint4", "int4", "uint2"]
+EDGE = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.49999997, -0.49999997,
+        float("nan"), float("inf"), float("-inf"), 3e9, -3e9, 1e-45, -0.0,
+        7.5, -7.5, 128.5, -128.5]
+
+
+def _bits(t):
+    """Integer codes as a tensor torch.equal takes on the card (uint16 has
+    no comparison kernels there; int16 has the same bits)."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def _same(got, want, equal_nan=False):
+    if got.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, atol=0, rtol=0,
+                                   equal_nan=equal_nan)
+    else:
+        assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+
+
+def _lib_x(dev, n, dtype, seed, offset=0):
+    g = _gen(dev, seed)
+    x = torch.rand(n + offset, generator=g, device=dev) * 8 - 3
+    x[offset:offset + len(EDGE)][:n] = torch.tensor(EDGE[:n], device=dev)
+    return x.to(dtype)[offset:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qname", CODES)
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (100_003, 1), (1, 0),
+                                      (3, 0), (5, 0), (8, 3)])
+def test_quantize_matches_plain(dev, dtype, qname, n, offset):
+    x = _lib_x(dev, n, dtype, n + offset, offset)
+    dt = DTYPES[qname]
+    scale = torch.tensor(0.043, device=dev)
+    zp = torch.tensor(dt.qmax // 3, dtype=torch.int32, device=dev)
+    for stochastic in (False, True):
+        before = QK.quantize.launches
+        got = QK.quantize(x, scale, zp, dt, stochastic, seed=99 + n)
+        assert QK.quantize.launches == before + 1
+        _same(got, QK.quantize_plain(x, scale, zp, dt, stochastic, 99 + n))
+        # host scalars: the same codes as the device-resident ones
+        _same(QK.quantize(x, 0.043, dt.qmax // 3, dt, stochastic, 99 + n),
+              got)
+
+
+@pytest.mark.parametrize("odtype", ["f32", "bf16"])
+@pytest.mark.parametrize("qname", CODES)
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (100_003, 1), (1, 0),
+                                      (3, 0), (5, 0)])
+def test_dequantize_matches_plain(dev, odtype, qname, n, offset):
+    dt, odt = DTYPES[qname], DTYPES[odtype]
+    g = _gen(dev, n)
+    raw = torch.randint(0, 256, (dt.stride * (n if not dt.is_packed else
+                                               -(-n // dt.pack_factor))
+                                 + 16,), generator=g, device=dev,
+                        dtype=torch.uint8)
+    start = offset * dt.stride
+    q = raw[start:start + raw.numel() - 16].view(dt.storage)
+    _same(DQ.dequantize(q, n, 0.07, 11, dt, odt),
+          DQ.dequantize_plain(q, n, 0.07, 11, dt, odt))
+    # ADD in place into a (misaligned when offset) view of a larger buffer
+    buf = torch.randn(n + 7, generator=g, device=dev).to(odt.storage)
+    ref_buf = buf.clone()
+    view = buf[offset:offset + n]
+    res = DQ.dequantize(q, n, 0.07, 11, dt, odt, add_into=view)
+    assert res.data_ptr() == view.data_ptr()
+    DQ.dequantize_plain(q, n, 0.07, 11, dt, odt,
+                        add_into=ref_buf[offset:offset + n])
+    _same(buf, ref_buf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qname", CODES)
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (100_003, 1), (5, 0)])
+def test_requantize_matches_plain(dev, dtype, qname, n, offset):
+    dt = DTYPES[qname]
+    x = _lib_x(dev, n, dtype, n, offset)
+    scale, zp = 8.0 / (dt.qmax - dt.qmin), (dt.qmax + dt.qmin) // 2
+    for stochastic in (False, True):
+        _same(RQ.requantize(x, scale, zp, dt, stochastic, 5),
+              RQ.requantize_plain(x, scale, zp, dt, stochastic, 5))
+        acc = torch.randn(n, generator=_gen(dev, 1), device=dev).to(dtype)
+        acc2 = acc.clone()
+        RQ.requantize(x, scale, zp, dt, stochastic, 5, add_into=acc)
+        RQ.requantize_plain(x, scale, zp, dt, stochastic, 5, add_into=acc2)
+        _same(acc, acc2)
+    # in place on x itself (x + fq(x): the edge vector's NaN stays NaN)
+    y = x.clone()
+    RQ.requantize(y, scale, zp, dt, add_into=y)
+    _same(y, x + RQ.requantize_plain(x, scale, zp, dt), equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(1, 0), (1000, 1), (3_000_017, 0)])
+def test_min_max_matches_plain(dev, dtype, n, offset):
+    x = (torch.randn(n + offset, generator=_gen(dev, n), device=dev) * 3
+         ).to(dtype)[offset:]
+    _same(MM.min_max(x), MM.min_max_plain(x))
+    x[n // 2] = float("nan")
+    got = MM.min_max(x)
+    assert got.isnan().all()
+    torch.testing.assert_close(got, MM.min_max_plain(x), equal_nan=True)
+
+
+def test_device_reciprocal_is_numpy_reciprocal(dev):
+    """torch.reciprocal on the card (the plain version's 1/scale for a
+    device scale) is the IEEE quotient numpy gives, over 10^5 scales; and
+    the kernel's __frcp_rn agrees at half-code ties over 2,000 of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    s = (10.0 ** rng.uniform(-8, 8, 100_000)).astype(np.float32)
+    got = torch.reciprocal(torch.from_numpy(s).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.float32(1.0) / s)
+    k = torch.arange(-64, 64, device=dev, dtype=torch.float64) + 0.5
+    for sc in s[:2000]:
+        x = (k * float(sc)).float()
+        # kernel: __frcp_rn of the device scale; plain: numpy's 1/scale
+        _same(QK.quantize(x, torch.tensor(sc, device=dev), 0, DTYPES["int16"]),
+              QK.quantize_plain(x, float(sc), 0, DTYPES["int16"]))
+
+
+def test_library_wrappers_refuse(dev):
+    x = torch.zeros(64, device=dev)
+    u8 = DTYPES["uint8"]
+    with pytest.raises(TypeError):                      # f64 input
+        QK.quantize(x.double(), 0.1, 0, u8)
+    with pytest.raises(TypeError):                      # 32-bit codes
+        QK.quantize(x, 0.1, 0, DTYPES["int32"])
+    with pytest.raises(ValueError):                     # not contiguous
+        QK.quantize(x[::2], 0.1, 0, u8)
+    with pytest.raises(ValueError):                     # 2-D
+        RQ.requantize(x.reshape(8, 8), 0.1, 0, u8)
+    with pytest.raises(ValueError):                     # scale elsewhere
+        QK.quantize(x, torch.ones(2, device=dev), 0, u8)
+    q = torch.zeros(64, dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError):                      # codes not storage
+        DQ.dequantize(q.int(), 64, 0.1, 0, u8, DTYPES["f32"])
+    with pytest.raises(ValueError):                     # wrong size
+        DQ.dequantize(q, 65, 0.1, 0, u8, DTYPES["f32"])
+    with pytest.raises(ValueError):                     # accumulator dtype
+        DQ.dequantize(q, 64, 0.1, 0, u8, DTYPES["f32"],
+                      add_into=torch.zeros(64, dtype=torch.bfloat16,
+                                           device=dev))
+    with pytest.raises(ValueError):                     # accumulator device
+        RQ.requantize(x, 0.1, 0, u8, add_into=torch.zeros(64))
+    with pytest.raises(TypeError):
+        MM.min_max(torch.zeros(8, dtype=torch.int32, device=dev))
