@@ -19,6 +19,15 @@ Phases (any failure exits non-zero):
      width (random INT4 codes from a seed), launch counts of every kernel,
      engine tokens against the port's own single-request generation, and
      decode / prefill throughput and TTFT;
+  6. weight-format kernels: the INT8, INT2 and grouped GEMVs against their
+     plain versions at the Llama-3-8B shapes (the INT8 lm_head; INT2 and
+     INT4-g128 projections; the INT2-g32 MLP; the INT4-g256 w2) at M = 8,
+     1 and 33, with their times, bounds and a torch.matmul yardstick;
+  7. CLI: `python -m piquant_tpu_torch.serving --random llama3_8b
+     --benchmark 8 --max-new 32` in process, in four weight formats
+     (INT4-g128; INT4 attention with an INT2-g32 MLP; INT4-g256; INT2),
+     each with the reference CLI's INT8 lm_head: exact launch counts,
+     greedy tokens against single-request generation, and its metrics;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -135,63 +144,110 @@ def hold(torch, name, got, want, atol, rtol) -> float:
 # (K, N, uses per decode layer) of the Llama-3-8B projections
 W4_SHAPES = ((4096, 4096, 2), (4096, 1024, 2), (4096, 14336, 2),
              (14336, 4096, 1))
+HOLD_M = (8, 1, 33)           # decode batch 8, a lone row, a ragged M <= 64
 
 
-def check_w4_gemv(torch, dev, gen):
+def random_qlin(torch, dev, gen, k, n, bits, gs):
+    """Random codes with a scale and zero point of their own per column (and
+    per group when grouped), so a kernel that reads another column's or
+    group's shows; grouped INT2/INT4 weights carry their chunk-major side
+    streams."""
+    from piquant_tpu_torch.quant.linear import (QuantizedLinear,
+                                                with_grouped_cache)
+
+    g = k // gs if gs else 1
+    data = torch.randint(0, 256, (k * bits // 8, n), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    scale = ((torch.rand((g, n), generator=gen, device=dev) + 0.5)
+             * (2.0 / ((1 << bits) - 1) / k ** 0.5))
+    zp = torch.randint(0, 1 << bits, (g, n), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return with_grouped_cache(QuantizedLinear(data, scale, zp, bits, k, gs))
+
+
+def gemv_operands(name, ql, x):
+    """The operands after x that the dispatch hands wrapper `name`, and the
+    side-stream bytes a call reads besides the codes."""
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+    from piquant_tpu_torch.quant.linear import grouped_chunk_factor
+
+    n, gs = ql.n, ql.group_size
+    if name in ("w4_gemv", "w8_gemv", "w2_gemv"):
+        return ((ql.data, ql.scale.reshape(-1), ql.zero_point.reshape(-1),
+                 x.float().sum(1, keepdim=True)), n * 8)
+    g = ql.k // gs
+    if name == "wg_chunk":
+        ch = grouped_chunk_factor(ql.k, gs, Q.PLANES[ql.bits])
+        return (ql.data, ql.s_chunk, ql.z_chunk, gs, ch), g * n * 3
+    return (ql.data, ql.scale, ql.zero_point, gs), g * n * 8
+
+
+def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype):
+    """Wrapper `name` against its plain version at each (K, N) of `shapes`
+    and M in HOLD_M; then its device ms at M = 8 summed over the shapes'
+    uses (enough weights that the loop streams from HBM, not L2), the plain
+    version's, a torch.matmul against the bf16-dequantized weight, the host
+    cost of an eager call, and the bound."""
     from piquant_tpu_torch.ops.cuda import qmatmul as Q
 
-    m = 8
+    kern, plain = getattr(Q, name), getattr(Q, name + "_plain")
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, eager_ms=0.0,
                nbytes=0.0, flops=0.0)
     err = 0.0
-    for k, n, uses in W4_SHAPES:
-        # enough distinct weights that the timed loop streams from HBM,
-        # not from the 50 MB L2
-        copies = max(2, -(-256 * 2**20 // (k * n // 2)))
-        data = [torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
-                              dtype=torch.uint8) for _ in range(copies)]
-        # a scale and zero point of their own per column, so a kernel that
-        # reads another column's shows
-        scale = ((torch.rand(n, generator=gen, device=dev) + 0.5)
-                 * (2.0 / 15 / k ** 0.5))
-        zp = torch.randint(0, 16, (n,), generator=gen, device=dev,
-                           dtype=torch.int32)
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        xsum = x.float().sum(1, keepdim=True)
-        got = Q.w4_gemv(x, data[0], scale, zp, xsum, torch.bfloat16).float()
-        want = Q.w4_gemv_plain(x, data[0], scale, zp, xsum,
-                               torch.bfloat16).float()
-        # atol 2e-2, rtol 1e-2: the quantized_matmul bound of the JAX tests
-        e = hold(torch, f"w4_gemv K={k} N={n}", got, want, 2e-2, 1e-2)
-        print(f"w4_gemv K={k} N={n}: max_abs_err {e:.3e}", flush=True)
-        err = max(err, e)
-        w_bf16 = [((torch.cat([d & 15, d >> 4]).float() - zp) * scale)
-                  .to(torch.bfloat16) for d in data[:2]]
-        call = lambda i: Q.w4_gemv(x, data[i % copies], scale, zp,  # noqa: E731
-                                   xsum, torch.bfloat16)
+    obytes = 2 if out_dtype == torch.bfloat16 else 4
+    for k, n, uses in shapes:
+        copies = max(1, -(-256 * 2**20 // (k * n * bits // 8)))
+        qls = [random_qlin(torch, dev, gen, k, n, bits, gs)
+               for _ in range(copies)]
+        for m in HOLD_M:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            ops, _ = gemv_operands(name, qls[0], x)
+            # atol 2e-2, rtol 1e-2: the quantized_matmul bound of the JAX
+            # tests (f32 sums in another order, one bf16 output rounding)
+            e = hold(torch, f"{name} K={k} N={n} M={m}",
+                     kern(x, *ops, out_dtype).float(),
+                     plain(x, *ops, out_dtype).float(), 2e-2, 1e-2)
+            err = max(err, e)
+        print(f"{name} K={k} N={n}: max_abs_err {err:.3e} at M {HOLD_M}",
+              flush=True)
+        x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+        ops = [gemv_operands(name, ql, x) for ql in qls]
+        side = ops[0][1]
+        call = lambda i: kern(x, *ops[i % copies][0], out_dtype)  # noqa: E731
         t_k = cuda_ms(call, 50)
         tot["eager_ms"] += uses * host_ms(call)
-        t_p = cuda_ms(lambda i: Q.w4_gemv_plain(x, data[i % copies], scale,
-                                                zp, xsum, torch.bfloat16), 5)
-        t_l = cuda_ms(lambda i: torch.matmul(x, w_bf16[i % 2]), 20)
-        print(f"w4_gemv K={k} N={n}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        # eagerly between events: a plain version may copy from the host
+        t_p = event_ms(lambda i: plain(x, *ops[i % copies][0], out_dtype), 5)
+        w_bf16 = [ql.dequantize(torch.bfloat16) for ql in qls[:2]]
+        t_l = cuda_ms(lambda i: torch.matmul(x, w_bf16[i % len(w_bf16)]), 20)
+        print(f"{name} K={k} N={n}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"torch.matmul(bf16 W) {t_l:.4f} ms", flush=True)
         tot["ms"] += uses * t_k
         tot["plain_ms"] += uses * t_p
         tot["library_ms"] += uses * t_l
-        tot["nbytes"] += uses * (k * n / 2 + m * k * 2 + m * n * 2 + n * 8)
-        tot["flops"] += uses * 2 * m * k * n
-        del data, w_bf16
+        tot["nbytes"] += uses * (k * n * bits / 8 + side + 8 * k * 2
+                                 + 8 * n * obytes)
+        tot["flops"] += uses * 2 * 8 * k * n
+        del qls, ops, w_bf16
     b, by = bound_ms(tot["nbytes"], tot["flops"])
-    return dict(name="w4_gemv", route="cuda",
-                source="piquant_tpu_torch/csrc/qmatmul_w4.cu",
-                replaces="piquant_tpu/ops/pallas/qmatmul.py:46 (_w4_kernel), "
-                         "piquant_tpu/ops/pallas/qmatmul.py:350 "
-                         "(_w4_kernel_ksplit)",
-                max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
+    return dict(max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
                 bound_ms=b, bound_by=by, library_ms=tot["library_ms"],
-                eager_ms=tot["eager_ms"],
-                timed="one decode layer: 7 projections at M=8")
+                library_call="torch.matmul (bf16 dequantized W)",
+                eager_ms=tot["eager_ms"])
+
+
+def gemv_row(torch, dev, gen, name, replaces, timed, bits, gs, shapes,
+             out_dtype):
+    """The kernels-line row of GEMV wrapper `name` (see check_gemv)."""
+    res = check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype)
+    print(f"{name}: kernel {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}), plain {res['plain_ms']:.4f} ms, torch.matmul "
+          f"{res['library_ms']:.4f} ms, eager {res['eager_ms']:.4f} ms "
+          f"[{timed}; {card_line()}]", flush=True)
+    return dict(name=name, route="cuda",
+                source="piquant_tpu_torch/csrc/qmatmul_gemv.cu",
+                replaces=f"piquant_tpu/ops/pallas/qmatmul.py:{replaces}",
+                timed=timed, **res)
 
 
 def check_decode_attn2(torch, dev, gen):
@@ -339,7 +395,9 @@ def kernel_wrappers():
     return {"w4_gemv": Q.w4_gemv, "decode_attn2": DA.decode_attn2,
             "flash_prefill": FL.flash_attn, "quantize": QK.quantize,
             "dequantize": DQ.dequantize, "requantize": RQ.requantize,
-            "min_max": MM.min_max}
+            "min_max": MM.min_max, "w8_gemv": Q.w8_gemv,
+            "w2_gemv": Q.w2_gemv, "wg_chunk": Q.wg_chunk,
+            "w4_grouped": Q.w4_grouped}
 
 
 def zero_counts() -> None:
@@ -668,8 +726,9 @@ def check_tokens_guarded(torch, M, cfg, params, prompt, got, want, dev):
 
 
 def profile_decode(torch, M, cfg, params, dev):
-    """Device busy share and top kernels over 4 eager decode steps at batch
-    8 (positions ~512), from torch.profiler."""
+    """Wall time of an eager decode step at batch 8 (positions ~512), then
+    the device busy share and top kernels over 4 steps from
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -678,6 +737,11 @@ def profile_decode(torch, M, cfg, params, dev):
     pos = torch.arange(500, 516, 2, dtype=torch.int32, device=dev)
     M.decode_step(cfg, params, tok, pos, cache)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4):
+        M.decode_step(cfg, params, tok, pos + i, cache)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 4
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -694,7 +758,8 @@ def profile_decode(torch, M, cfg, params, dev):
               flush=True)
         return
     busy = sum(r[1] for r in rows)
-    print(f"profile: 4 decode steps, wall {wall_ms:.2f} ms, kernels "
+    print(f"profile: a decode step takes {plain_ms:.2f} ms unprofiled; "
+          f"4 decode steps, wall {wall_ms:.2f} ms, kernels "
           f"{busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
           f"{sum(r[2] for r in rows)} kernel launches", flush=True)
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
@@ -796,6 +861,151 @@ def run_engine(torch, dev, args):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the weight-format kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+MLP_SHAPES = ((4096, 14336, 2), (14336, 4096, 1))
+
+
+def check_weight_formats(torch, dev, gen):
+    """Phase 6: one kernels-line row per new wrapper, at the shapes the CLI
+    runs give it (decode batch 8)."""
+    rows = [
+        gemv_row(torch, dev, gen, "w8_gemv", "1044 (_w8_kernel)",
+                 "INT8 lm_head: M=8, K=4096, N=128256, f32 out", 8, None,
+                 ((4096, 128256, 1),), torch.float32),
+        gemv_row(torch, dev, gen, "w2_gemv", "914 (_w2_kernel)",
+                 "one decode layer at --bits 2: 7 projections at M=8", 2,
+                 None, W4_SHAPES, torch.bfloat16),
+        gemv_row(torch, dev, gen, "wg_chunk",
+                 "657 (_wg_chunk_kernel, bf16-x form)",
+                 "one decode layer at --group-size 128: 7 INT4-g128 "
+                 "projections at M=8", 4, 128, W4_SHAPES, torch.bfloat16)]
+    mlp = check_gemv(torch, dev, gen, "wg_chunk", 2, 32, MLP_SHAPES,
+                     torch.bfloat16)
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], mlp["max_abs_err"])
+    rows[-1]["variants"] = {"INT2-g32 MLP (w1, w3, w2) at M=8": mlp}
+    print(f"wg_chunk INT2-g32 MLP: kernel {mlp['ms']:.4f} ms, bound "
+          f"{mlp['bound_ms']:.4f} ms, plain {mlp['plain_ms']:.4f} ms, "
+          f"torch.matmul {mlp['library_ms']:.4f} ms [{card_line()}]",
+          flush=True)
+    rows.append(gemv_row(torch, dev, gen, "w4_grouped",
+                         "613 (_w4_grouped_kernel)",
+                         "--group-size 256 w2: M=8, K=14336, N=4096, G=56",
+                         4, 256, ((14336, 4096, 1),), torch.bfloat16))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving CLI at full Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+# flags of each run, and the wrapper each projection's decode-M GEMV takes
+# per layer as the dispatch gates say (INT8 lm_head besides: w8_gemv)
+CLI_RUNS = (
+    (("--group-size", "128"), {"wg_chunk": 7}),
+    (("--mlp-bits", "2", "--mlp-group-size", "32"),
+     {"w4_gemv": 4, "wg_chunk": 3}),
+    # w2 at g256: 28 groups a plane, no chunk factor of 8
+    (("--group-size", "256"), {"wg_chunk": 6, "w4_grouped": 1}),
+    (("--bits", "2"), {"w2_gemv": 7}),
+)
+CLI_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
+               "decode_attn2", "flash_prefill")
+
+
+def run_cli(torch, dev, args):
+    """Phase 7: each CLI_RUNS configuration through the CLI's own build and
+    benchmark, with its launches, tokens and metrics checked.  Returns the
+    launches of the new wrappers summed over the runs."""
+    import numpy as np
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.serving import __main__ as S
+
+    total = dict.fromkeys(("w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped"), 0)
+    for flags, per_layer in CLI_RUNS:
+        argv = ["--random", "llama3_8b", "--benchmark", "8", "--max-new",
+                "32", *flags]
+        cli_args = S.build_parser().parse_args(argv)
+        t0 = time.perf_counter()
+        cfg, params, eng, sp = S.build(cli_args)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        counts = {"blocks": 0, "prefills": 0, "small_prefills": 0,
+                  "flash_prefills": 0}
+        dispatch, admit = eng._dispatch_block, eng._admit_one_shot
+
+        def counted_dispatch():
+            counts["blocks"] += 1
+            return dispatch()
+
+        def counted_admit(batch):
+            counts["prefills"] += 1
+            width = eng._padded_len(batch[0][2])
+            # a prefill of at most M_MAX rows takes the decode-M GEMVs too;
+            # flash prefill takes widths of whole 128-row tiles (the CLI
+            # pads prompts to 64)
+            counts["small_prefills"] += len(batch) * width <= 64
+            counts["flash_prefills"] += width % 128 == 0
+            return admit(batch)
+
+        eng._dispatch_block, eng._admit_one_shot = (counted_dispatch,
+                                                    counted_admit)
+        zero_counts()
+        metrics, done = S.benchmark(cli_args, cfg, eng, sp)
+        torch.cuda.synchronize()
+        wr = kernel_wrappers()
+        launches = {k: wr[k].launches for k in CLI_KERNELS}
+        nl = cfg.n_layers
+        steps = counts["blocks"] * eng.ec.decode_block
+        gemv_calls = steps + counts["small_prefills"]
+        expect = dict.fromkeys(CLI_KERNELS, 0)
+        for k, per in per_layer.items():
+            expect[k] = per * nl * gemv_calls
+        expect["w8_gemv"] = steps + counts["prefills"]
+        expect["decode_attn2"] = nl * steps
+        expect["flash_prefill"] = nl * counts["flash_prefills"]
+        tag = " ".join(flags)
+        print(f"cli [{tag}]: built in {t_build:.1f} s; {counts['blocks']} "
+              f"decode blocks ({steps} steps), {counts['prefills']} prefill "
+              f"calls ({counts['small_prefills']} at M <= 64, "
+              f"{counts['flash_prefills']} of whole 128-row tiles), launches "
+              f"{launches}, expected {expect}", flush=True)
+        if launches != expect:
+            raise AssertionError(f"cli [{tag}]: launches {launches} != "
+                                 f"{expect}")
+        if metrics["completed"] != cli_args.benchmark:
+            raise AssertionError(f"cli [{tag}]: {metrics['completed']} of "
+                                 f"{cli_args.benchmark} requests finished")
+        for r in done:
+            if len(r.tokens) != cli_args.max_new or not all(
+                    0 <= t < cfg.vocab_size for t in r.tokens):
+                raise AssertionError(f"cli [{tag}] request {r.rid}: tokens "
+                                     f"{len(r.tokens)} or outside the vocab")
+            if not all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs):
+                raise AssertionError(f"cli [{tag}] request {r.rid}: "
+                                     "non-finite logits")
+        r = done[0]
+        want = generate_single(torch, M, cfg, params, r.prompt,
+                               cli_args.max_new, dev)
+        verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
+                                       r.tokens, want, dev)
+        print(f"cli [{tag}]: request {r.rid} (prompt {len(r.prompt)}) vs "
+              f"single-request generation: {verdict}", flush=True)
+        profile_decode(torch, M, cfg, params, dev)
+        print("cli_metrics " + json.dumps(
+            {"card": card_line(), "flags": tag, **metrics,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}),
+            flush=True)
+        for k in total:
+            total[k] += launches[k]
+        del params, eng, done
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -838,7 +1048,12 @@ def main() -> int:
     _build.library()
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    kernels = [check_w4_gemv(torch, dev, gen), check_decode_attn2(torch, dev, gen),
+    kernels = [gemv_row(torch, dev, gen, "w4_gemv",
+                        "46 (_w4_kernel), piquant_tpu/ops/pallas/qmatmul.py:"
+                        "350 (_w4_kernel_ksplit)",
+                        "one decode layer: 7 projections at M=8", 4, None,
+                        W4_SHAPES, torch.bfloat16),
+               check_decode_attn2(torch, dev, gen),
                check_flash(torch, dev, gen)]
     torch.cuda.empty_cache()
     errs = check_library(torch, dev, gen, LIB_N)
@@ -846,6 +1061,10 @@ def main() -> int:
     kernels += time_library(torch, dev, gen, LIB_N, errs)
     torch.cuda.empty_cache()
     launches.update(run_engine(torch, dev, args))
+    torch.cuda.empty_cache()
+    kernels += check_weight_formats(torch, dev, gen)
+    torch.cuda.empty_cache()
+    launches.update(run_cli(torch, dev, args))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

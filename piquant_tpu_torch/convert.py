@@ -38,16 +38,25 @@ def _is_quantized_linear(leaf) -> bool:
 
 
 def _linear(leaf, device: torch.device) -> QuantizedLinear:
-    if (leaf.group_size is not None or getattr(leaf, "codebook", None)
-            or leaf.bits not in (4, 8)):
+    """Affine INT2/INT4/INT8 weights byte for byte, grouped side streams
+    (bf16 s_chunk, int8 z_chunk) included."""
+    if getattr(leaf, "codebook", None) or leaf.bits not in (2, 4, 8):
         raise NotImplementedError(
-            f"only channelwise/per-tensor INT4/INT8 weights are ported "
-            f"(got bits={leaf.bits}, group_size={leaf.group_size})")
+            f"only affine INT2/INT4/INT8 weights are ported (got bits="
+            f"{leaf.bits}, codebook={getattr(leaf, 'codebook', None)})")
+
+    def side(name, dtype):
+        a = getattr(leaf, name, None)
+        return None if a is None else tensor_from_numpy(a, device).to(dtype)
+
     return QuantizedLinear(
         data=tensor_from_numpy(leaf.data, device).to(torch.uint8),
         scale=tensor_from_numpy(leaf.scale, device).to(torch.float32),
         zero_point=tensor_from_numpy(leaf.zero_point, device).to(torch.int32),
-        bits=int(leaf.bits), k=int(leaf.k))
+        bits=int(leaf.bits), k=int(leaf.k),
+        group_size=(None if leaf.group_size is None else int(leaf.group_size)),
+        s_chunk=side("s_chunk", torch.bfloat16),
+        z_chunk=side("z_chunk", torch.int8))
 
 
 def params_from_jax(tree, *, device: DeviceLike = None):

@@ -11,9 +11,12 @@ the cache.  The reference's cast points are kept: rms_norm casts before the
 weight multiply, SiLU runs in f32 then casts, and the attention context is
 cast to the model dtype before `wo`.
 
+Projections may be INT2 / INT4 / INT8, channelwise or grouped, per weight
+(`quantize_params` overrides, `random_quantized_params`' mixed recipe).
 Model-family flags (Gemma, Mistral, Qwen, GPT-OSS, Llama-4, MoE, ...),
-activation-quantized matmuls, kv4 and caller-supplied masks are not ported
-yet; see piquant_tpu_torch.convert.config_from_jax for the flags that raise.
+NF4 and activation-quantized matmuls, kv4 and caller-supplied masks are
+not ported yet; see piquant_tpu_torch.convert.config_from_jax for the flags
+that raise.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from piquant_tpu_torch.quant.linear import (
     dot_f32,
     quantize_linear_weight,
     quantized_matmul,
+    with_grouped_cache,
 )
 
 
@@ -131,26 +135,43 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *,
 
 
 def random_quantized_params(cfg: LlamaConfig, seed: int = 0, bits: int = 4,
-                            *, device: DeviceLike = None) -> Dict:
+                            lm_head_bits: Optional[int] = None,
+                            group_size: Optional[int] = None,
+                            mlp_bits: Optional[int] = None,
+                            mlp_group_size: Optional[int] = None, *,
+                            device: DeviceLike = None) -> Dict:
     """INT-quantized params built directly from random codes (never a float
     weight), so a full-width model fits for speed measurements; the scale
-    and zero point are the reference's (`random_quantized_params`)."""
-    if bits not in (4, 8):
-        raise NotImplementedError("random INT4/INT8 weights only")
+    and zero point are the reference's (`random_quantized_params`).
+    `lm_head_bits` quantizes the lm_head too (channelwise unless it equals
+    `bits`), `group_size` applies to the weights at `bits` (channelwise
+    where it does not divide K), and `mlp_bits` / `mlp_group_size` build
+    the mixed recipe: attention at `bits`, w1/w3/w2 at `mlp_bits`."""
+    for b in (bits, lm_head_bits, mlp_bits):
+        if b is not None and b not in (2, 4, 8):
+            raise NotImplementedError(f"random {b}-bit weights: only INT2, "
+                                      "INT4 and INT8 are ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.dtype
 
-    def qlin(din, dout):
-        rows = din // 2 if bits == 4 else din
+    def qlin(din, dout, b=None, gs_req=None):
+        b = b if b is not None else bits
+        gs = gs_req if gs_req is not None else (
+            group_size if b == bits and group_size else None)
+        if gs and din % gs:
+            gs = None
+        rows = {2: din // 4, 4: din // 2}.get(b, din)
+        g = din // gs if gs else 1
         data = torch.randint(0, 256, (rows, dout), generator=gen, device=dev,
                              dtype=torch.uint8)
-        scale = torch.full((1, dout), 2.0 / ((1 << bits) - 1) / din ** 0.5,
+        scale = torch.full((g, dout), 2.0 / ((1 << b) - 1) / din ** 0.5,
                            dtype=torch.float32, device=dev)
-        zp = torch.full((1, dout), 1 << (bits - 1), dtype=torch.int32,
+        zp = torch.full((g, dout), 1 << (b - 1), dtype=torch.int32,
                         device=dev)
-        return QuantizedLinear(data=data, scale=scale, zero_point=zp,
-                               bits=bits, k=din)
+        return with_grouped_cache(QuantizedLinear(
+            data=data, scale=scale, zero_point=zp, bits=b, k=din,
+            group_size=gs))
 
     def dense(din, dout):
         return (torch.randn((din, dout), generator=gen, device=dev)
@@ -159,30 +180,50 @@ def random_quantized_params(cfg: LlamaConfig, seed: int = 0, bits: int = 4,
     params = {
         "embed": dense(cfg.vocab_size, cfg.d_model),
         "final_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
-        "lm_head": dense(cfg.d_model, cfg.vocab_size),
+        "lm_head": (dense(cfg.d_model, cfg.vocab_size) if lm_head_bits is None
+                    else qlin(cfg.d_model, cfg.vocab_size, lm_head_bits)),
         "layers": [],
     }
     for _ in range(cfg.n_layers):
         layer = {"attn_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
                  "mlp_norm": torch.ones(cfg.d_model, dtype=dt, device=dev)}
         for name, (din, dout) in _shapes(cfg).items():
-            layer[name] = qlin(din, dout)
+            mlp = name in ("w1", "w2", "w3")
+            layer[name] = qlin(din, dout, mlp_bits if mlp else None,
+                               mlp_group_size if mlp else None)
         params["layers"].append(layer)
     return params
 
 
 def quantize_params(params: Dict, bits: int = 4, *, channelwise: bool = True,
-                    quantize_lm_head: bool = False) -> Dict:
+                    group_size: Optional[int] = None,
+                    quantize_lm_head: bool = False,
+                    overrides: Optional[Dict] = None) -> Dict:
     """Weight-only quantization of every projection; norms and embeddings
-    stay float (and the lm_head too unless `quantize_lm_head`: INT8)."""
+    stay float (and the lm_head too unless `quantize_lm_head`: INT8).
+
+    `overrides` maps weight names to `(bits, group_size)` (or bare bits) for
+    mixed-precision recipes, e.g. the MLP at INT2-g32 with attention at
+    INT4: {"w1": (2, 32), "w3": (2, 32), "w2": (2, 32)}.  Per-layer keys
+    "{layer_idx}.{name}" take precedence over bare names."""
+    overrides = overrides or {}
+
+    def cfg_for(li, name):
+        o = overrides.get(f"{li}.{name}", overrides.get(name))
+        if o is None:
+            return bits, group_size
+        return o if isinstance(o, tuple) else (o, group_size)
+
     out = dict(params)
     out["layers"] = []
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
         ql = dict(layer)
         for k in _QUANT_KEYS:
             if k in layer:
-                ql[k] = quantize_linear_weight(layer[k], bits,
-                                               channelwise=channelwise)
+                b, gs = cfg_for(li, k)
+                ql[k] = quantize_linear_weight(layer[k], b,
+                                               channelwise=channelwise,
+                                               group_size=gs)
         out["layers"].append(ql)
     if quantize_lm_head:
         out["lm_head"] = quantize_linear_weight(params["lm_head"], 8,

@@ -1,24 +1,109 @@
-"""INT4 weight-only GEMV for decode-sized M (counterpart of
-piquant_tpu/ops/pallas/qmatmul.py: `quantized_matmul` dispatch for 4-bit
-channelwise weights, `_w4_kernel` and `_w4_kernel_ksplit`).
+"""Weight-only quantized GEMV for decode-sized M: the counterpart of the
+`quantized_matmul` dispatch of piquant_tpu/ops/pallas/qmatmul.py and of the
+TPU kernels it reaches for affine weights:
 
-`w4_gemv` launches the hand-written kernel (csrc/qmatmul_w4.cu) on CUDA
-tensors and runs `w4_gemv_plain`, the same function in plain PyTorch, on
-CPU tensors.
+    w4_gemv     _w4_kernel, _w4_kernel_ksplit  INT4 split-half, channelwise
+    w8_gemv     _w8_kernel                     INT8, channelwise (lm_head)
+    w2_gemv     _w2_kernel                     INT2 split-quarter, channelwise
+    wg_chunk    _wg_chunk_kernel (bf16 x)      grouped INT2/INT4
+    w4_grouped  _w4_grouped_kernel             grouped INT4, W4A16 numerics
+
+Each wrapper launches its hand-written kernel (all five are one template in
+csrc/qmatmul_gemv.cu) on CUDA tensors, counts the launch in `.launches`,
+and runs `<name>_plain`, the same function in plain PyTorch, on CPU
+tensors.  The dispatch keeps the reference's shape gates (grouped plane
+rows divisible by the group size, N % 128, K % 256, M <= 64, INT2 K % 512,
+the chunk kernel's own gate) and drops its VMEM-only ones
+(W_BLOCK_VMEM_LIMIT, XK_VMEM_LIMIT and the PIQUANT_W4_* / QMM_VMEM knobs):
+the kernels stage x in chunks and need no whole-K block.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from piquant_tpu_torch.ops.cuda import _build
 
 M_MAX = 64        # decode-sized M; larger M takes the dequant matmul path
-_COLS = 128       # output columns per block (csrc/qmatmul_w4.cu)
+_COLS = 128       # output columns per block (csrc/qmatmul_gemv.cu)
 _MT = 8           # x rows per block
-_MAX_ROWS = 512   # packed K rows per block
+PLANES = {2: 4, 4: 2, 8: 1}   # codes per byte by bit width
+
+
+def code_planes(data: torch.Tensor, planes: int) -> List[torch.Tensor]:
+    """uint8 [K/P, N] -> the P code planes (plane p holds code rows
+    p*K/P .. (p+1)*K/P - 1 in bits [p*8/P, (p+1)*8/P))."""
+    bits = 8 // planes
+    mask = (1 << bits) - 1
+    return [(data >> (bits * p)) & mask for p in range(planes)]
+
+
+def split_k(m: int, k: int, n: int, sms: int, planes: int = 2,
+            align: int = 8):
+    """(ksplit, rows per split): split the K/planes packed rows over blocks
+    up to four blocks per SM (so the grid is about one wave), keeping >= 64
+    packed rows a split and each split a multiple of `align` rows (whole
+    groups for grouped weights)."""
+    total = k // planes
+    blocks = (n // _COLS) * -(-m // _MT)
+    want = max(1, 4 * sms // blocks)
+    ksplit = max(1, min(want, total // 64))
+    rows = -(-total // ksplit)
+    rows += -rows % align
+    return -(-total // rows), rows
+
+
+def _check(name: str, ok: bool, err=ValueError, what: str = "") -> None:
+    if not ok:
+        raise err(f"{name}: {what}")
+
+
+def _launch(name: str, entry: str, x2: torch.Tensor, data: torch.Tensor,
+            side: tuple, ints: tuple, planes: int, align: int,
+            out_dtype) -> torch.Tensor:
+    """Shared checks, scratch and launch of the GEMV entry points."""
+    m, k = x2.shape
+    n = data.shape[1]
+    _check(name, out_dtype in (torch.bfloat16, torch.float32), TypeError,
+           f"out dtype {out_dtype} not supported")
+    _check(name, x2.dtype == torch.bfloat16 and data.dtype == torch.uint8,
+           TypeError, "x bf16 and uint8 codes expected")
+    _check(name, data.shape[0] * planes == k and n % _COLS == 0
+           and k % 256 == 0 and 0 < m <= M_MAX,
+           what=f"unsupported shape m={m} k={k} n={n}")
+    for t in (x2, data) + side:
+        _check(name, t.is_contiguous() and t.device == x2.device
+               and t.data_ptr() % 16 == 0,
+               what="operands must be contiguous, 16-byte aligned and on "
+                    "one device")
+    ksplit, rows = split_k(m, k, n, _build.sm_count(x2.device.index), planes,
+                           align)
+    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+    partial = (torch.empty((ksplit, m, n), dtype=torch.float32,
+                           device=x2.device) if ksplit > 1 else out)
+    err = getattr(_build.library(), entry)(
+        x2.data_ptr(), data.data_ptr(), *(t.data_ptr() for t in side),
+        out.data_ptr(), partial.data_ptr(), m, k, n, *ints, ksplit, rows,
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(x2))
+    _build.check(err, name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# channelwise: w4_gemv, w8_gemv, w2_gemv
+# ---------------------------------------------------------------------------
+
+def _channel_plain(x2, data, scale, zp, xsum, out_dtype, planes):
+    """The P plane products of the raw codes with f32 accumulation, then
+    acc * scale - xsum * (zp * scale)."""
+    rows = data.shape[0]
+    acc = None
+    for p, plane in enumerate(code_planes(data, planes)):
+        part = x2[:, p * rows:(p + 1) * rows].float() @ plane.float()
+        acc = part if acc is None else acc + part
+    return (acc * scale - xsum * (zp.float() * scale)).to(out_dtype)
 
 
 def w4_gemv_plain(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
@@ -27,25 +112,29 @@ def w4_gemv_plain(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     """x2 [M, K] bf16, data [K/2, N] uint8, scale [N] f32, zp [N] int32,
     xsum [M, 1] f32 -> [M, N]: the two nibble-plane products with f32
     accumulation, then acc * scale - xsum * (zp * scale)."""
-    kh = data.shape[0]
-    lo = (data & 15).float()
-    hi = (data >> 4).float()
-    acc = x2[:, :kh].float() @ lo + x2[:, kh:].float() @ hi
-    return (acc * scale - xsum * (zp.float() * scale)).to(out_dtype)
+    return _channel_plain(x2, data, scale, zp, xsum, out_dtype, 2)
 
 
-def split_k(m: int, k: int, n: int, sms: int):
-    """(ksplit, rows per split): split K over blocks up to four blocks per
-    SM (the kernel's register use lets four stay resident, so the grid is
-    one wave), keeping >= 64 packed rows and <= 512 (the x staging bound)
-    per split."""
-    kh = k // 2
-    blocks = (n // _COLS) * -(-m // _MT)
-    want = max(1, 4 * sms // blocks)
-    ksplit = max(-(-kh // _MAX_ROWS), min(want, max(1, kh // 64)))
-    rows = -(-kh // ksplit)
-    rows += -rows % 8
-    return -(-kh // rows), rows
+def w8_gemv_plain(x2, data, scale, zp, xsum, out_dtype) -> torch.Tensor:
+    """As w4_gemv_plain for INT8 codes data [K, N] (`_w8_kernel`)."""
+    return _channel_plain(x2, data, scale, zp, xsum, out_dtype, 1)
+
+
+def w2_gemv_plain(x2, data, scale, zp, xsum, out_dtype) -> torch.Tensor:
+    """As w4_gemv_plain for split-quarter INT2 data [K/4, N]: four plane
+    products (`_w2_kernel`)."""
+    return _channel_plain(x2, data, scale, zp, xsum, out_dtype, 4)
+
+
+def _channel(name, entry, planes, x2, data, scale, zp, xsum, out_dtype):
+    _check(name, scale.dtype == torch.float32 and zp.dtype == torch.int32
+           and xsum.dtype == torch.float32, TypeError,
+           "scale f32, zp int32, xsum f32 expected")
+    n = data.shape[1]
+    _check(name, scale.numel() == n and zp.numel() == n
+           and xsum.numel() == x2.shape[0], what="scale/zp [N], xsum [M, 1]")
+    return _launch(name, entry, x2, data, (scale, zp, xsum), (), planes, 8,
+                   out_dtype)
 
 
 def w4_gemv(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
@@ -53,45 +142,155 @@ def w4_gemv(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     """Kernel wrapper; see `w4_gemv_plain` for the function."""
     if not x2.is_cuda:
         return w4_gemv_plain(x2, data, scale, zp, xsum, out_dtype)
-    m, k = x2.shape
-    n = data.shape[1]
-    if (x2.dtype != torch.bfloat16 or data.dtype != torch.uint8
-            or scale.dtype != torch.float32 or zp.dtype != torch.int32
-            or xsum.dtype != torch.float32):
-        raise TypeError("w4_gemv: x bf16, data uint8, scale f32, zp int32, "
-                        "xsum f32 expected")
-    if data.shape[0] * 2 != k or n % _COLS or k % 256 or m > M_MAX:
-        raise ValueError(f"w4_gemv: unsupported shape m={m} k={k} n={n}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"w4_gemv: out dtype {out_dtype} not supported")
-    for t in (x2, data, scale, zp, xsum):
-        if not t.is_contiguous() or t.device != x2.device:
-            raise ValueError("w4_gemv: operands must be contiguous and on "
-                             "one device")
-    ksplit, rows = split_k(m, k, n, _build.sm_count(x2.device.index))
-    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
-    partial = (torch.empty((ksplit, m, n), dtype=torch.float32,
-                           device=x2.device) if ksplit > 1 else out)
-    err = _build.library().pq_w4_gemv(
-        x2.data_ptr(), data.data_ptr(), scale.data_ptr(), zp.data_ptr(),
-        xsum.data_ptr(), out.data_ptr(), partial.data_ptr(), m, k, n, ksplit,
-        rows, int(out_dtype == torch.bfloat16), _build.stream_ptr(x2))
-    _build.check(err, "w4_gemv")
+    out = _channel("w4_gemv", "pq_w4_gemv", 2, x2, data, scale, zp, xsum,
+                   out_dtype)
     w4_gemv.launches += 1
     return out
 
 
-w4_gemv.launches = 0
+def w8_gemv(x2, data, scale, zp, xsum, out_dtype) -> torch.Tensor:
+    """Kernel wrapper; see `w8_gemv_plain` for the function."""
+    if not x2.is_cuda:
+        return w8_gemv_plain(x2, data, scale, zp, xsum, out_dtype)
+    out = _channel("w8_gemv", "pq_w8_gemv", 1, x2, data, scale, zp, xsum,
+                   out_dtype)
+    w8_gemv.launches += 1
+    return out
+
+
+def w2_gemv(x2, data, scale, zp, xsum, out_dtype) -> torch.Tensor:
+    """Kernel wrapper; see `w2_gemv_plain` for the function."""
+    if not x2.is_cuda:
+        return w2_gemv_plain(x2, data, scale, zp, xsum, out_dtype)
+    _check("w2_gemv", x2.shape[1] % 512 == 0,
+           what=f"K={x2.shape[1]} is not a multiple of 512")
+    out = _channel("w2_gemv", "pq_w2_gemv", 4, x2, data, scale, zp, xsum,
+                   out_dtype)
+    w2_gemv.launches += 1
+    return out
+
+
+w4_gemv.launches = w8_gemv.launches = w2_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# grouped: wg_chunk, w4_grouped
+# ---------------------------------------------------------------------------
+
+def wg_chunk_plain(x2: torch.Tensor, data: torch.Tensor,
+                   s_chunk: torch.Tensor, z_chunk: torch.Tensor, gs: int,
+                   ch: int, out_dtype) -> torch.Tensor:
+    """x2 [M, K] bf16, data [K/P, N] uint8 (P = 4 for INT2, 2 for INT4),
+    s_chunk [G, N] bf16 and z_chunk [G, N] int8 in chunk-major group order
+    -> [M, N]: per group, the raw-code product in f32 scaled after the
+    product by that group's bf16 scale; minus xg @ (z * s), with xg the
+    group's sum of x in f32 (`_wg_chunk_kernel`, bf16-x form)."""
+    from piquant_tpu_torch.quant.linear import grouped_chunk_perm
+
+    m, k = x2.shape
+    n = data.shape[1]
+    planes = k // data.shape[0]
+    g = k // gs
+    perm = torch.from_numpy(grouped_chunk_perm(k, gs, ch, planes)).long()
+    inv = torch.argsort(perm).to(data.device)
+    s = s_chunk.float()[inv]                       # natural group order
+    z = z_chunk.float()[inv]
+    codes = torch.cat(code_planes(data, planes)).float().reshape(g, gs, n)
+    xg = x2.float().reshape(m, g, gs).transpose(0, 1)    # [G, M, gs]
+    acc = (torch.bmm(xg, codes) * s[:, None]).sum(0)
+    acc = acc - xg.sum(-1).transpose(0, 1) @ (z * s)
+    return acc.to(out_dtype)
+
+
+def w4_grouped_plain(x2: torch.Tensor, data: torch.Tensor,
+                     scale: torch.Tensor, zp: torch.Tensor, gs: int,
+                     out_dtype) -> torch.Tensor:
+    """x2 [M, K] bf16, data [K/2, N] uint8, scale [G, N] f32, zp [G, N]
+    int32 -> [M, N]: w = (c - z) * s in bf16 (scale and zero point cast to
+    bf16), then the two bf16 plane products with f32 accumulation
+    (`_w4_grouped_kernel`)."""
+    kh = data.shape[0]
+    s = scale.to(torch.bfloat16).repeat_interleave(gs, dim=0)
+    z = zp.to(torch.bfloat16).repeat_interleave(gs, dim=0)
+    lo, hi = (p.to(torch.bfloat16) for p in code_planes(data, 2))
+    w_lo = (lo - z[:kh]) * s[:kh]
+    w_hi = (hi - z[kh:]) * s[kh:]
+    acc = (x2[:, :kh].float() @ w_lo.float()
+           + x2[:, kh:].float() @ w_hi.float())
+    return acc.to(out_dtype)
+
+
+def _grouped_shape(name, x2, data, s, z, gs, planes):
+    k, n = x2.shape[1], data.shape[1]
+    _check(name, planes in (2, 4) and gs > 0 and gs % 8 == 0
+           and (k // planes) % gs == 0,
+           what=f"group size {gs} does not tile the planes of K={k}")
+    _check(name, tuple(s.shape) == (k // gs, n) == tuple(z.shape),
+           what="side streams must be [K / group_size, N]")
+
+
+def wg_chunk(x2, data, s_chunk, z_chunk, gs: int, ch: int,
+             out_dtype) -> torch.Tensor:
+    """Kernel wrapper; see `wg_chunk_plain` for the function."""
+    if not x2.is_cuda:
+        return wg_chunk_plain(x2, data, s_chunk, z_chunk, gs, ch, out_dtype)
+    name = "wg_chunk"
+    planes = x2.shape[1] // data.shape[0]
+    _grouped_shape(name, x2, data, s_chunk, z_chunk, gs, planes)
+    _check(name, s_chunk.dtype == torch.bfloat16
+           and z_chunk.dtype == torch.int8, TypeError,
+           "s_chunk bf16, z_chunk int8 expected")
+    _check(name, ch > 0 and (x2.shape[1] // planes // gs) % ch == 0,
+           what=f"chunk factor {ch} does not divide the groups of a plane")
+    out = _launch(name, "pq_wg_gemv", x2, data, (s_chunk, z_chunk),
+                  (gs, ch, planes), planes, gs, out_dtype)
+    wg_chunk.launches += 1
+    return out
+
+
+def w4_grouped(x2, data, scale, zp, gs: int, out_dtype) -> torch.Tensor:
+    """Kernel wrapper; see `w4_grouped_plain` for the function."""
+    if not x2.is_cuda:
+        return w4_grouped_plain(x2, data, scale, zp, gs, out_dtype)
+    name = "w4_grouped"
+    _check(name, x2.shape[1] == 2 * data.shape[0],
+           what="split-half INT4 codes expected")
+    _grouped_shape(name, x2, data, scale, zp, gs, 2)
+    _check(name, scale.dtype == torch.float32 and zp.dtype == torch.int32,
+           TypeError, "scale f32, zp int32 expected")
+    out = _launch(name, "pq_w4g_gemv", x2, data, (scale, zp), (gs,), 2, gs,
+                  out_dtype)
+    w4_grouped.launches += 1
+    return out
+
+
+wg_chunk.launches = w4_grouped.launches = 0
+
+
+def wg_grouped_matmul(x2: torch.Tensor, ql, out_dtype) -> Optional[torch.Tensor]:
+    """Grouped INT2/INT4 through the chunk kernel; None where the
+    reference's `wg_grouped_matmul` declines (no chunk factor, a group size
+    off the 32 quantum, no cached side streams, N % 128)."""
+    from piquant_tpu_torch.quant.linear import grouped_chunk_factor
+
+    k, n, gs = ql.k, ql.n, ql.group_size
+    planes = PLANES[ql.bits]
+    ch = grouped_chunk_factor(k, gs, planes)
+    if ch is None or gs % 32 or ql.s_chunk is None or n % 128:
+        return None
+    return wg_chunk(x2, ql.data, ql.s_chunk, ql.z_chunk, gs, ch, out_dtype)
 
 
 def quantized_matmul(x: torch.Tensor, ql, out_dtype=torch.bfloat16
                      ) -> Optional[torch.Tensor]:
-    """x [..., K] @ packed INT4 weight -> [..., N]; None where the reference
-    dispatch has no kernel either (N % 128, K % 256, M > 64).  An INT8
-    weight inside that gate reaches `_w8_kernel` in the reference, which
-    is not ported yet: None on the CPU (its plain version is the dequant
-    path), NotImplementedError on CUDA tensors."""
+    """x [..., K] @ packed weight -> [..., N]; None where the reference
+    dispatch has no kernel either."""
     k, n = ql.k, ql.n
+    gs = ql.group_size
+    if gs is not None:
+        plane_rows = {4: k // 2, 2: k // 4}.get(ql.bits)
+        if plane_rows is None or plane_rows % gs or gs % 8:
+            return None
     if n % 128 or k % 256:
         return None
     lead = x.shape[:-1]
@@ -100,14 +299,20 @@ def quantized_matmul(x: torch.Tensor, ql, out_dtype=torch.bfloat16
         m *= d
     if m > M_MAX:
         return None
-    if ql.bits == 8:
-        if x.is_cuda:
-            raise NotImplementedError("the INT8 GEMV (_w8_kernel) is not "
-                                      "ported yet")
+    if ql.bits == 2 and gs is None and k % 512:
         return None
     x2 = x.reshape(m, k).to(torch.bfloat16).contiguous()
+    if gs is not None:
+        y = wg_grouped_matmul(x2, ql, out_dtype)
+        if y is None:
+            if ql.bits == 2:
+                return None
+            y = w4_grouped(x2, ql.data, ql.scale.float().contiguous(),
+                           ql.zero_point.to(torch.int32).contiguous(), gs,
+                           out_dtype)
+        return y.reshape(*lead, n)
     xsum = x2.float().sum(dim=1, keepdim=True)
     scale = ql.scale.float().reshape(-1).expand(n).contiguous()
     zp = ql.zero_point.to(torch.int32).reshape(-1).expand(n).contiguous()
-    y = w4_gemv(x2, ql.data, scale, zp, xsum, out_dtype)
-    return y.reshape(*lead, n)
+    gemv = {4: w4_gemv, 8: w8_gemv, 2: w2_gemv}[ql.bits]
+    return gemv(x2, ql.data, scale, zp, xsum, out_dtype).reshape(*lead, n)

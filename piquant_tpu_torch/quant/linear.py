@@ -1,32 +1,42 @@
-"""Weight-only quantized linear layers: the channelwise / per-tensor INT4
-and INT8 subset of piquant_tpu/quant/linear.py.
+"""Weight-only quantized linear layers: the affine INT2 / INT4 / INT8 subset
+of piquant_tpu/quant/linear.py (channelwise, per-tensor and grouped).
 
-Storage is byte-identical to the reference: a 4-bit weight W[K, N] is the
+Storage is byte-identical to the reference.  A 4-bit weight W[K, N] is the
 "split-half" bytes B[K//2, N] with
     B[k, n] = (codes[k, n] & 0xF) | (codes[k + K//2, n] << 4),
+and a 2-bit weight the "split-quarter" bytes B[K//4, N] whose byte row k
+holds code rows k, k + K/4, k + K/2, k + 3K/4 in bits 0-1, 2-3, 4-5, 6-7,
 so a weight packed by either package can be read by the other, and
-    x @ W = x[:, :K/2] @ deq(lo) + x[:, K/2:] @ deq(hi).
+    x @ W = sum_p x[:, p*K/P:(p+1)*K/P] @ deq(plane p).
 The affine zero point folds analytically,
     x @ ((c - zp) * s) = (x @ c) * s - (sum_k x) * (zp * s),
 so the products run on the raw codes (exact in bf16) with f32 accumulation.
+Grouped weights carry (G, N) scales and zero points, and for the grouped
+decode kernel the same values chunk-major as bf16 scales and int8 zero
+points (`s_chunk`, `z_chunk`, see `_grouped_cache`).
 
-Grouped, INT2, NF4 and activation-quantized weights are not ported yet and
-raise NotImplementedError.
+NF4 codebooks, stochastic rounding and activation-quantized matmuls are not
+ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from piquant_tpu_torch.ops.cuda import qmatmul as _qmm
 from piquant_tpu_torch.ops.reference import round_half_away
 
+ACT_QUANT_MIN_M = 256   # the reference's prefill-sized M: grouped weights
+                        # at or above it run one dense bf16 product
+
 
 # ---------------------------------------------------------------------------
-# split-half packing
+# split-half / split-quarter packing
 # ---------------------------------------------------------------------------
 
 def pack_split_half(codes: torch.Tensor) -> torch.Tensor:
@@ -39,10 +49,106 @@ def pack_split_half(codes: torch.Tensor) -> torch.Tensor:
     return lo | (hi << 4)
 
 
+def pack_split_quarter(codes: torch.Tensor) -> torch.Tensor:
+    """Pack int2 codes [K, N] -> bytes [K//4, N] (split-quarter layout)."""
+    k = codes.shape[0]
+    if k % 4:
+        raise ValueError(f"K={k} must be divisible by 4 for split-quarter")
+    q = k // 4
+    c = codes.to(torch.uint8) & 3
+    return (c[:q] | (c[q:2 * q] << 2) | (c[2 * q:3 * q] << 4)
+            | (c[3 * q:] << 6))
+
+
 def unpack_split_half(packed: torch.Tensor) -> torch.Tensor:
     """bytes [K//2, N] -> int32 codes [K, N]."""
     b = packed.to(torch.int32)
     return torch.cat([b & 15, (b >> 4) & 15], dim=0)
+
+
+def unpack_split_quarter(packed: torch.Tensor) -> torch.Tensor:
+    """bytes [K//4, N] -> int32 codes [K, N]."""
+    b = packed.to(torch.int32)
+    return torch.cat([b & 3, (b >> 2) & 3, (b >> 4) & 3, b >> 6], dim=0)
+
+
+def grouped_chunk_factor(k: int, group_size: int,
+                         planes: int = 4) -> Optional[int]:
+    """Groups-per-plane chunk factor CH of the grouped decode kernel (the
+    reference's chunk-grid layout): CH divides the per-plane group count;
+    None if the shape does not fit the kernel."""
+    if k % (planes * group_size):
+        return None
+    gp = (k // planes) // group_size
+    for c in ((8, 4) if planes == 4 else (8,)):
+        if gp % c == 0:
+            return c
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_chunk_perm(k: int, group_size: int, ch: int,
+                       planes: int = 4) -> np.ndarray:
+    """Chunk-major group order of the side streams:
+    perm[c*planes*CH + p*CH + t] = p*gp + c*CH + t (plane p, chunk c of CH
+    groups per plane)."""
+    gp = (k // planes) // group_size
+    out = np.empty(planes * gp, np.int32)
+    i = 0
+    for c in range(gp // ch):
+        for p in range(planes):
+            for t in range(ch):
+                out[i] = p * gp + c * ch + t
+                i += 1
+    return out
+
+
+def _grouped_cache(scale: torch.Tensor, zp: torch.Tensor, k: int,
+                   group_size: int, bits: int):
+    """Kernel-ready grouped side streams: chunk-major bf16 scales and
+    chunk-major raw int8 zero points, 3 bytes per group entry; (None, None)
+    where the shape has no chunk factor."""
+    if bits not in (2, 4):
+        return None, None
+    planes = _qmm.PLANES[bits]
+    ch = grouped_chunk_factor(k, group_size, planes)
+    if ch is None:
+        return None, None
+    perm = torch.from_numpy(grouped_chunk_perm(k, group_size, ch, planes)
+                            ).to(scale.device).long()
+    return scale.to(torch.bfloat16)[perm], zp.to(torch.int8)[perm]
+
+
+# ---------------------------------------------------------------------------
+# the reference wire ABI (adjacent-element bytes, low field first)
+# ---------------------------------------------------------------------------
+
+def wire_to_split_quarter(wire: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """uint2 wire bytes (4 crumbs a byte, LSB first, over the row-major
+    [K, N] array) -> split-quarter [K//4, N]."""
+    flat = wire.reshape(-1).to(torch.uint8)
+    crumbs = torch.stack([(flat >> (2 * i)) & 3 for i in range(4)], dim=1)
+    return pack_split_quarter(crumbs.reshape(-1)[: k * n].reshape(k, n))
+
+
+def split_quarter_to_wire(packed: torch.Tensor) -> torch.Tensor:
+    """Split-quarter [K//4, N] -> wire bytes of the [K, N] array."""
+    c = unpack_split_quarter(packed).to(torch.uint8).reshape(-1, 4)
+    return c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+
+
+def wire_to_split_half(wire: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """uint4 wire bytes (adjacent pairs, low nibble first, over the
+    row-major [K, N] array) -> split-half [K//2, N]."""
+    flat = wire.reshape(-1).to(torch.uint8)
+    codes = torch.stack([flat & 0xF, flat >> 4], dim=1).reshape(-1)
+    return pack_split_half(codes[: k * n].reshape(k, n))
+
+
+def split_half_to_wire(packed: torch.Tensor) -> torch.Tensor:
+    """Split-half [K//2, N] -> wire bytes of the [K, N] array."""
+    codes = unpack_split_half(packed).to(torch.uint8).reshape(-1)
+    return (codes[0::2] & 0xF) | ((codes[1::2] & 0xF) << 4)
 
 
 # ---------------------------------------------------------------------------
@@ -53,20 +159,88 @@ def unpack_split_half(packed: torch.Tensor) -> torch.Tensor:
 class QuantizedLinear:
     """Packed weight + affine params for y = x @ W.
 
-    data: uint8 [K//2, N] (int4 split-half) or uint8 [K, N] (int8).
-    scale/zero_point: (1, N) channelwise or (1, 1) per tensor, f32 / int32.
+    data: uint8 [K//4, N] (int2 split-quarter), [K//2, N] (int4
+    split-half) or [K, N] (int8).
+    scale/zero_point: (1, N) channelwise, (1, 1) per tensor or (G, N)
+    grouped (group_size = K // G contraction rows per group), f32 / int32.
+    s_chunk/z_chunk: grouped INT2/INT4 only, the kernel's side streams
+    (chunk-major bf16 scales, raw int8 zero points; see _grouped_cache).
     """
 
     data: torch.Tensor
     scale: torch.Tensor
     zero_point: torch.Tensor
-    bits: int           # 4 or 8
+    bits: int           # 2, 4 or 8
     k: int              # logical contraction dim
-    group_size: Optional[int] = None   # grouped scales: not ported yet
+    group_size: Optional[int] = None
+    s_chunk: Optional[torch.Tensor] = None
+    z_chunk: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
         return self.data.shape[-1]
+
+    def _expanded_params(self):
+        """scale / zero point broadcast to [K or 1, N] float32."""
+        s = self.scale.float()
+        z = self.zero_point.float()
+        if self.group_size is not None:
+            s = s.repeat_interleave(self.group_size, dim=0)
+            z = z.repeat_interleave(self.group_size, dim=0)
+        return s, z
+
+    def codes(self) -> torch.Tensor:
+        """int32 codes [K, N]."""
+        if self.bits == 2:
+            return unpack_split_quarter(self.data)
+        if self.bits == 4:
+            return unpack_split_half(self.data)
+        return self.data.to(torch.int32)
+
+    def to_wire(self) -> torch.Tensor:
+        """Packed codes in the reference wire ABI (adjacent elements of the
+        flattened [K, N] array, low field first)."""
+        if self.bits == 2:
+            return split_quarter_to_wire(self.data)
+        if self.bits == 4:
+            return split_half_to_wire(self.data)
+        return self.data.reshape(-1)
+
+    @classmethod
+    def from_wire(cls, wire: torch.Tensor, scale, zero_point, bits: int,
+                  k: int, n: int, group_size: Optional[int] = None
+                  ) -> "QuantizedLinear":
+        """Build from reference-wire packed codes (inverse of to_wire)."""
+        if bits == 2:
+            data = wire_to_split_quarter(wire, k, n)
+        elif bits == 4:
+            data = wire_to_split_half(wire, k, n)
+        else:
+            data = wire.reshape(k, n)
+        scale = torch.as_tensor(scale)
+        zero_point = torch.as_tensor(zero_point)
+        s_chunk = z_chunk = None
+        if bits in (2, 4) and group_size is not None:
+            s_chunk, z_chunk = _grouped_cache(scale, zero_point, k,
+                                              group_size, bits)
+        return cls(data=data, scale=scale, zero_point=zero_point, bits=bits,
+                   k=k, group_size=group_size, s_chunk=s_chunk,
+                   z_chunk=z_chunk)
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """Materialize the full [K, N] float weight."""
+        s, z = self._expanded_params()
+        return ((self.codes().float() - z) * s).to(dtype)
+
+
+def with_grouped_cache(ql: QuantizedLinear) -> QuantizedLinear:
+    """Attach (or refresh) the grouped side streams; no-op for channelwise
+    and INT8 weights."""
+    if ql.bits not in (2, 4) or ql.group_size is None:
+        return ql
+    s_chunk, z_chunk = _grouped_cache(ql.scale, ql.zero_point, ql.k,
+                                      ql.group_size, ql.bits)
+    return dataclasses.replace(ql, s_chunk=s_chunk, z_chunk=z_chunk)
 
 
 def quantize_linear_weight(
@@ -78,18 +252,26 @@ def quantize_linear_weight(
     stochastic: bool = False,
 ) -> QuantizedLinear:
     """Quantize a [K, N] float weight for weight-only inference: affine
-    (scale, zp) per output channel (axis 0 reduced) or per tensor, with the
-    reference's scale/zero-point derivation, op for op."""
+    (scale, zp) per output channel (axis 0 reduced), per tensor, or per
+    (group_size x 1) group along K, with the reference's derivation op for
+    op (grouped INT2/INT4 scales rounded to bf16 first, as the reference
+    rounds them for its kernel's bf16 side stream)."""
     if w.ndim != 2:
         raise ValueError("quantize_linear_weight expects a 2-D weight")
-    if group_size is not None or stochastic or bits not in (4, 8):
-        raise NotImplementedError(
-            "only nearest-rounded channelwise/per-tensor INT4 and INT8 "
-            "weights are ported (grouped, INT2, NF4 and stochastic are not)")
-    k, _ = w.shape
+    if bits == "nf4" or stochastic:
+        raise NotImplementedError("NF4 and stochastic weight quantization "
+                                  "are not ported yet")
+    if bits not in (2, 4, 8):
+        raise ValueError('bits must be 2, 4, 8, or "nf4"')
+    k, n = w.shape
     qmin, qmax = 0, (1 << bits) - 1
     wf = w.float()
-    if channelwise:
+    if group_size is not None:
+        if k % group_size:
+            raise ValueError(f"K={k} not divisible by group_size={group_size}")
+        wg = wf.reshape(k // group_size, group_size, n)
+        rmin, rmax = wg.amin(dim=1), wg.amax(dim=1)        # (G, N)
+    elif channelwise:
         rmin = wf.amin(dim=0, keepdim=True)
         rmax = wf.amax(dim=0, keepdim=True)
     else:
@@ -98,14 +280,27 @@ def quantize_linear_weight(
     span = rmax - rmin
     scale = torch.where(span == 0, torch.ones_like(span),
                         span / (qmax - qmin)).float()
+    if group_size is not None and bits in (2, 4):
+        scale = scale.to(torch.bfloat16).float()
     zp = torch.clamp(round_half_away(qmin - rmin / scale), qmin, qmax)
     zp = torch.where(span == 0, torch.full_like(zp, (qmax + qmin) >> 1),
                      zp).to(torch.int32)
-    rounded = round_half_away(wf / scale)
-    codes = torch.clamp(rounded.to(torch.int32) + zp, qmin, qmax)
-    data = pack_split_half(codes) if bits == 4 else codes.to(torch.uint8)
-    return QuantizedLinear(data=data, scale=scale, zero_point=zp, bits=bits,
-                           k=k)
+    if group_size is not None:
+        s_full = scale.repeat_interleave(group_size, dim=0)
+        z_full = zp.repeat_interleave(group_size, dim=0)
+    else:
+        s_full, z_full = scale, zp
+    rounded = round_half_away(wf / s_full)
+    codes = torch.clamp(rounded.to(torch.int32) + z_full, qmin, qmax)
+    if bits == 2:
+        data = pack_split_quarter(codes)
+    elif bits == 4:
+        data = pack_split_half(codes)
+    else:
+        data = codes.to(torch.uint8)
+    return with_grouped_cache(QuantizedLinear(
+        data=data, scale=scale, zero_point=zp, bits=bits, k=k,
+        group_size=group_size))
 
 
 # ---------------------------------------------------------------------------
@@ -128,18 +323,28 @@ def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _matmul_dequant(x: torch.Tensor, ql: QuantizedLinear,
                     out_dtype) -> torch.Tensor:
-    """Prefill-sized path (reference `_matmul_dequant_jnp`): raw-code
-    products on the two split-half planes, then the zero-point fold."""
+    """The reference's `_matmul_dequant_jnp`: grouped weights as per-group
+    raw-code products with the zero point folded per group; channelwise as
+    raw-code products on the packed planes, then the rank-1 fold."""
     scale = ql.scale.float()
     zp = ql.zero_point.float()
+    if ql.group_size is not None:
+        g, gs = ql.k // ql.group_size, ql.group_size
+        lead = x.shape[:-1]
+        xg = x.float().reshape(-1, g, gs).transpose(0, 1)     # [G, M, gs]
+        cg = ql.codes().float().reshape(g, gs, ql.n)
+        acc = torch.bmm(xg, cg)                               # [G, M, N]
+        out = (acc * scale[:, None]).sum(0)
+        out = out - xg.sum(-1).transpose(0, 1) @ (zp * scale)
+        return out.reshape(*lead, ql.n).to(out_dtype)
     xb = x.to(torch.bfloat16)
-    if ql.bits == 4:
-        kh = ql.k // 2
-        lo = (ql.data & 15).to(torch.bfloat16)
-        hi = (ql.data >> 4).to(torch.bfloat16)
-        acc = dot_f32(xb[..., :kh], lo) + dot_f32(xb[..., kh:], hi)
-    else:
-        acc = dot_f32(xb, ql.data.to(torch.bfloat16))
+    planes = _qmm.PLANES[ql.bits]
+    rows = ql.k // planes
+    acc = None
+    for p, plane in enumerate(_qmm.code_planes(ql.data, planes)):
+        part = dot_f32(xb[..., p * rows:(p + 1) * rows],
+                       plane.to(torch.bfloat16))
+        acc = part if acc is None else acc + part
     xsum = x.float().sum(dim=-1, keepdim=True)
     return (acc * scale - xsum * (zp * scale)).to(out_dtype)
 
@@ -147,17 +352,19 @@ def _matmul_dequant(x: torch.Tensor, ql: QuantizedLinear,
 def quantized_matmul(x: torch.Tensor, ql: QuantizedLinear,
                      out_dtype=torch.bfloat16, *,
                      act_quant: bool = False) -> torch.Tensor:
-    """y = x @ dequant(W) with the weight kept packed.  Decode-sized INT4
-    shapes go to the hand-written GEMV (ops/cuda/qmatmul.py); everything
-    else takes the plain dequant path, as in the reference dispatch."""
+    """y = x @ dequant(W) with the weight kept packed, in the reference's
+    order of routes on every device: the decode-sized kernels
+    (ops/cuda/qmatmul.py); for grouped weights at prefill-sized M one dense
+    product against the weight dequantized to bf16; else the dequant path."""
     if x.shape[-1] != ql.k:
         raise ValueError(f"x last dim {x.shape[-1]} != weight K {ql.k}")
     if act_quant:
         raise NotImplementedError("activation-quantized (W4A8/W8A8) "
                                   "matmuls are not ported yet")
-    if ql.group_size is not None:
-        raise NotImplementedError("grouped weights are not ported yet")
     y = _qmm.quantized_matmul(x, ql, out_dtype)
     if y is not None:
         return y
+    if ql.group_size is not None and x.numel() // ql.k >= ACT_QUANT_MIN_M:
+        w = ql.dequantize(torch.bfloat16)
+        return dot_f32(x.to(torch.bfloat16), w).to(out_dtype)
     return _matmul_dequant(x, ql, out_dtype)

@@ -17,6 +17,7 @@ guided decoding, LoRA adapters, draft models and snapshot/restore.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -98,6 +99,11 @@ class EngineMetrics:
             "p99_ttft_ms": self.p99_ttft_ms(),
             "requests": len(self.ttfts),
         }
+
+    def emit(self, path: str) -> None:
+        """Append one JSON line (a timestamp and `to_dict()`) to `path`."""
+        with open(path, "a") as f:
+            f.write(json.dumps({"ts": time.time(), **self.to_dict()}) + "\n")
 
 
 def _tok_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:

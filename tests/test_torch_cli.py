@@ -1,0 +1,164 @@
+"""The port's model in the new weight formats (grouped INT4, an INT2-g32
+MLP, INT2 channelwise; each with an INT8 lm_head) against the JAX
+package's on the CPU, its random-weight constructor against the
+reference's rules, and the serving CLI (`python -m
+piquant_tpu_torch.serving`) driven in process."""
+
+import json
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from piquant_tpu.models import llama as JM
+from piquant_tpu_torch import convert
+from piquant_tpu_torch.models import llama as TM
+from piquant_tpu_torch.serving import __main__ as S
+from test_torch_model import _check_logits, _run_jax, _run_port
+
+SEED = 0xC11
+CPU = torch.device("cpu")
+MLP2 = {k: (2, 32) for k in ("w1", "w3", "w2")}
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny model's thousands of small ops stall
+    on a thread pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# weight format -> quantize_params keywords (every one with the INT8 lm_head)
+FORMATS = {
+    "int4_g32": dict(bits=4, group_size=32),
+    "int4_attn_int2_g32_mlp": dict(bits=4, overrides=MLP2),
+    "int2": dict(bits=2),
+    "per_layer_overrides": dict(bits=4, group_size=64,
+                                overrides={"w2": (8, None), "1.wq": (2, 32)}),
+}
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+def test_formats_match_jax(fmt):
+    """Each format quantized by both packages from the same float init:
+    every quantized leaf byte-equal; then the JAX weights carried across,
+    prefill + 3 decode steps within LOGIT_TOL (tests/test_torch_model.py),
+    argmax equal where there is no near tie."""
+    jcfg = JM.LlamaConfig.tiny()
+    jfloat = JM.init_params(jcfg, jax.random.key(SEED))
+    kw = FORMATS[fmt]
+    jparams = JM.quantize_params(jfloat, quantize_lm_head=True, **kw)
+    cfg = convert.config_from_jax(jcfg)
+    params = convert.params_from_jax(jparams, device=CPU)
+    mine = TM.quantize_params(convert.params_from_jax(jfloat, device=CPU),
+                              quantize_lm_head=True, **kw)
+    leaves = [(jparams["lm_head"], mine["lm_head"], params["lm_head"])] + [
+        (jl[k], ml[k], pl[k])
+        for jl, ml, pl in zip(jparams["layers"], mine["layers"],
+                              params["layers"])
+        for k in TM._QUANT_KEYS]
+    for j, m, p in leaves:
+        assert (m.bits, m.group_size) == (j.bits, j.group_size)
+        for f in ("data", "scale", "zero_point", "s_chunk", "z_chunk"):
+            a, b = getattr(m, f), getattr(p, f)
+            assert (a is None) == (getattr(j, f) is None), f
+            if a is not None:
+                assert torch.equal(a, b), f
+    rng = np.random.default_rng(SEED)
+    toks = jnp.asarray(rng.integers(1, cfg.vocab_size, (2, 128 + 3)),
+                       jnp.int32)
+    _check_logits(_run_port(cfg, params, toks, 3),
+                  _run_jax(jcfg, jparams, toks, 3, jit=True))
+
+
+def test_random_quantized_params_follow_the_reference():
+    """random_quantized_params' rules against JAX's: per weight the same
+    bits, group size, shapes and (constant) scales, zero points and side
+    streams; only the random codes differ."""
+    jcfg = JM.LlamaConfig(vocab_size=256, d_model=256, n_layers=2,
+                          n_heads=2, n_kv_heads=1, d_ff=768, max_seq_len=256)
+    cfg = convert.config_from_jax(jcfg)
+    for kw in (dict(bits=4, lm_head_bits=8, group_size=128),
+               dict(bits=4, lm_head_bits=8, mlp_bits=2, mlp_group_size=32),
+               dict(bits=2, lm_head_bits=8), dict(bits=4, group_size=512)):
+        j = JM.random_quantized_params(jcfg, jax.random.key(1), **kw)
+        t = TM.random_quantized_params(cfg, 1, device="cpu", **kw)
+        if kw.get("lm_head_bits") is None:
+            assert t["lm_head"].dtype == torch.bfloat16
+            pairs = []
+        else:
+            pairs = [(j["lm_head"], t["lm_head"])]
+        pairs += [(jl[k], tl[k]) for jl, tl in zip(j["layers"], t["layers"])
+                  for k in TM._QUANT_KEYS]
+        for a, b in pairs:
+            assert (b.bits, b.k, b.group_size) == (a.bits, a.k, a.group_size)
+            assert tuple(b.data.shape) == a.data.shape
+            assert b.data.dtype == torch.uint8
+            for f in ("scale", "zero_point", "s_chunk", "z_chunk"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert (x is None) == (y is None), f
+                if x is not None:
+                    np.testing.assert_array_equal(
+                        y.float().numpy(), np.asarray(x, np.float32))
+    # d_ff 768 does not split into groups of 512: channelwise, as there
+    t = TM.random_quantized_params(cfg, 1, group_size=512, device="cpu")
+    assert t["layers"][0]["w2"].group_size is None
+    assert t["layers"][0]["wq"].group_size is None       # 256 rows
+    with pytest.raises(NotImplementedError):
+        TM.random_quantized_params(cfg, 1, bits=3, device="cpu")
+
+
+def _cli(capsys, *argv):
+    assert S.main(list(argv)) == 0
+    return capsys.readouterr().out.strip().splitlines()
+
+
+@pytest.mark.parametrize("flags", [(), ("--group-size", "32"),
+                                   ("--mlp-bits", "2", "--mlp-group-size", "32"),
+                                   ("--group-size", "64"), ("--bits", "2"),
+                                   ("--bits", "8")])
+def test_cli_benchmark(capsys, tmp_path, flags):
+    out = tmp_path / "metrics.jsonl"
+    lines = _cli(capsys, "--random", "tiny", "--device", "cpu",
+                 "--benchmark", "4", "--max-new", "6", "--max-seq-len", "256",
+                 "--metrics-out", str(out), *flags)
+    m = json.loads(lines[-1])
+    assert m["completed"] == 4 and m["requests"] == 4
+    assert m["decode_tokens"] == 4 * 5 and m["wall_s"] > 0
+    emitted = [json.loads(line) for line in out.read_text().splitlines()]
+    assert len(emitted) == 1 and emitted[0]["decode_tokens"] == 20
+
+
+def test_cli_prompts(capsys):
+    lines = _cli(capsys, "--random", "tiny", "--device", "cpu",
+                 "--max-new", "3", "--group-size", "32", "1,2,3", "7,8")
+    assert [line.split("]")[0] for line in lines] == ["[0", "[1"]
+    toks = [json.loads(line.split("| ")[1]) for line in lines]
+    assert all(len(t) == 3 and all(0 <= v < 256 for v in t) for t in toks)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "/no/such/checkpoint"], ["--random", "mistral_7b"],
+    ["--random", "mixtral_8x7b"], ["--random", "mla_tiny"],
+    ["--bits", "nf4"], ["--mlp-bits", "nf4"], ["--kv-bits", "4"],
+    ["--act-quant-prefill"], ["--act-quant-decode"], ["--speculate", "4"],
+    ["--draft-bits", "2", "--speculate", "2"], ["--prefill-chunk", "256"],
+    ["--attn-windows", "512,1024"], ["--repetition-penalty", "1.1"],
+    ["--serve", "8123"]])
+def test_cli_refuses_unported_flags(argv):
+    with pytest.raises(NotImplementedError, match=r"queue 1 item \d+"):
+        S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
+                *argv])
+
+
+def test_cli_defaults_to_cuda(monkeypatch):
+    """No --device: the CLI runs on the GPU, and without one it fails
+    rather than move to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.main(["--random", "tiny", "--benchmark", "1"])

@@ -66,13 +66,122 @@ def test_w4_gemv_refuses(dev):
     with pytest.raises(TypeError):
         Q.w4_gemv(x[:8].float(), data, f, z, torch.zeros(8, 1, device=dev),
                   torch.bfloat16)
-    # an INT8 weight at decode M reaches the reference's _w8_kernel, which
-    # is not ported: no quiet dequant path on the card
+    # an INT8 weight at decode M reaches the reference's _w8_kernel: on the
+    # card its port launches
     w8 = QuantizedLinear(data=torch.zeros((256, 128), dtype=torch.uint8,
                                           device=dev),
                          scale=f[None], zero_point=z[None], bits=8, k=256)
-    with pytest.raises(NotImplementedError):
-        Q.quantized_matmul(x[:8], w8)
+    before = Q.w8_gemv.launches
+    y = Q.quantized_matmul(x[:8], w8)
+    assert Q.w8_gemv.launches == before + 1 and y.shape == (8, 128)
+
+
+def _qlin(dev, k, n, bits, gs, seed):
+    """The port's quantize_linear_weight of a N(0, 0.05) weight, on the
+    card (grouped INT2/INT4 with its chunk-major side streams)."""
+    from piquant_tpu_torch.quant.linear import quantize_linear_weight
+
+    w = torch.randn((k, n), generator=_gen(dev, seed), device=dev) * 0.05
+    return quantize_linear_weight(w, bits, group_size=gs)
+
+
+def _x(dev, m, k, seed):
+    return torch.randn((m, k), generator=_gen(dev, seed),
+                       device=dev).to(torch.bfloat16)
+
+
+# Element by element within atol 2e-2, rtol 1e-2 (the quantized_matmul
+# bound of the JAX tests): the f32 sums run in another order, and a bf16
+# output may round the other way once.
+@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("bits,k,n", [(8, 512, 384), (8, 4096, 128256),
+                                      (2, 512, 384), (2, 4096, 1024),
+                                      (2, 14336, 4096)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_channel_gemv_matches_plain(dev, m, bits, k, n, out_dtype):
+    ql = _qlin(dev, k, n, bits, None, k + n)
+    x = _x(dev, m, k, m)
+    xsum = x.float().sum(1, keepdim=True)
+    s, z = ql.scale.reshape(-1).contiguous(), ql.zero_point.reshape(-1).contiguous()
+    kern, plain = ((Q.w8_gemv, Q.w8_gemv_plain) if bits == 8
+                   else (Q.w2_gemv, Q.w2_gemv_plain))
+    before = kern.launches
+    got = kern(x, ql.data, s, z, xsum, out_dtype).float()
+    assert kern.launches == before + 1
+    want = plain(x, ql.data, s, z, xsum, out_dtype).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("bits,k,n,gs", [(4, 512, 256, 32), (4, 4096, 1024, 128),
+                                         (4, 14336, 4096, 128),
+                                         (4, 4096, 4096, 256),
+                                         (2, 1024, 256, 32), (2, 4096, 1024, 32),
+                                         (2, 14336, 4096, 32),
+                                         (2, 2048, 384, 64)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_wg_chunk_matches_plain(dev, m, bits, k, n, gs, out_dtype):
+    from piquant_tpu_torch.quant.linear import grouped_chunk_factor
+
+    ql = _qlin(dev, k, n, bits, gs, k + gs)
+    ch = grouped_chunk_factor(k, gs, Q.PLANES[bits])
+    x = _x(dev, m, k, m + 1)
+    before = Q.wg_chunk.launches
+    got = Q.wg_chunk(x, ql.data, ql.s_chunk, ql.z_chunk, gs, ch,
+                     out_dtype).float()
+    assert Q.wg_chunk.launches == before + 1
+    want = Q.wg_chunk_plain(x, ql.data, ql.s_chunk, ql.z_chunk, gs, ch,
+                            out_dtype).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("k,n,gs", [(512, 256, 16), (1024, 384, 64),
+                                    (14336, 4096, 256)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4_grouped_matches_plain(dev, m, k, n, gs, out_dtype):
+    ql = _qlin(dev, k, n, 4, gs, k + gs + 1)
+    x = _x(dev, m, k, m + 2)
+    before = Q.w4_grouped.launches
+    got = Q.w4_grouped(x, ql.data, ql.scale, ql.zero_point, gs,
+                       out_dtype).float()
+    assert Q.w4_grouped.launches == before + 1
+    want = Q.w4_grouped_plain(x, ql.data, ql.scale, ql.zero_point, gs,
+                              out_dtype).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+def test_quantized_gemvs_refuse(dev):
+    """Non-contiguous operands, wrong dtypes and shapes off the gates raise;
+    nothing quietly falls back to a plain version on the card."""
+    ql8 = _qlin(dev, 512, 256, 8, None, 1)
+    ql2 = _qlin(dev, 512, 256, 2, None, 2)
+    qg = _qlin(dev, 1024, 256, 4, 32, 3)
+    x = _x(dev, 8, 1024, 4)
+    x5 = x[:, :512]                                   # not contiguous
+    xs = x5.float().sum(1, keepdim=True)
+    s8, z8 = ql8.scale.reshape(-1).contiguous(), ql8.zero_point.reshape(-1).contiguous()
+    with pytest.raises(ValueError):
+        Q.w8_gemv(x5, ql8.data, s8, z8, xs, torch.bfloat16)
+    with pytest.raises(TypeError):
+        Q.w8_gemv(x5.contiguous().float(), ql8.data, s8, z8, xs, torch.bfloat16)
+    with pytest.raises(ValueError):                   # M > 64
+        Q.w2_gemv(_x(dev, 65, 512, 5), ql2.data, s8, z8,
+                  torch.zeros(65, 1, device=dev), torch.bfloat16)
+    with pytest.raises(ValueError):                   # codes not contiguous
+        Q.w2_gemv(x5.contiguous(), ql2.data.t().contiguous().t(), s8, z8,
+                  xs, torch.bfloat16)
+    with pytest.raises(ValueError):                   # side stream transposed
+        Q.wg_chunk(x, qg.data, qg.s_chunk.t().contiguous().t(), qg.z_chunk,
+                   32, 8, torch.bfloat16)
+    with pytest.raises(TypeError):
+        Q.wg_chunk(x, qg.data, qg.s_chunk.float(), qg.z_chunk, 32, 8,
+                   torch.bfloat16)
+    with pytest.raises(ValueError):                   # group size off the planes
+        Q.w4_grouped(x, qg.data, qg.scale, qg.zero_point, 48, torch.bfloat16)
+    with pytest.raises(ValueError):
+        Q.w4_grouped(x.t().contiguous().t(), qg.data, qg.scale,
+                     qg.zero_point, 32, torch.bfloat16)
 
 
 # Normalized context element by element within atol 2e-3, rtol 2e-2; m to
