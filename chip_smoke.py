@@ -25,9 +25,15 @@ Phases (any failure exits non-zero):
      1 and 33, with their times, bounds and a torch.matmul yardstick;
   7. CLI: `python -m piquant_tpu_torch.serving --random llama3_8b
      --benchmark 8 --max-new 32` in process, in four weight formats
-     (INT4-g128; INT4 attention with an INT2-g32 MLP; INT4-g256; INT2),
-     each with the reference CLI's INT8 lm_head: exact launch counts,
-     greedy tokens against single-request generation, and its metrics;
+     (INT4-g128; INT4 attention with an INT2-g32 MLP; INT4-g256; INT2) and
+     four activation-quantized runs (--act-quant-prefill at INT4 and INT8;
+     --act-quant-decode at INT2 and with the INT2-g32 MLP), each with the
+     reference CLI's INT8 lm_head: exact launch counts, greedy tokens
+     against single-request generation, and its metrics;
+  8. int8 activations: the w4a8, w8a8 and w2a8 kernels bit for bit
+     against their plain versions at the Llama-3-8B projections (M = 1024,
+     8, 1, 33, 1000), and the chunk kernel's int8-x form (INT2-g32 MLP,
+     INT4-g128) at M = 8, 1, 33, with times, bounds and yardsticks;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -43,6 +49,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
+INT8_OP_PER_S = 1979e12       # dense int8 tensor-core peak
 F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 NEAR_TIE = 0.02               # tests/token_guard.py MARGIN
 
@@ -182,50 +189,65 @@ def gemv_operands(name, ql, x):
     return (ql.data, ql.scale, ql.zero_point, gs), g * n * 8
 
 
-def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype):
+def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
+               a8=False):
     """Wrapper `name` against its plain version at each (K, N) of `shapes`
     and M in HOLD_M; then its device ms at M = 8 summed over the shapes'
     uses (enough weights that the loop streams from HBM, not L2), the plain
     version's, a torch.matmul against the bf16-dequantized weight, the host
-    cost of an eager call, and the bound."""
+    cost of an eager call, and the bound.  a8: x is the per-token int8 of a
+    bf16 x with its row scales (the chunk kernel's int8-x form)."""
     from piquant_tpu_torch.ops.cuda import qmatmul as Q
+    from piquant_tpu_torch.quant.linear import _quantize_act
 
     kern, plain = getattr(Q, name), getattr(Q, name + "_plain")
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, eager_ms=0.0,
                nbytes=0.0, flops=0.0)
     err = 0.0
     obytes = 2 if out_dtype == torch.bfloat16 else 4
+
+    def inputs(m, k):
+        """(x the wrapper takes, trailing arguments, bf16 x)."""
+        xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        if not a8:
+            return xb, (), xb
+        xq, xs = _quantize_act(xb)
+        return xq, (xs,), xb
+
     for k, n, uses in shapes:
         copies = max(1, -(-256 * 2**20 // (k * n * bits // 8)))
         qls = [random_qlin(torch, dev, gen, k, n, bits, gs)
                for _ in range(copies)]
         for m in HOLD_M:
-            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            x, extra, _ = inputs(m, k)
             ops, _ = gemv_operands(name, qls[0], x)
             # atol 2e-2, rtol 1e-2: the quantized_matmul bound of the JAX
             # tests (f32 sums in another order, one bf16 output rounding)
             e = hold(torch, f"{name} K={k} N={n} M={m}",
-                     kern(x, *ops, out_dtype).float(),
-                     plain(x, *ops, out_dtype).float(), 2e-2, 1e-2)
+                     kern(x, *ops, out_dtype, *extra).float(),
+                     plain(x, *ops, out_dtype, *extra).float(), 2e-2, 1e-2)
             err = max(err, e)
         print(f"{name} K={k} N={n}: max_abs_err {err:.3e} at M {HOLD_M}",
               flush=True)
-        x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+        x, extra, xb = inputs(8, k)
         ops = [gemv_operands(name, ql, x) for ql in qls]
         side = ops[0][1]
-        call = lambda i: kern(x, *ops[i % copies][0], out_dtype)  # noqa: E731
+        call = lambda i: kern(x, *ops[i % copies][0], out_dtype,  # noqa: E731
+                              *extra)
         t_k = cuda_ms(call, 50)
         tot["eager_ms"] += uses * host_ms(call)
         # eagerly between events: a plain version may copy from the host
-        t_p = event_ms(lambda i: plain(x, *ops[i % copies][0], out_dtype), 5)
+        t_p = event_ms(lambda i: plain(x, *ops[i % copies][0], out_dtype,
+                                       *extra), 5)
         w_bf16 = [ql.dequantize(torch.bfloat16) for ql in qls[:2]]
-        t_l = cuda_ms(lambda i: torch.matmul(x, w_bf16[i % len(w_bf16)]), 20)
+        t_l = cuda_ms(lambda i: torch.matmul(xb, w_bf16[i % len(w_bf16)]), 20)
         print(f"{name} K={k} N={n}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"torch.matmul(bf16 W) {t_l:.4f} ms", flush=True)
         tot["ms"] += uses * t_k
         tot["plain_ms"] += uses * t_p
         tot["library_ms"] += uses * t_l
-        tot["nbytes"] += uses * (k * n * bits / 8 + side + 8 * k * 2
+        xbytes = 8 * k + 8 * 4 if a8 else 8 * k * 2
+        tot["nbytes"] += uses * (k * n * bits / 8 + side + xbytes
                                  + 8 * n * obytes)
         tot["flops"] += uses * 2 * 8 * k * n
         del qls, ops, w_bf16
@@ -397,7 +419,8 @@ def kernel_wrappers():
             "dequantize": DQ.dequantize, "requantize": RQ.requantize,
             "min_max": MM.min_max, "w8_gemv": Q.w8_gemv,
             "w2_gemv": Q.w2_gemv, "wg_chunk": Q.wg_chunk,
-            "w4_grouped": Q.w4_grouped}
+            "w4_grouped": Q.w4_grouped, "w4a8": Q.w4a8, "w8a8": Q.w8a8,
+            "w2a8": Q.w2a8}
 
 
 def zero_counts() -> None:
@@ -898,21 +921,177 @@ def check_weight_formats(torch, dev, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: int8 activations
+# ---------------------------------------------------------------------------
+
+A8_HOLD_M = (1024, 8, 1, 33, 1000)   # prefill, decode batch, a lone row,
+                                     # ragged decode and prefill tiles
+A8_TIMED_M = (1024, 8)
+
+
+def check_a8(torch, dev, gen, name, bits, shapes):
+    """a8 wrapper `name` bit for bit against its plain version (f32 and
+    bf16 output) at each (K, N) of `shapes` and M in A8_HOLD_M; then at M =
+    1024 and M = 8 its device ms summed over the shapes' uses, the plain
+    version's, a yardstick (torch._int_mm on the int8-unpacked codes at the
+    prefill M, torch.matmul on the bf16 dequantized weight at M = 8), the host
+    cost of an eager call and the bound.  Returns {M: numbers}."""
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+    from piquant_tpu_torch.quant.linear import _quantize_act
+
+    kern, plain = getattr(Q, name), getattr(Q, name + "_plain")
+    shift = 128 if bits == 8 else 0
+    tot = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, eager_ms=0.0,
+                   nbytes=0.0, ops=0.0) for m in A8_TIMED_M}
+    err = 0.0
+
+    def operands(m, k, ql):
+        xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        xq, xs = _quantize_act(xb)
+        return (xq, xs, ql.data, *Q.a8_operands(xq, ql, shift)), xb
+
+    for k, n, uses in shapes:
+        copies = max(1, -(-256 * 2**20 // (k * n * bits // 8)))
+        qls = [random_qlin(torch, dev, gen, k, n, bits, None)
+               for _ in range(copies)]
+        for m in A8_HOLD_M:
+            ops, _ = operands(m, k, qls[0])
+            for odt in (torch.float32, torch.bfloat16):
+                err = max(err, same(torch, f"{name} K={k} N={n} M={m} {odt}",
+                                    kern(*ops, odt), plain(*ops, odt)))
+        torch.cuda.synchronize()
+        print(f"{name} K={k} N={n}: bit for bit at M {A8_HOLD_M}", flush=True)
+        for m in A8_TIMED_M:
+            xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            xq, xs = _quantize_act(xb)
+            ops = [(xq, xs, ql.data, *Q.a8_operands(xq, ql, shift))
+                   for ql in qls]
+            call = lambda i: kern(*ops[i % copies],  # noqa: E731
+                                  torch.bfloat16)
+            t_k = cuda_ms(call, 20)
+            t_e = host_ms(call, 20)
+            t_p = event_ms(lambda i: plain(*ops[i % copies], torch.bfloat16),
+                           2, warmup=1)
+            if m > 16:
+                # the codes column-major (cuBLAS's int8 layout), copied
+                # once outside the timed loop
+                codes = [(ql.codes() - shift).to(torch.int8).t().contiguous()
+                         for ql in qls[:2]]
+                t_l = event_ms(lambda i: torch._int_mm(xq, codes[i % 2].t()),
+                               20)
+                lib = "torch._int_mm (int8-unpacked codes, column-major)"
+            else:
+                codes = [ql.dequantize(torch.bfloat16) for ql in qls[:2]]
+                t_l = cuda_ms(lambda i: torch.matmul(xb, codes[i % 2]), 20)
+                lib = "torch.matmul (bf16 dequantized W)"
+            print(f"{name} K={k} N={n} M={m}: kernel {t_k:.4f} ms, plain "
+                  f"{t_p:.4f} ms, {lib} {t_l:.4f} ms", flush=True)
+            t = tot[m]
+            t["ms"] += uses * t_k
+            t["plain_ms"] += uses * t_p
+            t["library_ms"] += uses * t_l
+            t["eager_ms"] += uses * t_e
+            t["library_call"] = lib
+            t["nbytes"] += uses * (m * k + k * n * bits / 8 + 8 * n + 8 * m
+                                   + 2 * m * n)
+            t["ops"] += uses * 2.0 * m * n * k
+            del codes, ops
+        del qls
+    res = {}
+    for m, t in tot.items():
+        b, by = bound_ms(t["nbytes"], t["ops"], INT8_OP_PER_S)
+        res[m] = dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                      bound_ms=b, bound_by=by, library_ms=t["library_ms"],
+                      library_call=t["library_call"], eager_ms=t["eager_ms"])
+    return res
+
+
+def a8_row(torch, dev, gen, name, replaces, bits, shapes, what):
+    """The kernels-line row of a8 wrapper `name`: timed at the prefill M,
+    with the decode M as a variant."""
+    res = check_a8(torch, dev, gen, name, bits, shapes)
+    card = card_line()
+    for m, r in res.items():
+        print(f"{name} M={m}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, {r['library_call']} "
+              f"{r['library_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms "
+              f"[{what}; {card}]", flush=True)
+    prefill, decode = A8_TIMED_M
+    return dict(name=name, route="cuda",
+                source="piquant_tpu_torch/csrc/qmatmul_a8.cu",
+                replaces=f"piquant_tpu/ops/pallas/qmatmul.py:{replaces}",
+                timed=f"{what} at M={prefill}", **res[prefill],
+                variants={f"{what} at M={decode}": res[decode]})
+
+
+def check_act_quant(torch, dev, gen, wg_row):
+    """Phase 8: one kernels-line row per a8 wrapper at the shapes the
+    act-quant CLI runs give it; the chunk kernel's int8-x form joins the
+    wg_chunk row (`wg_row`) as variants."""
+    rows = [
+        a8_row(torch, dev, gen, "w4a8",
+               "408 (_w4a8_kernel), piquant_tpu/ops/pallas/qmatmul.py:450 "
+               "(_w4a8_kernel_ksplit)", 4, W4_SHAPES,
+               "one layer's 7 INT4 projections"),
+        a8_row(torch, dev, gen, "w8a8", "551 (_w8a8_kernel)", 8,
+               W4_SHAPES[:3], "one layer's 6 INT8 projections with K <= 8192"),
+        a8_row(torch, dev, gen, "w2a8", "954 (_w2a8_kernel)", 2, W4_SHAPES,
+               "one layer's 7 INT2 projections")]
+    card = card_line()
+    for tag, bits, gs, shapes in (
+            ("int8-x INT2-g32 MLP (w1, w3, w2) at M=8", 2, 32, MLP_SHAPES),
+            ("int8-x, one layer's 7 INT4-g128 projections at M=8", 4, 128,
+             W4_SHAPES)):
+        r = check_gemv(torch, dev, gen, "wg_chunk", bits, gs, shapes,
+                       torch.bfloat16, a8=True)
+        wg_row["max_abs_err"] = max(wg_row["max_abs_err"], r["max_abs_err"])
+        wg_row["variants"][tag] = r
+        print(f"wg_chunk {tag}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"torch.matmul {r['library_ms']:.4f} ms [{card}]", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the serving CLI at full Llama-3-8B width
 # ---------------------------------------------------------------------------
 
-# flags of each run, and the wrapper each projection's decode-M GEMV takes
-# per layer as the dispatch gates say (INT8 lm_head besides: w8_gemv)
+def _gemv_only(per_layer):
+    """Weight-only formats: decode steps and prefill calls of at most 64
+    rows take the decode-M GEMVs; larger prefills take no kernel (the dense
+    bf16 product or the dequant path)."""
+    return {"small": per_layer, "mid": {}, "big": {}}
+
+
+# flags of each run, and the wrappers each layer's projections take as the
+# dispatch gates say, by the rows M of a call: "small" (decode steps at 8
+# slots, prefill calls of M <= 64), "mid" (64 < M < 256), "big" (M >= 256);
+# the INT8 lm_head besides takes w8_gemv once a decode step and a prefill
 CLI_RUNS = (
-    (("--group-size", "128"), {"wg_chunk": 7}),
+    (("--group-size", "128"), _gemv_only({"wg_chunk": 7})),
     (("--mlp-bits", "2", "--mlp-group-size", "32"),
-     {"w4_gemv": 4, "wg_chunk": 3}),
+     _gemv_only({"w4_gemv": 4, "wg_chunk": 3})),
     # w2 at g256: 28 groups a plane, no chunk factor of 8
-    (("--group-size", "256"), {"wg_chunk": 6, "w4_grouped": 1}),
-    (("--bits", "2"), {"w2_gemv": 7}),
+    (("--group-size", "256"), _gemv_only({"wg_chunk": 6, "w4_grouped": 1})),
+    (("--bits", "2"), _gemv_only({"w2_gemv": 7})),
+    # int8 activations at M >= 256 only
+    (("--act-quant-prefill",),
+     {"small": {"w4_gemv": 7}, "mid": {}, "big": {"w4a8": 7}}),
+    # w2 (K = 14336 > 8192) declines w8a8 and takes the dequant path
+    (("--bits", "8", "--act-quant-prefill"),
+     {"small": {"w8_gemv": 7}, "mid": {}, "big": {"w8a8": 6}}),
+    # int8 activations at every M
+    (("--bits", "2", "--act-quant-decode"),
+     {c: {"w2a8": 7} for c in ("small", "mid", "big")}),
+    # the grouped MLP takes the int8-x chunk kernel up to 64 rows, then the
+    # weight-only route
+    (("--mlp-bits", "2", "--mlp-group-size", "32", "--act-quant-decode"),
+     {"small": {"w4a8": 4, "wg_chunk": 3}, "mid": {"w4a8": 4},
+      "big": {"w4a8": 4}}),
 )
 CLI_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
-               "decode_attn2", "flash_prefill")
+               "w4a8", "w8a8", "w2a8", "decode_attn2", "flash_prefill")
 
 
 def run_cli(torch, dev, args):
@@ -924,7 +1103,8 @@ def run_cli(torch, dev, args):
     from piquant_tpu_torch.models import llama as M
     from piquant_tpu_torch.serving import __main__ as S
 
-    total = dict.fromkeys(("w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped"), 0)
+    total = dict.fromkeys(("w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
+                           "w4a8", "w8a8", "w2a8"), 0)
     for flags, per_layer in CLI_RUNS:
         argv = ["--random", "llama3_8b", "--benchmark", "8", "--max-new",
                 "32", *flags]
@@ -933,7 +1113,7 @@ def run_cli(torch, dev, args):
         cfg, params, eng, sp = S.build(cli_args)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
-        counts = {"blocks": 0, "prefills": 0, "small_prefills": 0,
+        counts = {"blocks": 0, "prefills": 0, "small": 0, "mid": 0, "big": 0,
                   "flash_prefills": 0}
         dispatch, admit = eng._dispatch_block, eng._admit_one_shot
 
@@ -944,10 +1124,13 @@ def run_cli(torch, dev, args):
         def counted_admit(batch):
             counts["prefills"] += 1
             width = eng._padded_len(batch[0][2])
-            # a prefill of at most M_MAX rows takes the decode-M GEMVs too;
+            # a prefill's projections see len(batch) * width rows: at most
+            # M_MAX take the decode-M GEMVs, 256 or more the prefill routes;
             # flash prefill takes widths of whole 128-row tiles (the CLI
             # pads prompts to 64)
-            counts["small_prefills"] += len(batch) * width <= 64
+            rows = len(batch) * width
+            counts["small" if rows <= 64 else "big" if rows >= 256
+                   else "mid"] += 1
             counts["flash_prefills"] += width % 128 == 0
             return admit(batch)
 
@@ -960,17 +1143,20 @@ def run_cli(torch, dev, args):
         launches = {k: wr[k].launches for k in CLI_KERNELS}
         nl = cfg.n_layers
         steps = counts["blocks"] * eng.ec.decode_block
-        gemv_calls = steps + counts["small_prefills"]
+        calls = {"small": steps + counts["small"], "mid": counts["mid"],
+                 "big": counts["big"]}
         expect = dict.fromkeys(CLI_KERNELS, 0)
-        for k, per in per_layer.items():
-            expect[k] = per * nl * gemv_calls
-        expect["w8_gemv"] = steps + counts["prefills"]
+        for cls, kernels in per_layer.items():
+            for k, per in kernels.items():
+                expect[k] += per * nl * calls[cls]
+        expect["w8_gemv"] += steps + counts["prefills"]
         expect["decode_attn2"] = nl * steps
         expect["flash_prefill"] = nl * counts["flash_prefills"]
         tag = " ".join(flags)
         print(f"cli [{tag}]: built in {t_build:.1f} s; {counts['blocks']} "
               f"decode blocks ({steps} steps), {counts['prefills']} prefill "
-              f"calls ({counts['small_prefills']} at M <= 64, "
+              f"calls ({counts['small']} at M <= 64, {counts['mid']} at "
+              f"64 < M < 256, {counts['big']} at M >= 256, "
               f"{counts['flash_prefills']} of whole 128-row tiles), launches "
               f"{launches}, expected {expect}", flush=True)
         if launches != expect:
@@ -987,7 +1173,10 @@ def run_cli(torch, dev, args):
             if not all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs):
                 raise AssertionError(f"cli [{tag}] request {r.rid}: "
                                      "non-finite logits")
-        r = done[0]
+        # a prompt of >= 256 tokens: its prefill takes the M >= 256 route
+        # alone as in the burst (under --act-quant-prefill the route, and
+        # with it the numerics, depends on M)
+        r = next(r for r in done if len(r.prompt) >= 256)
         want = generate_single(torch, M, cfg, params, r.prompt,
                                cli_args.max_new, dev)
         verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
@@ -1065,6 +1254,9 @@ def main() -> int:
     kernels += check_weight_formats(torch, dev, gen)
     torch.cuda.empty_cache()
     launches.update(run_cli(torch, dev, args))
+    torch.cuda.empty_cache()
+    kernels += check_act_quant(torch, dev, gen, next(
+        k for k in kernels if k["name"] == "wg_chunk"))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,7 +21,8 @@ from piquant_tpu_torch.quant.linear import QuantizedLinear
 
 _CONFIG_FIELDS = ("vocab_size", "d_model", "n_layers", "n_heads",
                   "n_kv_heads", "d_ff", "rope_theta", "rms_eps",
-                  "max_seq_len", "head_dim_override", "kv_bits")
+                  "max_seq_len", "head_dim_override", "kv_bits",
+                  "act_quant_prefill", "act_quant_decode")
 
 
 def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
@@ -102,8 +103,8 @@ def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:
 def config_from_jax(jcfg) -> LlamaConfig:
     """The JAX package's LlamaConfig -> the port's.  Every model-family
     flag the port does not have yet (qkv_bias, sliding_window, softcaps,
-    sinks, MoE, Llama-4 / Gemma / Phi / Granite options, act-quant, kv4,
-    ...) raises NotImplementedError when set off its default."""
+    sinks, MoE, Llama-4 / Gemma / Phi / Granite options, kv4, ...) raises
+    NotImplementedError when set off its default."""
     kw = {f: getattr(jcfg, f) for f in _CONFIG_FIELDS}
     handled = set(_CONFIG_FIELDS) | {"llama3_rope", "dtype"}
     unsupported = [f.name for f in dataclasses.fields(jcfg)

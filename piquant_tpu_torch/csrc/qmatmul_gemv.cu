@@ -5,7 +5,7 @@
 //   pq_w4_gemv   _w4_kernel + _w4_kernel_ksplit   INT4 split-half, channelwise
 //   pq_w8_gemv   _w8_kernel                       INT8, channelwise (lm_head)
 //   pq_w2_gemv   _w2_kernel                       INT2 split-quarter, channelwise
-//   pq_wg_gemv   _wg_chunk_kernel (bf16-x form)   grouped INT2 / INT4
+//   pq_wg_gemv   _wg_chunk_kernel (bf16 / int8 x) grouped INT2 / INT4
 //   pq_w4g_gemv  _w4_grouped_kernel               grouped INT4, W4A16 numerics
 //
 // (On Hopper a K split is a loop inside the block plus a split over
@@ -30,6 +30,12 @@
 //     (c - z) * s = c * s - z * s in registers, exact in f32 (an integer of
 //     at most 8 bits times an 8-bit mantissa), so every group's part is
 //     scaled before it joins the f32 sum and no group sum of x is needed.
+//     The int8-x form (the TPU kernel's xdt='i8', W2A8-g / W4A8-g) stages
+//     x as the f32 values of the int8 codes xq (exact) and multiplies the
+//     sum by the row's scale xs[m] once, after the K-split reduction, as
+//     the TPU kernel scales its accumulator at the last chunk.  Its
+//     products are exact; only the order of the f32 sums differs from the
+//     TPU kernel's per-group int32 dots.
 //   w4a16: w = bf16((c - bf16(z)) * bf16(s)) from the f32 scale and int32
 //     zero point in natural group order, as the TPU kernel rounds the
 //     dequantised weight to bf16 before its two bf16 products.
@@ -144,15 +150,16 @@ __device__ __forceinline__ void load_side(const void* side_s,
   }
 }
 
-template <int P, int MODE>
+template <int P, int MODE, bool XI8>
 __global__ void __launch_bounds__(kThreads)
-gemv_partial(const __nv_bfloat16* __restrict__ x,
+gemv_partial(const void* __restrict__ x,    // bf16, or int8 when XI8
              const uint8_t* __restrict__ w,
              const float* __restrict__ scale,   // channelwise only
              const int* __restrict__ zp,
              const float* __restrict__ xsum,
              const void* __restrict__ side_s,   // grouped only
              const void* __restrict__ side_z,
+             const float* __restrict__ xs,      // int8 x only: row scales
              int gs, int ch,
              void* __restrict__ out,
              float* __restrict__ partial,       // null: write `out` directly
@@ -188,10 +195,20 @@ gemv_partial(const __nv_bfloat16* __restrict__ x,
       const int mi = i / nrows, r = i % nrows;
       float* dst = smem + (r * kMT + mi) * P;
       const bool live = m0 + mi < m;
-      const __nv_bfloat16* xr = x + (size_t)(m0 + mi) * k + c0 + r;
+      const size_t e = (size_t)(m0 + mi) * k + c0 + r;
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-        dst[p] = live ? __bfloat162float(xr[(size_t)p * rows]) : 0.f;
+      for (int p = 0; p < P; ++p) {
+        float v = 0.f;
+        if (live) {
+          if constexpr (XI8) {
+            v = (float)static_cast<const int8_t*>(x)[e + (size_t)p * rows];
+          } else {
+            v = __bfloat162float(
+                static_cast<const __nv_bfloat16*>(x)[e + (size_t)p * rows]);
+          }
+        }
+        dst[p] = v;
+      }
     }
     __syncthreads();
 
@@ -270,17 +287,20 @@ gemv_partial(const __nv_bfloat16* __restrict__ x,
       const float zs = (float)zp[cl] * sc;
       store_out(out, (size_t)row * n + cl, s * sc - xsum[row] * zs, out_bf16);
     } else {
-      store_out(out, (size_t)row * n + cl, s, out_bf16);
+      store_out(out, (size_t)row * n + cl, XI8 ? __fmul_rn(s, xs[row]) : s,
+                out_bf16);
     }
   }
 }
 
 // Second pass of a K split: the f32 partials summed in split order, then
-// the channelwise fold (scale != null) or nothing (grouped).
+// the channelwise fold (scale != null), the int8-x row scale (xs != null)
+// or nothing (grouped, bf16 x).
 __global__ void gemv_reduce(const float* __restrict__ partial,
                             const float* __restrict__ scale,
                             const int* __restrict__ zp,
                             const float* __restrict__ xsum,
+                            const float* __restrict__ xs,
                             void* __restrict__ out,
                             int m, int n, int ksplit, int out_bf16) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -291,21 +311,25 @@ __global__ void gemv_reduce(const float* __restrict__ partial,
   if (scale != nullptr) {
     const float sc = scale[col];
     s = s * sc - xsum[row] * ((float)zp[col] * sc);
+  } else if (xs != nullptr) {
+    s = __fmul_rn(s, xs[row]);
   }
   store_out(out, i, s, out_bf16);
 }
 
-template <int P, int MODE>
+template <int P, int MODE, bool XI8 = false>
 int launch(const void* x, const void* w, const void* scale, const void* zp,
-           const void* xsum, const void* side_s, const void* side_z, int gs,
-           int ch, void* out, void* partial, int m, int k, int n, int ksplit,
-           int rows_per_split, int out_bf16, void* stream) {
+           const void* xsum, const void* side_s, const void* side_z,
+           const void* xs, int gs, int ch, void* out, void* partial, int m,
+           int k, int n, int ksplit, int rows_per_split, int out_bf16,
+           void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   dim3 grid(n / kCols, ksplit, (m + kMT - 1) / kMT);
-  gemv_partial<P, MODE><<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
+  gemv_partial<P, MODE, XI8><<<grid, kThreads, 0, st>>>(
+      x, static_cast<const uint8_t*>(w),
       static_cast<const float*>(scale), static_cast<const int*>(zp),
-      static_cast<const float*>(xsum), side_s, side_z, gs, ch, out,
+      static_cast<const float*>(xsum), side_s, side_z,
+      static_cast<const float*>(xs), gs, ch, out,
       ksplit > 1 ? static_cast<float*>(partial) : nullptr, m, k, n,
       rows_per_split, out_bf16);
   if (ksplit > 1) {
@@ -313,8 +337,9 @@ int launch(const void* x, const void* w, const void* scale, const void* zp,
     gemv_reduce<<<(total + 255) / 256, 256, 0, st>>>(
         static_cast<const float*>(partial),
         MODE == kChannel ? static_cast<const float*>(scale) : nullptr,
-        static_cast<const int*>(zp), static_cast<const float*>(xsum), out, m,
-        n, ksplit, out_bf16);
+        static_cast<const int*>(zp), static_cast<const float*>(xsum),
+        XI8 ? static_cast<const float*>(xs) : nullptr, out, m, n, ksplit,
+        out_bf16);
   }
   return (int)cudaGetLastError();
 }
@@ -331,8 +356,8 @@ int launch(const void* x, const void* w, const void* scale, const void* zp,
                       const void* zp, const void* xsum, void* out,           \
                       void* partial, int m, int k, int n, int ksplit,        \
                       int rows_per_split, int out_bf16, void* stream) {      \
-    return launch<P, kChannel>(x, w, scale, zp, xsum, nullptr, nullptr, 1,   \
-                               1, out, partial, m, k, n, ksplit,             \
+    return launch<P, kChannel>(x, w, scale, zp, xsum, nullptr, nullptr,      \
+                               nullptr, 1, 1, out, partial, m, k, n, ksplit, \
                                rows_per_split, out_bf16, stream);            \
   }
 
@@ -342,20 +367,33 @@ PQ_CHANNEL_ENTRY(pq_w2_gemv, 4)
 
 // Grouped, chunk form: s_chunk [k/gs, n] bf16 and z_chunk [k/gs, n] int8 in
 // chunk-major order with chunk factor ch; planes 2 (INT4) or 4 (INT2);
-// (k / planes) % gs == 0 and rows_per_split a multiple of gs.
+// (k / planes) % gs == 0 and rows_per_split a multiple of gs.  x is bf16
+// when xs is null, else int8 codes with row scales xs [m] f32.
+template <int P>
+int launch_chunk(const void* x, const void* w, const void* s_chunk,
+                 const void* z_chunk, const void* xs, void* out,
+                 void* partial, int m, int k, int n, int gs, int ch,
+                 int ksplit, int rows_per_split, int out_bf16, void* stream) {
+  if (xs != nullptr)
+    return launch<P, kChunk, true>(x, w, nullptr, nullptr, nullptr, s_chunk,
+                                   z_chunk, xs, gs, ch, out, partial, m, k, n,
+                                   ksplit, rows_per_split, out_bf16, stream);
+  return launch<P, kChunk>(x, w, nullptr, nullptr, nullptr, s_chunk, z_chunk,
+                           nullptr, gs, ch, out, partial, m, k, n, ksplit,
+                           rows_per_split, out_bf16, stream);
+}
+
 extern "C" int pq_wg_gemv(const void* x, const void* w, const void* s_chunk,
-                          const void* z_chunk, void* out, void* partial,
-                          int m, int k, int n, int gs, int ch, int planes,
-                          int ksplit, int rows_per_split, int out_bf16,
-                          void* stream) {
+                          const void* z_chunk, const void* xs, void* out,
+                          void* partial, int m, int k, int n, int gs, int ch,
+                          int planes, int ksplit, int rows_per_split,
+                          int out_bf16, void* stream) {
   if (planes == 4)
-    return launch<4, kChunk>(x, w, nullptr, nullptr, nullptr, s_chunk,
-                             z_chunk, gs, ch, out, partial, m, k, n, ksplit,
-                             rows_per_split, out_bf16, stream);
+    return launch_chunk<4>(x, w, s_chunk, z_chunk, xs, out, partial, m, k, n,
+                           gs, ch, ksplit, rows_per_split, out_bf16, stream);
   if (planes == 2)
-    return launch<2, kChunk>(x, w, nullptr, nullptr, nullptr, s_chunk,
-                             z_chunk, gs, ch, out, partial, m, k, n, ksplit,
-                             rows_per_split, out_bf16, stream);
+    return launch_chunk<2>(x, w, s_chunk, z_chunk, xs, out, partial, m, k, n,
+                           gs, ch, ksplit, rows_per_split, out_bf16, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -365,7 +403,7 @@ extern "C" int pq_w4g_gemv(const void* x, const void* w, const void* scale,
                            const void* zp, void* out, void* partial, int m,
                            int k, int n, int gs, int ksplit,
                            int rows_per_split, int out_bf16, void* stream) {
-  return launch<2, kW4A16>(x, w, nullptr, nullptr, nullptr, scale, zp, gs, 1,
-                           out, partial, m, k, n, ksplit, rows_per_split,
-                           out_bf16, stream);
+  return launch<2, kW4A16>(x, w, nullptr, nullptr, nullptr, scale, zp,
+                           nullptr, gs, 1, out, partial, m, k, n, ksplit,
+                           rows_per_split, out_bf16, stream);
 }

@@ -24,7 +24,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("qmatmul_gemv.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
+SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
            "dequantize.cu", "requantize.cu", "minmax.cu")
 HEADERS = ("pq_quant.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
@@ -39,12 +39,17 @@ SIGNATURES = {
     "pq_w4_gemv": [_P] * 7 + [_I] * 6 + [_P],
     "pq_w8_gemv": [_P] * 7 + [_I] * 6 + [_P],
     "pq_w2_gemv": [_P] * 7 + [_I] * 6 + [_P],
-    # x, w, s_chunk, z_chunk, out, partial, m, k, n, gs, ch, planes, ksplit,
-    # rows, out_bf16, stream
-    "pq_wg_gemv": [_P] * 6 + [_I] * 9 + [_P],
+    # x, w, s_chunk, z_chunk, xs, out, partial, m, k, n, gs, ch, planes,
+    # ksplit, rows, out_bf16, stream
+    "pq_wg_gemv": [_P] * 7 + [_I] * 9 + [_P],
     # x, w, scale, zp, out, partial, m, k, n, gs, ksplit, rows, out_bf16,
     # stream
     "pq_w4g_gemv": [_P] * 6 + [_I] * 7 + [_P],
+    # xq, xs, w, scale, zs, xsum, out, partial, m, k, n, bm, ksplit, rows,
+    # out_bf16, stream
+    "pq_w4a8": [_P] * 8 + [_I] * 7 + [_P],
+    "pq_w8a8": [_P] * 8 + [_I] * 7 + [_P],
+    "pq_w2a8": [_P] * 8 + [_I] * 7 + [_P],
     # q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer,
     # nb, nh, rep, s_len, sm_scale, stream
     "pq_decode_attn2": [_P] * 12 + [_I] * 5 + [_F, _P],

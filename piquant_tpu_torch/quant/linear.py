@@ -15,8 +15,17 @@ Grouped weights carry (G, N) scales and zero points, and for the grouped
 decode kernel the same values chunk-major as bf16 scales and int8 zero
 points (`s_chunk`, `z_chunk`, see `_grouped_cache`).
 
-NF4 codebooks, stochastic rounding and activation-quantized matmuls are not
-ported yet and raise NotImplementedError.
+Activation quantization (`quantized_matmul(act_quant=...)`, W4A8 / W8A8 /
+W2A8 and grouped W4A8-g / W2A8-g) quantizes x per token to int8
+(`_quantize_act`) and runs exact int32 products against the raw codes:
+    y = ((xq @ c) * s - (sum_k xq) * (zp * s)) * xs.
+It follows the reference's accelerator route, gate for gate: where a
+kernel gate declines, the call runs the weight-only path on the
+unquantized x (ROADMAP.md section 3 lists where that differs from the
+reference's CPU fallback, which quantizes at every shape).
+
+NF4 codebooks and stochastic rounding are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,8 +40,11 @@ import torch
 from piquant_tpu_torch.ops.cuda import qmatmul as _qmm
 from piquant_tpu_torch.ops.reference import round_half_away
 
-ACT_QUANT_MIN_M = 256   # the reference's prefill-sized M: grouped weights
-                        # at or above it run one dense bf16 product
+ACT_QUANT_MIN_M = 256   # the reference's prefill-sized M: act_quant=True
+                        # quantizes activations at or above it (INT8
+                        # weights only there, also under "all"), and
+                        # grouped weights at or above it run one dense bf16
+                        # product on the weight-only route
 
 
 # ---------------------------------------------------------------------------
@@ -349,22 +361,50 @@ def _matmul_dequant(x: torch.Tensor, ql: QuantizedLinear,
     return (acc * scale - xsum * (zp * scale)).to(out_dtype)
 
 
+def _quantize_act(x: torch.Tensor):
+    """Dynamic per-token symmetric int8 activation quantization, the
+    reference's op for op: xs = max(amax, 1e-8) / 127 in f32 and xq =
+    clip(round(x / xs), -127, 127) with a true division and round half to
+    even (torch.round, as jnp.round; not the library core's half-away)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    xs = torch.clamp_min(amax, 1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xq, xs
+
+
 def quantized_matmul(x: torch.Tensor, ql: QuantizedLinear,
                      out_dtype=torch.bfloat16, *,
-                     act_quant: bool = False) -> torch.Tensor:
+                     act_quant=False) -> torch.Tensor:
     """y = x @ dequant(W) with the weight kept packed, in the reference's
-    order of routes on every device: the decode-sized kernels
-    (ops/cuda/qmatmul.py); for grouped weights at prefill-sized M one dense
-    product against the weight dequantized to bf16; else the dequant path."""
+    order of routes on the accelerator: with act_quant (True: M >=
+    ACT_QUANT_MIN_M; "all": every M; INT8 weights only at M >=
+    ACT_QUANT_MIN_M) the int8-activation kernels where their gates take
+    the shape; then the decode-sized kernels (ops/cuda/qmatmul.py); for
+    grouped weights at prefill-sized M one dense product against the weight
+    dequantized to bf16; else the dequant path."""
     if x.shape[-1] != ql.k:
         raise ValueError(f"x last dim {x.shape[-1]} != weight K {ql.k}")
-    if act_quant:
-        raise NotImplementedError("activation-quantized (W4A8/W8A8) "
-                                  "matmuls are not ported yet")
+    lead = x.shape[:-1]
+    m = 1
+    for d in lead:
+        m *= d
+    use_a8 = (bool(act_quant)
+              and (ql.group_size is None or ql.s_chunk is not None)
+              and ql.bits in (2, 4, 8)
+              and (ql.bits != 8 or m >= ACT_QUANT_MIN_M)
+              and (act_quant == "all" or m >= ACT_QUANT_MIN_M))
+    if use_a8:
+        xq, xs = _quantize_act(x.reshape(m, ql.k))
+        a8 = {2: _qmm.w2a8_matmul, 4: _qmm.w4a8_matmul,
+              8: _qmm.w8a8_matmul}[ql.bits]
+        y = a8(xq, xs, ql, out_dtype)
+        if y is not None:
+            return y.reshape(*lead, ql.n).to(out_dtype)
     y = _qmm.quantized_matmul(x, ql, out_dtype)
     if y is not None:
         return y
-    if ql.group_size is not None and x.numel() // ql.k >= ACT_QUANT_MIN_M:
+    if ql.group_size is not None and m >= ACT_QUANT_MIN_M:
         w = ql.dequantize(torch.bfloat16)
         return dot_f32(x.to(torch.bfloat16), w).to(out_dtype)
     return _matmul_dequant(x, ql, out_dtype)

@@ -9,6 +9,8 @@ benchmark through the continuous-batching engine.  Runs on the GPU;
 Examples:
   python -m piquant_tpu_torch.serving --random llama3_8b --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --group-size 128 --benchmark 8
+  python -m piquant_tpu_torch.serving --random llama3_8b --act-quant-prefill --benchmark 8
+  python -m piquant_tpu_torch.serving --random tiny --device cpu --bits 2 --act-quant-decode --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu 1,2,3 4,5
 
@@ -19,6 +21,7 @@ NotImplementedError naming the ROADMAP.md item that ports them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -69,8 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--repetition-penalty", type=float, default=1.0)
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--attn-windows", default=None)
-    ap.add_argument("--act-quant-prefill", action="store_true")
-    ap.add_argument("--act-quant-decode", action="store_true")
+    ap.add_argument("--act-quant-prefill", action="store_true",
+                    help="int8 per-token activations for prefill-sized "
+                         "matmuls (M >= 256)")
+    ap.add_argument("--act-quant-decode", action="store_true",
+                    help="int8 per-token activations at every M, decode "
+                         "included")
     ap.add_argument("--speculate", type=int, default=0)
     ap.add_argument("--draft-bits", type=_bits_arg, default=None,
                     choices=[2, 4, 8, "nf4"])
@@ -99,8 +106,6 @@ def _not_ported(args) -> None:
         todo.append("nf4 weights (queue 1 item 12)")
     if args.kv_bits != 8:
         todo.append("--kv-bits 4 (queue 1 item 11)")
-    if args.act_quant_prefill or args.act_quant_decode:
-        todo.append("--act-quant-* (queue 1 item 12)")
     if args.speculate or args.draft_bits is not None or args.draft_group_size:
         todo.append("--speculate / --draft-* (queue 1 item 15)")
     if args.prefill_chunk is not None or args.attn_windows:
@@ -139,7 +144,9 @@ def build(args):
 
     dev = resolve_device(args.device)
     preset = args.random or "tiny"
-    cfg = getattr(M.LlamaConfig, preset)()
+    cfg = dataclasses.replace(getattr(M.LlamaConfig, preset)(),
+                              act_quant_prefill=args.act_quant_prefill,
+                              act_quant_decode=args.act_quant_decode)
     mlp = _mlp_overrides(args)
     if preset == "llama3_8b":
         mlp_bits, mlp_gs = mlp["w1"] if mlp else (None, None)

@@ -142,11 +142,45 @@ def test_cli_prompts(capsys):
     assert all(len(t) == 3 and all(0 <= v < 256 for v in t) for t in toks)
 
 
+# Activation quantization on the tiny model: its 256-wide projections are
+# off the a8 kernels' K % 512 gate and take the weight-only route, except
+# the INT2-g32 w2 (K 512), which takes the chunk kernel with int8 x at
+# decode M.
+@pytest.mark.parametrize("flags,int8_chunk", [
+    (("--act-quant-prefill",), False),
+    (("--bits", "2", "--act-quant-decode"), False),
+    (("--mlp-bits", "2", "--mlp-group-size", "32", "--act-quant-decode"),
+     True)])
+def test_cli_act_quant(monkeypatch, flags, int8_chunk):
+    from piquant_tpu_torch.ops.cuda import qmatmul as TQ
+
+    int8_calls = []
+    plain = TQ.wg_chunk_plain
+
+    def counted(x, *a, **k):
+        int8_calls.append(x.dtype == torch.int8)
+        return plain(x, *a, **k)
+
+    monkeypatch.setattr(TQ, "wg_chunk_plain", counted)
+    args = S.build_parser().parse_args(
+        ["--random", "tiny", "--device", "cpu", "--benchmark", "2",
+         "--max-new", "4", "--max-seq-len", "256", *flags])
+    cfg, _, eng, sp = S.build(args)
+    assert (cfg.act_quant_prefill, cfg.act_quant_decode) == (
+        "--act-quant-prefill" in flags, "--act-quant-decode" in flags)
+    m, done = S.benchmark(args, cfg, eng, sp)
+    assert m["completed"] == 2 and m["decode_tokens"] == 2 * 3
+    for r in done:
+        assert len(r.tokens) == 4 and all(0 <= t < 256 for t in r.tokens)
+        assert all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs)
+    assert any(int8_calls) == int8_chunk
+
+
 @pytest.mark.parametrize("argv", [
     ["--model", "/no/such/checkpoint"], ["--random", "mistral_7b"],
     ["--random", "mixtral_8x7b"], ["--random", "mla_tiny"],
     ["--bits", "nf4"], ["--mlp-bits", "nf4"], ["--kv-bits", "4"],
-    ["--act-quant-prefill"], ["--act-quant-decode"], ["--speculate", "4"],
+    ["--speculate", "4"],
     ["--draft-bits", "2", "--speculate", "2"], ["--prefill-chunk", "256"],
     ["--attn-windows", "512,1024"], ["--repetition-penalty", "1.1"],
     ["--serve", "8123"]])

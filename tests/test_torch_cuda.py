@@ -184,6 +184,91 @@ def test_quantized_gemvs_refuse(dev):
                      qg.zero_point, 32, torch.bfloat16)
 
 
+def _a8_inputs(dev, m, k, n, bits, seed):
+    """Per-token int8 activations of a N(0, 1) x and a random channelwise
+    weight's a8 operands, as the dispatch hands them over."""
+    from piquant_tpu_torch.quant.linear import _quantize_act
+
+    ql = _qlin(dev, k, n, bits, None, seed)
+    xq, xs = _quantize_act(_x(dev, m, k, seed + 1))
+    shift = 128 if bits == 8 else 0
+    return (xq, xs, ql.data, *Q.a8_operands(xq, ql, shift))
+
+
+A8 = {2: ("w2a8", 4), 4: ("w4a8", 2), 8: ("w8a8", 1)}
+
+
+# Bit for bit: int32 accumulation is exact in both, and the epilogue runs
+# unfused in the reference's order (__fmul_rn / __fsub_rn).  M covers the
+# three tile heights (16, 64, 128 rows) and their ragged edges; the small
+# weights at small M split K over blocks, the large ones at M 1000 do not.
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 33, 64, 65, 256, 1000])
+@pytest.mark.parametrize("bits,k,n", [(4, 512, 256), (4, 4096, 1024),
+                                      (4, 14336, 4096), (8, 512, 384),
+                                      (8, 4096, 14336), (2, 512, 384),
+                                      (2, 14336, 4096)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_a8_matches_plain(dev, m, bits, k, n, out_dtype):
+    name, _ = A8[bits]
+    kern, plain = getattr(Q, name), getattr(Q, name + "_plain")
+    ops = _a8_inputs(dev, m, k, n, bits, m + k + n)
+    before = kern.launches
+    got = kern(*ops, out_dtype)
+    assert kern.launches == before + 1
+    torch.testing.assert_close(got, plain(*ops, out_dtype), atol=0, rtol=0)
+
+
+def test_a8_refuses(dev):
+    xq, xs, data, s, zs, xsum = _a8_inputs(dev, 8, 512, 256, 4, 3)
+    with pytest.raises(TypeError):                    # bf16 x
+        Q.w4a8(xq.to(torch.bfloat16), xs, data, s, zs, xsum, torch.bfloat16)
+    with pytest.raises(ValueError):                   # codes not contiguous
+        Q.w4a8(xq, xs, data.t().contiguous().t(), s, zs, xsum, torch.bfloat16)
+    with pytest.raises(ValueError):                   # N % 128
+        Q.w4a8(xq, xs, data[:, :200].contiguous(), s[:200].contiguous(),
+               zs[:200].contiguous(), xsum, torch.bfloat16)
+    with pytest.raises(ValueError):                   # xs of another M
+        Q.w4a8(xq, xs[:4].contiguous(), data, s, zs, xsum, torch.bfloat16)
+
+
+# The int8-x chunk form: atol 2e-2, rtol 1e-2 as the bf16-x form (exact
+# products; the f32 sums run in another order).
+@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("bits,k,n,gs", [(4, 512, 256, 32), (4, 4096, 1024, 128),
+                                         (2, 1024, 256, 32), (2, 14336, 4096, 32)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_wg_chunk_int8_matches_plain(dev, m, bits, k, n, gs, out_dtype):
+    from piquant_tpu_torch.quant.linear import (_quantize_act,
+                                                grouped_chunk_factor)
+
+    ql = _qlin(dev, k, n, bits, gs, k + gs + 2)
+    ch = grouped_chunk_factor(k, gs, Q.PLANES[bits])
+    xq, xs = _quantize_act(_x(dev, m, k, m + 3))
+    before = Q.wg_chunk.launches
+    got = Q.wg_chunk(xq, ql.data, ql.s_chunk, ql.z_chunk, gs, ch, out_dtype,
+                     xs).float()
+    assert Q.wg_chunk.launches == before + 1
+    want = Q.wg_chunk_plain(xq, ql.data, ql.s_chunk, ql.z_chunk, gs, ch,
+                            out_dtype, xs).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+def test_act_quant_routes_on_card(dev):
+    """quantized_matmul(act_quant=...) launches the a8 kernels where the
+    gates take the shape, and nothing falls back to a plain version."""
+    from piquant_tpu_torch.quant.linear import quantized_matmul
+
+    ql4 = _qlin(dev, 4096, 1024, 4, None, 5)
+    ql8 = _qlin(dev, 14336, 256, 8, None, 6)
+    before = (Q.w4a8.launches, Q.w8a8.launches, Q.w4_gemv.launches)
+    quantized_matmul(_x(dev, 300, 4096, 7), ql4, act_quant=True)
+    quantized_matmul(_x(dev, 8, 4096, 8), ql4, act_quant="all")
+    quantized_matmul(_x(dev, 8, 4096, 9), ql4, act_quant=True)   # decode M
+    quantized_matmul(_x(dev, 300, 14336, 10), ql8, act_quant=True)  # K > 8192
+    assert (Q.w4a8.launches, Q.w8a8.launches, Q.w4_gemv.launches) == (
+        before[0] + 2, before[1], before[2] + 1)
+
+
 # Normalized context element by element within atol 2e-3, rtol 2e-2; m to
 # f32 rounding; l within 2e-2 (bf16 probabilities at different running
 # maxima in the two).
