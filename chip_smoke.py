@@ -34,6 +34,17 @@ Phases (any failure exits non-zero):
      against their plain versions at the Llama-3-8B projections (M = 1024,
      8, 1, 33, 1000), and the chunk kernel's int8-x form (INT2-g32 MLP,
      INT4-g128) at M = 8, 1, 33, with times, bounds and yardsticks;
+  9. Mixtral-8x7B MoE: (a) the ragged expert GEMMs (wq_ragged,
+     wq_ragged_grouped, wq_ragged_a8) against their plain versions at the
+     Mixtral expert shapes, routed from a random router over 1024 tokens
+     (one expert without a token, one with nearly all), in INT4 / INT2 /
+     INT8, INT4-g128 / INT2-g32 and int8-x INT4 / INT2, with times, bounds
+     and a torch._grouped_mm yardstick; (b) one full-width MoE layer's
+     ragged route against its dense-masked route at 256 tokens; (c) `python
+     -m piquant_tpu_torch.serving --random mixtral_8x7b --benchmark 8
+     --max-new 32` in process (INT4, --group-size 128, --act-quant-prefill)
+     with exact launch counts, greedy tokens against single-request
+     generation, its metrics and peak memory;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -41,6 +52,7 @@ then one JSON line with the kernels, and a last JSON line
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -412,6 +424,7 @@ def kernel_wrappers():
     from piquant_tpu_torch.ops.cuda import minmax as MM
     from piquant_tpu_torch.ops.cuda import qmatmul as Q
     from piquant_tpu_torch.ops.cuda import quantize as QK
+    from piquant_tpu_torch.ops.cuda import ragged as R
     from piquant_tpu_torch.ops.cuda import requantize as RQ
 
     return {"w4_gemv": Q.w4_gemv, "decode_attn2": DA.decode_attn2,
@@ -420,7 +433,9 @@ def kernel_wrappers():
             "min_max": MM.min_max, "w8_gemv": Q.w8_gemv,
             "w2_gemv": Q.w2_gemv, "wg_chunk": Q.wg_chunk,
             "w4_grouped": Q.w4_grouped, "w4a8": Q.w4a8, "w8a8": Q.w8a8,
-            "w2a8": Q.w2a8}
+            "w2a8": Q.w2a8, "wq_ragged": R.wq_ragged,
+            "wq_ragged_grouped": R.wq_ragged_grouped,
+            "wq_ragged_a8": R.wq_ragged_a8}
 
 
 def zero_counts() -> None:
@@ -708,12 +723,18 @@ def time_library(torch, dev, gen, n, errs):
 # phase 5: the engine at full Llama-3-8B width
 # ---------------------------------------------------------------------------
 
-def generate_single(torch, M, cfg, params, prompt, n_new, dev):
-    """The port's own single-request greedy prefill + decode."""
-    cache = M.init_kv_cache(cfg, 1, max_len=len(prompt) + n_new, device=dev)
-    logits, cache = M.prefill(cfg, params, torch.tensor([prompt], device=dev,
-                                                        dtype=torch.int32),
-                              cache)
+def generate_single(torch, M, cfg, params, prompt, n_new, dev, width=None,
+                    max_len=None):
+    """The port's own single-request greedy prefill + decode; with `width`
+    the prompt is right-padded to it and prefilled into a cache of
+    `max_len` positions, as the engine runs a request admitted alone."""
+    toks = list(prompt) + [0] * ((width or len(prompt)) - len(prompt))
+    cache = M.init_kv_cache(cfg, 1, max_len=max_len or len(prompt) + n_new,
+                            device=dev)
+    logits, cache = M.prefill(
+        cfg, params, torch.tensor([toks], device=dev, dtype=torch.int32),
+        cache, last_positions=torch.tensor([len(prompt) - 1], device=dev,
+                                           dtype=torch.int32))
     toks = []
     tok = int(logits.argmax(-1)[0])
     pos = len(prompt)
@@ -1190,9 +1211,354 @@ def run_cli(torch, dev, args):
             flush=True)
         for k in total:
             total[k] += launches[k]
-        del params, eng, done
+        # the counting wrappers close over the engine's bound methods: a
+        # reference cycle, freed only by the collector
+        del params, eng, done, dispatch, admit
+        gc.collect()
         torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Mixtral-8x7B MoE
+# ---------------------------------------------------------------------------
+
+MOE_T = 1024                  # tokens routed for the kernel checks
+MOE_E, MOE_K = 8, 2           # Mixtral: 8 experts, top 2
+# (K, N, calls per MoE layer) of the expert projections: w1 / w3, w2
+MOE_SHAPES = ((4096, 14336, 2), (14336, 4096, 1))
+
+
+def moe_routing(torch, dev, gen, t):
+    """The routing of t tokens by a random router whose logits carry a
+    per-expert bias: expert 0 gets no token and expert 1 nearly every one;
+    with the per-expert padded ends (torch._grouped_mm's offsets)."""
+    from piquant_tpu_torch.quant import moe as MO
+
+    x = torch.randn((t, 4096), generator=gen, device=dev)
+    router = torch.randn((4096, MOE_E), generator=gen, device=dev) * 0.02
+    bias = torch.zeros(MOE_E, device=dev)
+    bias[0], bias[1] = -1e4, 4.0
+    probs, topi = torch.softmax(x @ router + bias, dim=-1).topk(MOE_K, dim=-1)
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    r = MO.build_ragged_routing(topi[None], probs[None], MOE_E, 128)
+    counts = torch.bincount(topi.reshape(-1), minlength=MOE_E)
+    ends = torch.cumsum((counts + 127) // 128 * 128, 0).to(torch.int32)
+    return r, counts, ends
+
+
+def random_stack(torch, dev, gen, k, n, bits, gs):
+    """An expert stack of random codes with a scale and zero point of their
+    own per expert, column (and group)."""
+    from piquant_tpu_torch.quant.linear import QuantizedExpertStack
+
+    return QuantizedExpertStack.stack(
+        [random_qlin(torch, dev, gen, k, n, bits, gs) for _ in range(MOE_E)])
+
+
+def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends):
+    """Wrapper `name` (through its dispatch) against its plain version at
+    each expert shape, bf16 and f32 output; then its device ms, the plain
+    version's, the yardstick's and the bound, summed over one MoE layer's
+    calls.  The bound counts the A = 2048 assignments' operations (2 A K N
+    at the bf16 peak, the int8 peak for int8 x) and bytes (their x, the
+    stacks of the experts that have a token with their side streams, the
+    bf16 output)."""
+    from piquant_tpu_torch.ops.cuda import ragged as R
+    from piquant_tpu_torch.quant import moe as MO
+    from piquant_tpu_torch.quant.linear import _quantize_act
+
+    a8 = name == "wq_ragged_a8"
+    kern, plain = getattr(R, name), getattr(R, name + "_plain")
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, ops=0.0)
+    err = 0.0
+    a = int(counts.sum())
+    used = int((counts > 0).sum())
+    for k, n, uses in MOE_SHAPES:
+        st = random_stack(torch, dev, gen, k, n, bits, gs)
+        xs = MO.scatter_tokens(torch.randn((MOE_T, k), generator=gen,
+                                           device=dev).to(torch.bfloat16), r)
+        be = r.block_expert
+        if a8:
+            xq, xsc = _quantize_act(xs)
+            s, zs = R._channel_side(st)
+            ops = (xq, xsc, st.data, s, zs, xq.float().sum(1, keepdim=True),
+                   be)
+        elif gs:
+            ops = (xs, st.data, st.scale, st.zero_point, gs, be)
+        else:
+            s, zs = R._channel_side(st)
+            ops = (xs, st.data, s, zs, xs.float().sum(1, keepdim=True), be)
+        for odt in (torch.bfloat16, torch.float32):
+            if a8:
+                got = R.wq_ragged_matmul_a8(xq, xsc, st, be, odt)
+                e = same(torch, f"{name} K={k} N={n} {odt}", got,
+                         plain(*ops, odt))
+            else:
+                got = R.wq_ragged_matmul(xs, st, be, odt)
+                # atol 2e-2, rtol 1e-2: bf16 operands in both, f32 sums in
+                # another order, one bf16 output rounding
+                e = hold(torch, f"{name} K={k} N={n} {odt}", got.float(),
+                         plain(*ops, odt).float(), 2e-2, 1e-2)
+            err = max(err, e)
+            pad = torch.ones(xs.shape[0], dtype=torch.bool, device=dev)
+            pad[r.dest] = False
+            if got[pad].any():
+                raise AssertionError(f"{name}: a padding row is not zero")
+        t_k = cuda_ms(lambda i: kern(*ops, torch.bfloat16), 10)
+        t_p = event_ms(lambda i: plain(*ops, torch.bfloat16), 2, warmup=1)
+        # yardstick, never called by the port: one torch._grouped_mm over
+        # the bf16-dequantized stack with the experts' padded ends
+        w = torch.stack([st.expert(i).dequantize(torch.bfloat16)
+                         for i in range(MOE_E)])
+        t_l = event_ms(lambda i: torch._grouped_mm(xs, w, offs=ends), 10)
+        print(f"{name} K={k} N={n}: max_abs_err {err:.3e}; kernel {t_k:.4f} "
+              f"ms, plain {t_p:.4f} ms, torch._grouped_mm {t_l:.4f} ms",
+              flush=True)
+        tot["ms"] += uses * t_k
+        tot["plain_ms"] += uses * t_p
+        tot["library_ms"] += uses * t_l
+        g = k // gs if gs else 1
+        side = used * g * n * 8
+        tot["nbytes"] += uses * (a * k * (1 if a8 else 2) + a * 8
+                                 + used * k * n * bits / 8 + side
+                                 + a * n * 2)
+        tot["ops"] += uses * 2.0 * a * k * n
+        del st, xs, ops, w
+    b, by = bound_ms(tot["nbytes"], tot["ops"],
+                     INT8_OP_PER_S if a8 else BF16_FLOP_PER_S)
+    return dict(max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=b, bound_by=by, library_ms=tot["library_ms"],
+                library_call="torch._grouped_mm (bf16 dequantized stack)")
+
+
+def check_moe_kernels(torch, dev, gen):
+    """Phase 9 (a): one kernels-line row per ragged wrapper, its main format
+    first and the others as variants."""
+    r, counts, ends = moe_routing(torch, dev, gen, MOE_T)
+    print(f"moe: {MOE_T} tokens routed top {MOE_K} of {MOE_E}: tokens per "
+          f"expert {counts.tolist()}, m_pad {r.m_pad}", flush=True)
+    if int(counts[0]) or int(counts[1]) < MOE_T * 9 // 10:
+        raise AssertionError("moe: the routing lost its zero-token or its "
+                             "nearly-all expert")
+    card = card_line()
+    rows = []
+    for name, replaces, formats in (
+            ("wq_ragged", "90 (_wq_ragged_kernel)",
+             (("INT4", 4, None), ("INT2", 2, None), ("INT8", 8, None))),
+            ("wq_ragged_grouped", "152 (_wq_ragged_grouped_kernel)",
+             (("INT4-g128", 4, 128), ("INT2-g32", 2, 32))),
+            ("wq_ragged_a8", "240 (_wq_ragged_a8_kernel)",
+             (("int8-x INT4", 4, None), ("int8-x INT2", 2, None)))):
+        res = {}
+        for tag, bits, gs in formats:
+            res[tag] = check_ragged(torch, dev, gen, name, bits, gs, r,
+                                    counts, ends)
+            x = res[tag]
+            print(f"{name} {tag}: kernel {x['ms']:.4f} ms, bound "
+                  f"{x['bound_ms']:.4f} ms ({x['bound_by']}), plain "
+                  f"{x['plain_ms']:.4f} ms, {x['library_call']} "
+                  f"{x['library_ms']:.4f} ms [one Mixtral MoE layer, "
+                  f"{MOE_T} tokens; {card}]", flush=True)
+            torch.cuda.empty_cache()
+        main, *rest = formats
+        row = dict(name=name, route="cuda",
+                   source=("piquant_tpu_torch/csrc/qmatmul_a8.cu"
+                           if name == "wq_ragged_a8" else
+                           "piquant_tpu_torch/csrc/qmatmul_ragged.cu"),
+                   replaces=f"piquant_tpu/ops/pallas/qmatmul.py:{replaces}",
+                   timed=f"one Mixtral MoE layer at {main[0]} (w1, w3, w2), "
+                         f"{MOE_T} tokens, m_pad {r.m_pad}",
+                   **res[main[0]],
+                   variants={f[0]: res[f[0]] for f in rest})
+        row["max_abs_err"] = max(v["max_abs_err"] for v in res.values())
+        rows.append(row)
+    return rows
+
+
+def check_moe_routes(torch, dev, args):
+    """Phase 9 (b): one full-width Mixtral MoE layer, its ragged route
+    against its dense-masked route at 256 tokens (the same function): INT4
+    and INT4-g128 within 2e-2, and int8 activations (--act-quant-prefill)
+    within 3e-2, the bounds of the reference's tests/test_moe.py."""
+    import dataclasses
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.ops.cuda import ragged as R
+
+    base = dataclasses.replace(M.LlamaConfig.mixtral_8x7b(), n_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((1, 256, 4096), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    for tag, kw, aqp, bound, kern in (
+            ("INT4", {}, False, 2e-2, R.wq_ragged),
+            ("INT4-g128", {"group_size": 128}, False, 2e-2,
+             R.wq_ragged_grouped),
+            ("int8-x INT4", {}, True, 3e-2, R.wq_ragged_a8)):
+        cfg = dataclasses.replace(base, act_quant_prefill=aqp)
+        layer = M.random_quantized_params(cfg, args.seed, device=dev,
+                                          **kw)["layers"][0]
+        probs, topi = torch.softmax(x.float() @ layer["router"].float(),
+                                    dim=-1).topk(2, dim=-1)
+        probs = probs / probs.sum(dim=-1, keepdim=True)
+        before = kern.launches
+        ragged = M._moe_ragged_try(cfg, layer, x, probs, topi)
+        if ragged is None or kern.launches != before + 3:
+            raise AssertionError(f"moe routes [{tag}]: the ragged route "
+                                 "did not run its kernel")
+        dense = M._moe_dense(cfg, layer, x, probs, topi, M._act_quant(cfg))
+        err = hold(torch, f"moe ragged vs dense [{tag}]", ragged, dense,
+                   bound, bound)
+        print(f"moe routes [{tag}]: ragged vs dense-masked at 256 tokens, "
+              f"max_abs_err {err:.3e} (max |dense| "
+              f"{float(dense.abs().max()):.3e}, bound {bound})", flush=True)
+        del layer
+        torch.cuda.empty_cache()
+
+
+# flags of each Mixtral CLI run and the wrappers each layer takes by call:
+# "decode" (steps at 8 slots: the dense-masked MoE, 24 expert GEMVs, and 4
+# attention projections), "small" / "mid" / "big" prefill calls of M <= 64,
+# 64 < M < 256 and M >= 256 rows (the ragged MoE from 32 tokens on, under
+# --act-quant-prefill from 256)
+MOE_CLI_RUNS = (
+    ((), {"decode": {"w4_gemv": 28},
+          "small": {"w4_gemv": 4, "wq_ragged": 3},
+          "mid": {"wq_ragged": 3}, "big": {"wq_ragged": 3}}),
+    (("--group-size", "128"),
+     {"decode": {"wg_chunk": 28},
+      "small": {"wg_chunk": 4, "wq_ragged_grouped": 3},
+      "mid": {"wq_ragged_grouped": 3}, "big": {"wq_ragged_grouped": 3}}),
+    (("--act-quant-prefill",),
+     {"decode": {"w4_gemv": 28}, "small": {"w4_gemv": 28}, "mid": {},
+      "big": {"w4a8": 4, "wq_ragged_a8": 3}}),
+)
+MOE_KERNELS = ("w4_gemv", "w8_gemv", "wg_chunk", "w4a8", "wq_ragged",
+               "wq_ragged_grouped", "wq_ragged_a8", "decode_attn2",
+               "flash_prefill")
+
+
+def run_moe_cli(torch, dev, args):
+    """Phase 9 (c): each MOE_CLI_RUNS configuration through the CLI's own
+    build and benchmark at full Mixtral-8x7B width, with its launches,
+    tokens, metrics and peak memory checked.  Returns the ragged wrappers'
+    launches summed over the runs."""
+    import numpy as np
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.serving import __main__ as S
+
+    total = dict.fromkeys(("wq_ragged", "wq_ragged_grouped", "wq_ragged_a8"),
+                          0)
+    for flags, per_layer in MOE_CLI_RUNS:
+        argv = ["--random", "mixtral_8x7b", "--benchmark", "8", "--max-new",
+                "32", *flags]
+        cli_args = S.build_parser().parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, params, eng, sp = S.build(cli_args)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        counts = {"blocks": 0, "prefills": 0, "small": 0, "mid": 0, "big": 0,
+                  "flash_prefills": 0}
+        alone = set()        # requests whose prefill call held them alone
+        dispatch, admit = eng._dispatch_block, eng._admit_one_shot
+
+        def counted_dispatch():
+            counts["blocks"] += 1
+            return dispatch()
+
+        def counted_admit(batch):
+            counts["prefills"] += 1
+            width = eng._padded_len(batch[0][2])
+            rows = len(batch) * width
+            counts["small" if rows <= 64 else "big" if rows >= 256
+                   else "mid"] += 1
+            counts["flash_prefills"] += width % 128 == 0
+            if len(batch) == 1:
+                alone.add(batch[0][0].rid)
+            return admit(batch)
+
+        eng._dispatch_block, eng._admit_one_shot = (counted_dispatch,
+                                                    counted_admit)
+        zero_counts()
+        metrics, done = S.benchmark(cli_args, cfg, eng, sp)
+        torch.cuda.synchronize()
+        wr = kernel_wrappers()
+        launches = {k: wr[k].launches for k in MOE_KERNELS}
+        nl = cfg.n_layers
+        steps = counts["blocks"] * eng.ec.decode_block
+        calls = {"decode": steps, "small": counts["small"],
+                 "mid": counts["mid"], "big": counts["big"]}
+        expect = dict.fromkeys(MOE_KERNELS, 0)
+        for cls, kernels in per_layer.items():
+            for k, per in kernels.items():
+                expect[k] += per * nl * calls[cls]
+        expect["w8_gemv"] += steps + counts["prefills"]
+        expect["decode_attn2"] = nl * steps
+        expect["flash_prefill"] = nl * counts["flash_prefills"]
+        tag = " ".join(flags) or "INT4"
+        ragged = {k: launches[k] for k in total}
+        print(f"moe cli [{tag}]: built in {t_build:.1f} s; "
+              f"{counts['blocks']} decode blocks ({steps} steps), "
+              f"{counts['prefills']} prefill calls ({counts['small']} at M "
+              f"<= 64, {counts['mid']} at 64 < M < 256, {counts['big']} at M "
+              f">= 256); ragged launches {ragged} ({3 * nl} per prefill on "
+              f"the ragged route, none in decode steps); launches "
+              f"{launches}, expected {expect}", flush=True)
+        if launches != expect:
+            raise AssertionError(f"moe cli [{tag}]: launches {launches} != "
+                                 f"{expect}")
+        if metrics["completed"] != cli_args.benchmark:
+            raise AssertionError(f"moe cli [{tag}]: {metrics['completed']} "
+                                 f"of {cli_args.benchmark} requests finished")
+        for r in done:
+            if len(r.tokens) != cli_args.max_new or not all(
+                    0 <= t < cfg.vocab_size for t in r.tokens):
+                raise AssertionError(f"moe cli [{tag}] request {r.rid}: "
+                                     "tokens missing or outside the vocab")
+            if not all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs):
+                raise AssertionError(f"moe cli [{tag}] request {r.rid}: "
+                                     "non-finite logits")
+        # a prompt of >= 256 tokens prefilled alone, generated again alone
+        # at the engine's padded width: the top-2 routing is discontinuous
+        # (an ulp of difference in x can flip a token's second expert), so
+        # the prefill's shapes, and with them its kernels, stay the same
+        r = max((r for r in done if len(r.prompt) >= 256),
+                key=lambda r: (r.rid in alone, -r.rid))
+        want = generate_single(torch, M, cfg, params, r.prompt,
+                               cli_args.max_new, dev,
+                               width=eng._padded_len(len(r.prompt)),
+                               max_len=eng.ec.max_seq_len)
+        verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
+                                       r.tokens, want, dev)
+        print(f"moe cli [{tag}]: request {r.rid} (prompt {len(r.prompt)}, "
+              f"prefilled {'alone' if r.rid in alone else 'in a burst'}) vs "
+              f"single-request generation: {verdict}", flush=True)
+        profile_decode(torch, M, cfg, params, dev)
+        print("moe_cli_metrics " + json.dumps(
+            {"card": card_line(), "flags": tag, **metrics,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}),
+            flush=True)
+        for k in total:
+            total[k] += ragged[k]
+        # the counting wrappers close over the engine's bound methods: a
+        # reference cycle, freed only by the collector
+        del params, eng, done, dispatch, admit
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def run_moe(torch, dev, gen, args):
+    """Phase 9: the ragged kernels, the two MoE routes, the Mixtral CLI.
+    Returns (kernels-line rows, launches of the ragged wrappers in the CLI
+    runs)."""
+    rows = check_moe_kernels(torch, dev, gen)
+    torch.cuda.empty_cache()
+    check_moe_routes(torch, dev, args)
+    torch.cuda.empty_cache()
+    return rows, run_moe_cli(torch, dev, args)
 
 
 def main() -> int:
@@ -1232,7 +1598,8 @@ def main() -> int:
     build = _build.build()
     print(f"build: {build.path.name} in {build.seconds:.1f} s", flush=True)
     for line in build.log.splitlines():
-        if "registers" in line or line.startswith("=="):
+        if ("registers" in line or line.startswith("==")
+                or "spill" in line and " 0 bytes spill stores" not in line):
             print("  " + line.strip(), flush=True)
     _build.library()
 
@@ -1257,6 +1624,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += check_act_quant(torch, dev, gen, next(
         k for k in kernels if k["name"] == "wg_chunk"))
+    torch.cuda.empty_cache()
+    moe_rows, moe_launches = run_moe(torch, dev, gen, args)
+    kernels += moe_rows
+    launches.update(moe_launches)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

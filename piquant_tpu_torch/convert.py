@@ -17,12 +17,14 @@ from piquant_tpu_torch.api import QuantizedTensor
 from piquant_tpu_torch.dtypes import dtype_of
 from piquant_tpu_torch.models.llama import Llama3Rope, LlamaConfig
 from piquant_tpu_torch.quant.kv_cache import KVCache
-from piquant_tpu_torch.quant.linear import QuantizedLinear
+from piquant_tpu_torch.quant.linear import (QuantizedExpertStack,
+                                            QuantizedLinear)
 
 _CONFIG_FIELDS = ("vocab_size", "d_model", "n_layers", "n_heads",
                   "n_kv_heads", "d_ff", "rope_theta", "rms_eps",
                   "max_seq_len", "head_dim_override", "kv_bits",
-                  "act_quant_prefill", "act_quant_decode")
+                  "act_quant_prefill", "act_quant_decode", "n_experts",
+                  "moe_top_k", "moe_d_ff", "moe_renormalize", "moe_every")
 
 
 def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
@@ -38,9 +40,16 @@ def _is_quantized_linear(leaf) -> bool:
                ("data", "scale", "zero_point", "bits", "k", "group_size"))
 
 
-def _linear(leaf, device: torch.device) -> QuantizedLinear:
-    """Affine INT2/INT4/INT8 weights byte for byte, grouped side streams
-    (bf16 s_chunk, int8 z_chunk) included."""
+def _is_expert_stack(leaf) -> bool:
+    """A QuantizedExpertStack: checked before `_is_quantized_linear`, whose
+    fields it also has (its data is [E, rows, N])."""
+    return _is_quantized_linear(leaf) and (
+        hasattr(leaf, "n_experts") or np.ndim(leaf.data) == 3)
+
+
+def _affine(leaf, device: torch.device) -> dict:
+    """The fields of an affine INT2/INT4/INT8 weight or expert stack, byte
+    for byte, grouped side streams (bf16 s_chunk, int8 z_chunk) included."""
     if getattr(leaf, "codebook", None) or leaf.bits not in (2, 4, 8):
         raise NotImplementedError(
             f"only affine INT2/INT4/INT8 weights are ported (got bits="
@@ -50,7 +59,7 @@ def _linear(leaf, device: torch.device) -> QuantizedLinear:
         a = getattr(leaf, name, None)
         return None if a is None else tensor_from_numpy(a, device).to(dtype)
 
-    return QuantizedLinear(
+    return dict(
         data=tensor_from_numpy(leaf.data, device).to(torch.uint8),
         scale=tensor_from_numpy(leaf.scale, device).to(torch.float32),
         zero_point=tensor_from_numpy(leaf.zero_point, device).to(torch.int32),
@@ -61,8 +70,8 @@ def _linear(leaf, device: torch.device) -> QuantizedLinear:
 
 
 def params_from_jax(tree, *, device: DeviceLike = None):
-    """The JAX package's parameter pytree (dicts and lists of arrays and
-    quantized linears) -> the port's, leaf for leaf."""
+    """The JAX package's parameter pytree (dicts and lists of arrays,
+    quantized linears and expert stacks) -> the port's, leaf for leaf."""
     dev = resolve_device(device)
 
     def conv(leaf):
@@ -70,8 +79,10 @@ def params_from_jax(tree, *, device: DeviceLike = None):
             return {k: conv(v) for k, v in leaf.items()}
         if isinstance(leaf, (list, tuple)):
             return [conv(v) for v in leaf]
+        if _is_expert_stack(leaf):
+            return QuantizedExpertStack(**_affine(leaf, dev))
         if _is_quantized_linear(leaf):
-            return _linear(leaf, dev)
+            return QuantizedLinear(**_affine(leaf, dev))
         return tensor_from_numpy(leaf, dev)
 
     return conv(tree)
@@ -103,7 +114,8 @@ def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:
 def config_from_jax(jcfg) -> LlamaConfig:
     """The JAX package's LlamaConfig -> the port's.  Every model-family
     flag the port does not have yet (qkv_bias, sliding_window, softcaps,
-    sinks, MoE, Llama-4 / Gemma / Phi / Granite options, kv4, ...) raises
+    sinks, shared experts, router / expert biases, expert parallelism,
+    Llama-4 / Gemma / Phi / Granite options, kv4, ...) raises
     NotImplementedError when set off its default."""
     kw = {f: getattr(jcfg, f) for f in _CONFIG_FIELDS}
     handled = set(_CONFIG_FIELDS) | {"llama3_rope", "dtype"}

@@ -4,9 +4,14 @@
 //   pq_w4a8  _w4a8_kernel + _w4a8_kernel_ksplit  INT4 split-half, 2 codes a byte
 //   pq_w8a8  _w8a8_kernel                         INT8, 1 code a byte (u8 ^ 0x80)
 //   pq_w2a8  _w2a8_kernel                         INT2 split-quarter, 4 codes a byte
+//   pq_wq_ragged_a8  _wq_ragged_a8_kernel        INT4 / INT2 expert stacks
 //
 // (The K split of _w4a8_kernel_ksplit is the loop over K inside the block
-// plus, where the output tiles are few, a split over blocks.)
+// plus, where the output tiles are few, a split over blocks.)  The ragged
+// MoE form takes rows sorted by expert in 128-row blocks: block row i
+// multiplies by expert block_expert[i] of a stack [E, k/P, n] with scale /
+// zs [E, n], so a block only offsets its weight and side pointers (the
+// TPU kernel's DMA elision across same-expert blocks is left to L2).
 //
 // xq [m, k] int8 (per-token quantized activations), xs [m] f32 their
 // scales, w [k/P, n] uint8 (n contiguous; byte row r holds code row
@@ -49,28 +54,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pq_tile.cuh"
+
 namespace {
+
+using namespace pq;
 
 constexpr int kCols = 128;   // output columns per block
 constexpr int kWarpsN = 4;   // warps across the columns, 32 columns each
 constexpr int kRowsK = 32;   // packed rows per pipeline step
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool live) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int bytes = live ? 16 : 0;   // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
                                        uint32_t a2, uint32_t a3, uint32_t b0,
@@ -80,19 +72,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// r[i] holds row i's bytes of 4 columns; afterwards r[j] holds column j's
-// bytes of the 4 rows (byte i = row i).
-__device__ __forceinline__ void transpose4(uint32_t (&r)[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  r[0] = __byte_perm(t0, t2, 0x5410);
-  r[1] = __byte_perm(t0, t2, 0x7632);
-  r[2] = __byte_perm(t1, t3, 0x5410);
-  r[3] = __byte_perm(t1, t3, 0x7632);
 }
 
 // Plane p's 4 codes of a word of 4 packed bytes, as 4 int8 values.
@@ -141,11 +120,15 @@ __device__ __forceinline__ void load_step(uint8_t* w_dst, uint8_t* x_dst,
   }
 }
 
+// Two blocks an SM (at most 128 registers a thread for the 256-thread
+// tiles): one block of 8 warps leaves the tensor cores idle while it waits
+// on its cp.async stage.
 template <int P, int WM, int MT>
-__global__ void __launch_bounds__(WM * kWarpsN * 32)
+__global__ void __launch_bounds__(WM * kWarpsN * 32, 2)
 a8_gemm(const int8_t* __restrict__ xq, const float* __restrict__ xs,
         const uint8_t* __restrict__ w, const float* __restrict__ scale,
         const float* __restrict__ zs, const float* __restrict__ xsum,
+        const int* __restrict__ block_expert,   // null: one weight
         void* __restrict__ out,
         int* __restrict__ partial,          // null: write `out` directly
         int m, int k, int n, int rows_per_split, int out_bf16) {
@@ -166,6 +149,12 @@ a8_gemm(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   const int g = lane >> 2, t = lane & 3;
   const int wm0 = (warp / kWarpsN) * MT * 16;   // the warp's rows in the tile
   const int wn0 = (warp % kWarpsN) * 32;        // and its columns
+  if (block_expert != nullptr) {   // ragged: the row block's expert (kBM = 128)
+    const size_t e = block_expert[blockIdx.z];
+    w += e * rows * n;
+    scale += e * n;
+    zs += e * n;
+  }
 
   int acc[MT][4][4];
 #pragma unroll
@@ -298,14 +287,16 @@ __global__ void a8_reduce(const int* __restrict__ partial,
 template <int P, int WM, int MT>
 int launch_tile(const void* xq, const void* xs, const void* w,
                 const void* scale, const void* zs, const void* xsum,
-                void* out, void* partial, int m, int k, int n, int ksplit,
-                int rows_per_split, int out_bf16, cudaStream_t st) {
+                const void* block_expert, void* out, void* partial, int m,
+                int k, int n, int ksplit, int rows_per_split, int out_bf16,
+                cudaStream_t st) {
   constexpr int kBM = WM * MT * 16;
   const dim3 grid(n / kCols, ksplit, (m + kBM - 1) / kBM);
   a8_gemm<P, WM, MT><<<grid, WM * kWarpsN * 32, 0, st>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
       static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-      static_cast<const float*>(zs), static_cast<const float*>(xsum), out,
+      static_cast<const float*>(zs), static_cast<const float*>(xsum),
+      static_cast<const int*>(block_expert), out,
       ksplit > 1 ? static_cast<int*>(partial) : nullptr, m, k, n,
       rows_per_split, out_bf16);
   if (ksplit > 1) {
@@ -326,13 +317,16 @@ int launch(const void* xq, const void* xs, const void* w, const void* scale,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (bm) {
     case 16:
-      return launch_tile<P, 1, 1>(xq, xs, w, scale, zs, xsum, out, partial, m,
+      return launch_tile<P, 1, 1>(xq, xs, w, scale, zs, xsum, nullptr, out,
+                                  partial, m,
                                   k, n, ksplit, rows_per_split, out_bf16, st);
     case 64:
-      return launch_tile<P, 1, 4>(xq, xs, w, scale, zs, xsum, out, partial, m,
+      return launch_tile<P, 1, 4>(xq, xs, w, scale, zs, xsum, nullptr, out,
+                                  partial, m,
                                   k, n, ksplit, rows_per_split, out_bf16, st);
     case 128:
-      return launch_tile<P, 2, 4>(xq, xs, w, scale, zs, xsum, out, partial, m,
+      return launch_tile<P, 2, 4>(xq, xs, w, scale, zs, xsum, nullptr, out,
+                                  partial, m,
                                   k, n, ksplit, rows_per_split, out_bf16, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -360,3 +354,27 @@ int launch(const void* xq, const void* xs, const void* w, const void* scale,
 PQ_A8_ENTRY(pq_w4a8, 2)
 PQ_A8_ENTRY(pq_w8a8, 1)
 PQ_A8_ENTRY(pq_w2a8, 4)
+
+// The ragged form: xq [m, k] int8 rows sorted by expert, m a multiple of
+// 128, block_expert [m / 128] int32, w [E, k/P, n] u8 (P = 2 or 4), scale /
+// zs [E, n] f32, xs / xsum [m] f32; 128-row tiles, no K split.
+extern "C" int pq_wq_ragged_a8(const void* xq, const void* xs, const void* w,
+                               const void* scale, const void* zs,
+                               const void* xsum, const void* block_expert,
+                               void* out, int m, int k, int n, int planes,
+                               int out_bf16, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (block_expert == nullptr || m % 128) return (int)cudaErrorInvalidValue;
+  switch (planes) {
+    case 2:
+      return launch_tile<2, 2, 4>(xq, xs, w, scale, zs, xsum, block_expert,
+                                  out, nullptr, m, k, n, 1, k / 2, out_bf16,
+                                  st);
+    case 4:
+      return launch_tile<4, 2, 4>(xq, xs, w, scale, zs, xsum, block_expert,
+                                  out, nullptr, m, k, n, 1, k / 4, out_bf16,
+                                  st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -24,9 +24,10 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
-           "dequantize.cu", "requantize.cu", "minmax.cu")
-HEADERS = ("pq_quant.cuh",)
+SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "qmatmul_ragged.cu",
+           "decode_attn2.cu", "flash.cu", "quantize.cu", "dequantize.cu",
+           "requantize.cu", "minmax.cu")
+HEADERS = ("pq_quant.cuh", "pq_tile.cuh")
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,6 +51,15 @@ SIGNATURES = {
     "pq_w4a8": [_P] * 8 + [_I] * 7 + [_P],
     "pq_w8a8": [_P] * 8 + [_I] * 7 + [_P],
     "pq_w2a8": [_P] * 8 + [_I] * 7 + [_P],
+    # xq, xs, w, scale, zs, xsum, block_expert, out, m, k, n, planes,
+    # out_bf16, stream
+    "pq_wq_ragged_a8": [_P] * 8 + [_I] * 5 + [_P],
+    # x, w, scale, zs, xsum, block_expert, out, m, k, n, planes, out_bf16,
+    # stream
+    "pq_wq_ragged": [_P] * 7 + [_I] * 5 + [_P],
+    # x, w, scale, zp, block_expert, out, m, k, n, planes, gs, out_bf16,
+    # stream
+    "pq_wq_ragged_grouped": [_P] * 6 + [_I] * 6 + [_P],
     # q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer,
     # nb, nh, rep, s_len, sm_scale, stream
     "pq_decode_attn2": [_P] * 12 + [_I] * 5 + [_F, _P],

@@ -24,6 +24,10 @@ kernel gate declines, the call runs the weight-only path on the
 unquantized x (ROADMAP.md section 3 lists where that differs from the
 reference's CPU fallback, which quantizes at every shape).
 
+MoE experts are a QuantizedExpertStack: E weights of one geometry stacked
+on a leading axis, which the ragged expert GEMMs (ops/cuda/ragged.py) read
+in place and `expert(i)` views as a QuantizedLinear.
+
 NF4 codebooks and stochastic rounding are not ported yet and raise
 NotImplementedError.
 """
@@ -119,7 +123,8 @@ def _grouped_cache(scale: torch.Tensor, zp: torch.Tensor, k: int,
                    group_size: int, bits: int):
     """Kernel-ready grouped side streams: chunk-major bf16 scales and
     chunk-major raw int8 zero points, 3 bytes per group entry; (None, None)
-    where the shape has no chunk factor."""
+    where the shape has no chunk factor.  The groups are the second-last
+    axis ([G, N], or [E, G, N] for an expert stack)."""
     if bits not in (2, 4):
         return None, None
     planes = _qmm.PLANES[bits]
@@ -128,7 +133,8 @@ def _grouped_cache(scale: torch.Tensor, zp: torch.Tensor, k: int,
         return None, None
     perm = torch.from_numpy(grouped_chunk_perm(k, group_size, ch, planes)
                             ).to(scale.device).long()
-    return scale.to(torch.bfloat16)[perm], zp.to(torch.int8)[perm]
+    return (scale.to(torch.bfloat16)[..., perm, :],
+            zp.to(torch.int8)[..., perm, :])
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +259,57 @@ def with_grouped_cache(ql: QuantizedLinear) -> QuantizedLinear:
     s_chunk, z_chunk = _grouped_cache(ql.scale, ql.zero_point, ql.k,
                                       ql.group_size, ql.bits)
     return dataclasses.replace(ql, s_chunk=s_chunk, z_chunk=z_chunk)
+
+
+@dataclasses.dataclass
+class QuantizedExpertStack:
+    """E stacked QuantizedLinear weights of one geometry (MoE experts):
+    data [E, rows, N], scale / zero_point [E, G-or-1, N], and for grouped
+    INT2/INT4 the stacked side streams s_chunk / z_chunk [E, G, N].
+    `expert(i)` is expert i as a 2-D QuantizedLinear (views, no copy)."""
+
+    data: torch.Tensor
+    scale: torch.Tensor
+    zero_point: torch.Tensor
+    bits: int
+    k: int
+    group_size: Optional[int] = None
+    s_chunk: Optional[torch.Tensor] = None
+    z_chunk: Optional[torch.Tensor] = None
+
+    @property
+    def n_experts(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.data.shape[-1]
+
+    def expert(self, i: int) -> QuantizedLinear:
+        return QuantizedLinear(
+            data=self.data[i], scale=self.scale[i],
+            zero_point=self.zero_point[i], bits=self.bits, k=self.k,
+            group_size=self.group_size,
+            s_chunk=None if self.s_chunk is None else self.s_chunk[i],
+            z_chunk=None if self.z_chunk is None else self.z_chunk[i])
+
+    @staticmethod
+    def stack(qls) -> "QuantizedExpertStack":
+        q0 = qls[0]
+        for q in qls[1:]:
+            if (q.bits, q.k, q.group_size, tuple(q.data.shape)) != (
+                    q0.bits, q0.k, q0.group_size, tuple(q0.data.shape)):
+                raise ValueError("experts must share geometry")
+        has_cache = all(q.s_chunk is not None for q in qls)
+        return QuantizedExpertStack(
+            data=torch.stack([q.data for q in qls]),
+            scale=torch.stack([q.scale for q in qls]),
+            zero_point=torch.stack([q.zero_point for q in qls]),
+            bits=q0.bits, k=q0.k, group_size=q0.group_size,
+            s_chunk=(torch.stack([q.s_chunk for q in qls]) if has_cache
+                     else None),
+            z_chunk=(torch.stack([q.z_chunk for q in qls]) if has_cache
+                     else None))
 
 
 def quantize_linear_weight(

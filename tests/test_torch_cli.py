@@ -178,16 +178,57 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
 
 @pytest.mark.parametrize("argv", [
     ["--model", "/no/such/checkpoint"], ["--random", "mistral_7b"],
-    ["--random", "mixtral_8x7b"], ["--random", "mla_tiny"],
+    ["--random", "qwen3_moe_a3b"], ["--random", "mla_tiny"],
     ["--bits", "nf4"], ["--mlp-bits", "nf4"], ["--kv-bits", "4"],
     ["--speculate", "4"],
     ["--draft-bits", "2", "--speculate", "2"], ["--prefill-chunk", "256"],
     ["--attn-windows", "512,1024"], ["--repetition-penalty", "1.1"],
-    ["--serve", "8123"]])
+    ["--serve", "8123"], ["--random", "gpt_oss_20b"],
+    ["--random", "llama4_scout"]])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(NotImplementedError, match=r"queue 1 item \d+"):
         S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
                 *argv])
+
+
+# Mixtral-8x7B through the CLI on the CPU, its preset patched to the tiny
+# MoE geometry (4 experts, top 2): every prefill (>= 64 tokens) takes the
+# ragged expert GEMMs, 3 a layer; the decode steps (2 slots) the
+# dense-masked route.
+@pytest.mark.parametrize("flags,kernel", [
+    ((), "wq_ragged"), (("--group-size", "32"), "wq_ragged_grouped"),
+    (("--bits", "2", "--act-quant-decode"), "wq_ragged_a8")])
+def test_cli_mixtral(monkeypatch, flags, kernel):
+    from piquant_tpu_torch.ops.cuda import ragged as TR
+
+    monkeypatch.setattr(TM.LlamaConfig, "mixtral_8x7b", staticmethod(
+        lambda: TM.LlamaConfig.tiny(n_experts=4, moe_top_k=2)))
+    calls = []
+    plain = getattr(TR, kernel + "_plain")
+
+    def counted(x, *a, **k):
+        calls.append(x.shape[0])
+        return plain(x, *a, **k)
+
+    monkeypatch.setattr(TR, kernel + "_plain", counted)
+    args = S.build_parser().parse_args(
+        ["--random", "mixtral_8x7b", "--device", "cpu", "--benchmark", "2",
+         "--slots", "2", "--max-new", "4", "--max-seq-len", "256", *flags])
+    cfg, params, eng, sp = S.build(args)
+    assert cfg.n_experts == 4 and "router" in params["layers"][0]
+    assert params["lm_head"].bits == 8
+    stack = params["layers"][0]["moe_w1"]
+    assert (stack.n_experts, stack.bits, stack.group_size) == (
+        4, int(args.bits), args.group_size)
+    prefills = []
+    admit = eng._admit_one_shot
+    monkeypatch.setattr(eng, "_admit_one_shot",
+                        lambda batch: (prefills.append(batch), admit(batch)))
+    m, done = S.benchmark(args, cfg, eng, sp)
+    assert m["completed"] == 2 and m["decode_tokens"] == 2 * 3
+    for r in done:
+        assert len(r.tokens) == 4 and all(0 <= t < 256 for t in r.tokens)
+    assert len(calls) == 3 * cfg.n_layers * len(prefills)
 
 
 def test_cli_defaults_to_cuda(monkeypatch):

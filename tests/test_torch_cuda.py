@@ -486,3 +486,145 @@ def test_library_wrappers_refuse(dev):
         RQ.requantize(x, 0.1, 0, u8, add_into=torch.zeros(64))
     with pytest.raises(TypeError):
         MM.min_max(torch.zeros(8, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# ragged MoE expert GEMMs (csrc/qmatmul_ragged.cu, csrc/qmatmul_a8.cu)
+# ---------------------------------------------------------------------------
+
+def _routed_x(dev, e, k, ntok, skew, seed):
+    """x [m_pad, k] bf16 sorted and padded by a routing of ntok tokens, and
+    its block_expert.  skew "random": top 2 of random logits; "zero":
+    expert 0 gets no token and expert 1 nearly all; "all": every token
+    goes to expert 1 alone (top 1), the tail blocks to the last expert."""
+    from piquant_tpu_torch.quant import moe as MO
+
+    g = _gen(dev, seed)
+    logits = torch.randn((ntok, e), generator=g, device=dev)
+    if skew == "zero":
+        logits[:, 0] -= 50
+        logits[:, 1] += 3
+    top = 1 if skew == "all" else 2
+    topi = (torch.ones((ntok, 1), dtype=torch.long, device=dev)
+            if skew == "all" else logits.topk(top, dim=-1).indices)
+    probs = torch.rand((ntok, top), generator=g, device=dev)
+    r = MO.build_ragged_routing(topi[None], probs[None], e, 128)
+    x = _x(dev, ntok, k, seed + 1)
+    return MO.scatter_tokens(x, r), r
+
+
+def _stack(dev, e, k, n, bits, gs, seed):
+    from piquant_tpu_torch.quant.linear import QuantizedExpertStack
+
+    return QuantizedExpertStack.stack(
+        [_qlin(dev, k, n, bits, gs, seed + i) for i in range(e)])
+
+
+def _pad_rows(r, m):
+    """Rows of the sorted buffer that no assignment fills."""
+    used = torch.zeros(m, dtype=torch.bool, device=r.dest.device)
+    used[r.dest] = True
+    return ~used
+
+
+# bf16 x: atol 2e-2, rtol 1e-2, as the GEMVs (bf16 operands in both, f32
+# sums in another order, one bf16 output rounding).  The padding rows are
+# computed too and come out exactly zero.
+@pytest.mark.parametrize("skew", ["random", "zero", "all"])
+@pytest.mark.parametrize("bits,gs,e,k,n", [
+    (4, None, 4, 512, 256), (2, None, 8, 1024, 384), (8, None, 4, 512, 128),
+    (4, 128, 8, 4096, 256), (2, 32, 4, 1024, 256), (4, 16, 4, 512, 256),
+    (8, 64, 4, 512, 128)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_ragged_matches_plain(dev, skew, bits, gs, e, k, n, out_dtype):
+    from piquant_tpu_torch.ops.cuda import ragged as R
+
+    st = _stack(dev, e, k, n, bits, gs, k + n + bits)
+    x, r = _routed_x(dev, e, k, 300, skew, e + k)
+    kern = R.wq_ragged_grouped if gs else R.wq_ragged
+    before = kern.launches
+    got = R.wq_ragged_matmul(x, st, r.block_expert, out_dtype)
+    assert kern.launches == before + 1 and got.dtype == out_dtype
+    if gs:
+        want = R.wq_ragged_grouped_plain(x, st.data, st.scale, st.zero_point,
+                                         gs, r.block_expert, out_dtype)
+    else:
+        s, zs = R._channel_side(st)
+        want = R.wq_ragged_plain(x, st.data, s, zs,
+                                 x.float().sum(1, keepdim=True),
+                                 r.block_expert, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=1e-2)
+    assert not got[_pad_rows(r, x.shape[0])].any()
+
+
+# int8 x: bit for bit, as the dense a8 kernels (exact int32 products, the
+# epilogue unfused in the reference's order).
+@pytest.mark.parametrize("skew", ["random", "zero", "all"])
+@pytest.mark.parametrize("bits,e,k,n", [(4, 4, 512, 256), (4, 8, 4096, 384),
+                                        (2, 4, 1024, 256), (2, 8, 2048, 128)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_ragged_a8_matches_plain(dev, skew, bits, e, k, n, out_dtype):
+    from piquant_tpu_torch.ops.cuda import ragged as R
+    from piquant_tpu_torch.quant.linear import _quantize_act
+
+    st = _stack(dev, e, k, n, bits, None, k + n)
+    x, r = _routed_x(dev, e, k, 300, skew, e + k + 1)
+    xq, xs = _quantize_act(x)
+    before = R.wq_ragged_a8.launches
+    got = R.wq_ragged_matmul_a8(xq, xs, st, r.block_expert, out_dtype)
+    assert R.wq_ragged_a8.launches == before + 1
+    s, zs = R._channel_side(st)
+    want = R.wq_ragged_a8_plain(xq, xs, st.data, s, zs,
+                                xq.float().sum(1, keepdim=True),
+                                r.block_expert, out_dtype)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert not got[_pad_rows(r, x.shape[0])].any()
+
+
+def test_ragged_refuses(dev):
+    from piquant_tpu_torch.ops.cuda import ragged as R
+
+    st = _stack(dev, 2, 512, 256, 4, None, 1)
+    s, zs = R._channel_side(st)
+    x = _x(dev, 256, 512, 2)
+    xsum = x.float().sum(1, keepdim=True)
+    be = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):                    # f32 x
+        R.wq_ragged(x.float(), st.data, s, zs, xsum, be, torch.bfloat16)
+    with pytest.raises(TypeError):                    # int64 block_expert
+        R.wq_ragged(x, st.data, s, zs, xsum, be.long(), torch.bfloat16)
+    with pytest.raises(ValueError):                   # not 128 rows a block
+        R.wq_ragged(x[:200], st.data, s, zs, xsum[:200], be, torch.bfloat16)
+    with pytest.raises(ValueError):                   # N % 128
+        R.wq_ragged(x, st.data[..., :200].contiguous(), s[:, :200], zs[:, :200],
+                    xsum, be, torch.bfloat16)
+    with pytest.raises(ValueError):                   # codes not contiguous
+        R.wq_ragged(x, st.data.transpose(1, 2).contiguous().transpose(1, 2),
+                    s, zs, xsum, be, torch.bfloat16)
+    with pytest.raises(ValueError):                   # group size off the planes
+        R.wq_ragged_grouped(x, st.data, st.scale.expand(2, 2, 256).contiguous(),
+                            st.zero_point.expand(2, 2, 256).contiguous(), 384,
+                            be, torch.bfloat16)
+    xq = torch.zeros((256, 512), dtype=torch.int8, device=dev)
+    st8 = _stack(dev, 2, 512, 256, 8, None, 3)
+    s8, zs8 = R._channel_side(st8)
+    with pytest.raises(ValueError):                   # INT8 codes with int8 x
+        R.wq_ragged_a8(xq, xsum, st8.data, s8, zs8, xsum, be, torch.bfloat16)
+
+
+def test_moe_routes_on_card(dev):
+    """The MoE MLP on CUDA tensors launches the ragged kernel at prefill
+    and the GEMVs at decode; nothing falls back to a plain version."""
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.ops.cuda import ragged as R
+
+    cfg = M.LlamaConfig.tiny(n_experts=4, moe_top_k=2)
+    params = M.random_quantized_params(cfg, 5, device=dev)
+    layer = params["layers"][0]
+    before = (R.wq_ragged.launches, Q.w4_gemv.launches)
+    for t in (64, 8):
+        y = M._mlp(cfg, layer, _x(dev, t, cfg.d_model, t).reshape(1, t, -1))
+        assert bool(torch.isfinite(y).all())
+    assert (R.wq_ragged.launches, Q.w4_gemv.launches) == (
+        before[0] + 3, before[1] + 12)

@@ -36,7 +36,7 @@ def _imports(tree: ast.AST):
 def test_scan_covers_the_package_and_catches_imports():
     names = {p.name for p in FILES}
     assert {"api.py", "dtypes.py", "dispatch.py", "reference.py",
-            "chip_smoke.py"} <= names
+            "moe.py", "ragged.py", "chip_smoke.py"} <= names
     probe = ast.parse("def f():\n    import jax.numpy as jnp\n"
                       "from piquant_tpu.ops import reference\n"
                       "import piquant_tpu_torch\n"
