@@ -45,6 +45,16 @@ Phases (any failure exits non-zero):
      --max-new 32` in process (INT4, --group-size 128, --act-quant-prefill)
      with exact launch counts, greedy tokens against single-request
      generation, its metrics and peak memory;
+ 10. NF4 weights and the kv4 cache: (a) nf4_gemv against its plain version
+     at the seven Llama-3-8B projections, channelwise and grouped g64 /
+     g128, at M = 8, 1 and 33 with bf16 and f32 outputs, with times, bounds
+     and a torch.matmul yardstick; (b) the kv4 form of decode_attn2 against
+     its plain version on a stacked kv4 cache of Llama-3-8B's geometry
+     (ragged positions, a row with no live position, odd positions and
+     starts), with an SDPA yardstick; (c) the CLI at full Llama-3-8B width
+     with `--bits nf4` and with `--kv-bits 4`, exact launch counts (224
+     nf4_gemv or 32 kv4 decode_attn2 launches a decode step), greedy tokens
+     against single-request generation and its metrics;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -175,6 +185,12 @@ def random_qlin(torch, dev, gen, k, n, bits, gs):
                                                 with_grouped_cache)
 
     g = k // gs if gs else 1
+    if bits == "nf4":      # absmax scales a column (and group), no zero point
+        data = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        scale = (torch.rand((g, n), generator=gen, device=dev) + 0.5) / k ** 0.5
+        zp = torch.zeros((g, n), dtype=torch.int32, device=dev)
+        return QuantizedLinear(data, scale, zp, 4, k, gs, codebook="nf4")
     data = torch.randint(0, 256, (k * bits // 8, n), generator=gen,
                          device=dev, dtype=torch.uint8)
     scale = ((torch.rand((g, n), generator=gen, device=dev) + 0.5)
@@ -191,6 +207,10 @@ def gemv_operands(name, ql, x):
     from piquant_tpu_torch.quant.linear import grouped_chunk_factor
 
     n, gs = ql.n, ql.group_size
+    if name == "nf4_gemv":
+        if gs is None:
+            return (ql.data, ql.scale.reshape(-1), 0), n * 4
+        return (ql.data, ql.scale, gs), (ql.k // gs) * n * 4
     if name in ("w4_gemv", "w8_gemv", "w2_gemv"):
         return ((ql.data, ql.scale.reshape(-1), ql.zero_point.reshape(-1),
                  x.float().sum(1, keepdim=True)), n * 8)
@@ -202,9 +222,9 @@ def gemv_operands(name, ql, x):
 
 
 def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
-               a8=False):
+               a8=False, hold_f32=False):
     """Wrapper `name` against its plain version at each (K, N) of `shapes`
-    and M in HOLD_M; then its device ms at M = 8 summed over the shapes'
+    and M in HOLD_M (with hold_f32 at f32 output as well); then its device ms at M = 8 summed over the shapes'
     uses (enough weights that the loop streams from HBM, not L2), the plain
     version's, a torch.matmul against the bf16-dequantized weight, the host
     cost of an eager call, and the bound.  a8: x is the per-token int8 of a
@@ -217,6 +237,8 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
                nbytes=0.0, flops=0.0)
     err = 0.0
     obytes = 2 if out_dtype == torch.bfloat16 else 4
+    wbits = 4 if bits == "nf4" else bits
+    hold_dtypes = (out_dtype, torch.float32) if hold_f32 else (out_dtype,)
 
     def inputs(m, k):
         """(x the wrapper takes, trailing arguments, bf16 x)."""
@@ -227,7 +249,7 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
         return xq, (xs,), xb
 
     for k, n, uses in shapes:
-        copies = max(1, -(-256 * 2**20 // (k * n * bits // 8)))
+        copies = max(1, -(-256 * 2**20 // (k * n * wbits // 8)))
         qls = [random_qlin(torch, dev, gen, k, n, bits, gs)
                for _ in range(copies)]
         for m in HOLD_M:
@@ -235,10 +257,11 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
             ops, _ = gemv_operands(name, qls[0], x)
             # atol 2e-2, rtol 1e-2: the quantized_matmul bound of the JAX
             # tests (f32 sums in another order, one bf16 output rounding)
-            e = hold(torch, f"{name} K={k} N={n} M={m}",
-                     kern(x, *ops, out_dtype, *extra).float(),
-                     plain(x, *ops, out_dtype, *extra).float(), 2e-2, 1e-2)
-            err = max(err, e)
+            for odt in hold_dtypes:
+                e = hold(torch, f"{name} K={k} N={n} M={m} {odt}",
+                         kern(x, *ops, odt, *extra).float(),
+                         plain(x, *ops, odt, *extra).float(), 2e-2, 1e-2)
+                err = max(err, e)
         print(f"{name} K={k} N={n}: max_abs_err {err:.3e} at M {HOLD_M}",
               flush=True)
         x, extra, xb = inputs(8, k)
@@ -259,7 +282,7 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
         tot["plain_ms"] += uses * t_p
         tot["library_ms"] += uses * t_l
         xbytes = 8 * k + 8 * 4 if a8 else 8 * k * 2
-        tot["nbytes"] += uses * (k * n * bits / 8 + side + xbytes
+        tot["nbytes"] += uses * (k * n * wbits / 8 + side + xbytes
                                  + 8 * n * obytes)
         tot["flops"] += uses * 2 * 8 * k * n
         del qls, ops, w_bf16
@@ -271,9 +294,10 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
 
 
 def gemv_row(torch, dev, gen, name, replaces, timed, bits, gs, shapes,
-             out_dtype):
+             out_dtype, hold_f32=False):
     """The kernels-line row of GEMV wrapper `name` (see check_gemv)."""
-    res = check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype)
+    res = check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
+                     hold_f32=hold_f32)
     print(f"{name}: kernel {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
           f"({res['bound_by']}), plain {res['plain_ms']:.4f} ms, torch.matmul "
           f"{res['library_ms']:.4f} ms, eager {res['eager_ms']:.4f} ms "
@@ -435,7 +459,8 @@ def kernel_wrappers():
             "w4_grouped": Q.w4_grouped, "w4a8": Q.w4a8, "w8a8": Q.w8a8,
             "w2a8": Q.w2a8, "wq_ragged": R.wq_ragged,
             "wq_ragged_grouped": R.wq_ragged_grouped,
-            "wq_ragged_a8": R.wq_ragged_a8}
+            "wq_ragged_a8": R.wq_ragged_a8, "nf4_gemv": Q.nf4_gemv,
+            "decode_attn2_kv4": DA.decode_attn2_kv4}
 
 
 def zero_counts() -> None:
@@ -729,8 +754,10 @@ def generate_single(torch, M, cfg, params, prompt, n_new, dev, width=None,
     the prompt is right-padded to it and prefilled into a cache of
     `max_len` positions, as the engine runs a request admitted alone."""
     toks = list(prompt) + [0] * ((width or len(prompt)) - len(prompt))
-    cache = M.init_kv_cache(cfg, 1, max_len=max_len or len(prompt) + n_new,
-                            device=dev)
+    max_len = max_len or len(prompt) + n_new
+    if cfg.kv_bits == 4:
+        max_len += max_len % 2     # whole pair rows
+    cache = M.init_kv_cache(cfg, 1, max_len=max_len, device=dev)
     logits, cache = M.prefill(
         cfg, params, torch.tensor([toks], device=dev, dtype=torch.int32),
         cache, last_positions=torch.tensor([len(prompt) - 1], device=dev,
@@ -1112,24 +1139,27 @@ CLI_RUNS = (
       "big": {"w4a8": 4}}),
 )
 CLI_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
-               "w4a8", "w8a8", "w2a8", "decode_attn2", "flash_prefill")
+               "w4a8", "w8a8", "w2a8", "nf4_gemv", "decode_attn2",
+               "decode_attn2_kv4", "flash_prefill")
 
 
-def run_cli(torch, dev, args):
-    """Phase 7: each CLI_RUNS configuration through the CLI's own build and
-    benchmark, with its launches, tokens and metrics checked.  Returns the
-    launches of the new wrappers summed over the runs."""
+def run_cli(torch, dev, args, runs=CLI_RUNS,
+            counted=("w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped", "w4a8",
+                     "w8a8", "w2a8")):
+    """Phase 7 (and 10 (c)): each configuration of `runs` through the CLI's
+    own build and benchmark, with its launches, tokens and metrics checked.
+    Returns the launches of the `counted` wrappers summed over the runs."""
     import numpy as np
 
     from piquant_tpu_torch.models import llama as M
     from piquant_tpu_torch.serving import __main__ as S
 
-    total = dict.fromkeys(("w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
-                           "w4a8", "w8a8", "w2a8"), 0)
-    for flags, per_layer in CLI_RUNS:
+    total = dict.fromkeys(counted, 0)
+    for flags, per_layer in runs:
         argv = ["--random", "llama3_8b", "--benchmark", "8", "--max-new",
                 "32", *flags]
         cli_args = S.build_parser().parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         cfg, params, eng, sp = S.build(cli_args)
         torch.cuda.synchronize()
@@ -1171,7 +1201,8 @@ def run_cli(torch, dev, args):
             for k, per in kernels.items():
                 expect[k] += per * nl * calls[cls]
         expect["w8_gemv"] += steps + counts["prefills"]
-        expect["decode_attn2"] = nl * steps
+        expect["decode_attn2_kv4" if cfg.kv_bits == 4 else "decode_attn2"] = (
+            nl * steps)
         expect["flash_prefill"] = nl * counts["flash_prefills"]
         tag = " ".join(flags)
         print(f"cli [{tag}]: built in {t_build:.1f} s; {counts['blocks']} "
@@ -1561,6 +1592,127 @@ def run_moe(torch, dev, gen, args):
     return rows, run_moe_cli(torch, dev, args)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: NF4 weights and the kv4 cache
+# ---------------------------------------------------------------------------
+
+# NF4 runs: decode steps and prefill calls of at most 64 rows take nf4_gemv
+# (7 a layer); larger prefills take the f32 table product (64 < M < 256) or
+# the dense bf16 product, neither a kernel.  The kv4 run keeps INT4 weights
+# and takes the kv4 form of decode attention (32 launches a decode step).
+NF4_KV4_RUNS = (
+    (("--bits", "nf4"), _gemv_only({"nf4_gemv": 7})),
+    (("--kv-bits", "4"), _gemv_only({"w4_gemv": 7})),
+)
+# (layers, slots, kv heads, GQA rep, positions, head_dim) of the kv4 check:
+# Llama-3-8B's cache at the engine's 2048 positions
+KV4_GEOMETRY = (32, 8, 8, 4, 2048, 128)
+
+
+def check_decode_attn2_kv4(torch, dev, gen):
+    """decode_attn2_kv4 against its plain version on a stacked kv4 cache of
+    Llama-3-8B's geometry, then its time, the plain version's, SDPA on the
+    bf16-dequantized cache and the bound (live code and scale bytes)."""
+    import torch.nn.functional as F
+
+    from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+    from piquant_tpu_torch.quant.kv_cache import (merge_scale_pairs,
+                                                  unpack4_pairs)
+
+    nl, b, hkv, rep, s, d = KV4_GEOMETRY
+    shape = (nl, b, hkv, s // 2, d)
+    kc = torch.randint(0, 256, shape, generator=gen, device=dev,
+                       dtype=torch.uint8)
+    vc = torch.randint(0, 256, shape, generator=gen, device=dev,
+                       dtype=torch.uint8)
+    sshape = (nl, b, hkv, 2, s // 2)
+    ks = torch.rand(sshape, generator=gen, device=dev) * 0.3
+    vs = torch.rand(sshape, generator=gen, device=dev) * 0.3
+    q = torch.randn((b, hkv, rep, d), generator=gen, device=dev).to(torch.bfloat16)
+    # row 0 has no live position (the sentinel); odd positions and odd
+    # starts end live windows on either half of a pair row
+    pos = torch.tensor([0, 301, 2048, 1000, 1501, 511, 273, 1799],
+                       dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 0, 0, 1101, 0, 17, 0], dtype=torch.int32,
+                         device=dev)
+    sm = d ** -0.5
+    err = 0.0
+    for layer in (0, nl // 2, nl - 1):
+        acc, m, l = DA.decode_attn2_kv4(q, kc, ks, vc, vs, pos, start, sm,
+                                        layer)
+        pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                             sm, layer)
+        torch.cuda.synchronize()
+        if not (bool((m[0] == -1e30).all()) and bool((l[0] == 0).all())
+                and bool((acc[0] == 0).all())):
+            raise AssertionError("decode_attn2_kv4: pos=0 row lost the "
+                                 "sentinel")
+        # the kv8 check's bounds (check_decode_attn2)
+        name = f"decode_attn2_kv4 layer {layer}"
+        hold(torch, name + " m", m, pm, 1e-5, 1e-5)
+        hold(torch, name + " l", l, pl, 0.0, 2e-2)
+        e = hold(torch, name + " context", acc[1:] / l[1:],
+                 pacc[1:] / pl[1:], 2e-3, 2e-2)
+        err = max(err, e)
+    print(f"decode_attn2_kv4: max_abs_err (normalized context) {err:.3e}",
+          flush=True)
+    call = lambda i: DA.decode_attn2_kv4(q, kc, ks, vc, vs, pos,  # noqa: E731
+                                         start, sm, i % nl)
+    t_k = cuda_ms(call, 64)
+    t_e = host_ms(call)
+    t_p = cuda_ms(lambda i: DA.decode_attn2_plain(q, kc, ks, vc, vs, pos,
+                                                  start, sm, i % nl), 4)
+    # yardstick: SDPA over a pre-dequantized bf16 cache of one layer
+    kf = (unpack4_pairs(kc[1]).float() * merge_scale_pairs(ks[1])
+          ).to(torch.bfloat16)
+    vf = (unpack4_pairs(vc[1]).float() * merge_scale_pairs(vs[1])
+          ).to(torch.bfloat16)
+    idx = torch.arange(s, device=dev)
+    mask = ((idx[None] >= start[:, None]) & (idx[None] < pos[:, None])
+            | (idx[None] == 0))[:, None, None, :]   # keep row 0 defined
+    q4 = q.reshape(b, hkv * rep, 1, d)
+    t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q4, kf, vf, attn_mask=mask, enable_gqa=True), 20)
+    live_pos = float((pos - start).clamp(min=0).sum())
+    nbytes = (live_pos * hkv * (2 * d // 2 + 2 * 4) + q.numel() * 2
+              + b * hkv * rep * (d + 2) * 4)
+    bnd, by = bound_ms(nbytes, 4 * live_pos * rep * hkv * d)
+    print(f"decode_attn2_kv4: kernel {t_k:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}), plain {t_p:.4f} ms, sdpa(bf16 cache) {t_l:.4f} ms, "
+          f"eager {t_e:.4f} ms, live positions {live_pos:.0f} "
+          f"[{card_line()}]", flush=True)
+    del kc, vc, ks, vs, kf, vf
+    return dict(name="decode_attn2_kv4", route="cuda",
+                source="piquant_tpu_torch/csrc/decode_attn2.cu",
+                replaces="piquant_tpu/ops/pallas/decode_attn2.py:76 (_kernel, "
+                         "kv4)",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                bound_by=by, library_ms=t_l,
+                library_call="scaled_dot_product_attention (bf16 cache)",
+                eager_ms=t_e,
+                timed="one layer: B=8, Hkv=8, rep=4, S=2048, mixed positions")
+
+
+def check_nf4_kv4(torch, dev, gen):
+    """Phase 10 (a, b): the nf4_gemv row (channelwise, with the grouped
+    forms as variants) and the kv4 decode_attn2 row."""
+    row = gemv_row(torch, dev, gen, "nf4_gemv", "818 (_nf4_kernel)",
+                   "one decode layer at --bits nf4: 7 projections at M=8",
+                   "nf4", None, W4_SHAPES, torch.bfloat16, hold_f32=True)
+    row["variants"] = {}
+    card = card_line()
+    for gs in (64, 128):
+        r = check_gemv(torch, dev, gen, "nf4_gemv", "nf4", gs, W4_SHAPES,
+                       torch.bfloat16, hold_f32=True)
+        row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+        row["variants"][f"NF4-g{gs}, one layer's 7 projections at M=8"] = r
+        print(f"nf4_gemv g{gs}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"torch.matmul {r['library_ms']:.4f} ms [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return [row, check_decode_attn2_kv4(torch, dev, gen)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1628,6 +1780,10 @@ def main() -> int:
     moe_rows, moe_launches = run_moe(torch, dev, gen, args)
     kernels += moe_rows
     launches.update(moe_launches)
+    torch.cuda.empty_cache()
+    kernels += check_nf4_kv4(torch, dev, gen)
+    launches.update(run_cli(torch, dev, args, NF4_KV4_RUNS,
+                            ("nf4_gemv", "decode_attn2_kv4")))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -47,13 +47,15 @@ def _is_expert_stack(leaf) -> bool:
         hasattr(leaf, "n_experts") or np.ndim(leaf.data) == 3)
 
 
-def _affine(leaf, device: torch.device) -> dict:
-    """The fields of an affine INT2/INT4/INT8 weight or expert stack, byte
-    for byte, grouped side streams (bf16 s_chunk, int8 z_chunk) included."""
-    if getattr(leaf, "codebook", None) or leaf.bits not in (2, 4, 8):
-        raise NotImplementedError(
-            f"only affine INT2/INT4/INT8 weights are ported (got bits="
-            f"{leaf.bits}, codebook={getattr(leaf, 'codebook', None)})")
+def _fields(leaf, device: torch.device) -> dict:
+    """The fields of an INT2/INT4/INT8 or NF4 weight or expert stack, byte
+    for byte, grouped side streams (bf16 s_chunk, int8 z_chunk) and the
+    codebook name included."""
+    codebook = getattr(leaf, "codebook", None)
+    if codebook not in (None, "nf4") or leaf.bits not in (2, 4, 8) or (
+            codebook and leaf.bits != 4):
+        raise ValueError(f"unknown weight format: bits={leaf.bits}, "
+                         f"codebook={codebook}")
 
     def side(name, dtype):
         a = getattr(leaf, name, None)
@@ -66,7 +68,7 @@ def _affine(leaf, device: torch.device) -> dict:
         bits=int(leaf.bits), k=int(leaf.k),
         group_size=(None if leaf.group_size is None else int(leaf.group_size)),
         s_chunk=side("s_chunk", torch.bfloat16),
-        z_chunk=side("z_chunk", torch.int8))
+        z_chunk=side("z_chunk", torch.int8), codebook=codebook)
 
 
 def params_from_jax(tree, *, device: DeviceLike = None):
@@ -80,9 +82,9 @@ def params_from_jax(tree, *, device: DeviceLike = None):
         if isinstance(leaf, (list, tuple)):
             return [conv(v) for v in leaf]
         if _is_expert_stack(leaf):
-            return QuantizedExpertStack(**_affine(leaf, dev))
+            return QuantizedExpertStack(**_fields(leaf, dev))
         if _is_quantized_linear(leaf):
-            return QuantizedLinear(**_affine(leaf, dev))
+            return QuantizedLinear(**_fields(leaf, dev))
         return tensor_from_numpy(leaf, dev)
 
     return conv(tree)
@@ -103,10 +105,9 @@ def quantized_tensor_from_jax(qt, *, device: DeviceLike = None
 
 
 def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:
-    """A JAX KVCache (kv8, stacked or not) -> the port's."""
+    """A JAX KVCache (kv8 or the pair-packed kv4, stacked or not) -> the
+    port's, byte for byte."""
     dev = resolve_device(device)
-    if np.asarray(cache.k_codes).dtype != np.int8:
-        raise NotImplementedError("only kv8 caches are ported")
     return KVCache(*(tensor_from_numpy(getattr(cache, f), dev) for f in
                      ("k_codes", "v_codes", "k_scale", "v_scale", "length")))
 
@@ -115,7 +116,7 @@ def config_from_jax(jcfg) -> LlamaConfig:
     """The JAX package's LlamaConfig -> the port's.  Every model-family
     flag the port does not have yet (qkv_bias, sliding_window, softcaps,
     sinks, shared experts, router / expert biases, expert parallelism,
-    Llama-4 / Gemma / Phi / Granite options, kv4, ...) raises
+    Llama-4 / Gemma / Phi / Granite options, ...) raises
     NotImplementedError when set off its default."""
     kw = {f: getattr(jcfg, f) for f in _CONFIG_FIELDS}
     handled = set(_CONFIG_FIELDS) | {"llama3_rope", "dtype"}

@@ -1,6 +1,7 @@
-// decode_attn2: flash-decode over the stacked INT8 KV cache (kv8).
+// decode_attn2: flash-decode over the stacked INT8 (kv8) or pair-packed
+// INT4 (kv4) KV cache.
 //
-// Replaces piquant_tpu/ops/pallas/decode_attn2.py::_kernel in its kv8 form.
+// Replaces piquant_tpu/ops/pallas/decode_attn2.py::_kernel in both forms.
 // For every (batch row b, kv head h) it returns the UNNORMALIZED flash state
 // over the live cache window start[b] <= p < pos[b]:
 //   m   = max_p s_p,   l = sum_p exp(s_p - m),
@@ -24,6 +25,16 @@
 // Products: bf16 q times int8 codes (exact) with f32 sums, probabilities
 // scaled by the V scale and rounded to bf16 before the PV sum, as the TPU
 // kernel does.
+//
+// kv4 (quant/kv_cache.py): codes [L, B, Hkv, S/2, D] uint8, where row t
+// holds position 2t's 64 bytes then position 2t+1's, and byte j of a
+// position holds dim j + 8 in its low nibble and dim j + 64 + 8 in its high
+// one; scales [L, B, Hkv, 2, S/2] with position p at [p % 2, p / 2].  A
+// position is half the bytes of kv8: each of the 8 lanes on a row reads 8
+// bytes (dims 8g .. 8g+7 and 64+8g .. 64+8g+7) and subtracts the offset in
+// registers, so the code values are the exact integers (c - 8) the TPU
+// kernel folds in as -8 sum(q) and -8 sum(pv).  Everything else is the kv8
+// kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,12 +59,58 @@ __device__ __forceinline__ void codes16(const int8_t* p, float* out) {
       out[i * 4 + j] = (float)(int8_t)((words[i] >> (8 * j)) & 0xff);
 }
 
-template <int REP>
+// kv4: 8 bytes of one position -> out[0..7] the low nibbles (dims 8g..),
+// out[8..15] the high ones (dims 64+8g..), each minus the offset 8.
+__device__ __forceinline__ void nibbles16(const uint8_t* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const uint32_t words[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t byte = (words[i] >> (8 * j)) & 0xffu;
+      out[i * 4 + j] = (float)((int)(byte & 15u) - 8);
+      out[8 + i * 4 + j] = (float)((int)(byte >> 4) - 8);
+    }
+}
+
+// Head dim of element j (0..15) of lane group slice g (0..7).
+template <bool KV4>
+__device__ __forceinline__ int dim_of(int g, int j) {
+  if constexpr (KV4) return j < 8 ? g * 8 + j : kD / 2 + g * 8 + (j - 8);
+  return g * 16 + j;
+}
+
+// Element offset of position p's codes for lane group slice g, and of its
+// scale, within one (layer, b, h) of the stacked cache (s_len positions).
+template <bool KV4>
+__device__ __forceinline__ size_t code_at(int p, int g) {
+  if constexpr (KV4) return (size_t)(p / 2) * kD + (p % 2) * (kD / 2) + g * 8;
+  return (size_t)p * kD + g * 16;
+}
+
+template <bool KV4>
+__device__ __forceinline__ size_t scale_at(int p, int s_len) {
+  if constexpr (KV4) return (size_t)(p % 2) * (s_len / 2) + p / 2;
+  return (size_t)p;
+}
+
+template <bool KV4>
+__device__ __forceinline__ void load16(const void* base, size_t off,
+                                       float* out) {
+  if constexpr (KV4) {
+    nibbles16(static_cast<const uint8_t*>(base) + off, out);
+  } else {
+    codes16(static_cast<const int8_t*>(base) + off, out);
+  }
+}
+
+template <int REP, bool KV4>
 __global__ void __launch_bounds__(kThreads)
 decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
-                   const int8_t* __restrict__ kc,         // [L,B,H,S,D]
-                   const float* __restrict__ ks,          // [L,B,H,S]
-                   const int8_t* __restrict__ vc,
+                   const void* __restrict__ kc,   // [L,B,H,S,D] / [L,B,H,S/2,D]
+                   const float* __restrict__ ks,  // [L,B,H,S] / [L,B,H,2,S/2]
+                   const void* __restrict__ vc,
                    const float* __restrict__ vs,
                    const int* __restrict__ pos,           // [B]
                    const int* __restrict__ start,         // [B]
@@ -73,7 +130,11 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
   const int hi = min(min(pos[b], s_len), c0 + kChunk);
   if (lo >= hi) return;   // dead chunk: the merge kernel skips it
 
-  const size_t row0 = ((size_t)layer * nb * nh + bh) * s_len;
+  // (layer, b, h) slab: s_len positions of codes (kD bytes each for kv8,
+  // kD / 2 for kv4) and s_len scales
+  const size_t lbh = (size_t)layer * nb * nh + bh;
+  const size_t code0 = lbh * s_len * (KV4 ? kD / 2 : kD);
+  const size_t scale0 = lbh * s_len;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int gl = lane % 8;                   // 16-dim slice of a row
   const int grp = warp * 4 + lane / 8;       // position group
@@ -85,7 +146,8 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
     for (int r = 0; r < REP; ++r)
 #pragma unroll
       for (int j = 0; j < 16; ++j)
-        qf[r][j] = __bfloat162float(q[((size_t)bh * REP + r) * kD + gl * 16 + j]);
+        qf[r][j] = __bfloat162float(
+            q[((size_t)bh * REP + r) * kD + dim_of<KV4>(gl, j)]);
 #pragma unroll 4
     for (int i = 0; i < kPerGroup; ++i) {
       const int p = c0 + grp + kGroups * i;
@@ -95,7 +157,7 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
       for (int r = 0; r < REP; ++r) dot[r] = 0.f;
       if (live) {
         float kf[16];
-        codes16(kc + (row0 + p) * kD + gl * 16, kf);
+        load16<KV4>(kc, code0 + code_at<KV4>(p, gl), kf);
 #pragma unroll
         for (int r = 0; r < REP; ++r)
 #pragma unroll
@@ -108,7 +170,8 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
         dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
       }
       if (gl == 0) {
-        const float kscale = live ? ks[row0 + p] * sm_scale : 0.f;
+        const float kscale =
+            live ? ks[scale0 + scale_at<KV4>(p, s_len)] * sm_scale : 0.f;
 #pragma unroll
         for (int r = 0; r < REP; ++r)
           sc[r][p - c0] = live ? dot[r] * kscale : kNegInf;
@@ -130,7 +193,8 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
       const bool live = p >= lo && p < hi;
       const float e = live ? expf(sc[r][j] - mx) : 0.f;
       sum += e;
-      sc[r][j] = live ? __bfloat162float(__float2bfloat16(e * vs[row0 + p]))
+      sc[r][j] = live ? __bfloat162float(__float2bfloat16(
+                            e * vs[scale0 + scale_at<KV4>(p, s_len)]))
                       : 0.f;
     }
 #pragma unroll
@@ -155,7 +219,7 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
     const int p = c0 + grp + kGroups * i;
     if (p < lo || p >= hi) continue;
     float vf[16];
-    codes16(vc + (row0 + p) * kD + gl * 16, vf);
+    load16<KV4>(vc, code0 + code_at<KV4>(p, gl), vf);
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
       const float pv = sc[r][p - c0];
@@ -176,7 +240,7 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
 #pragma unroll
     for (int r = 0; r < REP; ++r)
 #pragma unroll
-      for (int j = 0; j < 16; ++j) red[warp][r][gl * 16 + j] = acc[r][j];
+      for (int j = 0; j < 16; ++j) red[warp][r][dim_of<KV4>(gl, j)] = acc[r][j];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < REP * kD; i += kThreads) {
@@ -226,15 +290,15 @@ __global__ void decode_attn2_merge(const float* __restrict__ part_acc,
   }
 }
 
-template <int REP>
+template <int REP, bool KV4>
 void launch(const void* q, const void* kc, const void* ks, const void* vc,
             const void* vs, const void* pos, const void* start, void* acc,
             void* m, void* l, void* part_acc, void* part_ml, int layer,
             int nb, int nh, int s_len, float sm_scale, cudaStream_t st) {
   const int nsplit = (s_len + kChunk - 1) / kChunk;
-  decode_attn2_chunk<REP><<<dim3(nb * nh, nsplit), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kc),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+  decode_attn2_chunk<REP, KV4><<<dim3(nb * nh, nsplit), kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), kc,
+      static_cast<const float*>(ks), vc,
       static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<const int*>(start), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), layer, nb, nh, s_len, sm_scale);
@@ -243,6 +307,23 @@ void launch(const void* q, const void* kc, const void* ks, const void* vc,
       static_cast<const int*>(pos), static_cast<const int*>(start),
       static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
       nh, nsplit, s_len);
+}
+
+template <bool KV4>
+int dispatch(const void* q, const void* kc, const void* ks, const void* vc,
+             const void* vs, const void* pos, const void* start, void* acc,
+             void* m, void* l, void* part_acc, void* part_ml, int layer,
+             int nb, int nh, int rep, int s_len, float sm_scale,
+             void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (rep) {
+    case 1: launch<1, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 2: launch<2, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 4: launch<4, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 8: launch<8, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -258,13 +339,19 @@ extern "C" int pq_decode_attn2(const void* q, const void* kc, const void* ks,
                                void* part_acc, void* part_ml, int layer,
                                int nb, int nh, int rep, int s_len,
                                float sm_scale, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (rep) {
-    case 1: launch<1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 2: launch<2>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 4: launch<4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 8: launch<8>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dispatch<false>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
+                         part_ml, layer, nb, nh, rep, s_len, sm_scale, stream);
+}
+
+// As pq_decode_attn2 over the kv4 cache: k/v codes [L,B,H,S/2,128] uint8
+// (pair-packed), k/v scales [L,B,H,2,S/2] f32; s_len (even) in positions.
+extern "C" int pq_decode_attn2_kv4(const void* q, const void* kc,
+                                   const void* ks, const void* vc,
+                                   const void* vs, const void* pos,
+                                   const void* start, void* acc, void* m,
+                                   void* l, void* part_acc, void* part_ml,
+                                   int layer, int nb, int nh, int rep,
+                                   int s_len, float sm_scale, void* stream) {
+  return dispatch<true>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
+                        part_ml, layer, nb, nh, rep, s_len, sm_scale, stream);
 }

@@ -1,5 +1,5 @@
 // Weight-only quantized matmul for decode-sized M (M <= 64): one kernel
-// template, five entry points, each replacing TPU kernels of
+// template, six entry points, each replacing TPU kernels of
 // piquant_tpu/ops/pallas/qmatmul.py:
 //
 //   pq_w4_gemv   _w4_kernel + _w4_kernel_ksplit   INT4 split-half, channelwise
@@ -7,6 +7,7 @@
 //   pq_w2_gemv   _w2_kernel                       INT2 split-quarter, channelwise
 //   pq_wg_gemv   _wg_chunk_kernel (bf16 / int8 x) grouped INT2 / INT4
 //   pq_w4g_gemv  _w4_grouped_kernel               grouped INT4, W4A16 numerics
+//   pq_nf4_gemv  _nf4_kernel                      NF4 codebook, channelwise or grouped
 //
 // (On Hopper a K split is a loop inside the block plus a split over
 // blocks, so _w4_kernel_ksplit needs no kernel of its own.)
@@ -39,6 +40,14 @@
 //   w4a16: w = bf16((c - bf16(z)) * bf16(s)) from the f32 scale and int32
 //     zero point in natural group order, as the TPU kernel rounds the
 //     dequantised weight to bf16 before its two bf16 products.
+//
+// NF4: a code indexes the 16-entry NormalFloat-4 table, each entry rounded
+// to bf16 as the TPU kernel's select chain casts it (kept in shared memory:
+// 16 words in 16 banks, so any lanes' lookups are conflict-free).  There is
+// no zero point.  Channelwise: the table values' products accumulate in f32
+// and the sum is scaled by scale[n] once, at the end (the TPU kernel's acc *
+// s_n).  Grouped: w = bf16(lut[c] * bf16(s)) with the f32 group scale in
+// natural group order, the TPU kernel's pre-scaled bf16 value planes.
 //
 // Bound on the H100: the weight stream, K*N/P bytes a call, plus the side
 // streams of grouped weights (3 B a group entry in chunk form, 8 B in
@@ -77,7 +86,15 @@ constexpr int kMT = 8;          // x rows per block
 constexpr int kStage = 8192;    // shared floats: x chunks, then the reduction
 constexpr int kUnroll = 8;      // packed rows a warp has in flight
 
-enum Mode { kChannel, kChunk, kW4A16 };
+enum Mode { kChannel, kChunk, kW4A16, kNF4, kNF4G };
+
+// NF4_CODEBOOK of piquant_tpu/quant/linear.py, as f32
+__constant__ float kNF4Table[16] = {
+    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
+    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
+    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f,
+    0.33791524171829224f, 0.44070982933044434f, 0.5626170039176941f,
+    0.7229568362236023f, 1.0f};
 
 __device__ __forceinline__ void store_out(void* out, size_t i, float v,
                                           int out_bf16) {
@@ -110,7 +127,7 @@ __device__ __forceinline__ void load_x(const float* s, float (&v)[P]) {
 }
 
 // Group j's side values for one lane's 4 columns, per plane: sv the scale,
-// zv = z * s (chunk) or z (w4a16).
+// zv = z * s (chunk) or z (w4a16); NF4 grouped reads only bf16(s).
 template <int P, int MODE>
 __device__ __forceinline__ void load_side(const void* side_s,
                                           const void* side_z, int j, int gp,
@@ -133,6 +150,14 @@ __device__ __forceinline__ void load_side(const void* side_s,
         sv[p][c] = s;
         zv[p][c] = z * s;                                 // exact
       }
+    } else if constexpr (MODE == kNF4G) {
+      const size_t e = (size_t)p * gp + j;
+      const float4 s4 = __ldg(reinterpret_cast<const float4*>(
+          static_cast<const float*>(side_s) + e * n + col));
+      sv[p][0] = round_bf16(s4.x);
+      sv[p][1] = round_bf16(s4.y);
+      sv[p][2] = round_bf16(s4.z);
+      sv[p][3] = round_bf16(s4.w);
     } else {
       const size_t e = (size_t)p * gp + j;
       const float4 s4 = __ldg(reinterpret_cast<const float4*>(
@@ -168,6 +193,7 @@ gemv_partial(const void* __restrict__ x,    // bf16, or int8 when XI8
   constexpr uint32_t kMask = (1u << kBits) - 1u;
   constexpr int kChunkRows = kStage / (kMT * P);
   __shared__ __align__(16) float smem[kStage];
+  __shared__ float lut[16];   // NF4 modes: the bf16-rounded table
 
   const int rows = k / P;                 // packed rows of the weight
   const int col0 = blockIdx.x * kCols;
@@ -177,7 +203,10 @@ gemv_partial(const void* __restrict__ x,    // bf16, or int8 when XI8
   const int r1 = min(r0 + rows_per_split, rows);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int col = col0 + lane * 4;
-  const int gp = MODE == kChannel ? 1 : rows / gs;   // groups per plane
+  const int gp = MODE == kChannel || MODE == kNF4 ? 1 : rows / gs;  // groups per plane
+  if constexpr (MODE == kNF4 || MODE == kNF4G) {
+    if (threadIdx.x < 16) lut[threadIdx.x] = round_bf16(kNF4Table[threadIdx.x]);
+  }   // read after the chunk loop's first barrier
 
   float acc[kMT][4];
 #pragma unroll
@@ -232,7 +261,7 @@ gemv_partial(const void* __restrict__ x,    // bf16, or int8 when XI8
       for (int u = 0; u < kUnroll; ++u) {
         const int r = rb + u * kWarps;
         if (r >= nrows) break;
-        if constexpr (MODE != kChannel) {
+        if constexpr (MODE != kChannel && MODE != kNF4) {
           const int j = (c0 + r) / gs;
           if (j != cur) {                   // warp-uniform
             cur = j;
@@ -245,9 +274,12 @@ gemv_partial(const void* __restrict__ x,    // bf16, or int8 when XI8
           const uint32_t byte = (word[u] >> (8 * c)) & 0xffu;
 #pragma unroll
           for (int p = 0; p < P; ++p) {
-            float f = (float)((byte >> (kBits * p)) & kMask);
+            const uint32_t code = (byte >> (kBits * p)) & kMask;
+            float f = (float)code;
             if constexpr (MODE == kChunk) f = fmaf(f, sv[p][c], -zv[p][c]);
             if constexpr (MODE == kW4A16) f = round_bf16((f - zv[p][c]) * sv[p][c]);
+            if constexpr (MODE == kNF4) f = lut[code];
+            if constexpr (MODE == kNF4G) f = round_bf16(lut[code] * sv[p][c]);
             cv[p][c] = f;
           }
         }
@@ -286,6 +318,8 @@ gemv_partial(const void* __restrict__ x,    // bf16, or int8 when XI8
       const float sc = scale[cl];
       const float zs = (float)zp[cl] * sc;
       store_out(out, (size_t)row * n + cl, s * sc - xsum[row] * zs, out_bf16);
+    } else if (MODE == kNF4) {
+      store_out(out, (size_t)row * n + cl, s * scale[cl], out_bf16);
     } else {
       store_out(out, (size_t)row * n + cl, XI8 ? __fmul_rn(s, xs[row]) : s,
                 out_bf16);
@@ -294,8 +328,8 @@ gemv_partial(const void* __restrict__ x,    // bf16, or int8 when XI8
 }
 
 // Second pass of a K split: the f32 partials summed in split order, then
-// the channelwise fold (scale != null), the int8-x row scale (xs != null)
-// or nothing (grouped, bf16 x).
+// the channelwise fold (scale != null; NF4 channelwise, zp null: the scale
+// alone), the int8-x row scale (xs != null) or nothing (grouped, bf16 x).
 __global__ void gemv_reduce(const float* __restrict__ partial,
                             const float* __restrict__ scale,
                             const int* __restrict__ zp,
@@ -310,7 +344,7 @@ __global__ void gemv_reduce(const float* __restrict__ partial,
   for (int sp = 0; sp < ksplit; ++sp) s += partial[(size_t)sp * m * n + i];
   if (scale != nullptr) {
     const float sc = scale[col];
-    s = s * sc - xsum[row] * ((float)zp[col] * sc);
+    s = zp != nullptr ? s * sc - xsum[row] * ((float)zp[col] * sc) : s * sc;
   } else if (xs != nullptr) {
     s = __fmul_rn(s, xs[row]);
   }
@@ -336,7 +370,8 @@ int launch(const void* x, const void* w, const void* scale, const void* zp,
     const int total = m * n;
     gemv_reduce<<<(total + 255) / 256, 256, 0, st>>>(
         static_cast<const float*>(partial),
-        MODE == kChannel ? static_cast<const float*>(scale) : nullptr,
+        MODE == kChannel || MODE == kNF4 ? static_cast<const float*>(scale)
+                                         : nullptr,
         static_cast<const int*>(zp), static_cast<const float*>(xsum),
         XI8 ? static_cast<const float*>(xs) : nullptr, out, m, n, ksplit,
         out_bf16);
@@ -406,4 +441,20 @@ extern "C" int pq_w4g_gemv(const void* x, const void* w, const void* scale,
   return launch<2, kW4A16>(x, w, nullptr, nullptr, nullptr, scale, zp,
                            nullptr, gs, 1, out, partial, m, k, n, ksplit,
                            rows_per_split, out_bf16, stream);
+}
+
+// NF4, x [m, k] bf16, w [k/2, n] u8 split-half codes: channelwise (gs 0)
+// with scale [n] f32, or grouped with scale [k/gs, n] f32 in natural group
+// order ((k/2) % gs == 0, rows_per_split a multiple of gs).
+extern "C" int pq_nf4_gemv(const void* x, const void* w, const void* scale,
+                           void* out, void* partial, int m, int k, int n,
+                           int gs, int ksplit, int rows_per_split,
+                           int out_bf16, void* stream) {
+  if (gs == 0)
+    return launch<2, kNF4>(x, w, scale, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, 1, 1, out, partial, m, k, n, ksplit,
+                           rows_per_split, out_bf16, stream);
+  return launch<2, kNF4G>(x, w, nullptr, nullptr, nullptr, scale, nullptr,
+                          nullptr, gs, 1, out, partial, m, k, n, ksplit,
+                          rows_per_split, out_bf16, stream);
 }

@@ -46,6 +46,8 @@ SIGNATURES = {
     # x, w, scale, zp, out, partial, m, k, n, gs, ksplit, rows, out_bf16,
     # stream
     "pq_w4g_gemv": [_P] * 6 + [_I] * 7 + [_P],
+    # x, w, scale, out, partial, m, k, n, gs, ksplit, rows, out_bf16, stream
+    "pq_nf4_gemv": [_P] * 5 + [_I] * 7 + [_P],
     # xq, xs, w, scale, zs, xsum, out, partial, m, k, n, bm, ksplit, rows,
     # out_bf16, stream
     "pq_w4a8": [_P] * 8 + [_I] * 7 + [_P],
@@ -63,6 +65,7 @@ SIGNATURES = {
     # q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer,
     # nb, nh, rep, s_len, sm_scale, stream
     "pq_decode_attn2": [_P] * 12 + [_I] * 5 + [_F, _P],
+    "pq_decode_attn2_kv4": [_P] * 12 + [_I] * 5 + [_F, _P],
     # q, k, v, out, nb, nh, rep, t, sm_scale, stream
     "pq_flash_prefill": [_P] * 4 + [_I] * 4 + [_F, _P],
     # x, out, n, in_bf16, bits, is_signed, scale_ptr, scale_val, zp_ptr,

@@ -7,11 +7,12 @@
     w2_gemv     _w2_kernel                       INT2 split-quarter, channelwise
     wg_chunk    _wg_chunk_kernel (bf16 / int8 x) grouped INT2/INT4
     w4_grouped  _w4_grouped_kernel               grouped INT4, W4A16 numerics
+    nf4_gemv    _nf4_kernel                      NF4, channelwise or grouped
     w4a8        _w4a8_kernel, _w4a8_kernel_ksplit  int8 x, INT4 channelwise
     w8a8        _w8a8_kernel                     int8 x, INT8 channelwise
     w2a8        _w2a8_kernel                     int8 x, INT2 channelwise
 
-Each wrapper launches its hand-written kernel (the first five are one
+Each wrapper launches its hand-written kernel (the first six are one
 template in csrc/qmatmul_gemv.cu, the int8-x GEMMs one template in
 csrc/qmatmul_a8.cu) on CUDA tensors, counts the launch in `.launches`, and
 runs `<name>_plain`, the same function in plain PyTorch, on CPU tensors.
@@ -20,9 +21,10 @@ call takes a kernel (and whether activations are quantized at all):
 grouped plane rows divisible by the group size, N % 128, K % 256, M <= 64,
 INT2 K % 512, the chunk kernel's own gate; for int8 x, w4a8 N % 256 and
 K % 512, w2a8 N % 128 and K % 512, w8a8 N % 128, K % 256, K <= 8192 and
-no groups, grouped a8 M rounded up to 32 at most M_MAX.  It drops the
-TPU's tile choices and VMEM budgets (bm, bn, bkh, W_BLOCK_VMEM_LIMIT,
-XK_VMEM_LIMIT and the PIQUANT_W4_* / QMM_VMEM knobs), none of which
+no groups, grouped a8 M rounded up to 32 at most M_MAX; for NF4 N % 128,
+K % 256, (K/2) % gs, gs % 8, M <= 64.  It drops the TPU's tile choices and
+VMEM budgets (bm, bn, bkh, W_BLOCK_VMEM_LIMIT, XK_VMEM_LIMIT and the
+PIQUANT_W4_* / QMM_VMEM knobs), none of which
 declines a Llama-3-8B shape: the kernels stage x in chunks and need no
 whole-K block.
 """
@@ -289,6 +291,76 @@ def w4_grouped(x2, data, scale, zp, gs: int, out_dtype) -> torch.Tensor:
 
 
 wg_chunk.launches = w4_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# NF4 codebook: nf4_gemv
+# ---------------------------------------------------------------------------
+
+def nf4_gemv_plain(x2: torch.Tensor, data: torch.Tensor,
+                   scale: torch.Tensor, gs: int, out_dtype) -> torch.Tensor:
+    """x2 [M, K] bf16, data [K/2, N] uint8 split-half NF4 codes, scale f32
+    [N] (channelwise, gs 0) or [G, N] (grouped, gs = K / G) -> [M, N]: each
+    plane's codes through the codebook rounded to bf16; channelwise the two
+    plane products in f32, then times the scale; grouped the values times
+    the bf16 group scale, rounded to bf16, before the products
+    (`_nf4_kernel`)."""
+    from piquant_tpu_torch.quant.linear import codebook_lut
+
+    kh = data.shape[0]
+    lut = codebook_lut("nf4", torch.bfloat16, data.device)
+    lo, hi = (lut[p.long()] for p in code_planes(data, 2))
+    if gs:
+        s = scale.to(torch.bfloat16).repeat_interleave(gs, dim=0)
+        lo, hi = lo * s[:kh], hi * s[kh:]
+    acc = (x2[:, :kh].float() @ lo.float() + x2[:, kh:].float() @ hi.float())
+    if not gs:
+        acc = acc * scale
+    return acc.to(out_dtype)
+
+
+def nf4_gemv(x2, data, scale, gs: int, out_dtype) -> torch.Tensor:
+    """Kernel wrapper; see `nf4_gemv_plain` for the function."""
+    if not x2.is_cuda:
+        return nf4_gemv_plain(x2, data, scale, gs, out_dtype)
+    name = "nf4_gemv"
+    k, n = x2.shape[1], data.shape[1]
+    _check(name, x2.shape[1] == 2 * data.shape[0],
+           what="split-half NF4 codes expected")
+    _check(name, scale.dtype == torch.float32, TypeError, "scale f32 expected")
+    if gs:
+        _grouped_shape(name, x2, data, scale, scale, gs, 2)
+    else:
+        _check(name, scale.numel() == n, what="scale must be [N]")
+    out = _launch(name, "pq_nf4_gemv", x2, data, (scale,), (gs,), 2,
+                  gs or 8, out_dtype)
+    nf4_gemv.launches += 1
+    return out
+
+
+nf4_gemv.launches = 0
+
+
+def nf4_matmul(x: torch.Tensor, ql, out_dtype=torch.bfloat16
+               ) -> Optional[torch.Tensor]:
+    """x [..., K] @ NF4 weight -> [..., N] through nf4_gemv; None where the
+    reference's `nf4_matmul` declines (N % 128, K % 256, (K/2) % gs, gs % 8,
+    M > M_MAX)."""
+    k, n, gs = ql.k, ql.n, ql.group_size
+    if n % 128 or k % 256:
+        return None
+    if gs is not None and ((k // 2) % gs or gs % 8):
+        return None
+    lead = x.shape[:-1]
+    m = 1
+    for d in lead:
+        m *= d
+    if m > M_MAX:
+        return None
+    x2 = x.reshape(m, k).to(torch.bfloat16).contiguous()
+    scale = (ql.scale.float().contiguous() if gs is not None
+             else ql.scale.float().reshape(-1).expand(n).contiguous())
+    return nf4_gemv(x2, ql.data, scale, gs or 0, out_dtype).reshape(*lead, n)
 
 
 def wg_grouped_matmul(x2: torch.Tensor, ql, out_dtype,

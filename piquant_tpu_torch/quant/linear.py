@@ -28,8 +28,13 @@ MoE experts are a QuantizedExpertStack: E weights of one geometry stacked
 on a leading axis, which the ragged expert GEMMs (ops/cuda/ragged.py) read
 in place and `expert(i)` views as a QuantizedLinear.
 
-NF4 codebooks and stochastic rounding are not ported yet and raise
-NotImplementedError.
+NF4 (codebook "nf4") weights store the same split-half bytes, but a code
+indexes the 16-entry NormalFloat-4 table: w = NF4_CODEBOOK[c] * scale with
+an absmax scale per channel, tensor or group and no zero point.  Their
+matmul takes the NF4 GEMV at decode M (`nf4_gemv`, bf16 table values as
+the reference's kernel rounds them), one dense bf16 product at M >= 256,
+and the f32 table product between (`_matmul_nf4`); int8 activations never
+apply to them.
 """
 
 from __future__ import annotations
@@ -86,6 +91,48 @@ def unpack_split_quarter(packed: torch.Tensor) -> torch.Tensor:
     """bytes [K//4, N] -> int32 codes [K, N]."""
     b = packed.to(torch.int32)
     return torch.cat([b & 3, (b >> 2) & 3, (b >> 4) & 3, b >> 6], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# NF4 codebook (non-uniform 4-bit)
+# ---------------------------------------------------------------------------
+
+# The QLoRA NormalFloat-4 codebook (Dettmers et al., arXiv:2305.14314):
+# quantiles of N(0, 1) normalized to [-1, 1], with an exact zero at index 7.
+NF4_CODEBOOK = (
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+    0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+    0.7229568362236023, 1.0)
+
+CODEBOOKS = {"nf4": NF4_CODEBOOK}
+
+
+def codebook_lut(codebook: str, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """The codebook's 16 values as a tensor (f32 values cast to `dtype`)."""
+    return torch.tensor(CODEBOOKS[codebook], dtype=torch.float32,
+                        device=device).to(dtype)
+
+
+def codebook_encode(normalized: torch.Tensor, codebook: str) -> torch.Tensor:
+    """Nearest-entry indices (int32) of values in [-1, 1]: the number of
+    f32 midpoints (lut[i] + lut[i+1]) / 2 that x exceeds strictly, as the
+    reference counts them (a tie goes to the lower entry)."""
+    lut = CODEBOOKS[codebook]
+    x = normalized.float()
+    code = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for i in range(len(lut) - 1):
+        mid = np.float32((lut[i] + lut[i + 1]) * 0.5)
+        code += (x > float(mid)).to(torch.int32)
+    return code
+
+
+def codebook_decode(codes: torch.Tensor, codebook: str,
+                    dtype=torch.float32) -> torch.Tensor:
+    """codes in [0, 15] -> the codebook's f32 values, cast to `dtype`."""
+    return codebook_lut(codebook, device=codes.device)[codes.long()].to(dtype)
 
 
 def grouped_chunk_factor(k: int, group_size: int,
@@ -183,6 +230,8 @@ class QuantizedLinear:
     grouped (group_size = K // G contraction rows per group), f32 / int32.
     s_chunk/z_chunk: grouped INT2/INT4 only, the kernel's side streams
     (chunk-major bf16 scales, raw int8 zero points; see _grouped_cache).
+    codebook: "nf4" for NormalFloat-4 weights (bits 4, absmax scales, a
+    zero zero_point kept for shape parity), None for affine ones.
     """
 
     data: torch.Tensor
@@ -193,6 +242,7 @@ class QuantizedLinear:
     group_size: Optional[int] = None
     s_chunk: Optional[torch.Tensor] = None
     z_chunk: Optional[torch.Tensor] = None
+    codebook: Optional[str] = None
 
     @property
     def n(self) -> int:
@@ -218,6 +268,9 @@ class QuantizedLinear:
     def to_wire(self) -> torch.Tensor:
         """Packed codes in the reference wire ABI (adjacent elements of the
         flattened [K, N] array, low field first)."""
+        if self.codebook is not None:
+            raise ValueError(f"{self.codebook} weights have no reference "
+                             "wire ABI (its formats are affine)")
         if self.bits == 2:
             return split_quarter_to_wire(self.data)
         if self.bits == 4:
@@ -248,13 +301,15 @@ class QuantizedLinear:
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
         """Materialize the full [K, N] float weight."""
         s, z = self._expanded_params()
+        if self.codebook is not None:
+            return (codebook_decode(self.codes(), self.codebook) * s).to(dtype)
         return ((self.codes().float() - z) * s).to(dtype)
 
 
 def with_grouped_cache(ql: QuantizedLinear) -> QuantizedLinear:
-    """Attach (or refresh) the grouped side streams; no-op for channelwise
-    and INT8 weights."""
-    if ql.bits not in (2, 4) or ql.group_size is None:
+    """Attach (or refresh) the grouped side streams; no-op for channelwise,
+    INT8 and codebook weights."""
+    if ql.bits not in (2, 4) or ql.group_size is None or ql.codebook:
         return ql
     s_chunk, z_chunk = _grouped_cache(ql.scale, ql.zero_point, ql.k,
                                       ql.group_size, ql.bits)
@@ -276,6 +331,7 @@ class QuantizedExpertStack:
     group_size: Optional[int] = None
     s_chunk: Optional[torch.Tensor] = None
     z_chunk: Optional[torch.Tensor] = None
+    codebook: Optional[str] = None
 
     @property
     def n_experts(self) -> int:
@@ -291,14 +347,16 @@ class QuantizedExpertStack:
             zero_point=self.zero_point[i], bits=self.bits, k=self.k,
             group_size=self.group_size,
             s_chunk=None if self.s_chunk is None else self.s_chunk[i],
-            z_chunk=None if self.z_chunk is None else self.z_chunk[i])
+            z_chunk=None if self.z_chunk is None else self.z_chunk[i],
+            codebook=self.codebook)
 
     @staticmethod
     def stack(qls) -> "QuantizedExpertStack":
         q0 = qls[0]
         for q in qls[1:]:
-            if (q.bits, q.k, q.group_size, tuple(q.data.shape)) != (
-                    q0.bits, q0.k, q0.group_size, tuple(q0.data.shape)):
+            if (q.bits, q.k, q.group_size, tuple(q.data.shape),
+                    q.codebook) != (q0.bits, q0.k, q0.group_size,
+                                    tuple(q0.data.shape), q0.codebook):
                 raise ValueError("experts must share geometry")
         has_cache = all(q.s_chunk is not None for q in qls)
         return QuantizedExpertStack(
@@ -309,7 +367,8 @@ class QuantizedExpertStack:
             s_chunk=(torch.stack([q.s_chunk for q in qls]) if has_cache
                      else None),
             z_chunk=(torch.stack([q.z_chunk for q in qls]) if has_cache
-                     else None))
+                     else None),
+            codebook=q0.codebook)
 
 
 def quantize_linear_weight(
@@ -319,17 +378,23 @@ def quantize_linear_weight(
     channelwise: bool = True,
     group_size: Optional[int] = None,
     stochastic: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> QuantizedLinear:
     """Quantize a [K, N] float weight for weight-only inference: affine
     (scale, zp) per output channel (axis 0 reduced), per tensor, or per
     (group_size x 1) group along K, with the reference's derivation op for
     op (grouped INT2/INT4 scales rounded to bf16 first, as the reference
-    rounds them for its kernel's bf16 side stream)."""
+    rounds them for its kernel's bf16 side stream).  bits="nf4" takes the
+    NormalFloat-4 codebook (`_quantize_nf4`, always nearest).
+
+    stochastic rounds the affine codes as floor(w / s + u) with u uniform in
+    [0, 1) drawn from `generator` (the reference draws u from a jax.random
+    key: the same distribution, other bits)."""
     if w.ndim != 2:
         raise ValueError("quantize_linear_weight expects a 2-D weight")
-    if bits == "nf4" or stochastic:
-        raise NotImplementedError("NF4 and stochastic weight quantization "
-                                  "are not ported yet")
+    if bits == "nf4":
+        return _quantize_nf4(w, group_size=group_size,
+                             channelwise=channelwise)
     if bits not in (2, 4, 8):
         raise ValueError('bits must be 2, 4, 8, or "nf4"')
     k, n = w.shape
@@ -359,7 +424,14 @@ def quantize_linear_weight(
         z_full = zp.repeat_interleave(group_size, dim=0)
     else:
         s_full, z_full = scale, zp
-    rounded = round_half_away(wf / s_full)
+    r = wf / s_full
+    if stochastic:
+        if generator is None:
+            raise ValueError("stochastic quantization requires a generator")
+        u = torch.rand(r.shape, generator=generator, device=r.device)
+        rounded = torch.floor(r + u)
+    else:
+        rounded = round_half_away(r)
     codes = torch.clamp(rounded.to(torch.int32) + z_full, qmin, qmax)
     if bits == 2:
         data = pack_split_quarter(codes)
@@ -370,6 +442,33 @@ def quantize_linear_weight(
     return with_grouped_cache(QuantizedLinear(
         data=data, scale=scale, zero_point=zp, bits=bits, k=k,
         group_size=group_size))
+
+
+def _quantize_nf4(w: torch.Tensor, *, group_size: Optional[int] = None,
+                  channelwise: bool = True) -> QuantizedLinear:
+    """NF4 weights, as the reference derives them: scale = max |w| per
+    group, channel or tensor (1 where that is 0), codes the nearest
+    codebook entries of w / scale, split-half packed."""
+    k, n = w.shape
+    wf = w.float()
+    if group_size is not None:
+        if k % group_size:
+            raise ValueError(f"K={k} not divisible by group_size={group_size}")
+        amax = wf.reshape(k // group_size, group_size, n).abs().amax(dim=1)
+    elif channelwise:
+        amax = wf.abs().amax(dim=0, keepdim=True)
+    else:
+        amax = wf.abs().amax().reshape(1, 1)
+    scale = torch.where(amax == 0, torch.ones_like(amax), amax).float()
+    s_full = (scale.repeat_interleave(group_size, dim=0)
+              if group_size is not None else scale)
+    codes = codebook_encode(wf / s_full, "nf4")
+    return QuantizedLinear(data=pack_split_half(codes), scale=scale,
+                           zero_point=torch.zeros(scale.shape,
+                                                  dtype=torch.int32,
+                                                  device=scale.device),
+                           bits=4, k=k, group_size=group_size,
+                           codebook="nf4")
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +517,28 @@ def _matmul_dequant(x: torch.Tensor, ql: QuantizedLinear,
     return (acc * scale - xsum * (zp * scale)).to(out_dtype)
 
 
+def _matmul_nf4(x: torch.Tensor, ql: QuantizedLinear,
+                out_dtype) -> torch.Tensor:
+    """The reference's `_matmul_nf4_jnp`: the two split-half planes through
+    the codebook in f32, scaled per channel or group in f32, and two f32
+    products."""
+    kh = ql.k // 2
+    lo, hi = (codebook_decode(p, ql.codebook)
+              for p in _qmm.code_planes(ql.data, 2))
+    scale = ql.scale.float()
+    xf = x.float()
+    if ql.group_size is not None:
+        s_full = scale.repeat_interleave(ql.group_size, dim=0)
+        if kh % ql.group_size:
+            # a group straddles the planes: one product on the whole weight
+            return (xf @ (torch.cat([lo, hi]) * s_full)).to(out_dtype)
+        w_lo, w_hi = lo * s_full[:kh], hi * s_full[kh:]
+    else:
+        w_lo, w_hi = lo * scale, hi * scale
+    acc = xf[..., :kh] @ w_lo + xf[..., kh:] @ w_hi
+    return acc.to(out_dtype)
+
+
 def _quantize_act(x: torch.Tensor):
     """Dynamic per-token symmetric int8 activation quantization, the
     reference's op for op: xs = max(amax, 1e-8) / 127 in f32 and xq =
@@ -434,7 +555,8 @@ def quantized_matmul(x: torch.Tensor, ql: QuantizedLinear,
                      out_dtype=torch.bfloat16, *,
                      act_quant=False) -> torch.Tensor:
     """y = x @ dequant(W) with the weight kept packed, in the reference's
-    order of routes on the accelerator: with act_quant (True: M >=
+    order of routes on the accelerator: for codebook (NF4) weights the
+    NF4 routes (see the module docstring); with act_quant (True: M >=
     ACT_QUANT_MIN_M; "all": every M; INT8 weights only at M >=
     ACT_QUANT_MIN_M) the int8-activation kernels where their gates take
     the shape; then the decode-sized kernels (ops/cuda/qmatmul.py); for
@@ -446,6 +568,16 @@ def quantized_matmul(x: torch.Tensor, ql: QuantizedLinear,
     m = 1
     for d in lead:
         m *= d
+    if ql.codebook is not None:
+        # no zero-point fold and no int8-x form for a codebook: the NF4
+        # GEMV, the dense bf16 product at prefill M, else the table product
+        y = _qmm.nf4_matmul(x, ql, out_dtype)
+        if y is not None:
+            return y
+        if m >= ACT_QUANT_MIN_M:
+            w = ql.dequantize(torch.bfloat16)
+            return dot_f32(x.to(torch.bfloat16), w).to(out_dtype)
+        return _matmul_nf4(x, ql, out_dtype)
     use_a8 = (bool(act_quant)
               and (ql.group_size is None or ql.s_chunk is not None)
               and ql.bits in (2, 4, 8)

@@ -2,7 +2,8 @@
 piquant_tpu/serving/engine.py).
 
 A host scheduler drives slot-wise prefill admission and whole-batch decode
-blocks over a fixed pool of batch slots backed by the stacked kv8 cache.
+blocks over a fixed pool of batch slots backed by the stacked kv8 or kv4
+cache.
 Queued prompts of one pad bucket are admitted in ONE prefill call (bursts
 truncated to a power of two, as in the reference), and decode runs in
 blocks of `decode_block` steps whose [K, B] tokens come back to the host in
@@ -27,6 +28,7 @@ import torch
 
 from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.models import llama as M
+from piquant_tpu_torch.quant.kv_cache import kv_cache_copy_rows
 from piquant_tpu_torch.serving.sampler import (TOPK_CAND, SamplingParams,
                                                sample_batch)
 
@@ -76,6 +78,8 @@ class EngineMetrics:
     decode_time_s: float = 0.0
     prefill_tokens: int = 0
     prefill_time_s: float = 0.0
+    prefix_hits: int = 0           # the prefix cache is not ported: 0
+    prefix_tokens_saved: int = 0
     ttfts: List[float] = dataclasses.field(default_factory=list)
 
     @property
@@ -89,15 +93,20 @@ class EngineMetrics:
         return float(np.percentile(self.ttfts, 99) * 1e3) if self.ttfts else 0.0
 
     def to_dict(self) -> dict:
+        """The reference's metrics line: rates and TTFTs rounded to two
+        places."""
         return {
             "decode_tokens": self.decode_tokens,
-            "decode_tokens_per_s": self.decode_tokens_per_s,
+            "decode_tokens_per_s": round(self.decode_tokens_per_s, 2),
             "prefill_tokens": self.prefill_tokens,
-            "prefill_tokens_per_s": (self.prefill_tokens / self.prefill_time_s
-                                     if self.prefill_time_s else 0.0),
-            "p50_ttft_ms": self.p50_ttft_ms(),
-            "p99_ttft_ms": self.p99_ttft_ms(),
+            "prefill_tokens_per_s": (
+                round(self.prefill_tokens / self.prefill_time_s, 2)
+                if self.prefill_time_s else 0.0),
+            "p50_ttft_ms": round(self.p50_ttft_ms(), 2),
+            "p99_ttft_ms": round(self.p99_ttft_ms(), 2),
             "requests": len(self.ttfts),
+            "prefix_hits": self.prefix_hits,
+            "prefix_tokens_saved": self.prefix_tokens_saved,
         }
 
     def emit(self, path: str) -> None:
@@ -128,6 +137,11 @@ class Engine:
         if econfig.prefill_pad > econfig.max_seq_len:
             econfig = dataclasses.replace(econfig,
                                           prefill_pad=econfig.max_seq_len)
+        if cfg.kv_bits == 4 and (econfig.prefill_pad % 2
+                                 or econfig.max_seq_len % 2):
+            # a prefill's padded width must fill whole kv4 pair rows
+            raise ValueError("kv_bits=4 needs an even prefill_pad and "
+                             "max_seq_len")
         self.cfg = cfg
         self.params = params
         self.ec = econfig
@@ -243,9 +257,7 @@ class Engine:
         last, fresh = M.prefill(self.cfg, self.params,
                                 torch.from_numpy(rows).to(dev), fresh,
                                 last_positions=plens - 1)
-        for big, small in zip(self.cache.tensors()[:4], fresh.tensors()[:4]):
-            big[:, slots, :, :width] = small
-        self.cache.length[:, slots] = fresh.length
+        kv_cache_copy_rows(self.cache, fresh, slots)
         sps = [req.sampling for req, _, _, _ in batch]
 
         def vec(vals, dtype):

@@ -151,6 +151,49 @@ def test_w4_grouped_matches_plain(dev, m, k, n, gs, out_dtype):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
 
 
+# NF4: the same bound (bf16 table values in both; f32 sums in another
+# order).  Channelwise and grouped (the Llama-3-8B shapes at g64 / g128, a
+# group of 8 and a K split into many blocks), every M of the GEMV range.
+@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("k,n,gs", [(512, 256, None), (4096, 1024, None),
+                                    (14336, 4096, None), (4096, 14336, 64),
+                                    (14336, 4096, 128), (512, 384, 8),
+                                    (4096, 4096, 256)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_nf4_gemv_matches_plain(dev, m, k, n, gs, out_dtype):
+    ql = _qlin(dev, k, n, "nf4", gs, k + n + (gs or 0))
+    x = _x(dev, m, k, m + 3)
+    scale = (ql.scale if gs else ql.scale.reshape(-1)).contiguous()
+    before = Q.nf4_gemv.launches
+    got = Q.nf4_gemv(x, ql.data, scale, gs or 0, out_dtype).float()
+    assert Q.nf4_gemv.launches == before + 1
+    want = Q.nf4_gemv_plain(x, ql.data, scale, gs or 0, out_dtype).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+def test_nf4_routes_on_card(dev):
+    """quantized_matmul of an NF4 weight on the card: the GEMV at M <= 64,
+    no kernel (the bf16 product) at M >= 256; a shape off the gate raises
+    in the wrapper, never falls back there."""
+    from piquant_tpu_torch.quant.linear import quantized_matmul
+
+    ql = _qlin(dev, 1024, 256, "nf4", 64, 5)
+    before = Q.nf4_gemv.launches
+    y8 = quantized_matmul(_x(dev, 8, 1024, 6), ql)
+    y300 = quantized_matmul(_x(dev, 300, 1024, 7), ql)
+    assert Q.nf4_gemv.launches == before + 1
+    assert y8.shape == (8, 256) and y300.shape == (300, 256)
+    x = _x(dev, 8, 1024, 8)
+    with pytest.raises(ValueError):       # M > 64
+        Q.nf4_gemv(_x(dev, 65, 1024, 9), ql.data, ql.scale, 64,
+                   torch.bfloat16)
+    with pytest.raises(ValueError):       # a group size off the planes
+        Q.nf4_gemv(x, ql.data, ql.scale, 96, torch.bfloat16)
+    with pytest.raises(TypeError):        # bf16 scales
+        Q.nf4_gemv(x, ql.data, ql.scale.to(torch.bfloat16), 64,
+                   torch.bfloat16)
+
+
 def test_quantized_gemvs_refuse(dev):
     """Non-contiguous operands, wrong dtypes and shapes off the gates raise;
     nothing quietly falls back to a plain version on the card."""
@@ -292,6 +335,97 @@ def test_decode_attn2_matches_plain(dev, rep):
     torch.testing.assert_close(l, pl, rtol=2e-2, atol=0)
     torch.testing.assert_close(acc[1:] / l[1:], pacc[1:] / pl[1:],
                                atol=2e-3, rtol=2e-2)
+
+
+def _kv4_cache(dev, g, nl, b, hkv, s, d):
+    codes = [torch.randint(0, 256, (nl, b, hkv, s // 2, d), generator=g,
+                           device=dev, dtype=torch.uint8) for _ in range(2)]
+    scales = [torch.rand((nl, b, hkv, 2, s // 2), generator=g, device=dev)
+              * 0.02 for _ in range(2)]
+    return codes[0], scales[0], codes[1], scales[1]
+
+
+# kv4 as kv8 above: odd positions and odd starts put the live window's ends
+# on either half of a pair row; S not a multiple of the 256-position chunk.
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("s", [1024, 1000])
+def test_decode_attn2_kv4_matches_plain(dev, rep, s):
+    g = _gen(dev, rep + s)
+    nl, b, hkv, d = 3, 5, 2, 128
+    kc, ks, vc, vs = _kv4_cache(dev, g, nl, b, hkv, s, d)
+    q = torch.randn((b, hkv, rep, d), generator=g, device=dev)
+    pos = torch.tensor([0, 1, 701, s, 256], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 301, s - 3, 255], dtype=torch.int32,
+                         device=dev)
+    before = DA.decode_attn2_kv4.launches
+    acc, m, l = DA.decode_attn2_kv4(q, kc, ks, vc, vs, pos, start, 0.0884, 2)
+    assert DA.decode_attn2_kv4.launches == before + 1
+    pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                         0.0884, 2)
+    assert (m[0] == -1e30).all() and (l[0] == 0).all() and (acc[0] == 0).all()
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=2e-2, atol=0)
+    torch.testing.assert_close(acc[1:] / l[1:], pacc[1:] / pl[1:],
+                               atol=2e-3, rtol=2e-2)
+
+
+def test_decode_attn2_kv4_refuses(dev):
+    g = _gen(dev, 7)
+    kc, ks, vc, vs = _kv4_cache(dev, g, 1, 1, 1, 256, 128)
+    q = torch.zeros((1, 1, 2, 128), device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):            # kv8 codes to the kv4 kernel
+        DA.decode_attn2_kv4(q, kc.view(torch.int8), ks, vc, vs, pos, pos,
+                            1.0, 0)
+    with pytest.raises(ValueError):           # scales not parity-split
+        flat = ks.reshape(1, 1, 1, 256, 1)
+        DA.decode_attn2_kv4(q, kc, flat, vc, flat, pos, pos, 1.0, 0)
+    with pytest.raises(NotImplementedError):  # rep 3
+        DA.decode_attn2_kv4(torch.zeros((1, 1, 3, 128), device=dev), kc, ks,
+                            vc, vs, pos, pos, 1.0, 0)
+
+
+def test_kv4_decode_step_on_card(dev):
+    """One decode step of a small head_dim-128 model over a kv4 cache on
+    the card (the kv4 kernel, once a layer) against the same step on the
+    CPU (its plain version): logits within 2e-2 of the largest."""
+    from piquant_tpu_torch.models import llama as M
+
+    cfg = M.LlamaConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
+                        n_kv_heads=2, d_ff=512, max_seq_len=256,
+                        head_dim_override=128, kv_bits=4)
+    params = M.random_quantized_params(cfg, 0, device="cpu")
+    toks = torch.randint(1, 256, (2, 65), generator=torch.Generator()
+                         .manual_seed(1), dtype=torch.int32)
+    out = []
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        cache = M.init_kv_cache(cfg, 2, max_len=256, device=d)
+        M.prefill(cfg, p, toks[:, :64].to(d), cache)
+        before = DA.decode_attn2_kv4.launches
+        lg, _ = M.decode_step(cfg, p, toks[:, 64].to(d),
+                              torch.full((2,), 64, dtype=torch.int32,
+                                         device=d), cache)
+        if d == dev:
+            assert DA.decode_attn2_kv4.launches == before + cfg.n_layers
+        out.append(lg.float().cpu())
+    err = (out[1] - out[0]).abs().max() / out[0].abs().max()
+    assert err < 2e-2, err
+
+
+def _to(tree, d):
+    """A params tree with every tensor moved to device d."""
+    import dataclasses
+
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, d) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(d)
+    return dataclasses.replace(tree, **{
+        f.name: getattr(tree, f.name).to(d) for f in dataclasses.fields(tree)
+        if isinstance(getattr(tree, f.name), torch.Tensor)})
 
 
 def test_decode_attn2_refuses(dev):

@@ -166,8 +166,9 @@ def test_decode_from_jax_cache():
 def test_config_from_jax_refuses_family_flags():
     with pytest.raises(NotImplementedError, match="sliding_window"):
         convert.config_from_jax(JM.LlamaConfig.mistral_7b())
-    with pytest.raises(NotImplementedError):
-        convert.config_from_jax(JM.LlamaConfig.tiny(kv_bits=4))
+    # kv_bits=4 carries across
+    kv4 = convert.config_from_jax(JM.LlamaConfig.tiny(kv_bits=4))
+    assert kv4 == TM.LlamaConfig.tiny(kv_bits=4) and kv4.kv_bits == 4
     cfg = convert.config_from_jax(JM.LlamaConfig.llama3_8b())
     assert cfg == TM.LlamaConfig.llama3_8b()
     assert (cfg.vocab_size, cfg.d_model, cfg.n_layers, cfg.n_heads,
