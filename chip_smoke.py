@@ -24,7 +24,8 @@ Phases (any failure exits non-zero):
      INT4-g128 projections; the INT2-g32 MLP; the INT4-g256 w2) at M = 8,
      1 and 33, with their times, bounds and a torch.matmul yardstick;
   7. CLI: `python -m piquant_tpu_torch.serving --random llama3_8b
-     --benchmark 8 --max-new 32` in process, in four weight formats
+     --benchmark 8 --max-new 32` in process (at 8 of its 32 layers since
+     phase 11 came, full width), in four weight formats
      (INT4-g128; INT4 attention with an INT2-g32 MLP; INT4-g256; INT2) and
      four activation-quantized runs (--act-quant-prefill at INT4 and INT8;
      --act-quant-decode at INT2 and with the INT2-g32 MLP), each with the
@@ -42,7 +43,8 @@ Phases (any failure exits non-zero):
      and a torch._grouped_mm yardstick; (b) one full-width MoE layer's
      ragged route against its dense-masked route at 256 tokens; (c) `python
      -m piquant_tpu_torch.serving --random mixtral_8x7b --benchmark 8
-     --max-new 32` in process (INT4, --group-size 128, --act-quant-prefill)
+     --max-new 32` in process at 8 of its 32 layers, full width (INT4,
+     --group-size 128, --act-quant-prefill)
      with exact launch counts, greedy tokens against single-request
      generation, its metrics and peak memory;
  10. NF4 weights and the kv4 cache: (a) nf4_gemv against its plain version
@@ -55,6 +57,23 @@ Phases (any failure exits non-zero):
      with `--bits nf4` and with `--kv-bits 4`, exact launch counts (224
      nf4_gemv or 32 kv4 decode_attn2 launches a decode step), greedy tokens
      against single-request generation and its metrics;
+ 11. model families: (a) the flash kernel's sliding window (Mistral-7B's
+     T 6144 and window 4096; a window of 1000 off the 64-key tiles) and GQA
+     rep 7 (Qwen2-7B) against its plain version, decode_attn2 kv8 and kv4
+     on Mistral-7B's 8192-position cache at window starts past 0 and kv8
+     at Qwen2-7B's rep 7, w4_gemv at Qwen2-7B's shapes, each with its
+     time, bound and an SDPA or torch.matmul yardstick; (b) `python -m
+     piquant_tpu_torch.serving --random <preset> --benchmark 8 --max-new
+     32` in process for mistral_7b, qwen2_7b, qwen3_8b and phi3_mini, and
+     `--benchmark 4 --max-new 8` for qwen3_moe_a3b (at 16 of its 48
+     layers), at their published widths: exact launch counts, greedy
+     tokens against single-request generation, metrics and peak memory;
+     one full-depth qwen3_moe_a3b decode step profiled; (c) one
+     6000-token request on
+     Mistral-7B (max_seq_len 8192) prefilled through the windowed flash
+     kernel and decoded with window starts past 0 on every layer, its
+     tokens against single-request generation, its throughput and peak
+     memory;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -62,6 +81,8 @@ then one JSON line with the kernels, and a last JSON line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -796,9 +817,9 @@ def check_tokens_guarded(torch, M, cfg, params, prompt, got, want, dev):
     raise AssertionError("token lists differ in length")
 
 
-def profile_decode(torch, M, cfg, params, dev):
+def profile_decode(torch, M, cfg, params, dev, steps=4):
     """Wall time of an eager decode step at batch 8 (positions ~512), then
-    the device busy share and top kernels over 4 steps from
+    the device busy share and top kernels over `steps` steps from
     torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -809,14 +830,14 @@ def profile_decode(torch, M, cfg, params, dev):
     M.decode_step(cfg, params, tok, pos, cache)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(4):
+    for i in range(steps):
         M.decode_step(cfg, params, tok, pos + i, cache)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / 4
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(4):
+        for i in range(steps):
             M.decode_step(cfg, params, tok, pos + i, cache)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -830,7 +851,7 @@ def profile_decode(torch, M, cfg, params, dev):
         return
     busy = sum(r[1] for r in rows)
     print(f"profile: a decode step takes {plain_ms:.2f} ms unprofiled; "
-          f"4 decode steps, wall {wall_ms:.2f} ms, kernels "
+          f"{steps} decode steps, wall {wall_ms:.2f} ms, kernels "
           f"{busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
           f"{sum(r[2] for r in rows)} kernel launches", flush=True)
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
@@ -1250,6 +1271,27 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
     return total
 
 
+# Depth of the CLI runs of phases 7 and 9 (of Llama-3-8B's and
+# Mixtral-8x7B's 32 layers; widths unchanged): phase 11's runs need the
+# time, and phase 5 serves the full depth.
+CLI_DEPTH = 8
+
+
+@contextlib.contextmanager
+def cut_depth(preset: str, n_layers: int):
+    """The CLI builds `preset` at `n_layers` layers, at its full width,
+    while the block runs."""
+    from piquant_tpu_torch.models import llama as M
+
+    full = getattr(M.LlamaConfig, preset)
+    setattr(M.LlamaConfig, preset, staticmethod(
+        lambda: dataclasses.replace(full(), n_layers=n_layers)))
+    try:
+        yield
+    finally:
+        setattr(M.LlamaConfig, preset, staticmethod(full))
+
+
 # ---------------------------------------------------------------------------
 # phase 9: Mixtral-8x7B MoE
 # ---------------------------------------------------------------------------
@@ -1260,38 +1302,41 @@ MOE_E, MOE_K = 8, 2           # Mixtral: 8 experts, top 2
 MOE_SHAPES = ((4096, 14336, 2), (14336, 4096, 1))
 
 
-def moe_routing(torch, dev, gen, t):
-    """The routing of t tokens by a random router whose logits carry a
-    per-expert bias: expert 0 gets no token and expert 1 nearly every one;
-    with the per-expert padded ends (torch._grouped_mm's offsets)."""
+def moe_routing(torch, dev, gen, t, n_e=MOE_E, top_k=MOE_K, d=4096):
+    """The routing of t tokens of width d, top_k of n_e experts, by a random
+    router whose logits carry a per-expert bias: expert 0 gets no token and
+    expert 1 nearly every one; with the per-expert padded ends
+    (torch._grouped_mm's offsets)."""
     from piquant_tpu_torch.quant import moe as MO
 
-    x = torch.randn((t, 4096), generator=gen, device=dev)
-    router = torch.randn((4096, MOE_E), generator=gen, device=dev) * 0.02
-    bias = torch.zeros(MOE_E, device=dev)
+    x = torch.randn((t, d), generator=gen, device=dev)
+    router = torch.randn((d, n_e), generator=gen, device=dev) * 0.02
+    bias = torch.zeros(n_e, device=dev)
     bias[0], bias[1] = -1e4, 4.0
-    probs, topi = torch.softmax(x @ router + bias, dim=-1).topk(MOE_K, dim=-1)
+    probs, topi = torch.softmax(x @ router + bias, dim=-1).topk(top_k, dim=-1)
     probs = probs / probs.sum(dim=-1, keepdim=True)
-    r = MO.build_ragged_routing(topi[None], probs[None], MOE_E, 128)
-    counts = torch.bincount(topi.reshape(-1), minlength=MOE_E)
+    r = MO.build_ragged_routing(topi[None], probs[None], n_e, 128)
+    counts = torch.bincount(topi.reshape(-1), minlength=n_e)
     ends = torch.cumsum((counts + 127) // 128 * 128, 0).to(torch.int32)
     return r, counts, ends
 
 
-def random_stack(torch, dev, gen, k, n, bits, gs):
-    """An expert stack of random codes with a scale and zero point of their
-    own per expert, column (and group)."""
+def random_stack(torch, dev, gen, k, n, bits, gs, n_e=MOE_E):
+    """A stack of n_e experts of random codes with a scale and zero point of
+    their own per expert, column (and group)."""
     from piquant_tpu_torch.quant.linear import QuantizedExpertStack
 
     return QuantizedExpertStack.stack(
-        [random_qlin(torch, dev, gen, k, n, bits, gs) for _ in range(MOE_E)])
+        [random_qlin(torch, dev, gen, k, n, bits, gs) for _ in range(n_e)])
 
 
-def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends):
+def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
+                 shapes=None, t=None):
     """Wrapper `name` (through its dispatch) against its plain version at
-    each expert shape, bf16 and f32 output; then its device ms, the plain
-    version's, the yardstick's and the bound, summed over one MoE layer's
-    calls.  The bound counts the A = 2048 assignments' operations (2 A K N
+    each expert shape of `shapes` (K, N, calls per MoE layer; default
+    MOE_SHAPES), bf16 and f32 output, for t tokens (default MOE_T) routed
+    as `r`; then its device ms, the plain version's, the yardstick's and
+    the bound, summed over one MoE layer's calls.  The bound counts the A routed assignments' operations (2 A K N
     at the bf16 peak, the int8 peak for int8 x) and bytes (their x, the
     stacks of the experts that have a token with their side streams, the
     bf16 output)."""
@@ -1305,9 +1350,10 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends):
     err = 0.0
     a = int(counts.sum())
     used = int((counts > 0).sum())
-    for k, n, uses in MOE_SHAPES:
-        st = random_stack(torch, dev, gen, k, n, bits, gs)
-        xs = MO.scatter_tokens(torch.randn((MOE_T, k), generator=gen,
+    n_e = counts.numel()
+    for k, n, uses in shapes or MOE_SHAPES:
+        st = random_stack(torch, dev, gen, k, n, bits, gs, n_e)
+        xs = MO.scatter_tokens(torch.randn((t or MOE_T, k), generator=gen,
                                            device=dev).to(torch.bfloat16), r)
         be = r.block_expert
         if a8:
@@ -1341,7 +1387,7 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends):
         # yardstick, never called by the port: one torch._grouped_mm over
         # the bf16-dequantized stack with the experts' padded ends
         w = torch.stack([st.expert(i).dequantize(torch.bfloat16)
-                         for i in range(MOE_E)])
+                         for i in range(n_e)])
         t_l = event_ms(lambda i: torch._grouped_mm(xs, w, offs=ends), 10)
         print(f"{name} K={k} N={n}: max_abs_err {err:.3e}; kernel {t_k:.4f} "
               f"ms, plain {t_p:.4f} ms, torch._grouped_mm {t_l:.4f} ms",
@@ -1453,37 +1499,42 @@ def check_moe_routes(torch, dev, args):
 # 64 < M < 256 and M >= 256 rows (the ragged MoE from 32 tokens on, under
 # --act-quant-prefill from 256)
 MOE_CLI_RUNS = (
-    ((), {"decode": {"w4_gemv": 28},
-          "small": {"w4_gemv": 4, "wq_ragged": 3},
-          "mid": {"wq_ragged": 3}, "big": {"wq_ragged": 3}}),
-    (("--group-size", "128"),
+    (("--random", "mixtral_8x7b"),
+     {"decode": {"w4_gemv": 28}, "small": {"w4_gemv": 4, "wq_ragged": 3},
+      "mid": {"wq_ragged": 3}, "big": {"wq_ragged": 3}}),
+    (("--random", "mixtral_8x7b", "--group-size", "128"),
      {"decode": {"wg_chunk": 28},
       "small": {"wg_chunk": 4, "wq_ragged_grouped": 3},
       "mid": {"wq_ragged_grouped": 3}, "big": {"wq_ragged_grouped": 3}}),
-    (("--act-quant-prefill",),
+    (("--random", "mixtral_8x7b", "--act-quant-prefill"),
      {"decode": {"w4_gemv": 28}, "small": {"w4_gemv": 28}, "mid": {},
       "big": {"w4a8": 4, "wq_ragged_a8": 3}}),
 )
 MOE_KERNELS = ("w4_gemv", "w8_gemv", "wg_chunk", "w4a8", "wq_ragged",
                "wq_ragged_grouped", "wq_ragged_a8", "decode_attn2",
                "flash_prefill")
+RAGGED_KERNELS = ("wq_ragged", "wq_ragged_grouped", "wq_ragged_a8")
 
 
-def run_moe_cli(torch, dev, args):
-    """Phase 9 (c): each MOE_CLI_RUNS configuration through the CLI's own
-    build and benchmark at full Mixtral-8x7B width, with its launches,
-    tokens, metrics and peak memory checked.  Returns the ragged wrappers'
-    launches summed over the runs."""
+def run_preset_cli(torch, dev, args, runs, kernels, label, counted=()):
+    """Phases 9 (c) and 11 (b): each (flags, per_layer) of `runs` through
+    the CLI's own build and benchmark (`--benchmark 8 --max-new 32` unless
+    the flags say otherwise) at the preset's full width, with its launches,
+    tokens, metrics and peak memory checked.  per_layer gives the launches
+    a layer by call class: "decode" (a decode step at 8 slots), "small" /
+    "mid" / "big" (a prefill call of M <= 64, 64 < M < 256, M >= 256 rows);
+    besides, w8_gemv takes the INT8 lm_head once a decode step and a
+    prefill call where the vocab is a multiple of 128, and at head_dim 128
+    decode_attn2 and flash_prefill take every layer's attention.  Returns
+    the launches of the `counted` wrappers summed over the runs."""
     import numpy as np
 
     from piquant_tpu_torch.models import llama as M
     from piquant_tpu_torch.serving import __main__ as S
 
-    total = dict.fromkeys(("wq_ragged", "wq_ragged_grouped", "wq_ragged_a8"),
-                          0)
-    for flags, per_layer in MOE_CLI_RUNS:
-        argv = ["--random", "mixtral_8x7b", "--benchmark", "8", "--max-new",
-                "32", *flags]
+    total = dict.fromkeys(counted, 0)
+    for flags, per_layer in runs:
+        argv = ["--benchmark", "8", "--max-new", "32", *flags]
         cli_args = S.build_parser().parse_args(argv)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1513,48 +1564,51 @@ def run_moe_cli(torch, dev, args):
         eng._dispatch_block, eng._admit_one_shot = (counted_dispatch,
                                                     counted_admit)
         zero_counts()
+        t0 = time.perf_counter()
         metrics, done = S.benchmark(cli_args, cfg, eng, sp)
         torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
         wr = kernel_wrappers()
-        launches = {k: wr[k].launches for k in MOE_KERNELS}
+        launches = {k: wr[k].launches for k in kernels}
         nl = cfg.n_layers
         steps = counts["blocks"] * eng.ec.decode_block
         calls = {"decode": steps, "small": counts["small"],
                  "mid": counts["mid"], "big": counts["big"]}
-        expect = dict.fromkeys(MOE_KERNELS, 0)
-        for cls, kernels in per_layer.items():
-            for k, per in kernels.items():
-                expect[k] += per * nl * calls[cls]
-        expect["w8_gemv"] += steps + counts["prefills"]
-        expect["decode_attn2"] = nl * steps
-        expect["flash_prefill"] = nl * counts["flash_prefills"]
+        expect = dict.fromkeys(kernels, 0)
+        for cls, per in per_layer.items():
+            for k, n in per.items():
+                expect[k] += n * nl * calls[cls]
+        if cfg.vocab_size % 128 == 0:
+            expect["w8_gemv"] += steps + counts["prefills"]
+        if cfg.head_dim == 128:
+            expect["decode_attn2"] = nl * steps
+            expect["flash_prefill"] = nl * counts["flash_prefills"]
         tag = " ".join(flags) or "INT4"
-        ragged = {k: launches[k] for k in total}
-        print(f"moe cli [{tag}]: built in {t_build:.1f} s; "
-              f"{counts['blocks']} decode blocks ({steps} steps), "
-              f"{counts['prefills']} prefill calls ({counts['small']} at M "
-              f"<= 64, {counts['mid']} at 64 < M < 256, {counts['big']} at M "
-              f">= 256); ragged launches {ragged} ({3 * nl} per prefill on "
-              f"the ragged route, none in decode steps); launches "
-              f"{launches}, expected {expect}", flush=True)
+        print(f"{label} [{tag}]: built in {t_build:.1f} s, served in "
+              f"{t_run:.1f} s; {counts['blocks']} decode blocks ({steps} "
+              f"steps), {counts['prefills']} prefill calls "
+              f"({counts['small']} at M <= 64, {counts['mid']} at 64 < M < "
+              f"256, {counts['big']} at M >= 256, {counts['flash_prefills']} "
+              f"of whole 128-row tiles), launches {launches}, expected "
+              f"{expect}", flush=True)
         if launches != expect:
-            raise AssertionError(f"moe cli [{tag}]: launches {launches} != "
+            raise AssertionError(f"{label} [{tag}]: launches {launches} != "
                                  f"{expect}")
         if metrics["completed"] != cli_args.benchmark:
-            raise AssertionError(f"moe cli [{tag}]: {metrics['completed']} "
+            raise AssertionError(f"{label} [{tag}]: {metrics['completed']} "
                                  f"of {cli_args.benchmark} requests finished")
         for r in done:
             if len(r.tokens) != cli_args.max_new or not all(
                     0 <= t < cfg.vocab_size for t in r.tokens):
-                raise AssertionError(f"moe cli [{tag}] request {r.rid}: "
+                raise AssertionError(f"{label} [{tag}] request {r.rid}: "
                                      "tokens missing or outside the vocab")
             if not all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs):
-                raise AssertionError(f"moe cli [{tag}] request {r.rid}: "
+                raise AssertionError(f"{label} [{tag}] request {r.rid}: "
                                      "non-finite logits")
         # a prompt of >= 256 tokens prefilled alone, generated again alone
-        # at the engine's padded width: the top-2 routing is discontinuous
-        # (an ulp of difference in x can flip a token's second expert), so
-        # the prefill's shapes, and with them its kernels, stay the same
+        # at the engine's padded width: top-k routing is discontinuous (an
+        # ulp of difference in x can flip a token's expert), so the
+        # prefill's shapes, and with them its kernels, stay the same
         r = max((r for r in done if len(r.prompt) >= 256),
                 key=lambda r: (r.rid in alone, -r.rid))
         want = generate_single(torch, M, cfg, params, r.prompt,
@@ -1563,16 +1617,20 @@ def run_moe_cli(torch, dev, args):
                                max_len=eng.ec.max_seq_len)
         verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
                                        r.tokens, want, dev)
-        print(f"moe cli [{tag}]: request {r.rid} (prompt {len(r.prompt)}, "
+        print(f"{label} [{tag}]: request {r.rid} (prompt {len(r.prompt)}, "
               f"prefilled {'alone' if r.rid in alone else 'in a burst'}) vs "
               f"single-request generation: {verdict}", flush=True)
-        profile_decode(torch, M, cfg, params, dev)
-        print("moe_cli_metrics " + json.dumps(
+        # one profiled step where 128 dense-masked experts make it ~230k
+        # launches
+        profile_decode(torch, M, cfg, params, dev,
+                       steps=4 if cfg.n_experts <= 8 else 1)
+        print(label.replace(" ", "_") + "_metrics " + json.dumps(
             {"card": card_line(), "flags": tag, **metrics,
+             "launches": launches,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}),
             flush=True)
         for k in total:
-            total[k] += ragged[k]
+            total[k] += launches[k]
         # the counting wrappers close over the engine's bound methods: a
         # reference cycle, freed only by the collector
         del params, eng, done, dispatch, admit
@@ -1589,7 +1647,9 @@ def run_moe(torch, dev, gen, args):
     torch.cuda.empty_cache()
     check_moe_routes(torch, dev, args)
     torch.cuda.empty_cache()
-    return rows, run_moe_cli(torch, dev, args)
+    with cut_depth("mixtral_8x7b", CLI_DEPTH):
+        return rows, run_preset_cli(torch, dev, args, MOE_CLI_RUNS,
+                                    MOE_KERNELS, "moe cli", RAGGED_KERNELS)
 
 
 # ---------------------------------------------------------------------------
@@ -1713,6 +1773,385 @@ def check_nf4_kv4(torch, dev, gen):
     return [row, check_decode_attn2_kv4(torch, dev, gen)]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: model families (Mistral-7B's window, Qwen2-7B, Qwen3-8B,
+# Phi-3-mini, Qwen3-30B-A3B)
+# ---------------------------------------------------------------------------
+
+def live_pairs(t: int, window) -> int:
+    """(q, k) pairs a causal prefill of t positions attends under a sliding
+    window (None: the causal triangle)."""
+    w = t if window is None else min(window, t)
+    return w * (w + 1) // 2 + (t - w) * w
+
+
+def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10):
+    """flash_attn against its plain version at one shape (atol 2e-3, rtol
+    2e-2: phase 3's causal bound), then its device ms, the plain
+    version's, SDPA's and the bound (the live pairs' operations at the
+    bf16 peak, or the bytes: q, k, v read once, the f32 context written
+    once)."""
+    import torch.nn.functional as F
+
+    from piquant_tpu_torch.ops.cuda import flash as FL
+
+    d = 128
+    q = torch.randn((b, hkv, rep, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    sm = d ** -0.5
+    tag = (f"flash_prefill B={b} Hkv={hkv} rep={rep} T={t} "
+           f"window={window}")
+    err = hold(torch, tag, FL.flash_attn(q, k, v, sm, window),
+               FL.flash_attn_plain(q, k, v, sm, window), 2e-3, 2e-2)
+    torch.cuda.empty_cache()
+    t_k = cuda_ms(lambda i: FL.flash_attn(q, k, v, sm, window), iters)
+    t_p = event_ms(lambda i: FL.flash_attn_plain(q, k, v, sm, window), 1,
+                   warmup=1)
+    torch.cuda.empty_cache()
+    q4 = q.reshape(b, hkv * rep, t, d)
+    if window is None:
+        t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q4, k, v, is_causal=True, enable_gqa=True), iters)
+        call = "scaled_dot_product_attention (causal, GQA)"
+    else:
+        # a boolean band mask; K/V repeated to the query heads beforehand,
+        # so the masked call takes a fused kernel rather than the math path
+        idx = torch.arange(t, device=dev)
+        band = (idx[None] <= idx[:, None]) & (idx[None] > idx[:, None] - window)
+        kr = k.repeat_interleave(rep, dim=1)
+        vr = v.repeat_interleave(rep, dim=1)
+        t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q4, kr, vr, attn_mask=band), iters)
+        call = "scaled_dot_product_attention (bool band mask, K/V repeated)"
+        del kr, vr
+    flops = 4.0 * d * live_pairs(t, window) * b * hkv * rep
+    nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4
+    bnd, by = bound_ms(nbytes, flops)
+    print(f"{tag}: max_abs_err {err:.3e}; kernel {t_k:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms "
+          f"[{card_line()}]", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                bound_by=by, library_ms=t_l, library_call=call)
+
+
+def hold_decode(torch, dev, gen, kv4, geometry, pos, start):
+    """decode_attn2 (kv8) or decode_attn2_kv4 against its plain version on a
+    stacked cache of `geometry` (layers, slots, kv heads, rep, positions)
+    with the live windows [start, pos), at three layers (m to 1e-5, l
+    within 2e-2, the normalized context within atol 2e-3, rtol 2e-2: the
+    phase 3 bounds); then its device ms, the plain version's, SDPA's on a
+    bf16-dequantized slice of one layer's cache (positions up to the
+    largest pos, the live windows as a mask) and the bound (live code and
+    scale bytes)."""
+    import torch.nn.functional as F
+
+    from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+    from piquant_tpu_torch.quant.kv_cache import (merge_scale_pairs,
+                                                  unpack4_pairs)
+
+    nl, b, hkv, rep, s = geometry
+    d = 128
+    if kv4:
+        shape, sshape = (nl, b, hkv, s // 2, d), (nl, b, hkv, 2, s // 2)
+        kc, vc = (torch.randint(0, 256, shape, generator=gen, device=dev,
+                                dtype=torch.uint8) for _ in range(2))
+    else:
+        shape, sshape = (nl, b, hkv, s, d), (nl, b, hkv, s, 1)
+        kc, vc = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(sshape, generator=gen, device=dev) * 0.02
+              for _ in range(2))
+    q = torch.randn((b, hkv, rep, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    start = torch.tensor(start, dtype=torch.int32, device=dev)
+    kern = DA.decode_attn2_kv4 if kv4 else DA.decode_attn2
+    name = f"{'decode_attn2_kv4' if kv4 else 'decode_attn2'} {geometry}"
+    sm = d ** -0.5
+    err = 0.0
+    for layer in (0, nl // 2, nl - 1):
+        acc, m, l = kern(q, kc, ks, vc, vs, pos, start, sm, layer)
+        pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                             sm, layer)
+        hold(torch, f"{name} layer {layer} m", m, pm, 1e-5, 1e-5)
+        hold(torch, f"{name} layer {layer} l", l, pl, 0.0, 2e-2)
+        err = max(err, hold(torch, f"{name} layer {layer} context",
+                            acc / l, pacc / pl, 2e-3, 2e-2))
+    t_k = cuda_ms(lambda i: kern(q, kc, ks, vc, vs, pos, start, sm, i % nl),
+                  64)
+    t_p = event_ms(lambda i: DA.decode_attn2_plain(
+        q, kc, ks, vc, vs, pos, start, sm, i % nl), 4)
+    hi = int(pos.max())
+    kl, vl, ksl, vsl = kc[1], vc[1], ks[1], vs[1]
+    if kv4:
+        kl, vl = unpack4_pairs(kl), unpack4_pairs(vl)
+        ksl, vsl = merge_scale_pairs(ksl), merge_scale_pairs(vsl)
+    kf = (kl[:, :, :hi].float() * ksl[:, :, :hi]).to(torch.bfloat16)
+    vf = (vl[:, :, :hi].float() * vsl[:, :, :hi]).to(torch.bfloat16)
+    idx = torch.arange(hi, device=dev)
+    mask = ((idx[None] >= start[:, None])
+            & (idx[None] < pos[:, None]))[:, None, None, :]
+    q4 = q.reshape(b, hkv * rep, 1, d)
+    t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q4, kf, vf, attn_mask=mask, enable_gqa=True), 20)
+    live = float((pos - start).clamp(min=0).sum())
+    nbytes = (live * hkv * (2 * d // (2 if kv4 else 1) + 2 * 4)
+              + q.numel() * 2 + b * hkv * rep * (d + 2) * 4)
+    bnd, by = bound_ms(nbytes, 4 * live * rep * hkv * d)
+    print(f"{name}: max_abs_err (normalized context) {err:.3e}; kernel "
+          f"{t_k:.4f} ms, bound {bnd:.4f} ms ({by}), plain {t_p:.4f} ms, "
+          f"sdpa(bf16 cache slice) {t_l:.4f} ms, live positions {live:.0f} "
+          f"[{card_line()}]", flush=True)
+    del kc, vc, ks, vs, kf, vf
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                bound_by=by, library_ms=t_l,
+                library_call="scaled_dot_product_attention (bf16 cache "
+                             "slice, live windows as a mask)")
+
+
+# Mistral-7B's decode cache: 32 layers, 8 slots, 8 kv heads, rep 4, its
+# max_seq_len of 8192; positions past its 4096 window, so every row's start
+# is past 0 (odd and even starts)
+MISTRAL_CACHE = (32, 8, 8, 4, 8192)
+MISTRAL_POS = (4100, 4101, 5003, 6016, 8190, 7001, 4500, 8192)
+# Qwen2-7B's: 28 layers, 4 kv heads, rep 7, the CLI's 2048 positions
+QWEN2_CACHE = (28, 8, 4, 7, 2048)
+QWEN2_POS = (1, 300, 2047, 1000, 1501, 511, 273, 2048)
+# Qwen3-30B-A3B's: 48 layers, 4 kv heads, rep 8
+A3B_CACHE = (48, 8, 4, 8, 2048)
+# (K, N, uses per decode layer) of each family's INT4 projections at decode:
+# q, k, v, o, then w1 / w3 and w2 (A3B: its 128 experts dense-masked)
+FAMILY_SHAPES = (
+    ("Qwen2-7B", ((3584, 3584, 2), (3584, 512, 2), (3584, 18944, 2),
+                  (18944, 3584, 1))),
+    ("Qwen3-8B", ((4096, 4096, 2), (4096, 1024, 2), (4096, 12288, 2),
+                  (12288, 4096, 1))),
+    ("Phi-3-mini", ((3072, 3072, 4), (3072, 8192, 2), (8192, 3072, 1))),
+    ("Qwen3-30B-A3B", ((2048, 4096, 1), (2048, 512, 2), (4096, 2048, 1),
+                       (2048, 768, 256), (768, 2048, 128))),
+)
+# Qwen3-30B-A3B's routed prefill: 128 experts, top 8, width 2048; (K, N,
+# calls per MoE layer) of its expert projections: w1 / w3, w2
+A3B_E, A3B_K, A3B_D = 128, 8, 2048
+A3B_MOE_SHAPES = ((2048, 768, 2), (768, 2048, 1))
+
+
+def check_family_kernels(torch, dev, gen, rows):
+    """Phase 11 (a): the flash kernel's window branch and odd reps, the
+    decode kernels at Mistral-7B's window starts, Qwen2-7B's rep 7 and
+    Qwen3-30B-A3B's rep 8, w4_gemv at each family's decode shapes and
+    wq_ragged at Qwen3-30B-A3B's 128 experts, each as a variant of its
+    kernels-line row in `rows`."""
+    by_name = {r["name"]: r for r in rows}
+
+    def add(name, what, res):
+        row = by_name[name]
+        row.setdefault("variants", {})[what] = res
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+
+    add("flash_prefill", "Mistral-7B window: B=1, Hkv=8, rep=4, T=6144, "
+        "window 4096", hold_flash(torch, dev, gen, 1, 8, 4, 6144, 4096, 5))
+    add("flash_prefill", "a window off the 64-key tiles: B=2, Hkv=8, rep=4, "
+        "T=2048, window 1000", hold_flash(torch, dev, gen, 2, 8, 4, 2048,
+                                          1000))
+    add("flash_prefill", "Qwen2-7B: B=8, Hkv=4, rep=7, T=1024, causal",
+        hold_flash(torch, dev, gen, 8, 4, 7, 1024, None))
+    add("flash_prefill", "rep 8 beside it: B=8, Hkv=4, rep=8, T=1024, "
+        "causal", hold_flash(torch, dev, gen, 8, 4, 8, 1024, None))
+    w = 4096
+    starts = tuple(max(p - (w - 1), 0) for p in MISTRAL_POS)
+    add("decode_attn2", "Mistral-7B window: L=32, B=8, Hkv=8, rep=4, "
+        "S=8192, positions past 4096", hold_decode(
+            torch, dev, gen, False, MISTRAL_CACHE, MISTRAL_POS, starts))
+    add("decode_attn2_kv4", "Mistral-7B window: L=32, B=8, Hkv=8, rep=4, "
+        "S=8192, positions past 4096", hold_decode(
+            torch, dev, gen, True, MISTRAL_CACHE, MISTRAL_POS, starts))
+    add("decode_attn2", "Qwen2-7B: L=28, B=8, Hkv=4, rep=7, S=2048",
+        hold_decode(torch, dev, gen, False, QWEN2_CACHE, QWEN2_POS,
+                    (0,) * len(QWEN2_POS)))
+    add("decode_attn2", "Qwen3-30B-A3B: L=48, B=8, Hkv=4, rep=8, S=2048",
+        hold_decode(torch, dev, gen, False, A3B_CACHE, QWEN2_POS,
+                    (0,) * len(QWEN2_POS)))
+    for family, shapes in FAMILY_SHAPES:
+        res = check_gemv(torch, dev, gen, "w4_gemv", 4, None, shapes,
+                         torch.bfloat16)
+        print(f"w4_gemv {family} layer: kernel {res['ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+              f"torch.matmul {res['library_ms']:.4f} ms [{card_line()}]",
+              flush=True)
+        add("w4_gemv", f"{family}: one decode layer's projections at M=8",
+            res)
+        torch.cuda.empty_cache()
+    r, counts, ends = moe_routing(torch, dev, gen, MOE_T, A3B_E, A3B_K,
+                                  A3B_D)
+    used = int((counts > 0).sum())
+    print(f"a3b moe: {MOE_T} tokens routed top {A3B_K} of {A3B_E}: "
+          f"{used} experts with a token, m_pad {r.m_pad}", flush=True)
+    if int(counts[0]) or used < A3B_E // 2:
+        raise AssertionError("a3b moe: the routing lost its zero-token "
+                             "expert or spreads over too few experts")
+    res = check_ragged(torch, dev, gen, "wq_ragged", 4, None, r, counts,
+                       ends, A3B_MOE_SHAPES)
+    print(f"wq_ragged Qwen3-30B-A3B: kernel {res['ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}), plain "
+          f"{res['plain_ms']:.4f} ms, {res['library_call']} "
+          f"{res['library_ms']:.4f} ms [one MoE layer, {MOE_T} tokens; "
+          f"{card_line()}]", flush=True)
+    add("wq_ragged", f"Qwen3-30B-A3B INT4: {A3B_E} experts, top {A3B_K}, "
+        f"(K, N) (2048, 768) and (768, 2048), {MOE_T} tokens, m_pad "
+        f"{r.m_pad}", res)
+    torch.cuda.empty_cache()
+
+
+def _dense7(per_layer=7):
+    """Launches a layer of a dense INT4 model: the seven projections take
+    w4_gemv at decode and in prefill calls of at most 64 rows."""
+    return {"decode": {"w4_gemv": per_layer}, "small": {"w4_gemv": per_layer},
+            "mid": {}, "big": {}}
+
+
+# each preset's CLI flags and its launches a layer by call class (see
+# run_preset_cli)
+FAMILY_RUNS = (
+    (("--random", "mistral_7b"), _dense7()),
+    (("--random", "qwen2_7b"), _dense7()),
+    (("--random", "qwen3_8b"), _dense7()),
+    (("--random", "phi3_mini"), _dense7()),
+)
+# Qwen3-30B-A3B's decode runs its 128 experts dense-masked (3 GEMVs each
+# besides the 4 attention ones), every prefill ragged.  Its CLI run serves
+# A3B_DEPTH of its 48 layers at full width: a full-depth decode step takes
+# seconds of host launches, 32 steps of them the run's time limit; one
+# full-depth step is profiled on its own.
+A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
+            "8"),
+           {"decode": {"w4_gemv": 4 + 3 * 128},
+            "small": {"w4_gemv": 4, "wq_ragged": 3}, "mid": {"wq_ragged": 3},
+            "big": {"wq_ragged": 3}})
+A3B_DEPTH = 16
+FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
+                  "flash_prefill")
+
+
+LONG_PROMPT, LONG_NEW = 6000, 32
+
+
+def run_long_mistral(torch, dev, args):
+    """Phase 11 (c): one long request on full-width Mistral-7B (random INT4
+    codes, the INT8 lm_head, max_seq_len 8192): a 6000-token prompt from the
+    seed prefills through the windowed flash kernel at T = 6016 (window
+    4096 on every layer), and 32 greedy tokens decode with window starts
+    past 0 on every layer; launches, windows and starts are checked, and
+    the tokens against single-request generation."""
+    import numpy as np
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+    from piquant_tpu_torch.ops.cuda import flash as FL
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    cfg = M.LlamaConfig.mistral_7b()
+    params = M.random_quantized_params(cfg, seed=args.seed, lm_head_bits=8,
+                                       device=dev)
+    ec = EngineConfig(batch_slots=1, max_seq_len=cfg.max_seq_len)
+    eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
+    rng = np.random.default_rng(args.seed)
+    prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, LONG_PROMPT)]
+    seen = {"windows": [], "starts": []}
+    flash0, state0 = M.flash_prefill_masked, M.decode_attention_state
+
+    def flash_spy(q, *a, **kw):
+        seen["windows"].append((q.shape[-2], kw.get("window")))
+        return flash0(q, *a, **kw)
+
+    def state_spy(*a, **kw):
+        seen["starts"].append(kw.get("starts"))
+        return state0(*a, **kw)
+
+    blocks = []
+    dispatch = eng._dispatch_block
+    eng._dispatch_block = lambda: (blocks.append(1), dispatch())[1]
+    M.flash_prefill_masked, M.decode_attention_state = flash_spy, state_spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng.submit(Request(rid=0, prompt=prompt,
+                           sampling=SamplingParams(max_new_tokens=LONG_NEW)))
+        zero_counts()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_prefill": FL.flash_attn.launches,
+                    "decode_attn2": DA.decode_attn2.launches}
+    finally:
+        M.flash_prefill_masked, M.decode_attention_state = flash0, state0
+    width = eng._padded_len(LONG_PROMPT)
+    steps = len(blocks) * ec.decode_block
+    expect = {"flash_prefill": cfg.n_layers,
+              "decode_attn2": cfg.n_layers * steps}
+    windows = sorted(set(seen["windows"]))
+    starts = torch.stack([s for s in seen["starts"] if s is not None])
+    min_start = int(starts.min())
+    print(f"long mistral: prompt {LONG_PROMPT} (padded to {width}), "
+          f"{len(blocks)} decode blocks ({steps} steps), launches "
+          f"{launches}, expected {expect}; flash (T, window) {windows}; "
+          f"{len(starts)} of {len(seen['starts'])} decode calls with window "
+          f"starts, the least {min_start}", flush=True)
+    if launches != expect:
+        raise AssertionError(f"long mistral: launches {launches} != "
+                             f"{expect}")
+    if windows != [(width, cfg.sliding_window)]:
+        raise AssertionError(f"long mistral: flash took {windows}")
+    if len(starts) != len(seen["starts"]) or min_start <= 0:
+        raise AssertionError("long mistral: a decode call without window "
+                             "starts past 0")
+    (r,) = done
+    if len(r.tokens) != LONG_NEW or not all(
+            0 <= t < cfg.vocab_size for t in r.tokens):
+        raise AssertionError("long mistral: tokens missing or outside the "
+                             "vocab")
+    m = eng.metrics.to_dict()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = generate_single(torch, M, cfg, params, prompt, LONG_NEW, dev,
+                           width=width, max_len=ec.max_seq_len)
+    verdict = check_tokens_guarded(torch, M, cfg, params, prompt, r.tokens,
+                                   want, dev)
+    print(f"long mistral: vs single-request generation: {verdict}",
+          flush=True)
+    print("long_mistral_metrics " + json.dumps(
+        {"card": card_line(), **m, "wall_s": wall, "peak_mem_gb": peak,
+         "launches": launches}), flush=True)
+    del params, eng, done, dispatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_families(torch, dev, gen, args, rows):
+    """Phase 11: the kernel holds, the five presets through the CLI, the
+    long Mistral-7B request."""
+    from piquant_tpu_torch.models import llama as M
+
+    check_family_kernels(torch, dev, gen, rows)
+    run_preset_cli(torch, dev, args, FAMILY_RUNS, FAMILY_KERNELS,
+                   "family cli")
+    with cut_depth("qwen3_moe_a3b", A3B_DEPTH):
+        run_preset_cli(torch, dev, args, (A3B_RUN,), FAMILY_KERNELS,
+                       "family cli")
+    cfg = M.LlamaConfig.qwen3_moe_a3b()
+    params = M.random_quantized_params(cfg, seed=args.seed, lm_head_bits=8,
+                                       device=dev)
+    print(f"qwen3_moe_a3b at all {cfg.n_layers} layers, one decode step at "
+          "batch 8:", flush=True)
+    profile_decode(torch, M, cfg, params, dev, steps=1)
+    del params
+    torch.cuda.empty_cache()
+    run_long_mistral(torch, dev, args)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1747,6 +2186,12 @@ def main() -> int:
     print(f"card: copy bandwidth {args.bw / 1e9:.1f} GB/s (data sheet "
           f"{HBM_BYTES_PER_S / 1e9:.0f})", flush=True)
 
+    t_start = time.perf_counter()
+
+    def phase_done(n):
+        print(f"phase {n} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     build = _build.build()
     print(f"build: {build.path.name} in {build.seconds:.1f} s", flush=True)
     for line in build.log.splitlines():
@@ -1763,27 +2208,39 @@ def main() -> int:
                         W4_SHAPES, torch.bfloat16),
                check_decode_attn2(torch, dev, gen),
                check_flash(torch, dev, gen)]
+    phase_done(3)
     torch.cuda.empty_cache()
     errs = check_library(torch, dev, gen, LIB_N)
     launches = run_library(torch, dev, gen, LIB_N, args.seed)
     kernels += time_library(torch, dev, gen, LIB_N, errs)
+    phase_done(4)
     torch.cuda.empty_cache()
     launches.update(run_engine(torch, dev, args))
+    phase_done(5)
     torch.cuda.empty_cache()
     kernels += check_weight_formats(torch, dev, gen)
+    phase_done(6)
     torch.cuda.empty_cache()
-    launches.update(run_cli(torch, dev, args))
+    with cut_depth("llama3_8b", CLI_DEPTH):
+        launches.update(run_cli(torch, dev, args))
+    phase_done(7)
     torch.cuda.empty_cache()
     kernels += check_act_quant(torch, dev, gen, next(
         k for k in kernels if k["name"] == "wg_chunk"))
+    phase_done(8)
     torch.cuda.empty_cache()
     moe_rows, moe_launches = run_moe(torch, dev, gen, args)
     kernels += moe_rows
     launches.update(moe_launches)
+    phase_done(9)
     torch.cuda.empty_cache()
     kernels += check_nf4_kv4(torch, dev, gen)
     launches.update(run_cli(torch, dev, args, NF4_KV4_RUNS,
                             ("nf4_gemv", "decode_attn2_kv4")))
+    phase_done(10)
+    torch.cuda.empty_cache()
+    run_families(torch, dev, gen, args, kernels)
+    phase_done(11)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,11 @@
 //     chunk of one (b, h) and returns at once if the chunk holds no live
 //     position, so dead chunks cost no reads;
 //   * the rep query heads share every K/V load: a group of 8 lanes reads
-//     one 128-byte cache row (16 codes a lane) and forms all rep dots;
+//     one 128-byte cache row (16 codes a lane) and forms all rep dots; REP
+//     is a template argument, instantiated for every rep from 1 to 8 (the
+//     4 warps take the chunk softmax's rows r, r + 4, ..., so an odd REP
+//     leaves some warps a row fewer; at REP 7 the scores and the warp
+//     reduction take 7 KB + 14 KB of static shared memory);
 //   * per-chunk (m, l, acc) partials are merged by a second small kernel
 //     that reads only the live chunks.
 // Products: bf16 q times int8 codes (exact) with f32 sums, probabilities
@@ -319,7 +323,11 @@ int dispatch(const void* q, const void* kc, const void* ks, const void* vc,
   switch (rep) {
     case 1: launch<1, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
     case 2: launch<2, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 3: launch<3, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
     case 4: launch<4, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 5: launch<5, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 6: launch<6, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 7: launch<7, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
     case 8: launch<8, KV4>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -331,7 +339,7 @@ int dispatch(const void* q, const void* kc, const void* ks, const void* vc,
 // q [B,H,rep,128] bf16; k/v codes [L,B,H,S,128] int8; k/v scales [L,B,H,S]
 // f32; pos/start [B] int32; outputs acc [B,H,rep,128], m/l [B,H,rep] f32;
 // scratch part_acc [B,H,ceil(S/256),rep,128], part_ml [B,H,ceil(S/256),rep,2].
-// rep must be 1, 2, 4 or 8.  Returns cudaGetLastError(), or
+// rep must be 1 to 8.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an unsupported rep.
 extern "C" int pq_decode_attn2(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* pos,

@@ -1,31 +1,46 @@
-// flash_prefill: GQA-native causal flash attention for prefill.
+// flash_prefill: GQA-native flash attention for prefill, causal or with a
+// sliding window.
 //
-// Replaces piquant_tpu/ops/pallas/flash.py::_kernel (plain causal mask),
-// and through it the JAX-shipped TPU flash kernel that
-// piquant_tpu/ops/flash_prefill.py uses for plain causal masks.
+// Replaces piquant_tpu/ops/pallas/flash.py::_kernel (the plain causal mask
+// and the sliding-window branch), and through it the JAX-shipped TPU flash
+// kernel that piquant_tpu/ops/flash_prefill.py uses for plain causal masks.
 //
-//   out[b, h, r, i] = sum_{j <= i} softmax_j(q[b,h,r,i] . k[b,h,j] * scale)
-//                     * v[b, h, j]
+//   out[b, h, r, i] = sum_{i - w < j <= i} softmax_j(q[b,h,r,i] . k[b,h,j]
+//                     * scale) * v[b, h, j]
 //
-// q [B, Hkv, rep, T, 128] bf16, k/v [B, Hkv, T, 128] bf16, out f32.
-// Inclusive causal mask on indices (positions are contiguous per row);
-// online softmax in f32 (running max, denominator and context), bf16
-// operands for both products, the probabilities rounded to bf16 before the
-// PV product, and the denominator taken from the unrounded probabilities:
-// the TPU kernel's recipe.
+// q [B, Hkv, rep, T, 128] bf16, k/v [B, Hkv, T, 128] bf16, out f32; any GQA
+// rep from 1 to 8; the window w is T for the plain causal mask (every key
+// j <= i < T then has j > i - T).  Mask on indices (positions are
+// contiguous per row); online softmax in f32 (running max, denominator and
+// context), bf16 operands for both products, the probabilities rounded to
+// bf16 before the PV product, and the denominator taken from the unrounded
+// probabilities: the TPU kernel's recipe.
 //
-// Bound on the H100: the causal FLOPs at the bf16 tensor-core peak.
-// Design:
-//   * one block = 128 query rows = the rep heads of ONE kv head times
-//     128/rep positions, so every K/V tile loaded into shared memory
-//     serves all rep heads (no K/V repeat);
-//   * 8 warps, each owning 16 rows (one head, 16 positions); products on
-//     the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate),
-//     Q kept in registers, the S fragment reused as the A operand of PV,
-//     V fragments through ldmatrix.trans;
-//   * key tiles of 64 walk only up to the block's last row (blocks above
-//     the diagonal are never loaded) and a warp skips tiles wholly above
-//     its own rows; the heaviest query blocks launch first;
+// Bound on the H100: the live (q, k) pairs' FLOPs at the bf16 tensor-core
+// peak.  Design:
+//   * one block = the rep heads of ONE kv head times bq positions, so
+//     every K/V tile loaded into shared memory serves all rep heads (no K/V
+//     repeat); 8 warps of 16 rows, subs = 8 / rep (integer division)
+//     16-row groups a head, bq = 16 subs: rep 1, 2, 4, 8 fill all 8 warps,
+//     rep 3 runs 6 busy warps on 32-position blocks and rep 5, 6 and 7 run
+//     5, 6 or 7 on 16-position blocks; the idle warps still load tiles and
+//     join every __syncthreads();
+//   * products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+//     accumulate), Q kept in registers, the S fragment reused as the A
+//     operand of PV, V fragments through ldmatrix.trans;
+//   * key tiles of 64 walk from the tile holding the block's first window
+//     start, q0 - (w - 1) rounded down to 64, to the block's last row, so a
+//     windowed prefill reads O(T w) K/V bytes, not O(T^2) (the TPU
+//     kernel's dead-block elision); a warp skips tiles wholly above its own
+//     rows or wholly before its first row's window, and masks only the
+//     tiles that cross its diagonal or its window's start; masked scores
+//     give probability 0, and every row keeps its diagonal live;
+//   * a window of T or more takes a second instance of the kernel with
+//     the window code compiled out: the plain causal walk from key 0 and
+//     its one compare a score;
+//   * the heaviest query blocks launch first: under a window every block
+//     past the first w positions does the same work, so the order only
+//     moves the light early blocks last;
 //   * ragged T is masked in the kernel (loads zero past T, no stores).
 // Tiles are loaded synchronously; cp.async/TMA pipelining and wgmma are
 // later work.
@@ -37,8 +52,7 @@
 namespace {
 
 constexpr int kD = 128;
-constexpr int kRows = 128;          // query rows per block
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;           // 16 query rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeys = 64;           // keys per tile
 constexpr int kStride = kD + 8;     // smem row stride (bf16), conflict-free
@@ -68,23 +82,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// kWindowed false: the plain causal mask (the window is ignored, the walk
+// starts at key 0, where every row has a live key)
+template <bool kWindowed>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      float* __restrict__ out,
-                     int nh, int rep, int t, float sm_scale) {
+                     int nh, int rep, int t, int window, float sm_scale) {
   __shared__ __align__(16) __nv_bfloat16 ks[kKeys * kStride];
   __shared__ __align__(16) __nv_bfloat16 vs[kKeys * kStride];
 
-  const int bq = kRows / rep;                    // positions per block
+  const int subs = kWarps / rep;                 // 16-row groups a head
+  const int bq = 16 * subs;                      // positions per block
   const int qb = gridDim.x - 1 - blockIdx.x;     // heaviest blocks first
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qb * bq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int subs = bq / 16;
-  const int r = warp / subs;                     // query head within group
+  const bool busy = warp < rep * subs;           // the rest only load tiles
+  const int r = busy ? warp / subs : 0;          // query head within group
   const int qbase = q0 + (warp % subs) * 16;
   const int qpos0 = qbase + g, qpos1 = qbase + g + 8;
 
@@ -92,16 +110,17 @@ flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qh = q + (((size_t)b * nh + h) * rep + r) * t * kD;
 
   // Q fragments for the 8 k-steps over D
+  const bool ld0 = busy && qpos0 < t, ld1 = busy && qpos1 < t;
   uint32_t qa[8][4];
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const int c = kk * 16 + 2 * tq;
     const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos0 * kD + c);
     const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos1 * kD + c);
-    qa[kk][0] = qpos0 < t ? r0[0] : 0u;
-    qa[kk][1] = qpos1 < t ? r1[0] : 0u;
-    qa[kk][2] = qpos0 < t ? r0[4] : 0u;   // +8 columns
-    qa[kk][3] = qpos1 < t ? r1[4] : 0u;
+    qa[kk][0] = ld0 ? r0[0] : 0u;
+    qa[kk][1] = ld1 ? r1[0] : 0u;
+    qa[kk][2] = ld0 ? r0[4] : 0u;   // +8 columns
+    qa[kk][3] = ld1 ? r1[4] : 0u;
   }
 
   float o[16][4];
@@ -111,9 +130,14 @@ flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  const int kend = min(t, q0 + bq);            // block's causal key bound
-  const int warp_kend = min(t, qbase + 16);
-  for (int k0 = 0; k0 < kend; k0 += kKeys) {
+  // keys [kbegin, kend) of the block; the warp's live keys lie in
+  // [warp_kbegin, warp_kend) (none for an idle warp)
+  const int kend = min(t, q0 + bq);
+  const int kbegin =
+      kWindowed ? max(0, q0 - (window - 1)) / kKeys * kKeys : 0;
+  const int warp_kend = busy ? min(t, qbase + 16) : 0;
+  const int warp_kbegin = kWindowed ? qbase - (window - 1) : 0;
+  for (int k0 = kbegin; k0 < kend; k0 += kKeys) {
     __syncthreads();
     // K/V tile: 64 rows x 16 chunks of 16 bytes each, zero past T
     for (int i = threadIdx.x; i < kKeys * (kD / 8); i += kThreads) {
@@ -128,7 +152,7 @@ flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<int4*>(&vs[row * kStride + ch * 8]) = vv;
     }
     __syncthreads();
-    if (k0 >= warp_kend) continue;
+    if (k0 >= warp_kend || k0 + kKeys <= warp_kbegin) continue;
 
     // S = Q K^T for 16 rows x 64 keys
     float s[8][4];
@@ -143,15 +167,28 @@ flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
         mma_bf16(s[nt], qa[kk], b0, b1);
       }
     }
-    // scale + inclusive causal mask, row maxima
+    // scale, then the inclusive causal mask (and the window, except in a
+    // tile whose every key is live for all 16 rows of the warp: below the
+    // diagonal and inside the last row's window); row maxima
+    const bool interior = kWindowed && k0 + kKeys - 1 <= qbase &&
+                          k0 > qbase + 15 - window;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = k0 + nt * 8 + 2 * tq + j;
-        s[nt][j] = key <= qpos0 ? s[nt][j] * sm_scale : kNegInf;
-        s[nt][2 + j] = key <= qpos1 ? s[nt][2 + j] * sm_scale : kNegInf;
+        if constexpr (kWindowed) {
+          s[nt][j] *= sm_scale;
+          s[nt][2 + j] *= sm_scale;
+          if (!interior) {
+            if (key > qpos0 || key <= qpos0 - window) s[nt][j] = kNegInf;
+            if (key > qpos1 || key <= qpos1 - window) s[nt][2 + j] = kNegInf;
+          }
+        } else {
+          s[nt][j] = key <= qpos0 ? s[nt][j] * sm_scale : kNegInf;
+          s[nt][2 + j] = key <= qpos1 ? s[nt][2 + j] * sm_scale : kNegInf;
+        }
         mx0 = fmaxf(mx0, s[nt][j]);
         mx1 = fmaxf(mx1, s[nt][2 + j]);
       }
@@ -164,13 +201,18 @@ flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
     const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
+    // under a window, a row with no live key yet keeps the sentinel as
+    // its max: its exponents are taken against 0, so its masked scores
+    // give 0 (causally, key 0 of the first tile is live for every row)
+    const float e0 = kWindowed && mn0 == kNegInf ? 0.f : mn0;
+    const float e1 = kWindowed && mn1 == kNegInf ? 0.f : mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        s[nt][j] = expf(s[nt][j] - mn0);
-        s[nt][2 + j] = expf(s[nt][2 + j] - mn1);
+        s[nt][j] = expf(s[nt][j] - e0);
+        s[nt][2 + j] = expf(s[nt][2 + j] - e1);
         sum0 += s[nt][j];
         sum1 += s[nt][2 + j];
       }
@@ -201,6 +243,7 @@ flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
     }
   }
 
+  if (!busy) return;
   // the 4 lanes of a row hold partial denominators
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -222,19 +265,21 @@ flash_prefill_causal(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-// q [B,H,rep,T,128] bf16, k/v [B,H,T,128] bf16, out [B,H,rep,T,128] f32.
-// rep must be 1, 2, 4 or 8.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unsupported rep.
+// q [B,H,rep,T,128] bf16, k/v [B,H,T,128] bf16, out [B,H,rep,T,128] f32;
+// keys i - window < j <= i attend (window T: the plain causal mask).  rep
+// must be 1 to 8 and window >= 1.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unsupported rep or window.
 extern "C" int pq_flash_prefill(const void* q, const void* k, const void* v,
                                 void* out, int nb, int nh, int rep, int t,
-                                float sm_scale, void* stream) {
-  if (rep != 1 && rep != 2 && rep != 4 && rep != 8)
-    return (int)cudaErrorInvalidValue;
-  const int bq = kRows / rep;
+                                int window, float sm_scale, void* stream) {
+  if (rep < 1 || rep > kWarps || window < 1) return (int)cudaErrorInvalidValue;
+  const int bq = 16 * (kWarps / rep);
   dim3 grid((t + bq - 1) / bq, nh, nb);
-  flash_prefill_causal<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  // a window of T or more masks nothing the causal mask keeps
+  auto kern = window < t ? flash_prefill_kernel<true> : flash_prefill_kernel<false>;
+  kern<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), nh, rep,
-      t, sm_scale);
+      t, window, sm_scale);
   return (int)cudaGetLastError();
 }

@@ -64,9 +64,9 @@ def _launch(entry, kv4, q, k_codes, k_scale, v_codes, v_scale, positions,
     if d != _D or cd != _D:
         raise NotImplementedError(
             f"{name}: head_dim {d} (the kernel takes 128)")
-    if rep not in (1, 2, 4, 8):
+    if not 1 <= rep <= 8:
         raise NotImplementedError(f"{name}: GQA rep {rep} "
-                                  "(the kernel takes 1, 2, 4 or 8)")
+                                  "(the kernel takes 1 to 8)")
     if (nb, nh) != (b, hkv) or not 0 <= layer < nl:
         raise ValueError(f"{name}: q and cache shapes disagree")
     cdt = torch.uint8 if kv4 else torch.int8

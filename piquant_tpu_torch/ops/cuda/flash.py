@@ -3,9 +3,10 @@ piquant_tpu/ops/pallas/flash.py: `flash_prefill_masked` and `_kernel`).
 
 `flash_attn` launches the hand-written kernel (csrc/flash.cu) on CUDA
 tensors and runs `flash_attn_plain`, the same function in plain PyTorch, on
-CPU tensors.  Both take the plain causal mask only; the reference's sliding
-window, Llama-4 chunk, logit softcap and sinks raise NotImplementedError on
-every device until the kernel takes them.
+CPU tensors.  Both take the causal mask and the sliding window (Mistral:
+kp > qp - w beside kp <= qp) at any GQA rep; the reference's Llama-4 chunk,
+logit softcap and sinks raise NotImplementedError on every device until
+the kernel takes them (ROADMAP.md queue 1 items 4 and 5).
 """
 
 from __future__ import annotations
@@ -19,16 +20,20 @@ from piquant_tpu_torch.ops.cuda import _build
 _D = 128
 
 
-def flash_attn_plain(q, k, v, sm_scale: float) -> torch.Tensor:
+def flash_attn_plain(q, k, v, sm_scale: float,
+                     window: Optional[int] = None) -> torch.Tensor:
     """q [B,Hkv,rep,T,D], k/v [B,Hkv,T,D] -> [B,Hkv,rep,T,D] f32: bf16
-    operands, f32 softmax, inclusive causal mask kp <= qp, probabilities
-    rounded to bf16 for the PV product, denominator from the unrounded
-    ones."""
+    operands, f32 softmax, inclusive causal mask kp <= qp (and kp > qp - w
+    under a sliding window w), probabilities rounded to bf16 for the PV
+    product, denominator from the unrounded ones."""
     t = q.shape[-2]
     qb, kb, vb = (a.to(torch.bfloat16).float() for a in (q, k, v))
     s = torch.einsum("bhrtd,bhsd->bhrts", qb, kb) * sm_scale
     idx = torch.arange(t, device=q.device)
-    s = s.masked_fill(idx[None, :] > idx[:, None], float("-inf"))
+    dead = idx[None, :] > idx[:, None]
+    if window is not None:
+        dead |= idx[None, :] <= idx[:, None] - window
+    s = s.masked_fill(dead, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -36,26 +41,32 @@ def flash_attn_plain(q, k, v, sm_scale: float) -> torch.Tensor:
     return acc / l
 
 
-def flash_attn(q, k, v, sm_scale: float) -> torch.Tensor:
+def flash_attn(q, k, v, sm_scale: float,
+               window: Optional[int] = None) -> torch.Tensor:
     """Kernel wrapper; see `flash_attn_plain` for the function."""
     if not q.is_cuda:
-        return flash_attn_plain(q, k, v, sm_scale)
+        return flash_attn_plain(q, k, v, sm_scale, window)
     b, hkv, rep, t, d = q.shape
     if d != _D:
         raise NotImplementedError(f"flash_attn: head_dim {d} (the kernel "
                                   "takes 128)")
-    if rep not in (1, 2, 4, 8):
+    if not 1 <= rep <= 8:
         raise NotImplementedError(f"flash_attn: GQA rep {rep} (the kernel "
-                                  "takes 1, 2, 4 or 8)")
+                                  "takes 1 to 8)")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attn: window {window} < 1")
     if k.shape != (b, hkv, t, d) or v.shape != k.shape:
         raise ValueError("flash_attn: q/k/v shapes disagree")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attn: q/k/v on different devices")
     qb, kb, vb = (a.to(torch.bfloat16).contiguous() for a in (q, k, v))
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    # a window of t is the plain causal mask: every key kp <= qp < t
+    # satisfies kp > qp - t
+    win = t if window is None else min(window, t)
     err = _build.library().pq_flash_prefill(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), b, hkv,
-        rep, t, float(sm_scale), _build.stream_ptr(q))
+        rep, t, win, float(sm_scale), _build.stream_ptr(q))
     _build.check(err, "flash_attn")
     flash_attn.launches += 1
     return out
@@ -77,12 +88,16 @@ def flash_prefill_masked(
     sinks: Optional[torch.Tensor] = None,
 ) -> Optional[torch.Tensor]:
     """[B, Hkv, rep, T, D] f32 context, or None where the reference gate
-    has no kernel (head_dim % 128, T % 128, T < 128).  `pos0` only moves
-    the reference's chunk mask, so the causal function does not read it."""
-    if (window, chunk, softcap, sinks) != (None, None, None, None):
-        raise NotImplementedError("flash_prefill_masked: window / chunk / "
-                                  "softcap / sinks are not ported yet")
+    has no kernel (head_dim % 128, T % 128, T < 128, a window together
+    with a chunk, a window < 1).  `pos0` only moves the reference's chunk
+    mask, so the causal and windowed functions do not read it."""
     d, t = q.shape[-1], q.shape[-2]
     if d % 128 or t % 128 or t < 128:
         return None
-    return flash_attn(q, k, v, sm_scale)
+    if window is not None and (chunk is not None or window < 1):
+        return None
+    if (chunk, softcap, sinks) != (None, None, None):
+        raise NotImplementedError(
+            "flash_prefill_masked: chunk / softcap / sinks are not ported "
+            "yet (ROADMAP.md queue 1 items 4 and 5)")
+    return flash_attn(q, k, v, sm_scale, window)

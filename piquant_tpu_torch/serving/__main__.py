@@ -11,6 +11,8 @@ Examples:
   python -m piquant_tpu_torch.serving --random llama3_8b --group-size 128 --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --act-quant-prefill --benchmark 8
   python -m piquant_tpu_torch.serving --random mixtral_8x7b --benchmark 8
+  python -m piquant_tpu_torch.serving --random mistral_7b --benchmark 8
+  python -m piquant_tpu_torch.serving --random qwen3_moe_a3b --benchmark 4 --max-new 8
   python -m piquant_tpu_torch.serving --random llama3_8b --bits nf4 --kv-bits 4 --benchmark 8
   python -m piquant_tpu_torch.serving --random tiny --device cpu --bits 2 --act-quant-decode --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --benchmark 4
@@ -51,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", help="HF checkpoint path (not ported)")
     ap.add_argument("--random", metavar="PRESET", choices=PRESETS,
                     help="random-weight model preset (tiny, llama3_8b, "
-                         "mixtral_8x7b)")
+                         "mistral_7b, qwen2_7b, qwen3_8b, phi3_mini, "
+                         "mixtral_8x7b, qwen3_moe_a3b)")
     ap.add_argument("--bits", type=_bits_arg, default=4,
                     choices=[2, 4, 8, "nf4"],
                     help="weight quantization bits (default 4)")
@@ -96,15 +99,15 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# the random-code presets, built as the reference CLI builds them
+# (random_quantized_params with an INT8 lm_head)
+RANDOM_CODES = ("llama3_8b", "mistral_7b", "qwen2_7b", "phi3_mini",
+                "mixtral_8x7b", "qwen3_8b", "qwen3_moe_a3b")
+
 # the ROADMAP.md queue 1 item of each preset that is not ported: the dense
-# families need model-family flags, the MoE presets other than Mixtral parts
-# of the MoE besides
+# families need model-family flags, the MoE presets other than Mixtral and
+# Qwen3-MoE parts of the MoE besides
 _FAMILIES = {
-    "mistral_7b": "3 (model families, part 1: sliding windows)",
-    "qwen2_7b": "3 (model families, part 1: qkv biases)",
-    "qwen3_8b": "3 (model families, part 1: qk_norm)",
-    "phi3_mini": "3 (model families, part 1: head_dim 96)",
-    "qwen3_moe_a3b": "3 (model families, part 1: qk_norm)",
     "gemma_2b": "4 (model families, part 2: Gemma)",
     "gemma_7b": "4 (model families, part 2: Gemma)",
     "gemma2_9b": "4 (model families, part 2: Gemma)",
@@ -124,7 +127,7 @@ def _not_ported(args) -> None:
     todo = []
     if args.model:
         todo.append("--model (HF loader: queue 1 item 9)")
-    if args.random not in (None, "tiny", "llama3_8b", "mixtral_8x7b"):
+    if args.random not in (None, "tiny") + RANDOM_CODES:
         item = ("11 (MLA)" if args.random.startswith("mla_") else
                 _FAMILIES[args.random])
         todo.append(f"--random {args.random} (queue 1 item {item})")
@@ -154,7 +157,7 @@ def build(args):
     """The model, the engine and the sampling parameters the flags ask for:
     (cfg, params, engine, sampling).
 
-    llama3_8b and mixtral_8x7b are built from random codes with the
+    The RANDOM_CODES presets are built from random codes with the
     reference CLI's INT8 lm_head; the port also passes them the
     weight-format flags (--group-size, --mlp-bits, --mlp-group-size), which
     the reference CLI applies only to the float-quantized presets; the MoE
@@ -173,7 +176,7 @@ def build(args):
                               act_quant_prefill=args.act_quant_prefill,
                               act_quant_decode=args.act_quant_decode)
     mlp = _mlp_overrides(args)
-    if preset in ("llama3_8b", "mixtral_8x7b"):
+    if preset in RANDOM_CODES:
         mlp_bits, mlp_gs = mlp["w1"] if mlp else (None, None)
         params = M.random_quantized_params(
             cfg, 0, bits=args.bits, lm_head_bits=8, group_size=args.group_size,

@@ -180,8 +180,8 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
 
 # Each refusal names its item in ROADMAP.md's queue 1.
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "/no/such/checkpoint"], 9), (["--random", "mistral_7b"], 3),
-    (["--random", "qwen3_moe_a3b"], 3), (["--random", "mla_tiny"], 11),
+    (["--model", "/no/such/checkpoint"], 9), (["--random", "gemma2_9b"], 4),
+    (["--random", "gemma3_12b"], 4), (["--random", "mla_tiny"], 11),
     (["--speculate", "4"], 10), (["--draft-bits", "2", "--speculate", "2"], 10),
     (["--prefill-chunk", "256"], 8), (["--attn-windows", "512,1024"], 8),
     (["--repetition-penalty", "1.1"], 7), (["--serve", "8123"], 12),

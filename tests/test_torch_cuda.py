@@ -315,7 +315,7 @@ def test_act_quant_routes_on_card(dev):
 # Normalized context element by element within atol 2e-3, rtol 2e-2; m to
 # f32 rounding; l within 2e-2 (bf16 probabilities at different running
 # maxima in the two).
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_decode_attn2_matches_plain(dev, rep):
     g = _gen(dev, rep)
     nl, b, hkv, s, d = 3, 4, 2, 1024, 128
@@ -347,7 +347,7 @@ def _kv4_cache(dev, g, nl, b, hkv, s, d):
 
 # kv4 as kv8 above: odd positions and odd starts put the live window's ends
 # on either half of a pair row; S not a multiple of the 256-position chunk.
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("s", [1024, 1000])
 def test_decode_attn2_kv4_matches_plain(dev, rep, s):
     g = _gen(dev, rep + s)
@@ -380,8 +380,8 @@ def test_decode_attn2_kv4_refuses(dev):
     with pytest.raises(ValueError):           # scales not parity-split
         flat = ks.reshape(1, 1, 1, 256, 1)
         DA.decode_attn2_kv4(q, kc, flat, vc, flat, pos, pos, 1.0, 0)
-    with pytest.raises(NotImplementedError):  # rep 3
-        DA.decode_attn2_kv4(torch.zeros((1, 1, 3, 128), device=dev), kc, ks,
+    with pytest.raises(NotImplementedError):  # rep 9
+        DA.decode_attn2_kv4(torch.zeros((1, 1, 9, 128), device=dev), kc, ks,
                             vc, vs, pos, pos, 1.0, 0)
 
 
@@ -413,6 +413,80 @@ def test_kv4_decode_step_on_card(dev):
     assert err < 2e-2, err
 
 
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_window_model_on_card(dev, kv_bits, monkeypatch):
+    """A small Mistral-like model (window 16, GQA rep 7, q/k/v biases and
+    qk-norm) on the card: the windowed flash prefill at T = 128, then two
+    decode steps whose window starts are past 0.  Logits within 2e-2 of
+    the largest: the card's decode against the same steps on the card with
+    the decode kernel swapped for its plain version, and (kv8) against the
+    CPU (the plain versions throughout).
+
+    The card's and the CPU's bf16 projections round apart, and a kv4 code
+    moves by 1/7 of its row's absmax where they do, so kv4 does not hold
+    the CPU bound (0.0282 on an H100); decoding the card from a copy of the
+    CPU's prefilled cache narrows it only to 0.0222, so the gap lies in the
+    step's own projections, not in the codes the prefill wrote.  The test
+    prints the codes that differ between the two prefilled caches and the
+    three readings."""
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.quant.kv_cache import KVCache
+
+    cfg = M.LlamaConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=7,
+                        n_kv_heads=1, d_ff=512, max_seq_len=256,
+                        head_dim_override=128, sliding_window=16,
+                        qkv_bias=True, qk_norm=True, kv_bits=kv_bits)
+    params = M.random_quantized_params(cfg, 0, device="cpu")
+    toks = torch.randint(1, 256, (2, 130), generator=torch.Generator()
+                         .manual_seed(2), dtype=torch.int32)
+    name = "decode_attn2_kv4" if kv_bits == 4 else "decode_attn2"
+    kern = getattr(DA, name)
+    p = {d: _to(params, d) for d in ("cpu", dev)}
+    pre, caches = {}, {}
+    for d in ("cpu", dev):
+        caches[d] = M.init_kv_cache(cfg, 2, max_len=256, device=d)
+        before = FL.flash_attn.launches
+        pre[d] = M.prefill(cfg, p[d], toks[:, :128].to(d),
+                           caches[d])[0].float().cpu()[None]
+    assert FL.flash_attn.launches == before + cfg.n_layers
+
+    def copy(cache, d):
+        return KVCache(*(t.to(d, copy=True) for t in cache.tensors()))
+
+    def decode(d, cache, launches):
+        before = kern.launches
+        lgs = [M.decode_step(cfg, p[d], toks[:, 128 + i].to(d),
+                             torch.full((2,), 128 + i, dtype=torch.int32,
+                                        device=d), cache)[0]
+               for i in range(2)]
+        assert kern.launches == before + launches
+        return torch.cat([pre[d], torch.stack(lgs).float().cpu()])
+
+    codes = [(caches["cpu"].k_codes, caches[dev].k_codes.cpu()),
+             (caches["cpu"].v_codes, caches[dev].v_codes.cpu())]
+    if kv_bits == 4:                    # two codes a byte
+        codes = [(c & 15, g & 15) for c, g in codes] + [
+            (c >> 4, g >> 4) for c, g in codes]
+    flips = sum(int((c != g).sum()) for c, g in codes)
+    total = 2 * cfg.n_layers * 2 * cfg.n_kv_heads * 128 * cfg.head_dim
+    want = decode("cpu", copy(caches["cpu"], "cpu"), 0)
+    scale = want.abs().max()
+    got = decode(dev, copy(caches[dev], dev), 2 * cfg.n_layers)
+    shared = decode(dev, copy(caches["cpu"], dev), 2 * cfg.n_layers)
+    monkeypatch.setattr(DA, name, DA.decode_attn2_plain)
+    plain = decode(dev, caches[dev], 0)
+    err_kernel = float((got - plain).abs().max() / scale)
+    err_cpu = float((got - want).abs().max() / scale)
+    err_shared = float((shared - want).abs().max() / scale)
+    print(f"kv{kv_bits} window 16: {flips} of {total} prefilled codes differ "
+          f"between card and CPU; logits error {err_kernel:.3e} against the "
+          f"card's plain decode, {err_cpu:.3e} against the CPU, "
+          f"{err_shared:.3e} against the CPU from the CPU's cache")
+    assert err_kernel < 2e-2, err_kernel
+    if kv_bits == 8:
+        assert err_cpu < 2e-2, err_cpu
+
+
 def _to(tree, d):
     """A params tree with every tensor moved to device d."""
     import dataclasses
@@ -429,11 +503,11 @@ def _to(tree, d):
 
 
 def test_decode_attn2_refuses(dev):
-    q = torch.zeros((1, 1, 3, 128), device=dev)
+    q = torch.zeros((1, 1, 9, 128), device=dev)
     kc = torch.zeros((1, 1, 1, 256, 128), dtype=torch.int8, device=dev)
     ks = torch.zeros((1, 1, 1, 256, 1), device=dev)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):          # rep 3
+    with pytest.raises(NotImplementedError):          # rep 9
         DA.decode_attn2(q, kc, ks, kc, ks, pos, pos, 1.0, 0)
     with pytest.raises(NotImplementedError):          # head_dim 256
         DA.decode_attn2(torch.zeros((1, 1, 2, 256), device=dev),
@@ -444,7 +518,8 @@ def test_decode_attn2_refuses(dev):
 # Output element by element within atol 2e-3, rtol 2e-2 (bf16
 # probabilities before PV in both; another tile order for the online
 # softmax).
-@pytest.mark.parametrize("rep,t", [(1, 256), (2, 384), (4, 200), (8, 128)])
+@pytest.mark.parametrize("rep,t", [(1, 256), (2, 384), (4, 200), (8, 128),
+                                   (3, 256), (5, 128), (6, 384), (7, 200)])
 def test_flash_matches_plain(dev, rep, t):
     g = _gen(dev, rep * t)
     b, hkv, d = 2, 2, 128
@@ -456,15 +531,43 @@ def test_flash_matches_plain(dev, rep, t):
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
 
 
+# The sliding window as flash_attn_plain takes it, at every rep: windows of
+# 1 (the diagonal alone), 63 and 100 (not multiples of the 64-key tile),
+# 200 and one wider than T (the causal mask); T of whole 128-row tiles and
+# ragged.  Bounds as above.
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("window,t", [(1, 256), (63, 384), (100, 200),
+                                      (200, 512), (1000, 256)])
+def test_flash_window_matches_plain(dev, rep, window, t):
+    g = _gen(dev, rep * t + window)
+    b, hkv, d = 2, 2, 128
+    q = torch.randn((b, hkv, rep, t, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    before = FL.flash_attn.launches
+    got = FL.flash_attn(q, k, v, d ** -0.5, window)
+    assert FL.flash_attn.launches == before + 1
+    want = FL.flash_attn_plain(q, k, v, d ** -0.5, window)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
+    if window == 1:     # the diagonal alone: out = v
+        torch.testing.assert_close(
+            got, v.to(torch.bfloat16).float()[:, :, None].expand_as(got),
+            atol=0, rtol=0)
+
+
 def test_flash_refuses(dev):
     q = torch.zeros((1, 1, 2, 128, 64), device=dev)
     k = torch.zeros((1, 1, 128, 64), device=dev)
     with pytest.raises(NotImplementedError):          # head_dim 64
         FL.flash_attn(q, k, k, 1.0)
-    with pytest.raises(NotImplementedError):          # rep 3
-        FL.flash_attn(torch.zeros((1, 1, 3, 128, 128), device=dev),
+    with pytest.raises(NotImplementedError):          # rep 9
+        FL.flash_attn(torch.zeros((1, 1, 9, 128, 128), device=dev),
                       torch.zeros((1, 1, 128, 128), device=dev),
                       torch.zeros((1, 1, 128, 128), device=dev), 1.0)
+    with pytest.raises(ValueError):                   # window 0
+        FL.flash_attn(torch.zeros((1, 1, 2, 128, 128), device=dev),
+                      torch.zeros((1, 1, 128, 128), device=dev),
+                      torch.zeros((1, 1, 128, 128), device=dev), 1.0, 0)
 
 
 # ---------------------------------------------------------------------------
