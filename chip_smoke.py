@@ -24,7 +24,7 @@ Phases (any failure exits non-zero):
      INT4-g128 projections; the INT2-g32 MLP; the INT4-g256 w2) at M = 8,
      1 and 33, with their times, bounds and a torch.matmul yardstick;
   7. CLI: `python -m piquant_tpu_torch.serving --random llama3_8b
-     --benchmark 8 --max-new 32` in process (at 8 of its 32 layers since
+     --benchmark 8 --max-new 32` in process (at 4 of its 32 layers since
      phase 11 came, full width), in four weight formats
      (INT4-g128; INT4 attention with an INT2-g32 MLP; INT4-g256; INT2) and
      four activation-quantized runs (--act-quant-prefill at INT4 and INT8;
@@ -43,7 +43,7 @@ Phases (any failure exits non-zero):
      and a torch._grouped_mm yardstick; (b) one full-width MoE layer's
      ragged route against its dense-masked route at 256 tokens; (c) `python
      -m piquant_tpu_torch.serving --random mixtral_8x7b --benchmark 8
-     --max-new 32` in process at 8 of its 32 layers, full width (INT4,
+     --max-new 32` in process at 4 of its 32 layers, full width (INT4,
      --group-size 128, --act-quant-prefill)
      with exact launch counts, greedy tokens against single-request
      generation, its metrics and peak memory;
@@ -65,7 +65,7 @@ Phases (any failure exits non-zero):
      time, bound and an SDPA or torch.matmul yardstick; (b) `python -m
      piquant_tpu_torch.serving --random <preset> --benchmark 8 --max-new
      32` in process for mistral_7b, qwen2_7b, qwen3_8b and phi3_mini, and
-     `--benchmark 4 --max-new 8` for qwen3_moe_a3b (at 16 of its 48
+     `--benchmark 4 --max-new 8` for qwen3_moe_a3b (at 8 of its 48
      layers), at their published widths: exact launch counts, greedy
      tokens against single-request generation, metrics and peak memory;
      one full-depth qwen3_moe_a3b decode step profiled; (c) one
@@ -74,6 +74,24 @@ Phases (any failure exits non-zero):
      kernel and decoded with window starts past 0 on every layer, its
      tokens against single-request generation, its throughput and peak
      memory;
+ 12. Gemma: (a) the flash kernel at head_dim 256 at each Gemma preset's
+     prefill shapes (Gemma-2-9B's softcap of 50 with its 4096 window at T
+     6144 and causal at T 2048, Gemma-3-12B's 1024 window, Gemma-2B's rep
+     8, Gemma-7B's rep 1) and its softcap at head_dim 128, decode_attn2 kv8
+     and kv4 at head_dim 256 (rep 8, rep 1, and rep 2 with Gemma-3's window
+     starts on a 4096-position cache), each against its plain version with
+     its time, bound and an SDPA yardstick where SDPA can compute it (not
+     under a softcap); (b) `python -m piquant_tpu_torch.serving --random
+     <preset> --benchmark 4 --max-new 8` in process for gemma_2b, gemma_7b,
+     gemma2_9b and gemma3_12b at their published widths and depths: exact
+     launch counts (Gemma-2's decode takes the materialized softcap path,
+     no decode_attn2), greedy tokens against single-request generation,
+     metrics, a profiled decode window and peak memory; (c) one
+     6000-token Gemma-2-9B request (max_seq_len 8192: the windowed softcap
+     flash on local layers at T 6016, the causal one on global layers) and
+     one 3060-token Gemma-3-12B request (T 3072; decode starts past 0 on
+     every local layer, none on the global ones), tokens against
+     single-request generation;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -83,8 +101,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -773,7 +793,9 @@ def generate_single(torch, M, cfg, params, prompt, n_new, dev, width=None,
                     max_len=None):
     """The port's own single-request greedy prefill + decode; with `width`
     the prompt is right-padded to it and prefilled into a cache of
-    `max_len` positions, as the engine runs a request admitted alone."""
+    `max_len` positions, as the engine runs a request admitted alone.
+    Returns the tokens and, for each, the top-2 margin of the logits that
+    chose it."""
     toks = list(prompt) + [0] * ((width or len(prompt)) - len(prompt))
     max_len = max_len or len(prompt) + n_new
     if cfg.kv_bits == 4:
@@ -783,37 +805,123 @@ def generate_single(torch, M, cfg, params, prompt, n_new, dev, width=None,
         cfg, params, torch.tensor([toks], device=dev, dtype=torch.int32),
         cache, last_positions=torch.tensor([len(prompt) - 1], device=dev,
                                            dtype=torch.int32))
-    toks = []
-    tok = int(logits.argmax(-1)[0])
+    toks, margins = [], []
     pos = len(prompt)
-    for _ in range(n_new):
-        toks.append(tok)
+    while True:
+        top = logits[0].float().topk(2)
+        toks.append(int(top.indices[0]))
+        margins.append(float(top.values[0] - top.values[1]))
         if len(toks) == n_new:
-            break
+            return toks, margins
         logits, cache = M.decode_step(
-            cfg, params, torch.tensor([tok], device=dev, dtype=torch.int32),
+            cfg, params,
+            torch.tensor([toks[-1]], device=dev, dtype=torch.int32),
             torch.tensor([pos], device=dev, dtype=torch.int32), cache)
-        tok = int(logits.argmax(-1)[0])
         pos += 1
-    return toks
 
 
-def check_tokens_guarded(torch, M, cfg, params, prompt, got, want, dev):
-    """got == want, or they fork first at a step whose reference top-2
-    margin is below NEAR_TIE (tests/token_guard.py, in torch)."""
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def locate_fork(torch, M, cfg, params, prompt, n_new, dev, width, max_len,
+                rows):
+    """Where single-request decode parts from the same request decoded in
+    every one of `rows` rows, as the engine's slots decode it.  Both run
+    in lockstep from one prefill, each on its own greedy tokens, with row
+    0 of every `_mm` (each projection, the lm_head), `rms_norm` and
+    `_attention` output recorded, and of each channelwise GEMV's input row
+    sum (`xsum`) and output; returns a line naming the first step and call
+    whose values differ and, at the first step whose tokens differ, both
+    runs' top-2 margins, the top logit and its bf16 ulp."""
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+
+    toks = list(prompt) + [0] * (width - len(prompt))
+    max_len += max_len % 2 if cfg.kv_bits == 4 else 0
+    one = M.init_kv_cache(cfg, 1, max_len=max_len, device=dev)
+    logits, one = M.prefill(
+        cfg, params, torch.tensor([toks], device=dev, dtype=torch.int32),
+        one, last_positions=torch.tensor([len(prompt) - 1], device=dev,
+                                         dtype=torch.int32))
+    many = M.init_kv_cache(cfg, rows, max_len=max_len, device=dev)
+    for t_b, t_1 in zip(many.tensors(), one.tensors()):
+        t_b.copy_(t_1.expand_as(t_b))
+    spied = [(M, n) for n in ("_mm", "rms_norm", "_attention")]
+    spied += [(Q, n) for n in ("w4_gemv", "w8_gemv", "w2_gemv")]
+    real = {n: getattr(mod, n) for mod, n in spied}
+    log, entered = [], [0]       # (name, attention calls entered, row 0)
+
+    def spy(n):
+        # the wrappers count their launches on the name they are called by:
+        # the spy carries a copy of the counter, so the real one stays put
+        @functools.wraps(real[n])
+        def call(*a, **kw):
+            if n == "_attention":
+                entered[0] += 1
+            elif n in ("w4_gemv", "w8_gemv", "w2_gemv"):
+                log.append((f"xsum into {n}", entered[0], a[4][0].float()))
+            out = real[n](*a, **kw)
+            log.append((n, entered[0], out[0].float()))
+            return out
+        return call
+
+    def where(rec, k):
+        name, c, _ = rec[k]
+        # an attention norm runs before its layer's attention is entered
+        pre = name == "rms_norm" and k + 1 < len(rec) and rec[k + 1][1] > c
+        last = " (the lm_head)" if k == len(rec) - 1 else ""
+        return f"call {k} of {len(rec)}: {name}{last} in layer {c - 1 + pre}"
+
+    tok, parted = [int(logits.argmax(-1)[0])] * 2, None
+    try:
+        for mod, n in spied:
+            setattr(mod, n, spy(n))
+        for step in range(1, n_new):
+            runs = []
+            for i, (cache, b) in enumerate(((one, 1), (many, rows))):
+                log.clear()
+                entered[0] = 0
+                lg, _ = M.decode_step(
+                    cfg, params,
+                    torch.full((b,), tok[i], device=dev, dtype=torch.int32),
+                    torch.full((b,), len(prompt) + step - 1, device=dev,
+                               dtype=torch.int32), cache)
+                runs.append((list(log), lg[0].float()))
+            (rec1, lg1), (rec8, lg8) = runs
+            if parted is None:
+                for k, (r1, r8) in enumerate(zip(rec1, rec8)):
+                    if not torch.equal(r1[2], r8[2]):
+                        parted = (f"first parted at step {step}, "
+                                  f"{where(rec1, k)}, max |diff| "
+                                  f"{float((r1[2] - r8[2]).abs().max()):.3e}")
+                        break
+            tok = [int(lg1.argmax()), int(lg8.argmax())]
+            if tok[0] != tok[1]:
+                top1, top8 = lg1.topk(2).values, lg8.topk(2).values
+                return (f"{parted}; tokens fork at step {step}: margin "
+                        f"{float(top1[0] - top1[1]):.4e} at 1 row, "
+                        f"{float(top8[0] - top8[1]):.4e} at {rows}; top "
+                        f"logit {float(top1[0]):.4f}, its bf16 ulp "
+                        f"{bf16_ulp(float(top1[0])):.4e}")
+    finally:
+        for mod, n in spied:
+            setattr(mod, n, real[n])
+    return f"{parted or 'no call parted'}; no fork in {n_new} tokens"
+
+
+def check_tokens_guarded(got, want, margins):
+    """got == want, or they fork first at a step whose margin is below
+    NEAR_TIE (tests/token_guard.py's contract), read on the path that chose
+    `want`: single-request decode (`generate_single`'s margins)."""
     if got == want:
         return "equal"
-    seq = list(prompt) + list(want[:-1])
-    logits, _ = M.forward(cfg, params, torch.tensor([seq], device=dev,
-                                                    dtype=torch.int32))
     for i, (a, b) in enumerate(zip(got, want)):
         if a != b:
-            top2 = torch.topk(logits[0, len(prompt) - 1 + i].float(), 2).values
-            margin = float(top2[0] - top2[1])
-            if margin >= NEAR_TIE:
+            if margins[i] >= NEAR_TIE:
                 raise AssertionError(f"engine diverged at step {i} with a "
-                                     f"decisive margin {margin}")
-            return f"near-tie fork at step {i} (margin {margin:.4f})"
+                                     f"decisive margin {margins[i]}")
+            return f"near-tie fork at step {i} (margin {margins[i]:.4e})"
     raise AssertionError("token lists differ in length")
 
 
@@ -939,9 +1047,9 @@ def run_engine(torch, dev, args):
         raise AssertionError(f"kernel launches {launches} != {expect}")
 
     for r in [r for r in done if r.sampling.temperature <= 0][:2]:
-        want = generate_single(torch, M, cfg, params, r.prompt, n_new, dev)
-        verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
-                                       r.tokens, want, dev)
+        want, margins = generate_single(torch, M, cfg, params, r.prompt,
+                                        n_new, dev)
+        verdict = check_tokens_guarded(r.tokens, want, margins)
         print(f"engine: request {r.rid} (prompt {len(r.prompt)}) vs "
               f"single-request generation: {verdict}", flush=True)
 
@@ -1250,10 +1358,9 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
         # alone as in the burst (under --act-quant-prefill the route, and
         # with it the numerics, depends on M)
         r = next(r for r in done if len(r.prompt) >= 256)
-        want = generate_single(torch, M, cfg, params, r.prompt,
-                               cli_args.max_new, dev)
-        verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
-                                       r.tokens, want, dev)
+        want, margins = generate_single(torch, M, cfg, params, r.prompt,
+                                        cli_args.max_new, dev)
+        verdict = check_tokens_guarded(r.tokens, want, margins)
         print(f"cli [{tag}]: request {r.rid} (prompt {len(r.prompt)}) vs "
               f"single-request generation: {verdict}", flush=True)
         profile_decode(torch, M, cfg, params, dev)
@@ -1272,9 +1379,9 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
 
 
 # Depth of the CLI runs of phases 7 and 9 (of Llama-3-8B's and
-# Mixtral-8x7B's 32 layers; widths unchanged): phase 11's runs need the
+# Mixtral-8x7B's 32 layers; widths unchanged): phases 11 and 12 need the
 # time, and phase 5 serves the full depth.
-CLI_DEPTH = 8
+CLI_DEPTH = 4
 
 
 @contextlib.contextmanager
@@ -1523,10 +1630,12 @@ def run_preset_cli(torch, dev, args, runs, kernels, label, counted=()):
     tokens, metrics and peak memory checked.  per_layer gives the launches
     a layer by call class: "decode" (a decode step at 8 slots), "small" /
     "mid" / "big" (a prefill call of M <= 64, 64 < M < 256, M >= 256 rows);
-    besides, w8_gemv takes the INT8 lm_head once a decode step and a
+    besides, w8_gemv takes an INT8 lm_head once a decode step and a
     prefill call where the vocab is a multiple of 128, and at head_dim 128
-    decode_attn2 and flash_prefill take every layer's attention.  Returns
-    the launches of the `counted` wrappers summed over the runs."""
+    or 256 flash_prefill takes every layer's prefill attention and
+    decode_attn2 every layer's decode attention (none under a softcap).
+    Returns the launches of the `counted` wrappers summed over the
+    runs."""
     import numpy as np
 
     from piquant_tpu_torch.models import llama as M
@@ -1578,10 +1687,11 @@ def run_preset_cli(torch, dev, args, runs, kernels, label, counted=()):
         for cls, per in per_layer.items():
             for k, n in per.items():
                 expect[k] += n * nl * calls[cls]
-        if cfg.vocab_size % 128 == 0:
+        if cfg.vocab_size % 128 == 0 and hasattr(params["lm_head"], "bits"):
             expect["w8_gemv"] += steps + counts["prefills"]
-        if cfg.head_dim == 128:
-            expect["decode_attn2"] = nl * steps
+        if cfg.head_dim in (128, 256):
+            # under a softcap decode takes the materialized path
+            expect["decode_attn2"] = 0 if cfg.attn_softcap else nl * steps
             expect["flash_prefill"] = nl * counts["flash_prefills"]
         tag = " ".join(flags) or "INT4"
         print(f"{label} [{tag}]: built in {t_build:.1f} s, served in "
@@ -1608,15 +1718,21 @@ def run_preset_cli(torch, dev, args, runs, kernels, label, counted=()):
         # a prompt of >= 256 tokens prefilled alone, generated again alone
         # at the engine's padded width: top-k routing is discontinuous (an
         # ulp of difference in x can flip a token's expert), so the
-        # prefill's shapes, and with them its kernels, stay the same
+        # prefill's shapes, and with them its kernels and their sums, stay
+        # the same
         r = max((r for r in done if len(r.prompt) >= 256),
                 key=lambda r: (r.rid in alone, -r.rid))
-        want = generate_single(torch, M, cfg, params, r.prompt,
-                               cli_args.max_new, dev,
-                               width=eng._padded_len(len(r.prompt)),
-                               max_len=eng.ec.max_seq_len)
-        verdict = check_tokens_guarded(torch, M, cfg, params, r.prompt,
-                                       r.tokens, want, dev)
+        width = eng._padded_len(len(r.prompt))
+        want, margins = generate_single(torch, M, cfg, params, r.prompt,
+                                        cli_args.max_new, dev, width=width,
+                                        max_len=eng.ec.max_seq_len)
+        if r.tokens != want:
+            print(f"{label} [{tag}]: single-request decode against "
+                  f"{eng.ec.batch_slots} rows: " + locate_fork(
+                      torch, M, cfg, params, r.prompt, cli_args.max_new, dev,
+                      width, eng.ec.max_seq_len, eng.ec.batch_slots),
+                  flush=True)
+        verdict = check_tokens_guarded(r.tokens, want, margins)
         print(f"{label} [{tag}]: request {r.rid} (prompt {len(r.prompt)}, "
               f"prefilled {'alone' if r.rid in alone else 'in a burst'}) vs "
               f"single-request generation: {verdict}", flush=True)
@@ -1785,32 +1901,70 @@ def live_pairs(t: int, window) -> int:
     return w * (w + 1) // 2 + (t - w) * w
 
 
-def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10):
+def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10, d=128,
+               softcap=None):
     """flash_attn against its plain version at one shape (atol 2e-3, rtol
     2e-2: phase 3's causal bound), then its device ms, the plain
-    version's, SDPA's and the bound (the live pairs' operations at the
-    bf16 peak, or the bytes: q, k, v read once, the f32 context written
-    once)."""
+    version's, SDPA's (none under a softcap, which SDPA cannot apply) and
+    the bound (the live pairs' operations at the bf16 peak, or the bytes:
+    q, k, v read once, the f32 context written once; the softcap's tanh
+    is one f32 operation a pair, under 1% of the pair's 4 d).
+
+    Under a softcap q and k are scaled so the scaled scores have a
+    standard deviation of a quarter of the cap: their tails reach it, and
+    the capped and uncapped functions must differ beyond the bound.  A
+    few keys then dominate a row, and the bound adds two bf16 roundings of
+    the probabilities (`rounding_bound`: the kernel and the plain version
+    each round them once, against different maxima); the elements beyond
+    the stated bound alone are counted and printed."""
     import torch.nn.functional as F
 
     from piquant_tpu_torch.ops.cuda import flash as FL
 
-    d = 128
-    q = torch.randn((b, hkv, rep, t, d), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    widen = (softcap / 4) ** 0.5 if softcap is not None else 1.0
+    q = (torch.randn((b, hkv, rep, t, d), generator=gen, device=dev)
+         * widen).to(torch.bfloat16)
+    k = (torch.randn((b, hkv, t, d), generator=gen, device=dev)
+         * widen).to(torch.bfloat16)
     v = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(torch.bfloat16)
     sm = d ** -0.5
-    tag = (f"flash_prefill B={b} Hkv={hkv} rep={rep} T={t} "
-           f"window={window}")
-    err = hold(torch, tag, FL.flash_attn(q, k, v, sm, window),
-               FL.flash_attn_plain(q, k, v, sm, window), 2e-3, 2e-2)
+    tag = (f"flash_prefill B={b} Hkv={hkv} rep={rep} T={t} D={d} "
+           f"window={window} softcap={softcap}")
+    got = FL.flash_attn(q, k, v, sm, window, softcap)
+    want = FL.flash_attn_plain(q, k, v, sm, window, softcap)
+    if softcap is None:
+        err = hold(torch, tag, got, want, 2e-3, 2e-2)
+    else:
+        lim = 2e-3 + 2e-2 * want.abs()
+        r2 = 2 * FL.rounding_bound(q, k, v, sm, window, softcap)
+        gap = (got - want).abs()
+        err = float(gap.max())
+        if not bool(torch.isfinite(got).all()) or bool((gap > lim + r2).any()):
+            raise AssertionError(f"{tag} disagrees: max abs err {err}, "
+                                 f"{int((gap > lim + r2).sum())} elements "
+                                 "beyond the bound with two roundings")
+        bite = float(((FL.flash_attn_plain(q, k, v, sm, window) - want).abs()
+                      - lim - r2).max())
+        if bite <= 0:
+            raise AssertionError(f"{tag}: the cap changes no element beyond "
+                                 "the bound")
+        print(f"{tag}: scaled-score spread {softcap / 4}; "
+              f"{int((gap > lim).sum())} of {gap.numel()} elements beyond "
+              f"the stated bound alone, two roundings up to "
+              f"{float(r2.max()):.3e}; the cap moves an element "
+              f"{bite:.3e} past the bound", flush=True)
+        del lim, r2, gap
+    del got, want
     torch.cuda.empty_cache()
-    t_k = cuda_ms(lambda i: FL.flash_attn(q, k, v, sm, window), iters)
-    t_p = event_ms(lambda i: FL.flash_attn_plain(q, k, v, sm, window), 1,
-                   warmup=1)
+    t_k = cuda_ms(lambda i: FL.flash_attn(q, k, v, sm, window, softcap),
+                  iters)
+    t_p = event_ms(lambda i: FL.flash_attn_plain(q, k, v, sm, window,
+                                                 softcap), 1, warmup=1)
     torch.cuda.empty_cache()
     q4 = q.reshape(b, hkv * rep, t, d)
-    if window is None:
+    if softcap is not None:
+        t_l, call = None, "none (SDPA applies no softcap)"
+    elif window is None:
         t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
             q4, k, v, is_causal=True, enable_gqa=True), iters)
         call = "scaled_dot_product_attention (causal, GQA)"
@@ -1828,8 +1982,9 @@ def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10):
     flops = 4.0 * d * live_pairs(t, window) * b * hkv * rep
     nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4
     bnd, by = bound_ms(nbytes, flops)
+    lib = "none" if t_l is None else f"{t_l:.4f} ms"
     print(f"{tag}: max_abs_err {err:.3e}; kernel {t_k:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms "
+          f"{bnd:.4f} ms ({by}), plain {t_p:.4f} ms, sdpa {lib} "
           f"[{card_line()}]", flush=True)
     del q, k, v
     torch.cuda.empty_cache()
@@ -1837,7 +1992,7 @@ def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10):
                 bound_by=by, library_ms=t_l, library_call=call)
 
 
-def hold_decode(torch, dev, gen, kv4, geometry, pos, start):
+def hold_decode(torch, dev, gen, kv4, geometry, pos, start, d=128):
     """decode_attn2 (kv8) or decode_attn2_kv4 against its plain version on a
     stacked cache of `geometry` (layers, slots, kv heads, rep, positions)
     with the live windows [start, pos), at three layers (m to 1e-5, l
@@ -1853,7 +2008,6 @@ def hold_decode(torch, dev, gen, kv4, geometry, pos, start):
                                                   unpack4_pairs)
 
     nl, b, hkv, rep, s = geometry
-    d = 128
     if kv4:
         shape, sshape = (nl, b, hkv, s // 2, d), (nl, b, hkv, 2, s // 2)
         kc, vc = (torch.randint(0, 256, shape, generator=gen, device=dev,
@@ -1868,7 +2022,8 @@ def hold_decode(torch, dev, gen, kv4, geometry, pos, start):
     pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     start = torch.tensor(start, dtype=torch.int32, device=dev)
     kern = DA.decode_attn2_kv4 if kv4 else DA.decode_attn2
-    name = f"{'decode_attn2_kv4' if kv4 else 'decode_attn2'} {geometry}"
+    name = (f"{'decode_attn2_kv4' if kv4 else 'decode_attn2'} {geometry}"
+            f" D={d}")
     sm = d ** -0.5
     err = 0.0
     for layer in (0, nl // 2, nl - 1):
@@ -2031,7 +2186,7 @@ A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
            {"decode": {"w4_gemv": 4 + 3 * 128},
             "small": {"w4_gemv": 4, "wq_ragged": 3}, "mid": {"wq_ragged": 3},
             "big": {"wq_ragged": 3}})
-A3B_DEPTH = 16
+A3B_DEPTH = 8
 FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
                   "flash_prefill")
 
@@ -2039,13 +2194,15 @@ FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
 LONG_PROMPT, LONG_NEW = 6000, 32
 
 
-def run_long_mistral(torch, dev, args):
-    """Phase 11 (c): one long request on full-width Mistral-7B (random INT4
-    codes, the INT8 lm_head, max_seq_len 8192): a 6000-token prompt from the
-    seed prefills through the windowed flash kernel at T = 6016 (window
-    4096 on every layer), and 32 greedy tokens decode with window starts
-    past 0 on every layer; launches, windows and starts are checked, and
-    the tokens against single-request generation."""
+def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label):
+    """One long request at batch 1 on a full-width preset (random INT4
+    codes, the INT8 lm_head): a prompt of `prompt_len` tokens from the seed
+    prefills through flash at its padded width T, each layer with its own
+    window (and the softcap), and LONG_NEW greedy tokens decode with window
+    starts past 0 on every windowed layer and none on a full one (under a
+    softcap: the materialized decode, no decode_attn2 launch); launches,
+    windows and starts are checked by spies on the model's two attention
+    entry points, and the tokens against single-request generation."""
     import numpy as np
 
     from piquant_tpu_torch.models import llama as M
@@ -2054,22 +2211,23 @@ def run_long_mistral(torch, dev, args):
     from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
                                            SamplingParams)
 
-    cfg = M.LlamaConfig.mistral_7b()
+    cfg = getattr(M.LlamaConfig, preset)()
     params = M.random_quantized_params(cfg, seed=args.seed, lm_head_bits=8,
                                        device=dev)
-    ec = EngineConfig(batch_slots=1, max_seq_len=cfg.max_seq_len)
+    ec = EngineConfig(batch_slots=1, max_seq_len=max_seq_len)
     eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
-    prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, LONG_PROMPT)]
+    prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, prompt_len)]
     seen = {"windows": [], "starts": []}
     flash0, state0 = M.flash_prefill_masked, M.decode_attention_state
 
     def flash_spy(q, *a, **kw):
-        seen["windows"].append((q.shape[-2], kw.get("window")))
+        seen["windows"].append((q.shape[-2], kw.get("window"),
+                                kw.get("softcap")))
         return flash0(q, *a, **kw)
 
     def state_spy(*a, **kw):
-        seen["starts"].append(kw.get("starts"))
+        seen["starts"].append((kw["layer"], kw.get("starts")))
         return state0(*a, **kw)
 
     blocks = []
@@ -2089,45 +2247,54 @@ def run_long_mistral(torch, dev, args):
                     "decode_attn2": DA.decode_attn2.launches}
     finally:
         M.flash_prefill_masked, M.decode_attention_state = flash0, state0
-    width = eng._padded_len(LONG_PROMPT)
+    width = eng._padded_len(prompt_len)
     steps = len(blocks) * ec.decode_block
-    expect = {"flash_prefill": cfg.n_layers,
-              "decode_attn2": cfg.n_layers * steps}
-    windows = sorted(set(seen["windows"]))
-    starts = torch.stack([s for s in seen["starts"] if s is not None])
-    min_start = int(starts.min())
-    print(f"long mistral: prompt {LONG_PROMPT} (padded to {width}), "
+    nl = cfg.n_layers
+    decoded = 0 if cfg.attn_softcap else nl * steps
+    expect = {"flash_prefill": nl, "decode_attn2": decoded}
+    windows = sorted(set(seen["windows"]), key=str)
+    want_windows = sorted({(width, cfg.layer_window(i), cfg.attn_softcap)
+                           for i in range(nl)}, key=str)
+    local = [(li, st) for li, st in seen["starts"]
+             if cfg.layer_window(li) is not None]
+    full = [st for li, st in seen["starts"]
+            if cfg.layer_window(li) is None]
+    least = min((int(st.min()) for _, st in local if st is not None),
+                default=None)
+    print(f"{label}: prompt {prompt_len} (padded to {width}), "
           f"{len(blocks)} decode blocks ({steps} steps), launches "
-          f"{launches}, expected {expect}; flash (T, window) {windows}; "
-          f"{len(starts)} of {len(seen['starts'])} decode calls with window "
-          f"starts, the least {min_start}", flush=True)
+          f"{launches}, expected {expect}; flash (T, window, softcap) "
+          f"{windows}; {len(seen['starts'])} decode calls, {len(local)} on "
+          f"windowed layers (least start {least}), {len(full)} on full "
+          f"ones", flush=True)
     if launches != expect:
-        raise AssertionError(f"long mistral: launches {launches} != "
-                             f"{expect}")
-    if windows != [(width, cfg.sliding_window)]:
-        raise AssertionError(f"long mistral: flash took {windows}")
-    if len(starts) != len(seen["starts"]) or min_start <= 0:
-        raise AssertionError("long mistral: a decode call without window "
+        raise AssertionError(f"{label}: launches {launches} != {expect}")
+    if windows != want_windows or len(seen["windows"]) != nl:
+        raise AssertionError(f"{label}: flash took {windows}")
+    if len(seen["starts"]) != decoded:
+        raise AssertionError(f"{label}: {len(seen['starts'])} decode calls")
+    if any(st is None or int(st.min()) <= 0 for _, st in local):
+        raise AssertionError(f"{label}: a windowed layer's decode without "
                              "starts past 0")
+    if any(st is not None for st in full):
+        raise AssertionError(f"{label}: a full layer's decode with starts")
     (r,) = done
     if len(r.tokens) != LONG_NEW or not all(
             0 <= t < cfg.vocab_size for t in r.tokens):
-        raise AssertionError("long mistral: tokens missing or outside the "
-                             "vocab")
+        raise AssertionError(f"{label}: tokens missing or outside the vocab")
     m = eng.metrics.to_dict()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = generate_single(torch, M, cfg, params, prompt, LONG_NEW, dev,
-                           width=width, max_len=ec.max_seq_len)
-    verdict = check_tokens_guarded(torch, M, cfg, params, prompt, r.tokens,
-                                   want, dev)
-    print(f"long mistral: vs single-request generation: {verdict}",
-          flush=True)
-    print("long_mistral_metrics " + json.dumps(
+    want, margins = generate_single(torch, M, cfg, params, prompt, LONG_NEW,
+                                    dev, width=width, max_len=ec.max_seq_len)
+    verdict = check_tokens_guarded(r.tokens, want, margins)
+    print(f"{label}: vs single-request generation: {verdict}", flush=True)
+    print(label.replace(" ", "_") + "_metrics " + json.dumps(
         {"card": card_line(), **m, "wall_s": wall, "peak_mem_gb": peak,
          "launches": launches}), flush=True)
     del params, eng, done, dispatch
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
 
 
 def run_families(torch, dev, gen, args, rows):
@@ -2149,7 +2316,96 @@ def run_families(torch, dev, gen, args, rows):
     profile_decode(torch, M, cfg, params, dev, steps=1)
     del params
     torch.cuda.empty_cache()
-    run_long_mistral(torch, dev, args)
+    run_long(torch, dev, args, "mistral_7b", LONG_PROMPT, 8192,
+             "long mistral")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: Gemma-1, Gemma-2 and Gemma-3 (head_dim 256, the softcap)
+# ---------------------------------------------------------------------------
+
+# decode caches of head_dim 256: Gemma-2B (18 layers, 1 kv head, rep 8),
+# Gemma-7B (28 layers, 16 kv heads, rep 1) at the CLI's 2048 positions, and
+# Gemma-3-12B (48 layers, 8 kv heads, rep 2) at 4096 positions with its
+# 1024 window's starts past 0 on every row
+GEMMA2B_CACHE = (18, 8, 1, 8, 2048)
+GEMMA7B_CACHE = (28, 8, 16, 1, 2048)
+GEMMA3_CACHE = (48, 8, 8, 2, 4096)
+GEMMA3_POS = (1100, 1101, 2003, 3016, 4090, 3001, 1500, 4096)
+# each preset's CLI flags (random INT4 codes and the INT8 lm_head, gemma_2b
+# quantized from a float init with its bf16 lm_head, as the reference CLI
+# builds them) and its launches a layer by call class (see run_preset_cli)
+GEMMA_RUNS = tuple(
+    (("--random", preset, "--benchmark", "4", "--max-new", "8"), _dense7())
+    for preset in ("gemma_2b", "gemma_7b", "gemma2_9b", "gemma3_12b"))
+GEMMA_KERNELS = ("w4_gemv", "w8_gemv", "decode_attn2", "flash_prefill")
+# the long requests: (preset, prompt tokens, max_seq_len); Gemma-3's prompt
+# pads to 3072 positions, whole 128-row tiles, so its prefill takes flash
+# with the 1024 window biting
+GEMMA_LONG = (("gemma2_9b", LONG_PROMPT, 8192), ("gemma3_12b", 3060, 4096))
+
+
+def check_gemma_kernels(torch, dev, gen, rows):
+    """Phase 12 (a): the flash kernel at head_dim 256 on each Gemma
+    preset's prefill shapes (Gemma-2's softcap of 50 on local and global
+    layers, Gemma-3's 1024 window, Gemma-2B's rep 8, Gemma-7B's rep 1) and
+    its softcap at head_dim 128; decode_attn2 kv8 and kv4 at head_dim 256
+    at rep 8, rep 1 and Gemma-3's rep 2 with window starts; each as a
+    variant of its kernels-line row in `rows`."""
+    by_name = {r["name"]: r for r in rows}
+
+    def add(name, what, res):
+        row = by_name[name]
+        row.setdefault("variants", {})[what] = res
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+
+    for what, shape in (
+            ("Gemma-2-9B local: B=1, Hkv=8, rep=2, T=6144, D=256, window "
+             "4096, softcap 50", (1, 8, 2, 6144, 4096, 5, 256, 50.0)),
+            ("Gemma-2-9B global: B=2, Hkv=8, rep=2, T=2048, D=256, causal, "
+             "softcap 50", (2, 8, 2, 2048, None, 10, 256, 50.0)),
+            ("Gemma-3-12B local: B=1, Hkv=8, rep=2, T=4096, D=256, window "
+             "1024", (1, 8, 2, 4096, 1024, 10, 256, None)),
+            ("Gemma-2B: B=8, Hkv=1, rep=8, T=1024, D=256, causal",
+             (8, 1, 8, 1024, None, 10, 256, None)),
+            ("Gemma-7B: B=4, Hkv=16, rep=1, T=1024, D=256, causal",
+             (4, 16, 1, 1024, None, 10, 256, None)),
+            ("the softcap at D=128: B=8, Hkv=8, rep=4, T=1024, causal, "
+             "softcap 50", (8, 8, 4, 1024, None, 10, 128, 50.0))):
+        b, hkv, rep, t, window, iters, d, cap = shape
+        add("flash_prefill", what, hold_flash(torch, dev, gen, b, hkv, rep, t,
+                                              window, iters, d, cap))
+    zeros = (0,) * len(QWEN2_POS)
+    starts = tuple(max(p - 1023, 0) for p in GEMMA3_POS)
+    for kv4, name in ((False, "decode_attn2"), (True, "decode_attn2_kv4")):
+        for what, geometry, pos, start in (
+                ("Gemma-2B: L=18, B=8, Hkv=1, rep=8, S=2048, D=256",
+                 GEMMA2B_CACHE, QWEN2_POS, zeros),
+                ("Gemma-7B: L=28, B=8, Hkv=16, rep=1, S=2048, D=256",
+                 GEMMA7B_CACHE, QWEN2_POS, zeros),
+                ("Gemma-3-12B local: L=48, B=8, Hkv=8, rep=2, S=4096, D=256, "
+                 "window 1024", GEMMA3_CACHE, GEMMA3_POS, starts)):
+            add(name, what, hold_decode(torch, dev, gen, kv4, geometry, pos,
+                                        start, d=256))
+
+
+def run_gemma(torch, dev, gen, args, rows):
+    """Phase 12: the kernel holds, the four Gemma presets through the CLI
+    at full width and depth, and two long requests at batch 1 (Gemma-2-9B:
+    6000 tokens, the windowed softcap flash on local layers and the causal
+    softcap flash on global ones, the materialized decode; Gemma-3-12B:
+    3060 tokens, the windowed flash on local layers, decode starts past 0
+    on every local layer and none on the global ones).  Returns the launches of flash_prefill and decode_attn2
+    in the CLI runs and the long requests."""
+    check_gemma_kernels(torch, dev, gen, rows)
+    total = run_preset_cli(torch, dev, args, GEMMA_RUNS, GEMMA_KERNELS,
+                           "gemma cli", ("flash_prefill", "decode_attn2"))
+    for preset, n, max_len in GEMMA_LONG:
+        got = run_long(torch, dev, args, preset, n, max_len,
+                       f"long {preset}")
+        for k in total:
+            total[k] += got[k]
+    return total
 
 
 def main() -> int:
@@ -2241,8 +2497,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_families(torch, dev, gen, args, kernels)
     phase_done(11)
+    torch.cuda.empty_cache()
+    gemma = run_gemma(torch, dev, gen, args, kernels)
+    phase_done(12)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
+        if kern["name"] in gemma:
+            kern["gemma_launches"] = gemma[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,11 @@ _CONFIG_FIELDS = ("vocab_size", "d_model", "n_layers", "n_heads",
                   "n_kv_heads", "d_ff", "rope_theta", "rms_eps",
                   "max_seq_len", "head_dim_override", "qkv_bias",
                   "sliding_window", "rotary_dim_override", "qk_norm",
-                  "kv_bits",
+                  "norm_plus_one", "mlp_act", "scale_embed",
+                  "embed_multiplier", "residual_multiplier",
+                  "logits_scaling", "sandwich_norms", "attn_softcap",
+                  "final_softcap", "attn_scale_override", "sliding_pattern",
+                  "rope_theta_local", "rope_linear_factor", "kv_bits",
                   "act_quant_prefill", "act_quant_decode", "n_experts",
                   "moe_top_k", "moe_d_ff", "moe_renormalize", "moe_every")
 
@@ -117,10 +121,13 @@ def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:
 def config_from_jax(jcfg) -> LlamaConfig:
     """The JAX package's LlamaConfig -> the port's.  The Mistral / Qwen /
     Phi-3 flags (qkv_bias, sliding_window, rotary_dim_override, qk_norm)
-    carry across; every model-family flag the port does not have yet
-    (alternating or chunked windows, softcaps, sinks, shared experts,
-    router / expert biases, expert parallelism, Llama-4 / Gemma / Granite
-    options, ...) raises NotImplementedError when set off its default."""
+    and the Gemma / Granite ones (norm_plus_one, mlp_act, scale_embed,
+    embed_multiplier, residual_multiplier, logits_scaling, sandwich_norms,
+    the two softcaps, attn_scale_override, sliding_pattern and the local /
+    global rope) carry across; every model-family flag the port does not
+    have yet (chunked windows, sinks, YaRN, nope layers, shared experts,
+    router / expert biases, expert parallelism, ...) raises
+    NotImplementedError when set off its default."""
     kw = {f: getattr(jcfg, f) for f in _CONFIG_FIELDS}
     handled = set(_CONFIG_FIELDS) | {"llama3_rope", "dtype"}
     unsupported = [f.name for f in dataclasses.fields(jcfg)

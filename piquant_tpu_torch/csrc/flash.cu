@@ -1,17 +1,21 @@
 // flash_prefill: GQA-native flash attention for prefill, causal or with a
-// sliding window.
+// sliding window, with or without a logit softcap, at head_dim 128 or 256.
 //
-// Replaces piquant_tpu/ops/pallas/flash.py::_kernel (the plain causal mask
-// and the sliding-window branch), and through it the JAX-shipped TPU flash
-// kernel that piquant_tpu/ops/flash_prefill.py uses for plain causal masks.
+// Replaces piquant_tpu/ops/pallas/flash.py::_kernel (the plain causal mask,
+// the sliding-window branch and the softcap branch), and through it the
+// JAX-shipped TPU flash kernel that piquant_tpu/ops/flash_prefill.py uses
+// for plain causal masks.
 //
-//   out[b, h, r, i] = sum_{i - w < j <= i} softmax_j(q[b,h,r,i] . k[b,h,j]
-//                     * scale) * v[b, h, j]
+//   out[b, h, r, i] = sum_{i - w < j <= i} softmax_j(cap(q[b,h,r,i] . k[b,h,j]
+//                     * scale)) * v[b, h, j],
+//   cap(s) = c * tanh(s * (1 / c)) under a softcap c (Gemma-2), else s
 //
-// q [B, Hkv, rep, T, 128] bf16, k/v [B, Hkv, T, 128] bf16, out f32; any GQA
-// rep from 1 to 8; the window w is T for the plain causal mask (every key
-// j <= i < T then has j > i - T).  Mask on indices (positions are
-// contiguous per row); online softmax in f32 (running max, denominator and
+// q [B, Hkv, rep, T, D] bf16, k/v [B, Hkv, T, D] bf16, out f32, D 128 or
+// 256; any GQA rep from 1 to 8; the window w is T for the plain causal mask
+// (every key j <= i < T then has j > i - T).  Mask on indices (positions
+// are contiguous per row), the softcap on the scaled score before the mask
+// (tanhf, not the approximate tanh: at c = 50 its 2^-11 relative error is
+// 0.02 of a logit); online softmax in f32 (running max, denominator and
 // context), bf16 operands for both products, the probabilities rounded to
 // bf16 before the PV product, and the denominator taken from the unrounded
 // probabilities: the TPU kernel's recipe.
@@ -26,8 +30,12 @@
 //     5, 6 or 7 on 16-position blocks; the idle warps still load tiles and
 //     join every __syncthreads();
 //   * products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate), Q kept in registers, the S fragment reused as the A
-//     operand of PV, V fragments through ldmatrix.trans;
+//     accumulate), the S fragment reused as the A operand of PV, V
+//     fragments through ldmatrix.trans.  At D 128 Q stays in registers
+//     (8 k-steps of A fragments) beside a 16 x 128 f32 output; at D 256 the
+//     16 x 256 output alone takes 128 registers a thread, so Q waits in
+//     shared memory and each k-step's A fragment comes through ldmatrix,
+//     and K, V and Q tiles (135 KB) take dynamic shared memory;
 //   * key tiles of 64 walk from the tile holding the block's first window
 //     start, q0 - (w - 1) rounded down to 64, to the block's last row, so a
 //     windowed prefill reads O(T w) K/V bytes, not O(T^2) (the TPU
@@ -35,9 +43,10 @@
 //     rows or wholly before its first row's window, and masks only the
 //     tiles that cross its diagonal or its window's start; masked scores
 //     give probability 0, and every row keeps its diagonal live;
-//   * a window of T or more takes a second instance of the kernel with
-//     the window code compiled out: the plain causal walk from key 0 and
-//     its one compare a score;
+//   * a window of T or more takes an instance of the kernel with the
+//     window code compiled out (the plain causal walk from key 0 and its
+//     one compare a score), and no softcap one with the softcap compiled
+//     out: the D 128 causal instance is the one the Llama path always ran;
 //   * the heaviest query blocks launch first: under a window every block
 //     past the first w positions does the same work, so the order only
 //     moves the light early blocks last;
@@ -51,11 +60,9 @@
 
 namespace {
 
-constexpr int kD = 128;
 constexpr int kWarps = 8;           // 16 query rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeys = 64;           // keys per tile
-constexpr int kStride = kD + 8;     // smem row stride (bf16), conflict-free
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -77,22 +84,50 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(addr));
 }
 
+// A fragment of m16n8k16 (16 rows x 16 columns, row-major in shared
+// memory): lane l gives the address of row l % 16, columns (l / 16) * 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem_ptr) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Q in shared memory at D 256 (registers at D 128); dynamic shared memory
+// of the K, V and Q tiles, in bytes (0: the static K/V tiles)
+template <int D>
+__host__ __device__ constexpr bool q_shared() { return D > 128; }
+template <int D>
+__host__ __device__ constexpr int dyn_smem() {
+  return q_shared<D>() ? (2 * kKeys + kWarps * 16) * (D + 8) * 2 : 0;
+}
+
 // kWindowed false: the plain causal mask (the window is ignored, the walk
-// starts at key 0, where every row has a live key)
-template <bool kWindowed>
+// starts at key 0, where every row has a live key).  kSoftcap false: no
+// softcap (softcap and inv_softcap are ignored).
+template <int D, bool kWindowed, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      float* __restrict__ out,
-                     int nh, int rep, int t, int window, float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kKeys * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kKeys * kStride];
+                     int nh, int rep, int t, int window, float sm_scale,
+                     float softcap, float inv_softcap) {
+  constexpr int kStride = D + 8;    // smem row stride (bf16), conflict-free
+  constexpr int kSteps = D / 16;    // k-steps of Q K^T over D
+  constexpr bool kQShared = q_shared<D>();
+  __shared__ __align__(16) __nv_bfloat16 ks_static[kQShared ? 8 : kKeys * kStride];
+  __shared__ __align__(16) __nv_bfloat16 vs_static[kQShared ? 8 : kKeys * kStride];
+  extern __shared__ __align__(16) __nv_bfloat16 flash_dyn[];
+  __nv_bfloat16* const ks = kQShared ? flash_dyn : ks_static;
+  __nv_bfloat16* const vs = kQShared ? flash_dyn + kKeys * kStride : vs_static;
 
   const int subs = kWarps / rep;                 // 16-row groups a head
   const int bq = 16 * subs;                      // positions per block
@@ -106,26 +141,41 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int qbase = q0 + (warp % subs) * 16;
   const int qpos0 = qbase + g, qpos1 = qbase + g + 8;
 
-  const size_t kv_off = ((size_t)b * nh + h) * t * kD;
-  const __nv_bfloat16* qh = q + (((size_t)b * nh + h) * rep + r) * t * kD;
+  const size_t kv_off = ((size_t)b * nh + h) * t * D;
+  const __nv_bfloat16* qh = q + (((size_t)b * nh + h) * rep + r) * t * D;
 
-  // Q fragments for the 8 k-steps over D
+  // Q: A fragments for the k-steps over D in registers (D 128), or the
+  // warp's 16 rows in its own slice of shared memory (D 256), zero past T;
+  // the key loop's first __syncthreads() comes before any read
   const bool ld0 = busy && qpos0 < t, ld1 = busy && qpos1 < t;
-  uint32_t qa[8][4];
+  uint32_t qa[kQShared ? 1 : kSteps][4];
+  __nv_bfloat16* const qw = flash_dyn + 2 * kKeys * kStride + warp * 16 * kStride;
+  if constexpr (kQShared) {
+    if (busy) {
+      for (int i = lane; i < 16 * (D / 8); i += 32) {
+        const int row = i / (D / 8), ch = i % (D / 8);
+        int4 val = make_int4(0, 0, 0, 0);
+        if (qbase + row < t)
+          val = *reinterpret_cast<const int4*>(qh + (size_t)(qbase + row) * D + ch * 8);
+        *reinterpret_cast<int4*>(qw + row * kStride + ch * 8) = val;
+      }
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos0 * kD + c);
-    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos1 * kD + c);
-    qa[kk][0] = ld0 ? r0[0] : 0u;
-    qa[kk][1] = ld1 ? r1[0] : 0u;
-    qa[kk][2] = ld0 ? r0[4] : 0u;   // +8 columns
-    qa[kk][3] = ld1 ? r1[4] : 0u;
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int c = kk * 16 + 2 * tq;
+      const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos0 * D + c);
+      const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos1 * D + c);
+      qa[kk][0] = ld0 ? r0[0] : 0u;
+      qa[kk][1] = ld1 ? r1[0] : 0u;
+      qa[kk][2] = ld0 ? r0[4] : 0u;   // +8 columns
+      qa[kk][3] = ld1 ? r1[4] : 0u;
+    }
   }
 
-  float o[16][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
@@ -139,14 +189,14 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp_kbegin = kWindowed ? qbase - (window - 1) : 0;
   for (int k0 = kbegin; k0 < kend; k0 += kKeys) {
     __syncthreads();
-    // K/V tile: 64 rows x 16 chunks of 16 bytes each, zero past T
-    for (int i = threadIdx.x; i < kKeys * (kD / 8); i += kThreads) {
-      const int row = i / (kD / 8), ch = i % (kD / 8);
+    // K/V tile: 64 rows x D/8 chunks of 16 bytes each, zero past T
+    for (int i = threadIdx.x; i < kKeys * (D / 8); i += kThreads) {
+      const int row = i / (D / 8), ch = i % (D / 8);
       const int key = k0 + row;
       int4 kv = make_int4(0, 0, 0, 0), vv = kv;
       if (key < t) {
-        kv = *reinterpret_cast<const int4*>(k + kv_off + (size_t)key * kD + ch * 8);
-        vv = *reinterpret_cast<const int4*>(v + kv_off + (size_t)key * kD + ch * 8);
+        kv = *reinterpret_cast<const int4*>(k + kv_off + (size_t)key * D + ch * 8);
+        vv = *reinterpret_cast<const int4*>(v + kv_off + (size_t)key * D + ch * 8);
       }
       *reinterpret_cast<int4*>(&ks[row * kStride + ch * 8]) = kv;
       *reinterpret_cast<int4*>(&vs[row * kStride + ch * 8]) = vv;
@@ -157,19 +207,35 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     // S = Q K^T for 16 rows x 64 keys
     float s[8][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = &ks[(nt * 8 + g) * kStride + 2 * tq];
+    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    if constexpr (kQShared) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[nt], qa[kk], b0, b1);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qw + (lane % 16) * kStride + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const __nv_bfloat16* kr = &ks[(nt * 8 + g) * kStride + 2 * tq + kk * 16];
+          mma_bf16(s[nt], a, *reinterpret_cast<const uint32_t*>(kr),
+                   *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const __nv_bfloat16* kr = &ks[(nt * 8 + g) * kStride + 2 * tq];
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
+          mma_bf16(s[nt], qa[kk], b0, b1);
+        }
       }
     }
-    // scale, then the inclusive causal mask (and the window, except in a
-    // tile whose every key is live for all 16 rows of the warp: below the
-    // diagonal and inside the last row's window); row maxima
+    // scale (and cap), then the inclusive causal mask (and the window,
+    // except in a tile whose every key is live for all 16 rows of the
+    // warp: below the diagonal and inside the last row's window); row
+    // maxima
     const bool interior = kWindowed && k0 + kKeys - 1 <= qbase &&
                           k0 > qbase + 15 - window;
     float mx0 = kNegInf, mx1 = kNegInf;
@@ -178,12 +244,18 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = k0 + nt * 8 + 2 * tq + j;
-        if constexpr (kWindowed) {
+        if constexpr (kWindowed || kSoftcap) {
           s[nt][j] *= sm_scale;
           s[nt][2 + j] *= sm_scale;
-          if (!interior) {
-            if (key > qpos0 || key <= qpos0 - window) s[nt][j] = kNegInf;
-            if (key > qpos1 || key <= qpos1 - window) s[nt][2 + j] = kNegInf;
+          if constexpr (kSoftcap) {
+            s[nt][j] = softcap * tanhf(s[nt][j] * inv_softcap);
+            s[nt][2 + j] = softcap * tanhf(s[nt][2 + j] * inv_softcap);
+          }
+          if (kWindowed ? !interior : true) {
+            if (key > qpos0 || (kWindowed && key <= qpos0 - window))
+              s[nt][j] = kNegInf;
+            if (key > qpos1 || (kWindowed && key <= qpos1 - window))
+              s[nt][2 + j] = kNegInf;
           }
         } else {
           s[nt][j] = key <= qpos0 ? s[nt][j] * sm_scale : kNegInf;
@@ -219,7 +291,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     l0 = l0 * c0 + sum0;
     l1 = l1 * c1 + sum1;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < D / 8; ++i) {
       o[i][0] *= c0;
       o[i][1] *= c0;
       o[i][2] *= c1;
@@ -234,7 +306,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                               pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
       const int vrow = j * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
 #pragma unroll
-      for (int dp = 0; dp < 8; ++dp) {
+      for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, &vs[vrow * kStride + dp * 16 + (lane / 16) * 8]);
         mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
@@ -250,36 +322,74 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  float* oh = out + (((size_t)b * nh + h) * rep + r) * t * kD;
+  float* oh = out + (((size_t)b * nh + h) * rep + r) * t * D;
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
+  for (int nt = 0; nt < D / 8; ++nt) {
     const int c = nt * 8 + 2 * tq;
     if (qpos0 < t)
-      *reinterpret_cast<float2*>(oh + (size_t)qpos0 * kD + c) =
+      *reinterpret_cast<float2*>(oh + (size_t)qpos0 * D + c) =
           make_float2(o[nt][0] / l0, o[nt][1] / l0);
     if (qpos1 < t)
-      *reinterpret_cast<float2*>(oh + (size_t)qpos1 * kD + c) =
+      *reinterpret_cast<float2*>(oh + (size_t)qpos1 * D + c) =
           make_float2(o[nt][2] / l1, o[nt][3] / l1);
   }
 }
 
-}  // namespace
-
-// q [B,H,rep,T,128] bf16, k/v [B,H,T,128] bf16, out [B,H,rep,T,128] f32;
-// keys i - window < j <= i attend (window T: the plain causal mask).  rep
-// must be 1 to 8 and window >= 1.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unsupported rep or window.
-extern "C" int pq_flash_prefill(const void* q, const void* k, const void* v,
-                                void* out, int nb, int nh, int rep, int t,
-                                int window, float sm_scale, void* stream) {
-  if (rep < 1 || rep > kWarps || window < 1) return (int)cudaErrorInvalidValue;
+template <int D, bool kWindowed, bool kSoftcap>
+int launch(const void* q, const void* k, const void* v, void* out, int nb,
+           int nh, int rep, int t, int window, float sm_scale, float softcap,
+           cudaStream_t stream) {
+  auto kern = flash_prefill_kernel<D, kWindowed, kSoftcap>;
+  constexpr int smem = dyn_smem<D>();
+  if constexpr (smem > 48 * 1024) {
+    // once an instance: the opt-in above the 48 KB default
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
   const int bq = 16 * (kWarps / rep);
   dim3 grid((t + bq - 1) / bq, nh, nb);
-  // a window of T or more masks nothing the causal mask keeps
-  auto kern = window < t ? flash_prefill_kernel<true> : flash_prefill_kernel<false>;
-  kern<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  // the softcap's reciprocal in f32, as the TPU kernel's 1.0 / softcap
+  const float inv_softcap = kSoftcap ? (float)(1.0 / (double)softcap) : 0.f;
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), nh, rep,
-      t, window, sm_scale);
+      t, window, sm_scale, softcap, inv_softcap);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch(const void* q, const void* k, const void* v, void* out, int nb,
+             int nh, int rep, int t, int window, float sm_scale,
+             float softcap, cudaStream_t st) {
+  // a window of T or more masks nothing the causal mask keeps
+  const bool windowed = window < t, capped = softcap > 0.f;
+  if (windowed && capped)
+    return launch<D, true, true>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+  if (windowed)
+    return launch<D, true, false>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+  if (capped)
+    return launch<D, false, true>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+  return launch<D, false, false>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+}
+
+}  // namespace
+
+// q [B,H,rep,T,D] bf16, k/v [B,H,T,D] bf16, out [B,H,rep,T,D] f32, D 128 or
+// 256; keys i - window < j <= i attend (window T: the plain causal mask),
+// their scaled scores capped at softcap (0: no cap).  rep must be 1 to 8,
+// window >= 1 and softcap >= 0.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unsupported D, rep, window or softcap.
+extern "C" int pq_flash_prefill(const void* q, const void* k, const void* v,
+                                void* out, int nb, int nh, int rep, int t,
+                                int window, int d, float sm_scale,
+                                float softcap, void* stream) {
+  if (rep < 1 || rep > kWarps || window < 1 || !(softcap >= 0.f))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 128)
+    return dispatch<128>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+  if (d == 256)
+    return dispatch<256>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+  return (int)cudaErrorInvalidValue;
 }

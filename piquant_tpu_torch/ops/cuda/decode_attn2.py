@@ -22,7 +22,7 @@ from piquant_tpu_torch.quant.kv_cache import merge_scale_pairs, unpack4_pairs
 S_CHUNK = 512      # the reference's chunk; only its shape gate is kept here
 NEG_INF = -1e30
 _KERNEL_CHUNK = 256   # cache positions per block (csrc/decode_attn2.cu)
-_D = 128
+_D = (128, 256)      # head dims the kernel takes
 
 
 def decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale, positions,
@@ -30,7 +30,7 @@ def decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale, positions,
     """q [B,Hkv,rep,D]; stacked kv8 cache [L,B,Hkv,S,D] int8 with scales
     [L,B,Hkv,S,1] f32, or kv4 cache [L,B,Hkv,S/2,D] uint8 with scales
     [L,B,Hkv,2,S/2] f32 (its codes unpacked to [-7, 7]); positions/starts
-    [B] int32."""
+    [B] int32; any D (the kernels take 128 and 256)."""
     kc, vc = k_codes[layer], v_codes[layer]
     ks, vs = k_scale[layer], v_scale[layer]
     if kc.dtype == torch.uint8:
@@ -61,9 +61,9 @@ def _launch(entry, kv4, q, k_codes, k_scale, v_codes, v_scale, positions,
     b, hkv, rep, d = q.shape
     nl, nb, nh, rows, cd = k_codes.shape
     s_len = 2 * rows if kv4 else rows
-    if d != _D or cd != _D:
+    if d not in _D or cd != d:
         raise NotImplementedError(
-            f"{name}: head_dim {d} (the kernel takes 128)")
+            f"{name}: head_dim {d} (the kernel takes 128 and 256)")
     if not 1 <= rep <= 8:
         raise NotImplementedError(f"{name}: GQA rep {rep} "
                                   "(the kernel takes 1 to 8)")
@@ -99,7 +99,7 @@ def _launch(entry, kv4, q, k_codes, k_scale, v_codes, v_scale, positions,
         v_codes.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
         st.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), layer, b, hkv, rep, s_len,
-        float(sm_scale), _build.stream_ptr(q))
+        d, float(sm_scale), _build.stream_ptr(q))
     _build.check(err, name)
     return acc, m, l
 

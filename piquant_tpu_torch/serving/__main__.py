@@ -13,6 +13,7 @@ Examples:
   python -m piquant_tpu_torch.serving --random mixtral_8x7b --benchmark 8
   python -m piquant_tpu_torch.serving --random mistral_7b --benchmark 8
   python -m piquant_tpu_torch.serving --random qwen3_moe_a3b --benchmark 4 --max-new 8
+  python -m piquant_tpu_torch.serving --random gemma2_9b --benchmark 4 --max-new 8
   python -m piquant_tpu_torch.serving --random llama3_8b --bits nf4 --kv-bits 4 --benchmark 8
   python -m piquant_tpu_torch.serving --random tiny --device cpu --bits 2 --act-quant-decode --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --benchmark 4
@@ -54,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--random", metavar="PRESET", choices=PRESETS,
                     help="random-weight model preset (tiny, llama3_8b, "
                          "mistral_7b, qwen2_7b, qwen3_8b, phi3_mini, "
-                         "mixtral_8x7b, qwen3_moe_a3b)")
+                         "mixtral_8x7b, qwen3_moe_a3b, gemma_2b, gemma_7b, "
+                         "gemma2_9b, gemma3_12b)")
     ap.add_argument("--bits", type=_bits_arg, default=4,
                     choices=[2, 4, 8, "nf4"],
                     help="weight quantization bits (default 4)")
@@ -101,17 +103,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 # the random-code presets, built as the reference CLI builds them
 # (random_quantized_params with an INT8 lm_head)
-RANDOM_CODES = ("llama3_8b", "mistral_7b", "qwen2_7b", "phi3_mini",
-                "mixtral_8x7b", "qwen3_8b", "qwen3_moe_a3b")
+RANDOM_CODES = ("llama3_8b", "mistral_7b", "qwen2_7b", "gemma_7b",
+                "phi3_mini", "mixtral_8x7b", "qwen3_8b", "qwen3_moe_a3b",
+                "gemma2_9b", "gemma3_12b")
+# the presets quantized from a random float init, as the reference CLI
+# builds them
+FLOAT_INIT = ("tiny", "gemma_2b")
 
-# the ROADMAP.md queue 1 item of each preset that is not ported: the dense
-# families need model-family flags, the MoE presets other than Mixtral and
-# Qwen3-MoE parts of the MoE besides
+# the ROADMAP.md queue 1 item of each preset that is not ported: both need
+# model-family flags and parts of the MoE besides
 _FAMILIES = {
-    "gemma_2b": "4 (model families, part 2: Gemma)",
-    "gemma_7b": "4 (model families, part 2: Gemma)",
-    "gemma2_9b": "4 (model families, part 2: Gemma)",
-    "gemma3_12b": "4 (model families, part 2: Gemma)",
     "gpt_oss_20b": "5 (model families, part 3: sinks, biases, YaRN, "
                    "sliding windows; router and expert biases, clamped "
                    "SwiGLU)",
@@ -127,7 +128,7 @@ def _not_ported(args) -> None:
     todo = []
     if args.model:
         todo.append("--model (HF loader: queue 1 item 9)")
-    if args.random not in (None, "tiny") + RANDOM_CODES:
+    if args.random not in (None,) + FLOAT_INIT + RANDOM_CODES:
         item = ("11 (MLA)" if args.random.startswith("mla_") else
                 _FAMILIES[args.random])
         todo.append(f"--random {args.random} (queue 1 item {item})")
@@ -161,8 +162,8 @@ def build(args):
     reference CLI's INT8 lm_head; the port also passes them the
     weight-format flags (--group-size, --mlp-bits, --mlp-group-size), which
     the reference CLI applies only to the float-quantized presets; the MoE
-    experts take --bits and --group-size.  tiny quantizes a random float
-    init."""
+    experts take --bits and --group-size.  The FLOAT_INIT presets quantize
+    a random float init, as the reference CLI builds them."""
     _not_ported(args)
     from piquant_tpu_torch._device import resolve_device
     from piquant_tpu_torch.models import llama as M

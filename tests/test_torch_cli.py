@@ -180,13 +180,13 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
 
 # Each refusal names its item in ROADMAP.md's queue 1.
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "/no/such/checkpoint"], 9), (["--random", "gemma2_9b"], 4),
-    (["--random", "gemma3_12b"], 4), (["--random", "mla_tiny"], 11),
+    (["--model", "/no/such/checkpoint"], 9), (["--random", "mla_v2_lite"], 11),
+    (["--random", "mla_v2_moe"], 11), (["--random", "mla_tiny"], 11),
     (["--speculate", "4"], 10), (["--draft-bits", "2", "--speculate", "2"], 10),
     (["--prefill-chunk", "256"], 8), (["--attn-windows", "512,1024"], 8),
     (["--repetition-penalty", "1.1"], 7), (["--serve", "8123"], 12),
     (["--random", "gpt_oss_20b"], 5), (["--random", "llama4_scout"], 5),
-    (["--random", "gemma_2b"], 4)])
+    (["--draft-group-size", "32", "--speculate", "2"], 10)])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\b"):
         S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",

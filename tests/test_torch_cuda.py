@@ -369,6 +369,41 @@ def test_decode_attn2_kv4_matches_plain(dev, rep, s):
                                atol=2e-3, rtol=2e-2)
 
 
+# Head dim 256 (Gemma), kv8 and kv4, at the reps of the Gemma presets (8:
+# Gemma-2B, 1: Gemma-7B, 2: Gemma-2/3) and two more; bounds as above.  A kv4
+# position is 128 bytes here: dim j in the low nibble, dim j + 128 in the
+# high one.
+@pytest.mark.parametrize("kv", ["kv8", "kv4"])
+@pytest.mark.parametrize("rep", [1, 2, 3, 8])
+def test_decode_attn2_d256_matches_plain(dev, kv, rep):
+    g = _gen(dev, 256 + rep + (kv == "kv4"))
+    nl, b, hkv, s, d = 3, 5, 2, 1000, 256
+    if kv == "kv4":
+        kc, ks, vc, vs = _kv4_cache(dev, g, nl, b, hkv, s, d)
+        kern = DA.decode_attn2_kv4
+    else:
+        shape = (nl, b, hkv, s, d)
+        kc, vc = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1] + (1,), generator=g, device=dev)
+                  * 0.02 for _ in range(2))
+        kern = DA.decode_attn2
+    q = torch.randn((b, hkv, rep, d), generator=g, device=dev)
+    pos = torch.tensor([0, 1, 701, s, 256], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 301, s - 3, 255], dtype=torch.int32,
+                         device=dev)
+    before = kern.launches
+    acc, m, l = kern(q, kc, ks, vc, vs, pos, start, 0.0625, 2)
+    assert kern.launches == before + 1
+    pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                         0.0625, 2)
+    assert (m[0] == -1e30).all() and (l[0] == 0).all() and (acc[0] == 0).all()
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=2e-2, atol=0)
+    torch.testing.assert_close(acc[1:] / l[1:], pacc[1:] / pl[1:],
+                               atol=2e-3, rtol=2e-2)
+
+
 def test_decode_attn2_kv4_refuses(dev):
     g = _gen(dev, 7)
     kc, ks, vc, vs = _kv4_cache(dev, g, 1, 1, 1, 256, 128)
@@ -487,6 +522,73 @@ def test_window_model_on_card(dev, kv_bits, monkeypatch):
         assert err_cpu < 2e-2, err_cpu
 
 
+@pytest.mark.parametrize("family", ["gemma2", "gemma3"])
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_gemma_model_on_card(dev, family, kv_bits, monkeypatch):
+    """A small head_dim-256 Gemma-2 (softcaps, sandwich norms) or Gemma-3
+    (qk-norm, a rope base for local and for global layers) with a window of
+    16 on every other layer, on the card: flash prefill at T = 128 with the
+    softcap (Gemma-2) or without, then two decode steps, which under the
+    softcap take the materialized path (no decode kernel) and else
+    decode_attn2 with window starts past 0 on the local layer.  Logits
+    within 2e-2 of the largest (test_window_model_on_card's bounds): the
+    card against the card with both kernels swapped for their plain
+    versions, and (kv8) against the CPU; the kv4 CPU reading is printed.
+    Norm weights are offsets from the seed in [-0.5, 0.5), as a Gemma
+    checkpoint stores them (the init's ones would scale every norm by
+    1 + w = 2)."""
+    from piquant_tpu_torch.models import llama as M
+
+    flags = (dict(sandwich_norms=True, attn_softcap=50.0,
+                  final_softcap=30.0) if family == "gemma2" else
+             dict(sandwich_norms=True, qk_norm=True, rope_theta=1e6,
+                  rope_theta_local=1e4, rope_linear_factor=8.0))
+    cfg = M.LlamaConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
+                        n_kv_heads=2, d_ff=512, max_seq_len=256,
+                        head_dim_override=256, norm_plus_one=True,
+                        mlp_act="gelu", scale_embed=True,
+                        attn_scale_override=256.0 ** -0.5, sliding_window=16,
+                        sliding_pattern=2, kv_bits=kv_bits, **flags)
+    params = M.random_quantized_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for layer in params["layers"] + [params]:
+        for k, w in list(layer.items()):
+            if k.endswith("norm"):
+                layer[k] = (torch.rand(w.shape, generator=gen) - 0.5).to(w.dtype)
+    toks = torch.randint(1, 256, (2, 130), generator=torch.Generator()
+                         .manual_seed(4), dtype=torch.int32)
+    name = "decode_attn2_kv4" if kv_bits == 4 else "decode_attn2"
+    per_step = 0 if cfg.attn_softcap else cfg.n_layers
+    p = {d: _to(params, d) for d in ("cpu", dev)}
+    kernels = (FL.flash_attn, getattr(DA, name))
+
+    def run(d, launches):
+        cache = M.init_kv_cache(cfg, 2, max_len=256, device=d)
+        before = [k.launches for k in kernels]
+        out = [M.prefill(cfg, p[d], toks[:, :128].to(d), cache)[0]]
+        out += [M.decode_step(cfg, p[d], toks[:, 128 + i].to(d),
+                              torch.full((2,), 128 + i, dtype=torch.int32,
+                                         device=d), cache)[0]
+                for i in range(2)]
+        assert tuple(k.launches - n
+                     for k, n in zip(kernels, before)) == launches
+        return torch.stack(out).float().cpu()
+
+    want = run("cpu", (0, 0))
+    got = run(dev, (cfg.n_layers, 2 * per_step))
+    monkeypatch.setattr(FL, "flash_attn", FL.flash_attn_plain)
+    monkeypatch.setattr(DA, name, DA.decode_attn2_plain)
+    plain = run(dev, (0, 0))
+    scale = want.abs().max()
+    err_kernel = float((got - plain).abs().max() / scale)
+    err_cpu = float((got - want).abs().max() / scale)
+    print(f"{family} kv{kv_bits}: logits error {err_kernel:.3e} against "
+          f"the card's plain versions, {err_cpu:.3e} against the CPU")
+    assert err_kernel < 2e-2, err_kernel
+    if kv_bits == 8:
+        assert err_cpu < 2e-2, err_cpu
+
+
 def _to(tree, d):
     """A params tree with every tensor moved to device d."""
     import dataclasses
@@ -509,9 +611,9 @@ def test_decode_attn2_refuses(dev):
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError):          # rep 9
         DA.decode_attn2(q, kc, ks, kc, ks, pos, pos, 1.0, 0)
-    with pytest.raises(NotImplementedError):          # head_dim 256
-        DA.decode_attn2(torch.zeros((1, 1, 2, 256), device=dev),
-                        torch.zeros((1, 1, 1, 256, 256), dtype=torch.int8,
+    with pytest.raises(NotImplementedError):          # head_dim 384
+        DA.decode_attn2(torch.zeros((1, 1, 2, 384), device=dev),
+                        torch.zeros((1, 1, 1, 256, 384), dtype=torch.int8,
                                     device=dev), ks, kc, ks, pos, pos, 1.0, 0)
 
 
@@ -555,11 +657,74 @@ def test_flash_window_matches_plain(dev, rep, window, t):
             atol=0, rtol=0)
 
 
+def _context_f32_probs(q, k, v, sm, window, softcap):
+    """The flash function with the probabilities left unrounded."""
+    t = q.shape[-2]
+    s = torch.einsum("bhrtd,bhsd->bhrts", q.bfloat16().float(),
+                     k.bfloat16().float()) * sm
+    if softcap is not None:
+        s = softcap * torch.tanh(s * (1.0 / softcap))
+    idx = torch.arange(t, device=q.device)
+    dead = idx[None] > idx[:, None]
+    if window is not None:
+        dead |= idx[None] <= idx[:, None] - window
+    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
+    return torch.einsum("bhrts,bhsd->bhrtd", p, v.bfloat16().float())
+
+
+# Head dim 256 (Gemma) and the softcap: causal and windowed, T of whole
+# tiles and ragged, at the Gemma reps and two more.  Unit-normal scores
+# (scale d^-0.5; a cap of 2 bites there) within the bounds above.  Peaked
+# scores (q and k doubled at Gemma-2's scale 1/16: a spread of 2.8 at D 128,
+# 4 at D 256) let a few keys dominate a row, and one bf16 rounding of a
+# dominant probability moves the context past atol 2e-3: there the kernel
+# stays within one rounding (`rounding_bound`, and 1e-4 for the f32 sums)
+# of the context with unrounded probabilities, and within the stated bound
+# plus two roundings of the plain version, which rounds against the row's
+# max where the kernel rounds against the running one.
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 5, 8])
+@pytest.mark.parametrize("window,softcap,t", [(None, None, 256),
+                                              (None, 50.0, 384),
+                                              (None, 2.0, 200),
+                                              (100, None, 256),
+                                              (63, 2.0, 384)])
+@pytest.mark.parametrize("peaked", [False, True])
+def test_flash_gemma_matches_plain(dev, d, rep, window, softcap, t, peaked):
+    g = _gen(dev, d + rep * t)
+    b, hkv = 2, 2
+    widen, sm = (2.0, 1 / 16) if peaked else (1.0, d ** -0.5)
+    q = torch.randn((b, hkv, rep, t, d), generator=g, device=dev) * widen
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev) * widen
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    before = FL.flash_attn.launches
+    got = FL.flash_attn(q, k, v, sm, window, softcap)
+    assert FL.flash_attn.launches == before + 1
+    want = FL.flash_attn_plain(q, k, v, sm, window, softcap)
+    if not peaked:
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
+        return
+    r = FL.rounding_bound(q, k, v, sm, window, softcap)
+    exact = _context_f32_probs(q, k, v, sm, window, softcap)
+    assert bool(((got - exact).abs() <= 1e-4 + r).all())
+    assert bool(((got - want).abs()
+                 <= 2e-3 + 2e-2 * want.abs() + 2 * r).all())
+
+
 def test_flash_refuses(dev):
     q = torch.zeros((1, 1, 2, 128, 64), device=dev)
     k = torch.zeros((1, 1, 128, 64), device=dev)
     with pytest.raises(NotImplementedError):          # head_dim 64
         FL.flash_attn(q, k, k, 1.0)
+    with pytest.raises(NotImplementedError):          # head_dim 384
+        FL.flash_attn(torch.zeros((1, 1, 2, 128, 384), device=dev),
+                      torch.zeros((1, 1, 128, 384), device=dev),
+                      torch.zeros((1, 1, 128, 384), device=dev), 1.0)
+    with pytest.raises(ValueError):                   # softcap 0
+        FL.flash_attn(torch.zeros((1, 1, 2, 128, 128), device=dev),
+                      torch.zeros((1, 1, 128, 128), device=dev),
+                      torch.zeros((1, 1, 128, 128), device=dev), 1.0,
+                      softcap=0.0)
     with pytest.raises(NotImplementedError):          # rep 9
         FL.flash_attn(torch.zeros((1, 1, 9, 128, 128), device=dev),
                       torch.zeros((1, 1, 128, 128), device=dev),

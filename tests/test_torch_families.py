@@ -70,13 +70,14 @@ def test_presets_carry_across(preset):
         jcfg.layer_window(i) for i in (0, jcfg.n_layers - 1)]
 
 
-# the flags of queue 1 items 4 and 5 still raise, also beside the ported
-# ones (the alternating window needs sliding_window to mean anything)
+# the flags of queue 1 item 5 still raise, also beside the ported ones
+# (the Gemma flags of item 4 carry across since it was ported:
+# tests/test_torch_gemma.py)
 @pytest.mark.parametrize("flags", [
-    dict(sliding_window=64, sliding_pattern=2), dict(chunk_window=64),
-    dict(qk_norm=True, norm_plus_one=True), dict(qkv_bias=True, o_bias=True),
-    dict(attn_softcap=30.0), dict(attn_sinks=True),
-    dict(rope_theta_local=10_000.0)])
+    dict(sliding_window=64, nope_pattern=4), dict(chunk_window=64),
+    dict(qk_norm=True, yarn=JM.YarnRope()), dict(qkv_bias=True, o_bias=True),
+    dict(moe_bias=True), dict(attn_sinks=True),
+    dict(shared_expert_d_ff=64)])
 def test_other_family_flags_still_raise(flags):
     with pytest.raises(NotImplementedError, match=next(
             f for f in flags if f not in ("sliding_window", "qk_norm",
@@ -192,7 +193,8 @@ def test_flash_window_matches_pallas(rep, window):
 
 def test_flash_window_gates():
     """The reference's gates: None for a window < 1, a window with a chunk
-    and the geometry gates; the chunk, softcap and sinks still raise."""
+    and the geometry gates; the chunk and sinks still raise, beside a
+    softcap too (which alone runs)."""
     q = torch.zeros(1, 1, 7, 128, 128)
     k = torch.zeros(1, 1, 128, 128)
     assert TF.flash_prefill_masked(q, k, k, 1.0, window=0) is None
@@ -200,9 +202,9 @@ def test_flash_window_gates():
     assert TF.flash_prefill_masked(q[..., :100, :], k[..., :100, :],
                                    k[..., :100, :], 1.0, window=8) is None
     assert TF.flash_prefill_masked(q, k, k, 1.0, window=8) is not None
-    for opt in ({"chunk": 64}, {"window": 8, "softcap": 30.0},
+    for opt in ({"chunk": 64}, {"chunk": 64, "softcap": 30.0},
                 {"window": 8, "sinks": torch.zeros(1, 7)}):
-        with pytest.raises(NotImplementedError, match="items 4 and 5"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             TF.flash_prefill_masked(q, k, k, 1.0, **opt)
 
 
@@ -293,7 +295,7 @@ def test_family_logits_match_jax(monkeypatch, family):
     if cfg.head_dim % 128:      # head_dim 96: the materialized paths
         assert calls == {"flash": [], "decode": []}
         return
-    assert calls["flash"] == [(cfg.sliding_window,)] * cfg.n_layers
+    assert calls["flash"] == [(cfg.sliding_window, None)] * cfg.n_layers
     assert len(calls["decode"]) == 3 * cfg.n_layers
     w = cfg.sliding_window
     for i, starts in enumerate(calls["decode"][::cfg.n_layers]):

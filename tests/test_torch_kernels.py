@@ -173,9 +173,10 @@ def test_flash_prefill_matches_pallas(b, hkv, rep, t):
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-2)
 
 
-@pytest.mark.parametrize("option", [{"window": 96, "softcap": 20.0},
+@pytest.mark.parametrize("option", [{"window": 96,
+                                     "sinks": torch.zeros(1, 1)},
                                     {"chunk": 128},
-                                    {"softcap": 20.0},
+                                    {"chunk": 128, "softcap": 20.0},
                                     {"sinks": torch.zeros(1, 1)}])
 def test_flash_prefill_options_not_ported(option):
     q = torch.zeros(1, 1, 1, 128, 128)

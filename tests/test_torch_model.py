@@ -164,8 +164,8 @@ def test_decode_from_jax_cache():
 
 
 def test_config_from_jax_refuses_family_flags():
-    with pytest.raises(NotImplementedError, match="attn_softcap"):
-        convert.config_from_jax(JM.LlamaConfig.gemma2_9b())
+    with pytest.raises(NotImplementedError, match="attn_sinks"):
+        convert.config_from_jax(JM.LlamaConfig.gpt_oss_20b())
     # kv_bits=4 carries across
     kv4 = convert.config_from_jax(JM.LlamaConfig.tiny(kv_bits=4))
     assert kv4 == TM.LlamaConfig.tiny(kv_bits=4) and kv4.kv_bits == 4
