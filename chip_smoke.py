@@ -64,9 +64,10 @@ Phases (any failure exits non-zero):
      at Qwen2-7B's rep 7, w4_gemv at Qwen2-7B's shapes, each with its
      time, bound and an SDPA or torch.matmul yardstick; (b) `python -m
      piquant_tpu_torch.serving --random <preset> --benchmark 8 --max-new
-     32` in process for mistral_7b, qwen2_7b, qwen3_8b and phi3_mini, and
-     `--benchmark 4 --max-new 8` for qwen3_moe_a3b (at 8 of its 48
-     layers), at their published widths: exact launch counts, greedy
+     32` in process for mistral_7b, qwen2_7b, qwen3_8b and phi3_mini (at 4
+     of their layers since phase 13 came), and `--benchmark 4 --max-new 8`
+     for qwen3_moe_a3b (at 8 of its 48 layers), at their published widths:
+     exact launch counts, greedy
      tokens against single-request generation, metrics and peak memory;
      one full-depth qwen3_moe_a3b decode step profiled; (c) one
      6000-token request on
@@ -83,7 +84,9 @@ Phases (any failure exits non-zero):
      its time, bound and an SDPA yardstick where SDPA can compute it (not
      under a softcap); (b) `python -m piquant_tpu_torch.serving --random
      <preset> --benchmark 4 --max-new 8` in process for gemma_2b, gemma_7b,
-     gemma2_9b and gemma3_12b at their published widths and depths: exact
+     gemma2_9b and gemma3_12b at their published widths (at 6 of their
+     layers since phase 13 came, keeping Gemma-2's and Gemma-3's
+     patterns): exact
      launch counts (Gemma-2's decode takes the materialized softcap path,
      no decode_attn2), greedy tokens against single-request generation,
      metrics, a profiled decode window and peak memory; (c) one
@@ -92,6 +95,22 @@ Phases (any failure exits non-zero):
      one 3060-token Gemma-3-12B request (T 3072; decode starts past 0 on
      every local layer, none on the global ones), tokens against
      single-request generation;
+ 13. Llama-4-Scout and GPT-OSS-20B: (a) the flash kernel's chunk branch
+     at Scout's long-request shape (T 9088, chunk 8192, rep 5; pos0 0 and
+     4000) and at head_dim 256, and its sinks branch at GPT-OSS's geometry
+     with head_dim 128 (alone, with the 128 window, with a chunk, with the
+     softcap), each against its plain version with its time, bound and an
+     SDPA yardstick where one SDPA call computes it; (b) `python -m
+     piquant_tpu_torch.serving --random llama4_scout --benchmark 4
+     --max-new 8` in process at full width and depth (exact launches:
+     every projection and expert on w4_gemv at decode, the INT8 lm_head
+     off the w8_gemv gate), tokens against single-request generation; (c)
+     one 9060-token Scout request (T 9088, max_seq_len 10240): 48 flash
+     launches, 36 with the 8192 chunk, and decode_attn2 with starts of 8192
+     on every chunked layer; (d) `--random gpt_oss_20b --benchmark 4
+     --max-new 8` at full width (8 of its 24 layers): head_dim 64 and
+     d_model 2880 take no kernel, as the reference routes them, and its
+     spies show none;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -1379,8 +1398,9 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
 
 
 # Depth of the CLI runs of phases 7 and 9 (of Llama-3-8B's and
-# Mixtral-8x7B's 32 layers; widths unchanged): phases 11 and 12 need the
-# time, and phase 5 serves the full depth.
+# Mixtral-8x7B's 32 layers) and, since phase 13 came, of phase 11's four
+# dense family presets (widths unchanged): the later phases need the
+# time, and phase 5 and the long requests serve the full depth.
 CLI_DEPTH = 4
 
 
@@ -1687,7 +1707,10 @@ def run_preset_cli(torch, dev, args, runs, kernels, label, counted=()):
         for cls, per in per_layer.items():
             for k, n in per.items():
                 expect[k] += n * nl * calls[cls]
-        if cfg.vocab_size % 128 == 0 and hasattr(params["lm_head"], "bits"):
+        # the INT8 lm_head's GEMV gate: N % 128, K % 256 (GPT-OSS's d_model
+        # 2880 and Llama-4-Scout's vocab 202,048 miss it)
+        if (cfg.vocab_size % 128 == 0 and cfg.d_model % 256 == 0
+                and hasattr(params["lm_head"], "bits")):
             expect["w8_gemv"] += steps + counts["prefills"]
         if cfg.head_dim in (128, 256):
             # under a softcap decode takes the materialized path
@@ -1894,21 +1917,47 @@ def check_nf4_kv4(torch, dev, gen):
 # Phi-3-mini, Qwen3-30B-A3B)
 # ---------------------------------------------------------------------------
 
-def live_pairs(t: int, window) -> int:
+def live_pairs(t: int, window, chunk=None, pos0=0) -> int:
     """(q, k) pairs a causal prefill of t positions attends under a sliding
-    window (None: the causal triangle)."""
+    window (None: the causal triangle), or under a chunk with row 0 at
+    absolute position pos0 (row i attends from its chunk's start)."""
+    if chunk is not None:
+        i = range(t)
+        return sum(q - max(0, (pos0 + q) // chunk * chunk - pos0) + 1
+                   for q in i)
     w = t if window is None else min(window, t)
     return w * (w + 1) // 2 + (t - w) * w
 
 
+# the plain flash function is computed one kv head at a time where the
+# scores of all heads would pass this many elements
+PLAIN_SLICE = 2**31
+
+
+def flash_plain(torch, fn, q, k, v, sm, window, softcap, chunk, pos0, sinks):
+    """fn (flash_attn_plain or rounding_bound) over the whole tensors, or
+    kv head by kv head where their scores would pass PLAIN_SLICE
+    elements (Llama-4-Scout's T 9088 at rep 5: 3.3e9)."""
+    b, hkv, rep, t, _ = q.shape
+    if b * hkv * rep * t * t <= PLAIN_SLICE:
+        return fn(q, k, v, sm, window, softcap, chunk, pos0, sinks)
+    return torch.cat([
+        fn(q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], sm, window, softcap,
+           chunk, pos0, None if sinks is None else sinks[h:h + 1])
+        for h in range(hkv)], dim=1)
+
+
 def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10, d=128,
-               softcap=None):
+               softcap=None, chunk=None, pos0=None, sinks=False):
     """flash_attn against its plain version at one shape (atol 2e-3, rtol
     2e-2: phase 3's causal bound), then its device ms, the plain
     version's, SDPA's (none under a softcap, which SDPA cannot apply) and
     the bound (the live pairs' operations at the bf16 peak, or the bytes:
     q, k, v read once, the f32 context written once; the softcap's tanh
-    is one f32 operation a pair, under 1% of the pair's 4 d).
+    is one f32 operation a pair, under 1% of the pair's 4 d).  chunk and
+    pos0 (a tuple, one position a row) take Llama-4's chunked mask, sinks
+    GPT-OSS's sinks: N(0, 1) for each query head, the first head of each
+    kv head's group lifted by 6 so its sink dominates the rows.
 
     Under a softcap q and k are scaled so the scaled scores have a
     standard deviation of a quarter of the cap: their tails reach it, and
@@ -1916,7 +1965,10 @@ def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10, d=128,
     few keys then dominate a row, and the bound adds two bf16 roundings of
     the probabilities (`rounding_bound`: the kernel and the plain version
     each round them once, against different maxima); the elements beyond
-    the stated bound alone are counted and printed."""
+    the stated bound alone are counted and printed.  So do a chunk (the
+    first rows of a chunk have few live keys) and the sinks; and each of
+    the softcap, the chunk and the sinks must move an element of the plain
+    function past that bound."""
     import torch.nn.functional as F
 
     from piquant_tpu_torch.ops.cuda import flash as FL
@@ -1927,59 +1979,113 @@ def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10, d=128,
     k = (torch.randn((b, hkv, t, d), generator=gen, device=dev)
          * widen).to(torch.bfloat16)
     v = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    p0 = (None if pos0 is None
+          else torch.tensor(pos0, dtype=torch.int32, device=dev))
+    snk = None
+    if sinks:
+        snk = torch.randn((hkv, rep), generator=gen, device=dev)
+        snk[:, 0] += 6.0
     sm = d ** -0.5
+    extra = (window, softcap, chunk, p0, snk)
     tag = (f"flash_prefill B={b} Hkv={hkv} rep={rep} T={t} D={d} "
-           f"window={window} softcap={softcap}")
-    got = FL.flash_attn(q, k, v, sm, window, softcap)
-    want = FL.flash_attn_plain(q, k, v, sm, window, softcap)
-    if softcap is None:
+           f"window={window} softcap={softcap}" +
+           (f" chunk={chunk} pos0={pos0}" if chunk else "") +
+           (" sinks" if sinks else ""))
+
+    def plain(*ex, fn=FL.flash_attn_plain):
+        return flash_plain(torch, fn, q, k, v, sm, *ex)
+
+    got = FL.flash_attn(q, k, v, sm, *extra)
+    want = plain(*extra)
+    if softcap is None and chunk is None and not sinks:
         err = hold(torch, tag, got, want, 2e-3, 2e-2)
     else:
+        r2 = 2 * plain(*extra, fn=FL.rounding_bound)
         lim = 2e-3 + 2e-2 * want.abs()
-        r2 = 2 * FL.rounding_bound(q, k, v, sm, window, softcap)
         gap = (got - want).abs()
         err = float(gap.max())
-        if not bool(torch.isfinite(got).all()) or bool((gap > lim + r2).any()):
+        beyond = int((gap > lim).sum())
+        lim += r2
+        if not bool(torch.isfinite(got).all()) or bool((gap > lim).any()):
             raise AssertionError(f"{tag} disagrees: max abs err {err}, "
-                                 f"{int((gap > lim + r2).sum())} elements "
+                                 f"{int((gap > lim).sum())} elements "
                                  "beyond the bound with two roundings")
-        bite = float(((FL.flash_attn_plain(q, k, v, sm, window) - want).abs()
-                      - lim - r2).max())
-        if bite <= 0:
-            raise AssertionError(f"{tag}: the cap changes no element beyond "
-                                 "the bound")
-        print(f"{tag}: scaled-score spread {softcap / 4}; "
-              f"{int((gap > lim).sum())} of {gap.numel()} elements beyond "
-              f"the stated bound alone, two roundings up to "
-              f"{float(r2.max()):.3e}; the cap moves an element "
-              f"{bite:.3e} past the bound", flush=True)
-        del lim, r2, gap
+        r2 = float(r2.max())
+        del gap
+        bites = []
+        for i, name in ((1, "cap"), (2, "chunk"), (4, "sinks")):
+            if extra[i] is None:
+                continue
+            off = list(extra)
+            off[i] = None
+            if i == 2:
+                off[3] = None
+            bite = float(((plain(*off) - want).abs() - lim).max())
+            if bite <= 0:
+                raise AssertionError(f"{tag}: the {name} changes no element "
+                                     "beyond the bound")
+            bites.append(f"the {name} moves an element {bite:.3e} past it")
+        print(f"{tag}: {beyond} of {got.numel()} elements beyond the stated "
+              f"bound alone, within it plus two roundings (up to "
+              f"{r2:.3e}); " + ", ".join(bites), flush=True)
+        del lim
     del got, want
     torch.cuda.empty_cache()
-    t_k = cuda_ms(lambda i: FL.flash_attn(q, k, v, sm, window, softcap),
-                  iters)
-    t_p = event_ms(lambda i: FL.flash_attn_plain(q, k, v, sm, window,
-                                                 softcap), 1, warmup=1)
+    t_k = cuda_ms(lambda i: FL.flash_attn(q, k, v, sm, *extra), iters)
+    t_p = event_ms(lambda i: plain(*extra), 1, warmup=1)
     torch.cuda.empty_cache()
     q4 = q.reshape(b, hkv * rep, t, d)
+    idx = torch.arange(t, device=dev)
     if softcap is not None:
         t_l, call = None, "none (SDPA applies no softcap)"
-    elif window is None:
+    elif window is None and chunk is None and not sinks:
         t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
             q4, k, v, is_causal=True, enable_gqa=True), iters)
         call = "scaled_dot_product_attention (causal, GQA)"
-    else:
-        # a boolean band mask; K/V repeated to the query heads beforehand,
-        # so the masked call takes a fused kernel rather than the math path
-        idx = torch.arange(t, device=dev)
-        band = (idx[None] <= idx[:, None]) & (idx[None] > idx[:, None] - window)
+    elif not sinks:
+        # a boolean band (window) or block-diagonal causal (chunk) mask;
+        # K/V repeated to the query heads beforehand, so the masked call
+        # takes a fused kernel rather than the math path
+        band = idx[None] <= idx[:, None]
+        if window is not None:
+            band = band & (idx[None] > idx[:, None] - window)
+        else:
+            cid = (p0[:, None].long() + idx) // chunk        # [B, T]
+            band = (band & (cid[:, None] == cid[:, :, None]))[:, None]
         kr = k.repeat_interleave(rep, dim=1)
         vr = v.repeat_interleave(rep, dim=1)
         t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
             q4, kr, vr, attn_mask=band), iters)
-        call = "scaled_dot_product_attention (bool band mask, K/V repeated)"
-        del kr, vr
-    flops = 4.0 * d * live_pairs(t, window) * b * hkv * rep
+        call = ("scaled_dot_product_attention (bool " +
+                ("band" if window is not None else "block-diagonal causal")
+                + " mask, K/V repeated)")
+        del kr, vr, band
+    else:
+        # the sinks as one more key of zeros with a value of zeros, its
+        # score held in a float mask: exp(sink) joins the denominator only
+        ok = idx[None] <= idx[:, None]
+        if window is not None:
+            ok = ok & (idx[None] > idx[:, None] - window)
+        if chunk is not None:
+            cid = (p0[:, None].long() + idx) // chunk
+            ok = (ok & (cid[:, None] == cid[:, :, None]))[:, None]
+        mask = torch.zeros(ok.shape[:-1] + (t + 1,), device=dev)
+        mask[..., :t].masked_fill_(~ok, float("-inf"))
+        mask = mask.expand(b if chunk is not None else 1, hkv * rep, t,
+                           t + 1).clone()
+        mask[..., t] = snk.reshape(-1)[:, None]
+        mask = mask.to(torch.bfloat16)
+        zero = torch.zeros((b, hkv * rep, 1, d), dtype=k.dtype, device=dev)
+        kr = torch.cat([k.repeat_interleave(rep, dim=1), zero], dim=2)
+        vr = torch.cat([v.repeat_interleave(rep, dim=1), zero], dim=2)
+        t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q4, kr, vr, attn_mask=mask), iters)
+        call = ("scaled_dot_product_attention (K/V repeated with a zero key "
+                "and value appended, the sink logits in its column of a "
+                "float mask)")
+        del kr, vr, mask
+    flops = sum(4.0 * d * live_pairs(t, window, chunk, p) * hkv * rep
+                for p in (pos0 or (0,) * b))
     nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4
     bnd, by = bound_ms(nbytes, flops)
     lib = "none" if t_l is None else f"{t_l:.4f} ms"
@@ -2194,15 +2300,18 @@ FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
 LONG_PROMPT, LONG_NEW = 6000, 32
 
 
-def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label):
+def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label,
+             n_new=None):
     """One long request at batch 1 on a full-width preset (random INT4
     codes, the INT8 lm_head): a prompt of `prompt_len` tokens from the seed
     prefills through flash at its padded width T, each layer with its own
-    window (and the softcap), and LONG_NEW greedy tokens decode with window
-    starts past 0 on every windowed layer and none on a full one (under a
-    softcap: the materialized decode, no decode_attn2 launch); launches,
-    windows and starts are checked by spies on the model's two attention
-    entry points, and the tokens against single-request generation."""
+    window or chunk (and the softcap), and n_new greedy tokens decode with
+    the starts of each layer's window (pos - w + 1) or chunk (pos // C * C)
+    on every windowed or chunked layer, past 0, and none on a full one
+    (under a softcap: the materialized decode, no decode_attn2 launch);
+    launches, windows, chunks and starts are checked by spies on the
+    model's two attention entry points, and the tokens against
+    single-request generation (n_new: LONG_NEW by default)."""
     import numpy as np
 
     from piquant_tpu_torch.models import llama as M
@@ -2211,6 +2320,7 @@ def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label):
     from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
                                            SamplingParams)
 
+    n_new = n_new or LONG_NEW
     cfg = getattr(M.LlamaConfig, preset)()
     params = M.random_quantized_params(cfg, seed=args.seed, lm_head_bits=8,
                                        device=dev)
@@ -2222,12 +2332,13 @@ def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label):
     flash0, state0 = M.flash_prefill_masked, M.decode_attention_state
 
     def flash_spy(q, *a, **kw):
-        seen["windows"].append((q.shape[-2], kw.get("window"),
+        seen["windows"].append((q.shape[-2], (kw.get("window"),
+                                              kw.get("chunk")),
                                 kw.get("softcap")))
         return flash0(q, *a, **kw)
 
     def state_spy(*a, **kw):
-        seen["starts"].append((kw["layer"], kw.get("starts")))
+        seen["starts"].append((kw["layer"], a[5], kw.get("starts")))
         return state0(*a, **kw)
 
     blocks = []
@@ -2237,7 +2348,7 @@ def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label):
     torch.cuda.reset_peak_memory_stats()
     try:
         eng.submit(Request(rid=0, prompt=prompt,
-                           sampling=SamplingParams(max_new_tokens=LONG_NEW)))
+                           sampling=SamplingParams(max_new_tokens=n_new)))
         zero_counts()
         t0 = time.perf_counter()
         done = eng.run()
@@ -2255,36 +2366,42 @@ def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label):
     windows = sorted(set(seen["windows"]), key=str)
     want_windows = sorted({(width, cfg.layer_window(i), cfg.attn_softcap)
                            for i in range(nl)}, key=str)
-    local = [(li, st) for li, st in seen["starts"]
-             if cfg.layer_window(li) is not None]
-    full = [st for li, st in seen["starts"]
-            if cfg.layer_window(li) is None]
-    least = min((int(st.min()) for _, st in local if st is not None),
+    local = [(li, pos, st) for li, pos, st in seen["starts"]
+             if cfg.layer_window(li) != (None, None)]
+    full = [st for li, _, st in seen["starts"]
+            if cfg.layer_window(li) == (None, None)]
+    least = min((int(st.min()) for _, _, st in local if st is not None),
                 default=None)
+    chunked = sum(w[1][1] is not None for w in seen["windows"])
     print(f"{label}: prompt {prompt_len} (padded to {width}), "
           f"{len(blocks)} decode blocks ({steps} steps), launches "
-          f"{launches}, expected {expect}; flash (T, window, softcap) "
-          f"{windows}; {len(seen['starts'])} decode calls, {len(local)} on "
-          f"windowed layers (least start {least}), {len(full)} on full "
-          f"ones", flush=True)
+          f"{launches}, expected {expect}; flash (T, (window, chunk), "
+          f"softcap) {windows}, {chunked} chunked; "
+          f"{len(seen['starts'])} decode calls, {len(local)} on "
+          f"windowed or chunked layers (least start {least}), {len(full)} "
+          f"on full ones", flush=True)
     if launches != expect:
         raise AssertionError(f"{label}: launches {launches} != {expect}")
     if windows != want_windows or len(seen["windows"]) != nl:
         raise AssertionError(f"{label}: flash took {windows}")
     if len(seen["starts"]) != decoded:
         raise AssertionError(f"{label}: {len(seen['starts'])} decode calls")
-    if any(st is None or int(st.min()) <= 0 for _, st in local):
-        raise AssertionError(f"{label}: a windowed layer's decode without "
-                             "starts past 0")
+    for li, pos, st in local:
+        w, c = cfg.layer_window(li)
+        want = (pos // c * c) if c is not None else (pos - (w - 1)).clamp(
+            min=0)
+        if st is None or int(st.min()) <= 0 or not torch.equal(st, want):
+            raise AssertionError(f"{label}: layer {li}'s decode at {pos} "
+                                 f"took starts {st}, not {want} past 0")
     if any(st is not None for st in full):
         raise AssertionError(f"{label}: a full layer's decode with starts")
     (r,) = done
-    if len(r.tokens) != LONG_NEW or not all(
+    if len(r.tokens) != n_new or not all(
             0 <= t < cfg.vocab_size for t in r.tokens):
         raise AssertionError(f"{label}: tokens missing or outside the vocab")
     m = eng.metrics.to_dict()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want, margins = generate_single(torch, M, cfg, params, prompt, LONG_NEW,
+    want, margins = generate_single(torch, M, cfg, params, prompt, n_new,
                                     dev, width=width, max_len=ec.max_seq_len)
     verdict = check_tokens_guarded(r.tokens, want, margins)
     print(f"{label}: vs single-request generation: {verdict}", flush=True)
@@ -2303,8 +2420,11 @@ def run_families(torch, dev, gen, args, rows):
     from piquant_tpu_torch.models import llama as M
 
     check_family_kernels(torch, dev, gen, rows)
-    run_preset_cli(torch, dev, args, FAMILY_RUNS, FAMILY_KERNELS,
-                   "family cli")
+    with contextlib.ExitStack() as cuts:
+        for flags, _ in FAMILY_RUNS:
+            cuts.enter_context(cut_depth(flags[1], CLI_DEPTH))
+        run_preset_cli(torch, dev, args, FAMILY_RUNS, FAMILY_KERNELS,
+                       "family cli")
     with cut_depth("qwen3_moe_a3b", A3B_DEPTH):
         run_preset_cli(torch, dev, args, (A3B_RUN,), FAMILY_KERNELS,
                        "family cli")
@@ -2339,6 +2459,10 @@ GEMMA_RUNS = tuple(
     (("--random", preset, "--benchmark", "4", "--max-new", "8"), _dense7())
     for preset in ("gemma_2b", "gemma_7b", "gemma2_9b", "gemma3_12b"))
 GEMMA_KERNELS = ("w4_gemv", "w8_gemv", "decode_attn2", "flash_prefill")
+# Depth of the Gemma CLI runs since phase 13 came (full width): 6 layers
+# keep Gemma-2's alternation (even) and Gemma-3's 5:1 pattern (a multiple
+# of 6); the long requests serve the full depth
+GEMMA_DEPTH = 6
 # the long requests: (preset, prompt tokens, max_seq_len); Gemma-3's prompt
 # pads to 3072 positions, whole 128-row tiles, so its prefill takes flash
 # with the 1024 window biting
@@ -2398,13 +2522,90 @@ def run_gemma(torch, dev, gen, args, rows):
     on every local layer and none on the global ones).  Returns the launches of flash_prefill and decode_attn2
     in the CLI runs and the long requests."""
     check_gemma_kernels(torch, dev, gen, rows)
-    total = run_preset_cli(torch, dev, args, GEMMA_RUNS, GEMMA_KERNELS,
-                           "gemma cli", ("flash_prefill", "decode_attn2"))
+    with contextlib.ExitStack() as cuts:
+        for flags, _ in GEMMA_RUNS:
+            cuts.enter_context(cut_depth(flags[1], GEMMA_DEPTH))
+        total = run_preset_cli(torch, dev, args, GEMMA_RUNS, GEMMA_KERNELS,
+                               "gemma cli", ("flash_prefill", "decode_attn2"))
     for preset, n, max_len in GEMMA_LONG:
         got = run_long(torch, dev, args, preset, n, max_len,
                        f"long {preset}")
         for k in total:
             total[k] += got[k]
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Llama-4-Scout and GPT-OSS-20B (the chunk and sinks branches)
+# ---------------------------------------------------------------------------
+
+# the flash holds: what, (B, Hkv, rep, T, timed iterations, head_dim), and
+# the options (a softcap, a chunk with each row's pos0, sinks)
+L4_FLASH = (
+    ("Llama-4-Scout chunk: B=1, Hkv=8, rep=5, T=9088, D=128, chunk 8192, "
+     "pos0 0", (1, 8, 5, 9088, 5, 128), dict(chunk=8192, pos0=(0,))),
+    ("Llama-4-Scout chunk, pos0 4000 (a boundary at row 4192)",
+     (1, 8, 5, 9088, 5, 128), dict(chunk=8192, pos0=(4000,))),
+    ("a chunk at D=256: B=1, Hkv=8, rep=2, T=4096, chunk 1024, pos0 300",
+     (1, 8, 2, 4096, 10, 256), dict(chunk=1024, pos0=(300,))),
+    ("sinks at GPT-OSS's geometry with D=128: B=2, Hkv=8, rep=8, T=2048, "
+     "causal", (2, 8, 8, 2048, 10, 128), dict(sinks=True)),
+    ("sinks with window 128: B=2, Hkv=8, rep=8, T=2048, D=128",
+     (2, 8, 8, 2048, 10, 128), dict(sinks=True, window=128)),
+    ("sinks with a chunk: B=2, Hkv=8, rep=8, T=2048, D=128, chunk 1024, "
+     "pos0 0 and 500", (2, 8, 8, 2048, 10, 128),
+     dict(sinks=True, chunk=1024, pos0=(0, 500))),
+    ("sinks with softcap 50: B=2, Hkv=8, rep=8, T=2048, D=128, causal",
+     (2, 8, 8, 2048, 10, 128), dict(sinks=True, softcap=50.0)),
+)
+# each preset's CLI run and its launches a layer by call class (see
+# run_preset_cli): Scout's 16 experts dense-masked at every M (the
+# reference declines the ragged route under moe_input_scaled), so a
+# decode step or a prefill of at most 64 rows takes 4 attention, 48
+# expert and 3 shared-expert GEMVs a layer; GPT-OSS none (head_dim 64,
+# d_model 2880: every gate declines)
+L4_RUNS = ((("--random", "llama4_scout", "--benchmark", "4", "--max-new",
+             "8"),
+            {"decode": {"w4_gemv": 55}, "small": {"w4_gemv": 55}, "mid": {},
+             "big": {}}),
+           (("--random", "gpt_oss_20b", "--benchmark", "4", "--max-new", "8"),
+            {"decode": {}, "small": {}, "mid": {}, "big": {}}))
+L4_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
+              "nf4_gemv", "wq_ragged", "decode_attn2", "flash_prefill")
+# GPT-OSS's CLI run serves 8 of its 24 layers (its alternation kept, full
+# width): every product of it runs off the kernels, about 59k launches a
+# decode step, and the run's time limit needs the time
+GPT_OSS_DEPTH = 8
+# Scout's long request: 9060 tokens pad to 9088 (the CLI's prefill_pad of
+# 64; whole 128-row tiles, so flash takes it), past position 8191, where
+# the chunk and the temperature bite; a few decode tokens
+SCOUT_LONG, SCOUT_MAX_LEN, SCOUT_NEW = 9060, 10240, 16
+
+
+def run_llama4_gpt_oss(torch, dev, gen, args, rows):
+    """Phase 13: the flash holds as variants of the flash_prefill row in
+    `rows`, Scout through the CLI and its long request, GPT-OSS through
+    the CLI; each model freed before the next is built.  Returns the
+    launches of flash_prefill, decode_attn2 and w4_gemv in these runs."""
+    row = next(r for r in rows if r["name"] == "flash_prefill")
+    for what, (b, hkv, rep, t, iters, d), opt in L4_FLASH:
+        res = hold_flash(torch, dev, gen, b, hkv, rep, t, opt.get("window"),
+                         iters, d, opt.get("softcap"), opt.get("chunk"),
+                         opt.get("pos0"), opt.get("sinks", False))
+        row["variants"][what] = res
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+    counted = ("flash_prefill", "decode_attn2", "w4_gemv")
+    total = run_preset_cli(torch, dev, args, L4_RUNS[:1], L4_KERNELS,
+                           "llama4 cli", counted)
+    got = run_long(torch, dev, args, "llama4_scout", SCOUT_LONG,
+                   SCOUT_MAX_LEN, "long llama4_scout", SCOUT_NEW)
+    for k in got:
+        total[k] += got[k]
+    with cut_depth("gpt_oss_20b", GPT_OSS_DEPTH):
+        got = run_preset_cli(torch, dev, args, L4_RUNS[1:], L4_KERNELS,
+                             "gpt-oss cli", counted)
+    for k in got:
+        total[k] += got[k]
     return total
 
 
@@ -2500,10 +2701,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     gemma = run_gemma(torch, dev, gen, args, kernels)
     phase_done(12)
+    torch.cuda.empty_cache()
+    l4 = run_llama4_gpt_oss(torch, dev, gen, args, kernels)
+    phase_done(13)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in gemma:
             kern["gemma_launches"] = gemma[kern["name"]]
+        if kern["name"] in l4:
+            kern["llama4_gpt_oss_launches"] = l4[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ import torch
 from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.api import QuantizedTensor
 from piquant_tpu_torch.dtypes import dtype_of
-from piquant_tpu_torch.models.llama import Llama3Rope, LlamaConfig
+from piquant_tpu_torch.models.llama import Llama3Rope, LlamaConfig, YarnRope
 from piquant_tpu_torch.quant.kv_cache import KVCache
 from piquant_tpu_torch.quant.linear import (QuantizedExpertStack,
                                             QuantizedLinear)
@@ -30,7 +30,12 @@ _CONFIG_FIELDS = ("vocab_size", "d_model", "n_layers", "n_heads",
                   "final_softcap", "attn_scale_override", "sliding_pattern",
                   "rope_theta_local", "rope_linear_factor", "kv_bits",
                   "act_quant_prefill", "act_quant_decode", "n_experts",
-                  "moe_top_k", "moe_d_ff", "moe_renormalize", "moe_every")
+                  "moe_top_k", "moe_d_ff", "moe_renormalize", "moe_every",
+                  "attn_sinks", "o_bias", "qk_l2norm", "nope_pattern",
+                  "attn_temp_tuning", "floor_scale", "temp_attn_scale",
+                  "chunk_window", "rope_interleaved", "router_bias",
+                  "moe_bias", "moe_clamp_swiglu", "moe_input_scaled",
+                  "shared_expert_d_ff", "shared_expert_gated")
 
 
 def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
@@ -120,27 +125,36 @@ def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:
 
 def config_from_jax(jcfg) -> LlamaConfig:
     """The JAX package's LlamaConfig -> the port's.  The Mistral / Qwen /
-    Phi-3 flags (qkv_bias, sliding_window, rotary_dim_override, qk_norm)
-    and the Gemma / Granite ones (norm_plus_one, mlp_act, scale_embed,
+    Phi-3 flags (qkv_bias, sliding_window, rotary_dim_override, qk_norm),
+    the Gemma / Granite ones (norm_plus_one, mlp_act, scale_embed,
     embed_multiplier, residual_multiplier, logits_scaling, sandwich_norms,
     the two softcaps, attn_scale_override, sliding_pattern and the local /
-    global rope) carry across; every model-family flag the port does not
-    have yet (chunked windows, sinks, YaRN, nope layers, shared experts,
-    router / expert biases, expert parallelism, ...) raises
-    NotImplementedError when set off its default."""
+    global rope), the GPT-OSS ones (attn_sinks, o_bias, YaRN, router_bias,
+    moe_bias, moe_clamp_swiglu) and the Llama-4 ones (nope layers and
+    temperature tuning, qk_l2norm, chunk_window, rope_interleaved,
+    moe_input_scaled, the shared expert) carry across; expert parallelism
+    (ep_axis, moe_a2a and its capacity and wire settings), which the port
+    does not have yet, raises NotImplementedError when set off its
+    default."""
     kw = {f: getattr(jcfg, f) for f in _CONFIG_FIELDS}
-    handled = set(_CONFIG_FIELDS) | {"llama3_rope", "dtype"}
+    handled = set(_CONFIG_FIELDS) | {"llama3_rope", "yarn", "dtype"}
     unsupported = [f.name for f in dataclasses.fields(jcfg)
                    if f.name not in handled
                    and getattr(jcfg, f.name) != f.default]
     if unsupported:
         raise NotImplementedError(
-            f"LlamaConfig flags not ported yet: {unsupported}")
+            f"LlamaConfig flags not ported yet: {unsupported} (expert "
+            "parallelism: ROADMAP.md queue 1 item 16)")
     if jcfg.llama3_rope is not None:
         r = jcfg.llama3_rope
         kw["llama3_rope"] = Llama3Rope(
             r.factor, r.low_freq_factor, r.high_freq_factor,
             r.original_max_position_embeddings)
+    if jcfg.yarn is not None:
+        y = jcfg.yarn
+        kw["yarn"] = YarnRope(y.factor, y.original_max_position_embeddings,
+                              y.beta_fast, y.beta_slow, y.attention_factor,
+                              y.truncate)
     name = np.dtype(jcfg.dtype).name
     kw["dtype"] = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
     return LlamaConfig(**kw)

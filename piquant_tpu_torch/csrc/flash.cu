@@ -1,14 +1,24 @@
-// flash_prefill: GQA-native flash attention for prefill, causal or with a
-// sliding window, with or without a logit softcap, at head_dim 128 or 256.
+// flash_prefill: GQA-native flash attention for prefill, causal, with a
+// sliding window or with Llama-4's chunked mask, with or without a logit
+// softcap and attention sinks, at head_dim 128 or 256.
 //
 // Replaces piquant_tpu/ops/pallas/flash.py::_kernel (the plain causal mask,
-// the sliding-window branch and the softcap branch), and through it the
-// JAX-shipped TPU flash kernel that piquant_tpu/ops/flash_prefill.py uses
-// for plain causal masks.
+// the sliding-window, chunk, softcap and sinks branches), and through it
+// the JAX-shipped TPU flash kernel that piquant_tpu/ops/flash_prefill.py
+// uses for plain causal masks.
 //
-//   out[b, h, r, i] = sum_{i - w < j <= i} softmax_j(cap(q[b,h,r,i] . k[b,h,j]
-//                     * scale)) * v[b, h, j],
-//   cap(s) = c * tanh(s * (1 / c)) under a softcap c (Gemma-2), else s
+//   out[b, h, r, i] = sum_{start(i) <= j <= i} e(i, j) v[b, h, j]
+//                     / (sum_{start(i) <= j <= i} e(i, j) + exp(snk - m_i)),
+//   e(i, j) = exp(cap(q[b,h,r,i] . k[b,h,j] * scale) - m_i),
+//   cap(s) = c * tanh(s * (1 / c)) under a softcap c (Gemma-2), else s;
+//   m_i the row's largest live score; the sink term only with sinks
+//   (GPT-OSS: snk = sinks[h * rep + r], in the denominator alone)
+//
+// start(i) is 0 under the plain causal mask, i - (w - 1) under a sliding
+// window w, and ((p0 + i) / C) * C - p0 under Llama-4's chunk C, where p0
+// = pos0[b] is the absolute position of row 0 (read on the device): key j
+// is live for query i when (p0 + j) / C == (p0 + i) / C, which under
+// j <= i is j >= start(i).  Both starts are non-decreasing in i.
 //
 // q [B, Hkv, rep, T, D] bf16, k/v [B, Hkv, T, D] bf16, out f32, D 128 or
 // 256; any GQA rep from 1 to 8; the window w is T for the plain causal mask
@@ -18,7 +28,8 @@
 // 0.02 of a logit); online softmax in f32 (running max, denominator and
 // context), bf16 operands for both products, the probabilities rounded to
 // bf16 before the PV product, and the denominator taken from the unrounded
-// probabilities: the TPU kernel's recipe.
+// probabilities, the sink joining it as exp(snk - m) against the row's
+// final running max: the TPU kernel's recipe.
 //
 // Bound on the H100: the live (q, k) pairs' FLOPs at the bf16 tensor-core
 // peak.  Design:
@@ -36,17 +47,21 @@
 //     16 x 256 output alone takes 128 registers a thread, so Q waits in
 //     shared memory and each k-step's A fragment comes through ldmatrix,
 //     and K, V and Q tiles (135 KB) take dynamic shared memory;
-//   * key tiles of 64 walk from the tile holding the block's first window
-//     start, q0 - (w - 1) rounded down to 64, to the block's last row, so a
-//     windowed prefill reads O(T w) K/V bytes, not O(T^2) (the TPU
-//     kernel's dead-block elision); a warp skips tiles wholly above its own
-//     rows or wholly before its first row's window, and masks only the
-//     tiles that cross its diagonal or its window's start; masked scores
-//     give probability 0, and every row keeps its diagonal live;
-//   * a window of T or more takes an instance of the kernel with the
-//     window code compiled out (the plain causal walk from key 0 and its
-//     one compare a score), and no softcap one with the softcap compiled
-//     out: the D 128 causal instance is the one the Llama path always ran;
+//   * key tiles of 64 walk from the tile holding the block's first row
+//     start, start(q0) rounded down to 64, to the block's last row, so a
+//     windowed or chunked prefill reads only the live K/V bytes, not
+//     O(T^2) (the TPU kernel's dead-block elision); a warp skips tiles
+//     wholly above its own rows or wholly before its first row's start,
+//     and masks only the tiles that cross its diagonal or its last row's
+//     start (rows that straddle a chunk boundary, inside a block or a
+//     warp, are masked element by element); masked scores give
+//     probability 0, and every row keeps its diagonal live;
+//   * the row start is a template mode: causal (the start code compiled
+//     out: the plain walk from key 0 and its one compare a score), window
+//     or chunk; no softcap compiles the softcap out, and no sinks the
+//     sink epilogue (one expf a row after the key loop, yet as a runtime
+//     test it cost the causal D 128 kernel 1.5% on the H100): the D 128
+//     causal instance is the one the Llama path always ran;
 //   * the heaviest query blocks launch first: under a window every block
 //     past the first w positions does the same work, so the order only
 //     moves the light early blocks last;
@@ -109,17 +124,23 @@ __host__ __device__ constexpr int dyn_smem() {
   return q_shared<D>() ? (2 * kKeys + kWarps * 16) * (D + 8) * 2 : 0;
 }
 
-// kWindowed false: the plain causal mask (the window is ignored, the walk
-// starts at key 0, where every row has a live key).  kSoftcap false: no
-// softcap (softcap and inv_softcap are ignored).
-template <int D, bool kWindowed, bool kSoftcap>
+// the row-start modes: kCausal, the plain causal mask (window, chunk and
+// pos0 are ignored, the walk starts at key 0, where every row has a live
+// key); kWindow, the sliding window; kChunk, Llama-4's chunk
+constexpr int kCausal = 0, kWindow = 1, kChunk = 2;
+
+// kSoftcap false: no softcap (softcap and inv_softcap are ignored).
+// kSinks false: no sinks (sinks is ignored).
+template <int D, int kMode, bool kSoftcap, bool kSinks>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      float* __restrict__ out,
-                     int nh, int rep, int t, int window, float sm_scale,
-                     float softcap, float inv_softcap) {
+                     const int* __restrict__ pos0,
+                     const float* __restrict__ sinks,
+                     int nh, int rep, int t, int window, int chunk,
+                     float sm_scale, float softcap, float inv_softcap) {
   constexpr int kStride = D + 8;    // smem row stride (bf16), conflict-free
   constexpr int kSteps = D / 16;    // k-steps of Q K^T over D
   constexpr bool kQShared = q_shared<D>();
@@ -140,6 +161,13 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int r = busy ? warp / subs : 0;          // query head within group
   const int qbase = q0 + (warp % subs) * 16;
   const int qpos0 = qbase + g, qpos1 = qbase + g + 8;
+  // rows start past key 0 (window, chunk): the first live key of row qp
+  constexpr bool kStarts = kMode != kCausal;
+  const int p0 = kMode == kChunk ? pos0[b] : 0;
+  auto row_start = [&](int qp) -> int {
+    if constexpr (kMode == kWindow) return qp - (window - 1);
+    else return (p0 + qp) / chunk * chunk - p0;
+  };
 
   const size_t kv_off = ((size_t)b * nh + h) * t * D;
   const __nv_bfloat16* qh = q + (((size_t)b * nh + h) * rep + r) * t * D;
@@ -181,12 +209,15 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   // keys [kbegin, kend) of the block; the warp's live keys lie in
-  // [warp_kbegin, warp_kend) (none for an idle warp)
+  // [warp_kbegin, warp_kend) (none for an idle warp); every key of a tile
+  // from warp_klast on is past the start of all 16 rows of the warp
   const int kend = min(t, q0 + bq);
-  const int kbegin =
-      kWindowed ? max(0, q0 - (window - 1)) / kKeys * kKeys : 0;
+  const int kbegin = kStarts ? max(0, row_start(q0)) / kKeys * kKeys : 0;
   const int warp_kend = busy ? min(t, qbase + 16) : 0;
-  const int warp_kbegin = kWindowed ? qbase - (window - 1) : 0;
+  const int warp_kbegin = kStarts ? row_start(qbase) : 0;
+  const int warp_klast = kStarts ? row_start(qbase + 15) : 0;
+  const int st0 = kStarts ? row_start(qpos0) : 0;
+  const int st1 = kStarts ? row_start(qpos1) : 0;
   for (int k0 = kbegin; k0 < kend; k0 += kKeys) {
     __syncthreads();
     // K/V tile: 64 rows x D/8 chunks of 16 bytes each, zero past T
@@ -232,30 +263,28 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    // scale (and cap), then the inclusive causal mask (and the window,
-    // except in a tile whose every key is live for all 16 rows of the
-    // warp: below the diagonal and inside the last row's window); row
+    // scale (and cap), then the inclusive causal mask (and the row
+    // starts, except in a tile whose every key is live for all 16 rows of
+    // the warp: below the diagonal and past the last row's start); row
     // maxima
-    const bool interior = kWindowed && k0 + kKeys - 1 <= qbase &&
-                          k0 > qbase + 15 - window;
+    const bool interior = kStarts && k0 + kKeys - 1 <= qbase &&
+                          k0 >= warp_klast;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = k0 + nt * 8 + 2 * tq + j;
-        if constexpr (kWindowed || kSoftcap) {
+        if constexpr (kStarts || kSoftcap) {
           s[nt][j] *= sm_scale;
           s[nt][2 + j] *= sm_scale;
           if constexpr (kSoftcap) {
             s[nt][j] = softcap * tanhf(s[nt][j] * inv_softcap);
             s[nt][2 + j] = softcap * tanhf(s[nt][2 + j] * inv_softcap);
           }
-          if (kWindowed ? !interior : true) {
-            if (key > qpos0 || (kWindowed && key <= qpos0 - window))
-              s[nt][j] = kNegInf;
-            if (key > qpos1 || (kWindowed && key <= qpos1 - window))
-              s[nt][2 + j] = kNegInf;
+          if (kStarts ? !interior : true) {
+            if (key > qpos0 || (kStarts && key < st0)) s[nt][j] = kNegInf;
+            if (key > qpos1 || (kStarts && key < st1)) s[nt][2 + j] = kNegInf;
           }
         } else {
           s[nt][j] = key <= qpos0 ? s[nt][j] * sm_scale : kNegInf;
@@ -273,11 +302,12 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
-    // under a window, a row with no live key yet keeps the sentinel as
-    // its max: its exponents are taken against 0, so its masked scores
-    // give 0 (causally, key 0 of the first tile is live for every row)
-    const float e0 = kWindowed && mn0 == kNegInf ? 0.f : mn0;
-    const float e1 = kWindowed && mn1 == kNegInf ? 0.f : mn1;
+    // under a window or a chunk, a row with no live key yet keeps the
+    // sentinel as its max: its exponents are taken against 0, so its
+    // masked scores give 0 (causally, key 0 of the first tile is live for
+    // every row)
+    const float e0 = kStarts && mn0 == kNegInf ? 0.f : mn0;
+    const float e1 = kStarts && mn1 == kNegInf ? 0.f : mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -322,6 +352,13 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  // the sink logit joins the denominator against the row's final running
+  // max, which every lane of the row holds
+  if constexpr (kSinks) {
+    const float snk = sinks[h * rep + r];
+    l0 += expf(snk - m0);
+    l1 += expf(snk - m1);
+  }
   float* oh = out + (((size_t)b * nh + h) * rep + r) * t * D;
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt) {
@@ -335,11 +372,12 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, bool kWindowed, bool kSoftcap>
-int launch(const void* q, const void* k, const void* v, void* out, int nb,
-           int nh, int rep, int t, int window, float sm_scale, float softcap,
+template <int D, int kMode, bool kSoftcap, bool kSinks>
+int launch(const void* q, const void* k, const void* v, void* out,
+           const int* pos0, const float* sinks, int nb, int nh, int rep,
+           int t, int window, int chunk, float sm_scale, float softcap,
            cudaStream_t stream) {
-  auto kern = flash_prefill_kernel<D, kWindowed, kSoftcap>;
+  auto kern = flash_prefill_kernel<D, kMode, kSoftcap, kSinks>;
   constexpr int smem = dyn_smem<D>();
   if constexpr (smem > 48 * 1024) {
     // once an instance: the opt-in above the 48 KB default
@@ -353,43 +391,62 @@ int launch(const void* q, const void* k, const void* v, void* out, int nb,
   const float inv_softcap = kSoftcap ? (float)(1.0 / (double)softcap) : 0.f;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), nh, rep,
-      t, window, sm_scale, softcap, inv_softcap);
+      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), pos0,
+      sinks, nh, rep, t, window, chunk, sm_scale, softcap, inv_softcap);
   return (int)cudaGetLastError();
 }
 
+#define PQ_FLASH_ARGS q, k, v, out, pos0, sinks, nb, nh, rep, t, window, \
+                      chunk, sm_scale, softcap, st
+
+template <int D, int kMode>
+int dispatch_epilogue(const void* q, const void* k, const void* v, void* out,
+                      const int* pos0, const float* sinks, int nb, int nh,
+                      int rep, int t, int window, int chunk, float sm_scale,
+                      float softcap, cudaStream_t st) {
+  if (sinks != nullptr) {
+    if (softcap > 0.f) return launch<D, kMode, true, true>(PQ_FLASH_ARGS);
+    return launch<D, kMode, false, true>(PQ_FLASH_ARGS);
+  }
+  if (softcap > 0.f) return launch<D, kMode, true, false>(PQ_FLASH_ARGS);
+  return launch<D, kMode, false, false>(PQ_FLASH_ARGS);
+}
+
 template <int D>
-int dispatch(const void* q, const void* k, const void* v, void* out, int nb,
-             int nh, int rep, int t, int window, float sm_scale,
-             float softcap, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             const int* pos0, const float* sinks, int nb, int nh, int rep,
+             int t, int window, int chunk, float sm_scale, float softcap,
+             cudaStream_t st) {
   // a window of T or more masks nothing the causal mask keeps
-  const bool windowed = window < t, capped = softcap > 0.f;
-  if (windowed && capped)
-    return launch<D, true, true>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
-  if (windowed)
-    return launch<D, true, false>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
-  if (capped)
-    return launch<D, false, true>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
-  return launch<D, false, false>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+  if (chunk > 0) return dispatch_epilogue<D, kChunk>(PQ_FLASH_ARGS);
+  if (window < t) return dispatch_epilogue<D, kWindow>(PQ_FLASH_ARGS);
+  return dispatch_epilogue<D, kCausal>(PQ_FLASH_ARGS);
 }
 
 }  // namespace
 
 // q [B,H,rep,T,D] bf16, k/v [B,H,T,D] bf16, out [B,H,rep,T,D] f32, D 128 or
 // 256; keys i - window < j <= i attend (window T: the plain causal mask),
-// their scaled scores capped at softcap (0: no cap).  rep must be 1 to 8,
-// window >= 1 and softcap >= 0.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unsupported D, rep, window or softcap.
+// or under a chunk > 0 (window T) the keys j <= i of i's chunk, counted
+// from the absolute position pos0[b] of row 0 (pos0: [B] int32 on the
+// device); their scaled scores capped at softcap (0: no cap); sinks [H *
+// rep] f32 on the device (null: none) join each row's denominator.  rep
+// must be 1 to 8, window >= 1, chunk >= 0 and softcap >= 0.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D, rep,
+// window, chunk or softcap, a chunk beside a window, or a chunk without
+// pos0.
 extern "C" int pq_flash_prefill(const void* q, const void* k, const void* v,
-                                void* out, int nb, int nh, int rep, int t,
-                                int window, int d, float sm_scale,
-                                float softcap, void* stream) {
-  if (rep < 1 || rep > kWarps || window < 1 || !(softcap >= 0.f))
+                                void* out, const void* pos0_ptr,
+                                const void* sinks_ptr, int nb, int nh,
+                                int rep, int t, int window, int chunk, int d,
+                                float sm_scale, float softcap, void* stream) {
+  const int* pos0 = static_cast<const int*>(pos0_ptr);
+  const float* sinks = static_cast<const float*>(sinks_ptr);
+  if (rep < 1 || rep > kWarps || window < 1 || chunk < 0 ||
+      !(softcap >= 0.f) || (chunk > 0 && (window < t || pos0 == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return dispatch<128>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
-  if (d == 256)
-    return dispatch<256>(q, k, v, out, nb, nh, rep, t, window, sm_scale, softcap, st);
+  if (d == 128) return dispatch<128>(PQ_FLASH_ARGS);
+  if (d == 256) return dispatch<256>(PQ_FLASH_ARGS);
   return (int)cudaErrorInvalidValue;
 }

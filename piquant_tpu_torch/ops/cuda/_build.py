@@ -66,8 +66,9 @@ SIGNATURES = {
     # nb, nh, rep, s_len, d, sm_scale, stream
     "pq_decode_attn2": [_P] * 12 + [_I] * 6 + [_F, _P],
     "pq_decode_attn2_kv4": [_P] * 12 + [_I] * 6 + [_F, _P],
-    # q, k, v, out, nb, nh, rep, t, window, d, sm_scale, softcap, stream
-    "pq_flash_prefill": [_P] * 4 + [_I] * 6 + [_F, _F, _P],
+    # q, k, v, out, pos0, sinks, nb, nh, rep, t, window, chunk, d,
+    # sm_scale, softcap, stream
+    "pq_flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
     # x, out, n, in_bf16, bits, is_signed, scale_ptr, scale_val, zp_ptr,
     # zp_val, stochastic, seed, stream
     "pq_quantize": [_P, _P, _I64, _I, _I, _I, _P, _F, _P, _I, _I, _U64, _P],

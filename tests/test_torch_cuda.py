@@ -711,6 +711,88 @@ def test_flash_gemma_matches_plain(dev, d, rep, window, softcap, t, peaked):
                  <= 2e-3 + 2e-2 * want.abs() + 2 * r).all())
 
 
+# Llama-4's chunk (96: off the 64-key tiles; pos0 0, and 40 and 1000 so a
+# boundary falls inside a 16-row warp) and GPT-OSS's sinks (N(0, 1), the
+# first query head's lifted by 3 so the sink dominates some rows), in
+# every combination with each other, the window (63) and the softcap (2),
+# at D 128 and 256, T of whole tiles and ragged, reps 1, 5 and 8.  Chunk
+# starts leave a row few live keys, where one bf16 rounding of a dominant
+# probability moves the context past atol 2e-3 (as under peaked scores
+# above): the kernel stays within the stated bound plus two roundings of
+# the plain version (`rounding_bound`).  Every sink moves the context
+# beyond that bound.
+FLASH_MODES = {
+    "chunk": dict(chunk=96), "chunk_pos0": dict(chunk=96, pos0=(40, 1000)),
+    "sinks": dict(sinks=True), "sinks_window": dict(sinks=True, window=63),
+    "sinks_chunk": dict(sinks=True, chunk=96, pos0=(40, 1000)),
+    "sinks_softcap": dict(sinks=True, softcap=2.0),
+    "chunk_softcap": dict(chunk=96, pos0=(40, 1000), softcap=2.0),
+    "all_but_window": dict(sinks=True, chunk=96, pos0=(7, 0), softcap=2.0),
+    "sinks_window_softcap": dict(sinks=True, window=63, softcap=2.0)}
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("rep", [1, 5, 8])
+@pytest.mark.parametrize("mode", list(FLASH_MODES))
+@pytest.mark.parametrize("t", [256, 200])
+def test_flash_chunk_sinks_match_plain(dev, d, rep, mode, t):
+    g = _gen(dev, d + rep * t + len(mode))
+    b, hkv = 2, 2
+    kw = dict(FLASH_MODES[mode])
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn((hkv, rep), generator=g, device=dev)
+        kw["sinks"][:, 0] += 3.0
+    if "pos0" in kw:
+        kw["pos0"] = torch.tensor(kw["pos0"], dtype=torch.int32, device=dev)
+    q = torch.randn((b, hkv, rep, t, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    sm = d ** -0.5
+    before = FL.flash_attn.launches
+    got = FL.flash_attn(q, k, v, sm, **kw)
+    assert FL.flash_attn.launches == before + 1
+    want = FL.flash_attn_plain(q, k, v, sm, **kw)
+    lim = 2e-3 + 2e-2 * want.abs() + 2 * FL.rounding_bound(q, k, v, sm, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= lim).all())
+    if "sinks" in kw:
+        bare = FL.flash_attn_plain(q, k, v, sm, **{
+            n: a for n, a in kw.items() if n != "sinks"})
+        assert bool(((bare - want).abs() > lim).any())
+
+
+# A long prefill across many chunk boundaries at Llama-4's rep 5: T 2048,
+# chunk 300, pos0 0 and 4000; bounds as above.
+@pytest.mark.parametrize("p0", [(0,), (4000,)])
+def test_flash_chunk_long_matches_plain(dev, p0):
+    g = _gen(dev, 2048 + p0[0])
+    q = torch.randn((1, 2, 5, 2048, 128), generator=g, device=dev)
+    k = torch.randn((1, 2, 2048, 128), generator=g, device=dev)
+    v = torch.randn((1, 2, 2048, 128), generator=g, device=dev)
+    pos0 = torch.tensor(p0, dtype=torch.int32, device=dev)
+    got = FL.flash_attn(q, k, v, 128 ** -0.5, chunk=300, pos0=pos0)
+    want = FL.flash_attn_plain(q, k, v, 128 ** -0.5, chunk=300, pos0=pos0)
+    lim = 2e-3 + 2e-2 * want.abs() + 2 * FL.rounding_bound(
+        q, k, v, 128 ** -0.5, chunk=300, pos0=pos0)
+    assert bool(((got - want).abs() <= lim).all())
+
+
+def test_flash_chunk_sinks_refuse(dev):
+    q = torch.zeros((1, 1, 2, 128, 128), device=dev)
+    k = torch.zeros((1, 1, 128, 128), device=dev)
+    with pytest.raises(ValueError):                   # a chunk and a window
+        FL.flash_attn(q, k, k, 1.0, 64, chunk=64)
+    with pytest.raises(ValueError):                   # chunk 0
+        FL.flash_attn(q, k, k, 1.0, chunk=0)
+    with pytest.raises(ValueError):                   # 3 sinks for 2 heads
+        FL.flash_attn(q, k, k, 1.0, sinks=torch.zeros(3, device=dev))
+    with pytest.raises(ValueError):                   # pos0 of 2 rows
+        FL.flash_attn(q, k, k, 1.0, chunk=64,
+                      pos0=torch.zeros(2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):                   # sinks on the CPU
+        FL.flash_attn(q, k, k, 1.0, sinks=torch.zeros(2))
+
+
 def test_flash_refuses(dev):
     q = torch.zeros((1, 1, 2, 128, 64), device=dev)
     k = torch.zeros((1, 1, 128, 64), device=dev)

@@ -66,23 +66,32 @@ def test_presets_carry_across(preset):
     assert (cfg.head_dim, cfg.rotary_dim, cfg.n_heads // cfg.n_kv_heads) == (
         jcfg.head_dim, jcfg.rotary_dim, jcfg.n_heads // jcfg.n_kv_heads)
     # the reference's (sliding, chunk) pair: no chunk on these presets
-    assert [(cfg.layer_window(i), None) for i in (0, cfg.n_layers - 1)] == [
+    assert [cfg.layer_window(i) for i in (0, cfg.n_layers - 1)] == [
         jcfg.layer_window(i) for i in (0, jcfg.n_layers - 1)]
+    assert all(cfg.layer_window(i)[1] is None for i in range(cfg.n_layers))
 
 
-# the flags of queue 1 item 5 still raise, also beside the ported ones
-# (the Gemma flags of item 4 carry across since it was ported:
-# tests/test_torch_gemma.py)
+# The flags of queue 1 item 5 carry across since it was ported, also
+# beside the ones ported before (tests/test_torch_llama4_gpt_oss.py holds
+# their models); expert parallelism (ep_axis, moe_a2a) still raises, also
+# beside a ported flag.
 @pytest.mark.parametrize("flags", [
     dict(sliding_window=64, nope_pattern=4), dict(chunk_window=64),
     dict(qk_norm=True, yarn=JM.YarnRope()), dict(qkv_bias=True, o_bias=True),
     dict(moe_bias=True), dict(attn_sinks=True),
-    dict(shared_expert_d_ff=64)])
+    dict(shared_expert_d_ff=64), dict(ep_axis="ep"),
+    dict(attn_sinks=True, moe_a2a=True)])
 def test_other_family_flags_still_raise(flags):
-    with pytest.raises(NotImplementedError, match=next(
-            f for f in flags if f not in ("sliding_window", "qk_norm",
-                                          "qkv_bias"))):
-        convert.config_from_jax(JM.LlamaConfig.tiny(**flags))
+    jcfg = JM.LlamaConfig.tiny(**flags)
+    raising = [f for f in flags if f in ("ep_axis", "moe_a2a")]
+    if raising:
+        with pytest.raises(NotImplementedError, match=raising[0]):
+            convert.config_from_jax(jcfg)
+        return
+    cfg = convert.config_from_jax(jcfg)
+    for f, v in flags.items():
+        want = v if f != "yarn" else TM.YarnRope(*dataclasses.astuple(v))
+        assert getattr(cfg, f) == want, f
 
 
 def _family_cfg(**kw):
@@ -193,8 +202,8 @@ def test_flash_window_matches_pallas(rep, window):
 
 def test_flash_window_gates():
     """The reference's gates: None for a window < 1, a window with a chunk
-    and the geometry gates; the chunk and sinks still raise, beside a
-    softcap too (which alone runs)."""
+    and the geometry gates; the chunk and sinks run, beside a softcap and
+    a window too, as their plain version."""
     q = torch.zeros(1, 1, 7, 128, 128)
     k = torch.zeros(1, 1, 128, 128)
     assert TF.flash_prefill_masked(q, k, k, 1.0, window=0) is None
@@ -204,8 +213,10 @@ def test_flash_window_gates():
     assert TF.flash_prefill_masked(q, k, k, 1.0, window=8) is not None
     for opt in ({"chunk": 64}, {"chunk": 64, "softcap": 30.0},
                 {"window": 8, "sinks": torch.zeros(1, 7)}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TF.flash_prefill_masked(q, k, k, 1.0, **opt)
+        got = TF.flash_prefill_masked(q, k, k, 1.0, **opt)
+        assert torch.equal(got, TF.flash_attn_plain(
+            q, k, k, 1.0, opt.get("window"), opt.get("softcap"),
+            opt.get("chunk"), None, opt.get("sinks")))
 
 
 # Decode-attention state over a window of 301 positions, as the model
@@ -295,7 +306,9 @@ def test_family_logits_match_jax(monkeypatch, family):
     if cfg.head_dim % 128:      # head_dim 96: the materialized paths
         assert calls == {"flash": [], "decode": []}
         return
-    assert calls["flash"] == [(cfg.sliding_window, None)] * cfg.n_layers
+    # (window, softcap, chunk, pos0, sinks)
+    assert calls["flash"] == [(cfg.sliding_window, None, None, None,
+                               None)] * cfg.n_layers
     assert len(calls["decode"]) == 3 * cfg.n_layers
     w = cfg.sliding_window
     for i, starts in enumerate(calls["decode"][::cfg.n_layers]):

@@ -70,7 +70,7 @@ def test_presets_carry_across(preset):
     assert (cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) == (
         jcfg.head_dim, jcfg.n_heads // jcfg.n_kv_heads) and cfg.head_dim == 256
     layers = range(cfg.n_layers)
-    assert [(cfg.layer_window(i), None) for i in layers] == [
+    assert [cfg.layer_window(i) for i in layers] == [
         jcfg.layer_window(i) for i in layers]
     assert [cfg.layer_is_local(i) for i in layers] == [
         jcfg.layer_is_local(i) for i in layers]
@@ -401,14 +401,15 @@ def test_gemma_logits_match_jax(monkeypatch, family, kv_bits):
     _check(got, _run_jax(jcfg, jparams, toks, 3),
            KV4_LOGIT_TOL if kv_bits == 4 else LOGIT_TOL)
     cap = cfg.attn_softcap
-    assert calls["flash"] == [(cfg.layer_window(i), cap)
+    # (window, softcap, chunk, pos0, sinks)
+    assert calls["flash"] == [(cfg.layer_window(i)[0], cap, None, None, None)
                               for i in range(cfg.n_layers)]
     if cap:                     # Gemma-2: decode leaves the kernel
         assert calls["decode"] == []
         return
     assert len(calls["decode"]) == 3 * cfg.n_layers
     for j, starts in enumerate(calls["decode"]):
-        w = cfg.layer_window(j % cfg.n_layers)
+        w, _ = cfg.layer_window(j % cfg.n_layers)
         want = 0 if w is None else max(128 + j // cfg.n_layers - (w - 1), 0)
         assert starts == [want, want]
     if family == "gemma3":

@@ -173,16 +173,34 @@ def test_flash_prefill_matches_pallas(b, hkv, rep, t):
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-2)
 
 
-@pytest.mark.parametrize("option", [{"window": 96,
-                                     "sinks": torch.zeros(1, 1)},
+# The options that raised until the chunk and sinks branches were ported
+# now run: each against the Pallas kernel in interpret mode (atol 2e-3,
+# rtol 2e-2, as above), sinks N(0, 1) and a chunk boundary inside the
+# 128-row tile.
+@pytest.mark.parametrize("option", [{"window": 96, "sinks": True},
                                     {"chunk": 128},
-                                    {"chunk": 128, "softcap": 20.0},
-                                    {"sinks": torch.zeros(1, 1)}])
+                                    {"chunk": 48, "softcap": 20.0},
+                                    {"sinks": True},
+                                    {"chunk": 80, "pos0": 30, "sinks": True}])
 def test_flash_prefill_options_not_ported(option):
-    q = torch.zeros(1, 1, 1, 128, 128)
-    k = torch.zeros(1, 1, 128, 128)
-    with pytest.raises(NotImplementedError):
-        TF.flash_prefill_masked(q, k, k, 1.0, **option)
+    b, hkv, rep, t, d = 1, 2, 2, 256, 128
+    rng = np.random.default_rng(SEED + len(option))
+    q = rng.normal(0, 1, (b, hkv, rep, t, d)).astype(np.float32)
+    k = rng.normal(0, 1, (b, hkv, t, d)).astype(np.float32)
+    v = rng.normal(0, 1, (b, hkv, t, d)).astype(np.float32)
+    kw, jkw, tkw = dict(option), {}, {}
+    if kw.pop("sinks", False):
+        s = rng.normal(0, 1, (hkv, rep)).astype(np.float32)
+        jkw["sinks"], tkw["sinks"] = jnp.asarray(s), _t(s)
+    if "pos0" in kw:
+        p0 = np.full((b,), kw.pop("pos0"), np.int32)
+        jkw["pos0"], tkw["pos0"] = jnp.asarray(p0), _t(p0)
+    with jax.enable_x64(False), pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), d ** -0.5, interpret=True,
+                                  **kw, **jkw))
+    got = TF.flash_prefill_masked(_t(q), _t(k), _t(v), d ** -0.5, **kw, **tkw)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-2)
 
 
 def test_flash_prefill_gate():

@@ -205,12 +205,18 @@ def test_config_and_random_params_follow_the_reference():
     cfg = convert.config_from_jax(JM.LlamaConfig.mixtral_8x7b())
     assert cfg == TM.LlamaConfig.mixtral_8x7b()
     assert [cfg.moe_layer(i) for i in (0, 31)] == [True, True]
+    # the MoE flags of queue 1 item 5 carry across since it was ported;
+    # expert parallelism still raises
     for flag in ("router_bias", "moe_bias", "moe_clamp_swiglu",
-                 "moe_input_scaled", "moe_a2a"):
-        with pytest.raises(NotImplementedError, match=flag):
-            convert.config_from_jax(_tiny_moe(**{flag: True}))
-    with pytest.raises(NotImplementedError, match="shared_expert_d_ff"):
-        convert.config_from_jax(_tiny_moe(shared_expert_d_ff=64))
+                 "moe_input_scaled"):
+        assert getattr(convert.config_from_jax(_tiny_moe(**{flag: True})),
+                       flag) is True
+    with pytest.raises(NotImplementedError, match="moe_a2a"):
+        convert.config_from_jax(_tiny_moe(moe_a2a=True))
+    shared = convert.config_from_jax(_tiny_moe(shared_expert_d_ff=64,
+                                               shared_expert_gated=False))
+    assert (shared.shared_expert_d_ff, shared.shared_expert_gated) == (64,
+                                                                       False)
     with pytest.raises(NotImplementedError, match="ep_axis"):
         convert.config_from_jax(_tiny_moe(ep_axis="ep"))
     jcfg = _tiny_moe(moe_every=2, moe_d_ff=256)
