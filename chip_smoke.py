@@ -54,9 +54,10 @@ Phases (any failure exits non-zero):
      its plain version on a stacked kv4 cache of Llama-3-8B's geometry
      (ragged positions, a row with no live position, odd positions and
      starts), with an SDPA yardstick; (c) the CLI at full Llama-3-8B width
-     with `--bits nf4` and with `--kv-bits 4`, exact launch counts (224
-     nf4_gemv or 32 kv4 decode_attn2 launches a decode step), greedy tokens
-     against single-request generation and its metrics;
+     (at 4 of its 32 layers since phase 14 came) with `--bits nf4` and
+     with `--kv-bits 4`, exact launch counts (7 nf4_gemv or one kv4
+     decode_attn2 launch a layer a decode step), greedy tokens against
+     single-request generation and its metrics;
  11. model families: (a) the flash kernel's sliding window (Mistral-7B's
      T 6144 and window 4096; a window of 1000 off the 64-key tiles) and GQA
      rep 7 (Qwen2-7B) against its plain version, decode_attn2 kv8 and kv4
@@ -111,6 +112,26 @@ Phases (any failure exits non-zero):
      --max-new 8` at full width (8 of its 24 layers): head_dim 64 and
      d_model 2880 take no kernel, as the reference routes them, and its
      spies show none;
+ 14. fused projections and the rest of the engine: (a) mlp_fused against
+     its plain version at Llama-3-8B's SwiGLU and Gemma-7B's GeGLU MLPs (M
+     8, 1, 33, 64; f32 and bf16 out; two runs bit-equal) with its time,
+     bound and the two-kernel route's time, decode_attn (the first
+     flash-decode kernel) at Llama-3-8B's and the Gemma geometries (ragged
+     positions, one dominant key) with its time, bound and an SDPA
+     yardstick; (b) the Engine on Llama-3-8B at full width and depth,
+     fused params (fuse_layer_projections) under PIQUANT_MLP_FUSE=1,
+     PIQUANT_DEFER_APPEND=0 and PIQUANT_TPU_PALLAS_ATTN=1, chunked prefill
+     of 256, a 2-entry prefix cache with a preseeded 512-token system
+     prompt and auto capture, window buckets (512, 1024, 2048): 12 greedy
+     requests, exactly 64 w4_gemv, 32 mlp_fused and 32 decode_attn
+     launches a decode step, 8 prefix hits, a snapshot after the first
+     tick restored into a fresh engine with identical tokens, tokens
+     against single-request chunked generation on the same route, one
+     decode step's logits against the unfused default route, and the same
+     requests on that default route for its metrics; (c) `--random
+     llama3_8b --prefill-chunk 256 --attn-windows 512,1024,2048
+     --benchmark 8 --max-new 32` in process at 4 layers, full width:
+     exact launches, tokens and its metrics;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -124,6 +145,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -502,6 +524,7 @@ EDGE = (0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.49999997, -0.49999997,
 def kernel_wrappers():
     """Every kernel wrapper by its name in the kernels line; each counts its
     launches in `.launches`."""
+    from piquant_tpu_torch.ops.cuda import attention as AT
     from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
     from piquant_tpu_torch.ops.cuda import dequantize as DQ
     from piquant_tpu_torch.ops.cuda import flash as FL
@@ -520,7 +543,8 @@ def kernel_wrappers():
             "w2a8": Q.w2a8, "wq_ragged": R.wq_ragged,
             "wq_ragged_grouped": R.wq_ragged_grouped,
             "wq_ragged_a8": R.wq_ragged_a8, "nf4_gemv": Q.nf4_gemv,
-            "decode_attn2_kv4": DA.decode_attn2_kv4}
+            "decode_attn2_kv4": DA.decode_attn2_kv4,
+            "mlp_fused": Q.mlp_fused, "decode_attn": AT.decode_attn}
 
 
 def zero_counts() -> None:
@@ -808,22 +832,49 @@ def time_library(torch, dev, gen, n, errs):
 # phase 5: the engine at full Llama-3-8B width
 # ---------------------------------------------------------------------------
 
+def chunk_starts(plen: int, chunk: int, max_len: int):
+    """The engine's chunk starts of a prompt prefilled from 0: steps of
+    `chunk`, the last shifted back to end at max_len at most."""
+    starts = list(range(0, plen, chunk))
+    if starts[-1] + chunk > max_len:
+        starts[-1] = max_len - chunk
+    return starts
+
+
 def generate_single(torch, M, cfg, params, prompt, n_new, dev, width=None,
-                    max_len=None):
+                    max_len=None, chunk=None):
     """The port's own single-request greedy prefill + decode; with `width`
     the prompt is right-padded to it and prefilled into a cache of
-    `max_len` positions, as the engine runs a request admitted alone.
-    Returns the tokens and, for each, the top-2 margin of the logits that
-    chose it."""
+    `max_len` positions, as the engine runs a request admitted alone; with
+    `chunk` it is prefilled in the engine's chunks against a cache of
+    `max_len` positions.  Returns the tokens and, for each, the top-2
+    margin of the logits that chose it."""
     toks = list(prompt) + [0] * ((width or len(prompt)) - len(prompt))
     max_len = max_len or len(prompt) + n_new
     if cfg.kv_bits == 4:
         max_len += max_len % 2     # whole pair rows
     cache = M.init_kv_cache(cfg, 1, max_len=max_len, device=dev)
-    logits, cache = M.prefill(
-        cfg, params, torch.tensor([toks], device=dev, dtype=torch.int32),
-        cache, last_positions=torch.tensor([len(prompt) - 1], device=dev,
-                                           dtype=torch.int32))
+    if chunk:
+        starts = chunk_starts(len(prompt), chunk, max_len)
+        for s in starts:
+            part = list(prompt[s:s + chunk])
+            final = s == starts[-1]
+            logits, _ = M.forward(
+                cfg, params,
+                torch.tensor([part + [0] * (chunk - len(part))], device=dev,
+                             dtype=torch.int32),
+                positions=s + torch.arange(chunk, device=dev,
+                                           dtype=torch.int32)[None],
+                cache=cache, kv_write_start=s,
+                logit_positions=torch.tensor(
+                    [len(prompt) - 1 - s if final else 0], device=dev,
+                    dtype=torch.int32))
+        logits = logits[:, 0]
+    else:
+        logits, cache = M.prefill(
+            cfg, params, torch.tensor([toks], device=dev, dtype=torch.int32),
+            cache, last_positions=torch.tensor([len(prompt) - 1], device=dev,
+                                               dtype=torch.int32))
     toks, margins = [], []
     pos = len(prompt)
     while True:
@@ -1398,9 +1449,10 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
 
 
 # Depth of the CLI runs of phases 7 and 9 (of Llama-3-8B's and
-# Mixtral-8x7B's 32 layers) and, since phase 13 came, of phase 11's four
-# dense family presets (widths unchanged): the later phases need the
-# time, and phase 5 and the long requests serve the full depth.
+# Mixtral-8x7B's 32 layers), since phase 13 came of phase 11's four dense
+# family presets, and since phase 14 came of phase 10's and phase 14's
+# (widths unchanged): the later phases need the time, and phases 5 and 14
+# (b) and the long requests serve the full depth.
 CLI_DEPTH = 4
 
 
@@ -2609,6 +2661,503 @@ def run_llama4_gpt_oss(torch, dev, gen, args, rows):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: fused projections, the fused MLP, the first flash-decode kernel
+# and the rest of the engine
+# ---------------------------------------------------------------------------
+
+# the reference's switches of the two kernels' routes, as the engine run
+# sets them: the fused MLP, the non-deferred append, the v1 decode kernel
+SWITCHES = {"PIQUANT_MLP_FUSE": "1", "PIQUANT_DEFER_APPEND": "0",
+            "PIQUANT_TPU_PALLAS_ATTN": "1"}
+
+
+@contextlib.contextmanager
+def switched(on: bool = True):
+    """The three switches on (or off, the reference's defaults) while the
+    block runs; their earlier values after."""
+    old = {k: os.environ.get(k) for k in SWITCHES}
+    for k, v in SWITCHES.items():
+        if on:
+            os.environ[k] = v
+        else:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# (K, I, N, activation, model) of the fused MLP's holds: Llama-3-8B's
+# SwiGLU and Gemma-7B's GeGLU
+MLP_FUSED_SHAPES = ((4096, 14336, 4096, "silu", "Llama-3-8B"),
+                    (3072, 24576, 3072, "gelu", "Gemma-7B"))
+MLP_FUSED_M = (8, 1, 33, 64)
+
+
+def check_mlp_fused(torch, dev, gen):
+    """mlp_fused against its plain version at each MLP of MLP_FUSED_SHAPES,
+    M in MLP_FUSED_M, f32 and bf16 output (GEMV tolerance: atol 2e-2, rtol
+    1e-2), each call made twice and the two bit-equal (a fixed summation
+    order); zero points drawn over 0-15, so a kernel that drops a fold
+    fails.  Then its device ms at M = 8 (bf16 out, two weight copies: 176
+    MB streamed from HBM, not L2), the plain version's, the port's
+    two-kernel route on the same weights (w4_gemv on w13, the activation,
+    w4_gemv on w2: the reference's A/B), the eager host cost and the bound.
+    No single PyTorch call computes the function: library_ms is null."""
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+
+    err, variants, main = 0.0, {}, None
+    for k, i_ff, n, act, label in MLP_FUSED_SHAPES:
+        copies = 2
+        ws = [(random_qlin(torch, dev, gen, k, 2 * i_ff, 4, None),
+               random_qlin(torch, dev, gen, i_ff, n, 4, None))
+              for _ in range(copies)]
+        if bool((ws[0][1].zero_point == 8).all()):
+            raise AssertionError("mlp_fused: every zero point is 8")
+
+        def ops(x, c=0):
+            w13, w2 = ws[c]
+            return (x, w13.data, w13.scale.reshape(-1),
+                    w13.zero_point.reshape(-1), w2.data, w2.scale.reshape(-1),
+                    w2.zero_point.reshape(-1), x.float().sum(1, keepdim=True),
+                    act)
+
+        for m in MLP_FUSED_M:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            for odt in (torch.float32, torch.bfloat16):
+                got = Q.mlp_fused(*ops(x), odt)
+                if not torch.equal(got, Q.mlp_fused(*ops(x), odt)):
+                    raise AssertionError("mlp_fused: two runs on the same "
+                                         "inputs differ")
+                e = hold(torch, f"mlp_fused {label} M={m} {odt}", got.float(),
+                         Q.mlp_fused_plain(*ops(x), odt).float(), 2e-2, 1e-2)
+                err = max(err, e)
+        print(f"mlp_fused {label}: max_abs_err {err:.3e} at M {MLP_FUSED_M}, "
+              "f32 and bf16, runs bit-equal", flush=True)
+        x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+        args = [ops(x, c) for c in range(copies)]
+        call = lambda i: Q.mlp_fused(*args[i % copies],  # noqa: E731
+                                     torch.bfloat16)
+        t_k = cuda_ms(call, 20)
+        t_e = host_ms(call)
+        t_p = event_ms(lambda i: Q.mlp_fused_plain(*args[i % copies],
+                                                   torch.bfloat16), 3)
+
+        def two(i):
+            xx, d13, s13, z13, d2, s2, z2, xs, _ = args[i % copies]
+            gu = Q.w4_gemv(xx, d13, s13, z13, xs, torch.bfloat16).float()
+            h = (Q._mlp_act(gu[:, :i_ff], act) * gu[:, i_ff:]).to(
+                torch.bfloat16)
+            return Q.w4_gemv(h, d2, s2, z2, h.float().sum(1, keepdim=True),
+                             torch.bfloat16)
+
+        t_two = cuda_ms(two, 20)
+        nbytes = (k // 2 * 2 * i_ff + i_ff // 2 * n + (2 * i_ff + n) * 8
+                  + 8 * k * 2 + 8 * 4 + 8 * n * 2)
+        bnd, by = bound_ms(nbytes, 2 * 8 * (k * 2 * i_ff + i_ff * n))
+        print(f"mlp_fused {label}: kernel {t_k:.4f} ms, two-kernel route "
+              f"{t_two:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
+              f"{t_p:.4f} ms, eager {t_e:.4f} ms [{card_line()}]",
+              flush=True)
+        res = dict(ms=t_k, bound_ms=bnd, bound_by=by, plain_ms=t_p,
+                   two_kernel_ms=t_two, eager_ms=t_e)
+        main = main or res
+        variants[label] = res
+        del ws, args
+    return dict(name="mlp_fused", route="cuda",
+                source="piquant_tpu_torch/csrc/qmatmul_mlp.cu",
+                replaces="piquant_tpu/ops/pallas/qmatmul.py:1200 "
+                         "(_mlp_fused_kernel)",
+                max_abs_err=err, library_ms=None, **main,
+                timed="Llama-3-8B MLP (K 4096, I 14336, N 4096) at M=8, "
+                      "bf16 out", variants=variants)
+
+
+# (B, Hkv, rep, S, D, model) of the first flash-decode kernel's holds
+V1_GEOMETRY = ((8, 8, 4, 2048, 128, "Llama-3-8B"),
+               (4, 16, 1, 2048, 256, "Gemma-7B rep 1"),
+               (8, 1, 8, 2048, 256, "Gemma-2B rep 8"))
+V1_POS = (0, 300, 2047, 1000, 1500, 511, 273, 1800)
+V1_LAYERS = 8                 # distinct caches the timing cycles over
+
+
+def check_decode_attn_v1(torch, dev, gen):
+    """decode_attn against its plain version on one layer's kv8 cache at
+    each V1_GEOMETRY (ragged positions V1_POS: position 0 with one live
+    key, S - 1, chunks wholly past pos; the K scale of position 5 raised
+    in rows 2 and 3 so one key dominates them), atol 2e-3, rtol 2e-2 as
+    the other attention holds; then at Llama-3-8B's geometry its device ms
+    with every position at S - 1 (the whole cache live) and ragged, the
+    plain version's, SDPA's on the bf16-dequantized cache with the bool
+    mask idx <= pos, and the bound (the live code and scale bytes)."""
+    import torch.nn.functional as F
+
+    from piquant_tpu_torch.ops.cuda import attention as AT
+
+    err, variants, main = 0.0, {}, None
+    for b, hkv, rep, s, d, label in V1_GEOMETRY:
+        nl = V1_LAYERS if d == 128 else 1
+        shape = (nl, b, hkv, s, d)
+        kc, vc = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+                  * 0.02 for _ in range(2))
+        ks[:, 2:4, :, 5] = 0.5
+        q = torch.randn((b, hkv, rep, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pos = torch.tensor(V1_POS[:b], dtype=torch.int32, device=dev)
+        sm = d ** -0.5
+        for li in sorted({0, nl - 1}):
+            got = AT.decode_attn(q, kc[li], ks[li], vc[li], vs[li], pos, sm)
+            want = AT.decode_attn_plain(q, kc[li], ks[li], vc[li], vs[li],
+                                        pos, sm)
+            e = hold(torch, f"decode_attn {label} cache {li}", got, want,
+                     2e-3, 2e-2)
+            err = max(err, e)
+        print(f"decode_attn {label}: max_abs_err {err:.3e}", flush=True)
+        full = torch.full_like(pos, s - 1)
+        for what, p in (("full", full), ("ragged", pos)):
+            call = lambda i, p=p: AT.decode_attn(  # noqa: E731
+                q, kc[i % nl], ks[i % nl], vc[i % nl], vs[i % nl], p, sm)
+            t_k = cuda_ms(call, 64)
+            t_e = host_ms(call)
+            t_p = event_ms(lambda i, p=p: AT.decode_attn_plain(
+                q, kc[0], ks[0], vc[0], vs[0], p, sm), 4)
+            kf = (kc[0].float() * ks[0]).to(torch.bfloat16)
+            vf = (vc[0].float() * vs[0]).to(torch.bfloat16)
+            mask = (torch.arange(s, device=dev)[None] <= p[:, None])[
+                :, None, None, :]
+            q4 = q.reshape(b, hkv * rep, 1, d)
+            t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                q4, kf, vf, attn_mask=mask, enable_gqa=True), 20)
+            live = float((p + 1).sum())
+            nbytes = (live * hkv * (2 * d + 2 * 4) + q.numel() * 2
+                      + b * hkv * rep * d * 4)
+            bnd, by = bound_ms(nbytes, 4 * live * hkv * rep * d)
+            print(f"decode_attn {label} {what}: kernel {t_k:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({by}), plain {t_p:.4f} ms, sdpa(bf16 "
+                  f"cache) {t_l:.4f} ms, eager {t_e:.4f} ms [{card_line()}]",
+                  flush=True)
+            res = dict(ms=t_k, bound_ms=bnd, bound_by=by, plain_ms=t_p,
+                       library_ms=t_l, eager_ms=t_e)
+            main = main or res
+            variants[f"{label} {what}"] = res
+            del kf, vf
+        del kc, vc, ks, vs
+    return dict(name="decode_attn", route="cuda",
+                source="piquant_tpu_torch/csrc/decode_attn2.cu",
+                replaces="piquant_tpu/ops/pallas/attention.py:35 "
+                         "(_decode_attn_kernel)",
+                max_abs_err=err, **main,
+                library_call="SDPA on the bf16-dequantized layer cache, "
+                             "bool mask idx <= pos",
+                timed="one layer: B=8, Hkv=8, rep=4, S=2048, every position "
+                      "S - 1", variants=variants)
+
+
+FUSED_SYS = 512               # the shared system prompt's tokens
+FUSED_NEW = 16
+
+
+def fused_requests(cfg, seed):
+    """8 greedy requests sharing a 512-token system prompt with suffixes
+    of 64-600 tokens (first in the queue, so they meet the preseeded
+    entry), then 4 unrelated prompts of 100-1200 tokens."""
+    import numpy as np
+
+    from piquant_tpu_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(seed + 14)
+    sysp = [int(t) for t in rng.integers(5, cfg.vocab_size - 5, FUSED_SYS)]
+    prompts = [sysp + [int(t) for t in rng.integers(
+        5, cfg.vocab_size - 5, int(rng.integers(64, 601)))]
+        for _ in range(8)]
+    prompts += [[int(t) for t in rng.integers(
+        5, cfg.vocab_size - 5, int(rng.integers(100, 1201)))]
+        for _ in range(4)]
+    sp = SamplingParams(max_new_tokens=FUSED_NEW)
+    return sysp, [Request(rid=i, prompt=p, sampling=sp)
+                  for i, p in enumerate(prompts)]
+
+
+def fused_engine(torch, dev, args, cfg, params, sysp, reqs, counts=None):
+    """An engine of phase 14's config with the system prompt preseeded
+    and `reqs` queued; with `counts`, its decode blocks, chunk calls and
+    prefix hits (the tokens each saved) are counted there."""
+    from piquant_tpu_torch.serving import Engine, EngineConfig
+
+    ec = EngineConfig(batch_slots=8, max_seq_len=2048, prefill_chunk=256,
+                      prefix_cache=2, prefix_cache_auto=True,
+                      attn_windows=(512, 1024, 2048))
+    eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
+    if eng.preseed_prefix(sysp) != FUSED_SYS:
+        raise AssertionError("fused engine: the system prompt did not pool "
+                             "whole")
+    if counts is not None:
+        dispatch, chunk, match = (eng._dispatch_block, eng._prefill_chunk,
+                                  eng._match_prefix)
+
+        def counted_dispatch():
+            counts["blocks"] += 1
+            return dispatch()
+
+        def counted_chunk(*a):
+            counts["chunks"] += 1
+            return chunk(*a)
+
+        def counted_match(prompt, aid=0):
+            hit = match(prompt, aid)
+            if hit is not None:
+                counts["saved"].append(min(hit[2], len(prompt) - 1))
+            return hit
+
+        eng._dispatch_block = counted_dispatch
+        eng._prefill_chunk = counted_chunk
+        eng._match_prefix = counted_match
+    for r in reqs:
+        eng.submit(r)
+    return eng
+
+
+def pool_bytes(eng) -> int:
+    return sum(t.numel() * t.element_size()
+               for c, _ in eng._prefix_pool.values() for t in c.tensors())
+
+
+def run_fused_engine(torch, dev, args):
+    """Phase 14 (b): Llama-3-8B at full width and depth, random INT4 codes,
+    kv8, through the Engine on fused params (fuse_layer_projections) under
+    the three switches, chunked prefill of 256, the prefix cache (2
+    entries, auto capture, a preseeded 512-token system prompt) and the
+    window buckets (512, 1024, 2048); snapshot after the first tick,
+    restore into a fresh engine, identical tokens; exact launches a decode
+    step; tokens against the same route's single-request generation; one
+    decode step's logits against the unfused default route; the same
+    requests on the unfused default route for the metrics beside.  Returns
+    the launches of mlp_fused and decode_attn in the counted run."""
+    from piquant_tpu_torch.models import llama as M
+
+    cfg = M.LlamaConfig.llama3_8b()
+    params = M.random_quantized_params(cfg, seed=args.seed, device=dev)
+    fused = M.fuse_layer_projections(params, cfg)
+    torch.cuda.synchronize()
+    nl = cfg.n_layers
+    wr = kernel_wrappers()
+    names = ("w4_gemv", "mlp_fused", "decode_attn", "decode_attn2",
+             "flash_prefill", "w8_gemv")
+    summary = {}
+    for route, p_, on in (("unfused default", params, False),
+                          ("fused switched", fused, True)):
+        with switched(on):
+            sysp, reqs = fused_requests(cfg, args.seed)
+            counts = {"blocks": 0, "chunks": 0, "saved": []}
+            torch.cuda.reset_peak_memory_stats()
+            eng = fused_engine(torch, dev, args, cfg, p_, sysp, reqs, counts)
+            zero_counts()
+            t0 = time.perf_counter()
+            stream = eng.run_stream()
+            next(stream)                # the first tick's tokens
+            state = eng.snapshot() if on else None
+            for _ in stream:
+                pass
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: wr[k].launches for k in names}
+            done = sorted(eng._all, key=lambda r: r.rid)
+            steps = counts["blocks"] * eng.ec.decode_block
+            per = ({"w4_gemv": 2, "mlp_fused": 1, "decode_attn": 1} if on
+                   else {"w4_gemv": 7, "decode_attn2": 1})
+            expect = {k: per.get(k, 0) * nl * steps for k in names}
+            m = eng.metrics
+            print(f"fused engine [{route}]: {counts['blocks']} decode blocks "
+                  f"({steps} steps), {counts['chunks']} prefill chunks, "
+                  f"prefix hits {m.prefix_hits} saving "
+                  f"{m.prefix_tokens_saved} tokens, launches {launches}, "
+                  f"expected {expect}", flush=True)
+            if launches != expect:
+                raise AssertionError(f"fused engine [{route}]: launches "
+                                     f"{launches} != {expect}")
+            if len(done) != len(reqs) or not all(
+                    r.done and len(r.tokens) == FUSED_NEW for r in done):
+                raise AssertionError(f"fused engine [{route}]: requests "
+                                     "unfinished")
+            if (m.prefix_hits < 8
+                    or m.prefix_tokens_saved != sum(counts["saved"])):
+                raise AssertionError(
+                    f"fused engine [{route}]: {m.prefix_hits} prefix hits, "
+                    f"{m.prefix_tokens_saved} tokens saved against the "
+                    f"pool's {counts['saved']}")
+            summary[route] = {
+                "card": card_line(), **m.to_dict(), "wall_s": wall,
+                "decode_steps": steps,
+                "launches_per_step": {k: v // max(steps, 1)
+                                      for k, v in launches.items() if v},
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "prefix_pool_bytes": pool_bytes(eng)}
+            print(f"fused_engine_metrics [{route}] "
+                  + json.dumps(summary[route]), flush=True)
+            if on:
+                counted = {k: launches[k] for k in ("mlp_fused",
+                                                    "decode_attn")}
+                # snapshot after the first tick, restored into a fresh
+                # engine: the rest of every request's tokens identical
+                fresh = fused_engine(torch, dev, args, cfg, fused, sysp, [])
+                fresh.restore(state)
+                got = {r.rid: r.tokens for r in fresh.run()}
+                want = {r.rid: r.tokens for r in done}
+                if got != want:
+                    raise AssertionError("fused engine: tokens after restore "
+                                         "differ from the uninterrupted run")
+                print(f"fused engine: snapshot after the first tick "
+                      f"({sum(len(r.tokens) for r in state['all'])} tokens "
+                      f"out), restored into a fresh engine: all "
+                      f"{len(got)} requests' tokens identical", flush=True)
+                for r in (done[0], done[7], done[8], done[11]):
+                    ref, margins = generate_single(
+                        torch, M, cfg, fused, r.prompt, FUSED_NEW, dev,
+                        max_len=2048, chunk=256)
+                    verdict = check_tokens_guarded(r.tokens, ref, margins)
+                    print(f"fused engine: request {r.rid} (prompt "
+                          f"{len(r.prompt)}) vs single-request chunked "
+                          f"generation on the same route: {verdict}",
+                          flush=True)
+                profile_decode(torch, M, cfg, fused, dev)
+                del fresh, state
+            else:
+                profile_decode(torch, M, cfg, params, dev)
+            del eng, stream
+            gc.collect()
+            torch.cuda.empty_cache()
+    compare_routes(torch, dev, cfg, params, fused)
+    del params, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
+
+
+ROUTE_TOL = 5e-2              # of the largest logit, 32 layers apart
+
+
+def compare_routes(torch, dev, cfg, params, fused):
+    """One decode step at batch 8 from one prefilled cache: the fused,
+    switched route's logits against the unfused default route's, within
+    ROUTE_TOL of the largest (the fused MLP skips the bf16 rounding of g
+    and u, and the v1 kernel rounds its probabilities against other
+    maxima, in each of 32 layers)."""
+    from piquant_tpu_torch.models import llama as M
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    toks = torch.randint(5, cfg.vocab_size - 5, (8, 257), generator=gen,
+                         device=dev, dtype=torch.int32)
+    cache = M.init_kv_cache(cfg, 8, max_len=2048, device=dev)
+    M.prefill(cfg, params, toks[:, :256], cache)
+    pos = torch.full((8,), 256, dtype=torch.int32, device=dev)
+    out = {}
+    for route, p_, on in (("default", params, False), ("fused", fused, True)):
+        c = type(cache)(*(t.clone() for t in cache.tensors()))
+        with switched(on):
+            out[route], _ = M.decode_step(cfg, p_, toks[:, 256], pos, c)
+    err = float((out["fused"] - out["default"]).abs().max()
+                / out["default"].abs().max())
+    print(f"fused engine: one decode step, fused switched against unfused "
+          f"default logits: max |diff| / max |logit| {err:.4e} (tolerance "
+          f"{ROUTE_TOL})", flush=True)
+    if not err <= ROUTE_TOL:
+        raise AssertionError(f"fused route logits {err} from the default "
+                             "route's")
+
+
+def run_chunked_cli(torch, dev, args):
+    """Phase 14 (c): `--random llama3_8b --prefill-chunk 256 --attn-windows
+    512,1024,2048 --benchmark 8 --max-new 32` in process at CLI_DEPTH
+    layers, full width, default switches: exact launches (7 w4_gemv and
+    one decode_attn2 a layer a decode step; the INT8 lm_head on w8_gemv
+    once a decode step and once a chunk, whose one logit row it projects;
+    the 256-row chunks take the dequant path and attend over the cache,
+    no flash), tokens against single-request chunked generation, metrics."""
+    import numpy as np
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.serving import __main__ as S
+
+    argv = ["--random", "llama3_8b", "--prefill-chunk", "256",
+            "--attn-windows", "512,1024,2048", "--benchmark", "8",
+            "--max-new", "32"]
+    names = ("w4_gemv", "w8_gemv", "decode_attn2", "flash_prefill",
+             "mlp_fused", "decode_attn")
+    with cut_depth("llama3_8b", CLI_DEPTH), switched(False):
+        cli_args = S.build_parser().parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, eng, sp = S.build(cli_args)
+        counts = {"blocks": 0, "chunks": 0}
+        dispatch, chunk = eng._dispatch_block, eng._prefill_chunk
+
+        def counted_dispatch():
+            counts["blocks"] += 1
+            return dispatch()
+
+        def counted_chunk(*a):
+            counts["chunks"] += 1
+            return chunk(*a)
+
+        eng._dispatch_block, eng._prefill_chunk = (counted_dispatch,
+                                                   counted_chunk)
+        zero_counts()
+        metrics, done = S.benchmark(cli_args, cfg, eng, sp)
+        torch.cuda.synchronize()
+        wr = kernel_wrappers()
+        launches = {k: wr[k].launches for k in names}
+        nl = cfg.n_layers
+        steps = counts["blocks"] * eng.ec.decode_block
+        expect = dict.fromkeys(names, 0)
+        expect.update(w4_gemv=7 * nl * steps, decode_attn2=nl * steps,
+                      w8_gemv=steps + counts["chunks"])
+        print(f"chunked cli: {counts['blocks']} decode blocks ({steps} "
+              f"steps), {counts['chunks']} chunks, launches {launches}, "
+              f"expected {expect}", flush=True)
+        if launches != expect:
+            raise AssertionError(f"chunked cli: launches {launches} != "
+                                 f"{expect}")
+        if metrics["completed"] != cli_args.benchmark or not all(
+                len(r.tokens) == cli_args.max_new and all(
+                    np.isfinite(lp) and lp <= 0 for lp in r.logprobs)
+                for r in done):
+            raise AssertionError("chunked cli: requests unfinished or "
+                                 "non-finite")
+        r = max(done, key=lambda r: len(r.prompt))
+        want, margins = generate_single(torch, M, cfg, params, r.prompt,
+                                        cli_args.max_new, dev,
+                                        max_len=cli_args.max_seq_len,
+                                        chunk=256)
+        print(f"chunked cli: request {r.rid} (prompt {len(r.prompt)}) vs "
+              f"single-request chunked generation: "
+              f"{check_tokens_guarded(r.tokens, want, margins)}", flush=True)
+        print("cli_metrics " + json.dumps(
+            {"card": card_line(), "flags": " ".join(argv[2:]), **metrics,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}),
+            flush=True)
+        del params, eng, done, dispatch, chunk
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_fused(torch, dev, gen, args):
+    """Phase 14: (a) the two kernels' holds, (b) the fused engine, (c) the
+    chunked CLI.  Returns its kernels-line rows and their launches."""
+    rows = [check_mlp_fused(torch, dev, gen),
+            check_decode_attn_v1(torch, dev, gen)]
+    torch.cuda.empty_cache()
+    launches = run_fused_engine(torch, dev, args)
+    run_chunked_cli(torch, dev, args)
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2692,8 +3241,9 @@ def main() -> int:
     phase_done(9)
     torch.cuda.empty_cache()
     kernels += check_nf4_kv4(torch, dev, gen)
-    launches.update(run_cli(torch, dev, args, NF4_KV4_RUNS,
-                            ("nf4_gemv", "decode_attn2_kv4")))
+    with cut_depth("llama3_8b", CLI_DEPTH):
+        launches.update(run_cli(torch, dev, args, NF4_KV4_RUNS,
+                                ("nf4_gemv", "decode_attn2_kv4")))
     phase_done(10)
     torch.cuda.empty_cache()
     run_families(torch, dev, gen, args, kernels)
@@ -2704,6 +3254,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     l4 = run_llama4_gpt_oss(torch, dev, gen, args, kernels)
     phase_done(13)
+    torch.cuda.empty_cache()
+    fused_rows, fused_launches = run_fused(torch, dev, gen, args)
+    kernels += fused_rows
+    launches.update(fused_launches)
+    phase_done(14)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in gemma:

@@ -82,9 +82,17 @@ def _fields(leaf, device: torch.device) -> dict:
         z_chunk=side("z_chunk", torch.int8), codebook=codebook)
 
 
+def _static_int(leaf) -> bool:
+    """The reference's StaticInt leaf (`fused_tp` of a fused layer): an int
+    in a `value` field, carried across as a plain int."""
+    return isinstance(getattr(leaf, "value", None), int) and not hasattr(
+        leaf, "shape")
+
+
 def params_from_jax(tree, *, device: DeviceLike = None):
     """The JAX package's parameter pytree (dicts and lists of arrays,
-    quantized linears and expert stacks) -> the port's, leaf for leaf."""
+    quantized linears and expert stacks, fused layers' `fused_tp`) -> the
+    port's, leaf for leaf."""
     dev = resolve_device(device)
 
     def conv(leaf):
@@ -92,6 +100,8 @@ def params_from_jax(tree, *, device: DeviceLike = None):
             return {k: conv(v) for k, v in leaf.items()}
         if isinstance(leaf, (list, tuple)):
             return [conv(v) for v in leaf]
+        if _static_int(leaf):
+            return int(leaf.value)
         if _is_expert_stack(leaf):
             return QuantizedExpertStack(**_fields(leaf, dev))
         if _is_quantized_linear(leaf):

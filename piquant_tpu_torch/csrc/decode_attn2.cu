@@ -42,6 +42,17 @@
 // offset in registers, so the code values are the exact integers (c - 8)
 // the TPU kernel folds in as -8 sum(q) and -8 sum(pv).  Everything else is
 // the kv8 kernel.
+//
+// V1 (pq_decode_attn) replaces piquant_tpu/ops/pallas/attention.py::
+// _decode_attn_kernel, the first flash-decode kernel: one layer's kv8 cache
+// [B, Hkv, S, D] (a stacked cache of one layer: layer 0), every position
+// 0 <= p <= pos[b] live (the current token is already in the cache), and
+// the NORMALIZED context acc / l.  The chunk kernel runs with start 0 and
+// the inclusive end; the merge divides.  The TPU kernel walks 512-position
+// chunks in order with an online softmax; here the 256-position chunks run
+// in parallel and the merge rescales them, so the probabilities are rounded
+// to bf16 against other running maxima (the same function within those
+// roundings).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,7 +129,7 @@ __device__ __forceinline__ void load16(const void* base, size_t off,
   }
 }
 
-template <int REP, bool KV4, int D>
+template <int REP, bool KV4, int D, bool V1>
 __global__ void __launch_bounds__(kThreads)
 decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
                    const void* __restrict__ kc,   // [L,B,H,S,D] / [L,B,H,S/2,D]
@@ -141,8 +152,9 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
   const int c0 = split * kChunk;
-  const int lo = max(start[b], c0);
-  const int hi = min(min(pos[b], s_len), c0 + kChunk);
+  // V1: positions 0 .. pos inclusive
+  const int lo = V1 ? c0 : max(start[b], c0);
+  const int hi = min(min(V1 ? pos[b] + 1 : pos[b], s_len), c0 + kChunk);
   if (lo >= hi) return;   // dead chunk: the merge kernel skips it
 
   // (layer, b, h) slab: s_len positions of codes (D bytes each for kv8,
@@ -265,8 +277,9 @@ decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
 }
 
 // Merge the live chunks of each (b, h): one block per (b, h), one thread
-// per head dim.
-template <int REP, int D>
+// per head dim.  V1 writes the normalized context acc / l into `acc` and
+// no m or l.
+template <int REP, int D, bool V1>
 __global__ void decode_attn2_merge(const float* __restrict__ part_acc,
                                    const float* __restrict__ part_ml,
                                    const int* __restrict__ pos,
@@ -278,8 +291,8 @@ __global__ void decode_attn2_merge(const float* __restrict__ part_acc,
   const int bh = blockIdx.x;
   const int b = bh / nh;
   const int d = threadIdx.x;
-  const int lo = start[b];
-  const int hi = min(pos[b], s_len);
+  const int lo = V1 ? 0 : start[b];
+  const int hi = min(V1 ? pos[b] + 1 : pos[b], s_len);
   for (int r = 0; r < REP; ++r) {
     float m = kNegInf;
     for (int sp = 0; sp < nsplit; ++sp) {
@@ -296,6 +309,10 @@ __global__ void decode_attn2_merge(const float* __restrict__ part_acc,
       l += part_ml[i * 2 + 1] * e;
       a += part_acc[i * D + d] * e;
     }
+    if (V1) {
+      acc[((size_t)bh * REP + r) * D + d] = a / l;
+      continue;
+    }
     acc[((size_t)bh * REP + r) * D + d] = a;
     if (d == 0) {
       m_out[(size_t)bh * REP + r] = m;
@@ -304,46 +321,46 @@ __global__ void decode_attn2_merge(const float* __restrict__ part_acc,
   }
 }
 
-template <int REP, bool KV4, int D>
+template <int REP, bool KV4, int D, bool V1>
 void launch(const void* q, const void* kc, const void* ks, const void* vc,
             const void* vs, const void* pos, const void* start, void* acc,
             void* m, void* l, void* part_acc, void* part_ml, int layer,
             int nb, int nh, int s_len, float sm_scale, cudaStream_t st) {
   const int nsplit = (s_len + kChunk - 1) / kChunk;
-  decode_attn2_chunk<REP, KV4, D><<<dim3(nb * nh, nsplit), kThreads, 0, st>>>(
+  decode_attn2_chunk<REP, KV4, D, V1><<<dim3(nb * nh, nsplit), kThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q), kc,
       static_cast<const float*>(ks), vc,
       static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<const int*>(start), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), layer, nb, nh, s_len, sm_scale);
-  decode_attn2_merge<REP, D><<<nb * nh, D, 0, st>>>(
+  decode_attn2_merge<REP, D, V1><<<nb * nh, D, 0, st>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       static_cast<const int*>(pos), static_cast<const int*>(start),
       static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
       nh, nsplit, s_len);
 }
 
-template <bool KV4, int D>
+template <bool KV4, int D, bool V1>
 int dispatch(const void* q, const void* kc, const void* ks, const void* vc,
              const void* vs, const void* pos, const void* start, void* acc,
              void* m, void* l, void* part_acc, void* part_ml, int layer,
              int nb, int nh, int rep, int s_len, float sm_scale,
              cudaStream_t st) {
   switch (rep) {
-    case 1: launch<1, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 2: launch<2, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 3: launch<3, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 4: launch<4, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 5: launch<5, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 6: launch<6, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 7: launch<7, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 8: launch<8, KV4, D>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 1: launch<1, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 2: launch<2, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 3: launch<3, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 4: launch<4, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 5: launch<5, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 6: launch<6, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 7: launch<7, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
+    case 8: launch<8, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <bool KV4>
+template <bool KV4, bool V1>
 int dispatch_d(const void* q, const void* kc, const void* ks, const void* vc,
                const void* vs, const void* pos, const void* start, void* acc,
                void* m, void* l, void* part_acc, void* part_ml, int layer,
@@ -351,11 +368,11 @@ int dispatch_d(const void* q, const void* kc, const void* ks, const void* vc,
                void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d == 128)
-    return dispatch<KV4, 128>(q, kc, ks, vc, vs, pos, start, acc, m, l,
+    return dispatch<KV4, 128, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l,
                               part_acc, part_ml, layer, nb, nh, rep, s_len,
                               sm_scale, st);
   if (d == 256)
-    return dispatch<KV4, 256>(q, kc, ks, vc, vs, pos, start, acc, m, l,
+    return dispatch<KV4, 256, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l,
                               part_acc, part_ml, layer, nb, nh, rep, s_len,
                               sm_scale, st);
   return (int)cudaErrorInvalidValue;
@@ -374,7 +391,7 @@ extern "C" int pq_decode_attn2(const void* q, const void* kc, const void* ks,
                                void* part_acc, void* part_ml, int layer,
                                int nb, int nh, int rep, int s_len, int d,
                                float sm_scale, void* stream) {
-  return dispatch_d<false>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
+  return dispatch_d<false, false>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
                            part_ml, layer, nb, nh, rep, s_len, d, sm_scale,
                            stream);
 }
@@ -389,7 +406,22 @@ extern "C" int pq_decode_attn2_kv4(const void* q, const void* kc,
                                    int layer, int nb, int nh, int rep,
                                    int s_len, int d, float sm_scale,
                                    void* stream) {
-  return dispatch_d<true>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
+  return dispatch_d<true, false>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
                           part_ml, layer, nb, nh, rep, s_len, d, sm_scale,
                           stream);
+}
+
+// The first flash-decode kernel's function (V1): q [B,H,rep,D] bf16, one
+// layer's kv8 cache, codes [B,H,S,D] int8 and scales [B,H,S] f32, pos [B]
+// int32 (positions 0 .. pos inclusive attend) -> ctx [B,H,rep,D] f32, the
+// normalized context; scratch part_acc / part_ml as pq_decode_attn2's.
+// D 128 or 256, rep 1 to 8.
+extern "C" int pq_decode_attn(const void* q, const void* kc, const void* ks,
+                              const void* vc, const void* vs, const void* pos,
+                              void* ctx, void* part_acc, void* part_ml,
+                              int nb, int nh, int rep, int s_len, int d,
+                              float sm_scale, void* stream) {
+  return dispatch_d<false, true>(q, kc, ks, vc, vs, pos, pos, ctx, nullptr,
+                                 nullptr, part_acc, part_ml, 0, nb, nh, rep,
+                                 s_len, d, sm_scale, stream);
 }

@@ -7,9 +7,18 @@ the deferred-append path (the current token's K/V join the softmax from
 registers; all layers' cache writes happen in one scatter after the layer
 loop) with the flash-decode kernel over the stacked cache; prefill
 attends over the in-layer K/V with the flash-prefill kernel while filling
-the cache.  The reference's cast points are kept: rms_norm casts before the
-weight multiply, SiLU runs in f32 then casts, and the attention context is
-cast to the model dtype before `wo`.
+the cache; chunked prefill (T > 1 against the cache), a caller's mask and
+PIQUANT_DEFER_APPEND=0 append first and attend over the cache, and under
+PIQUANT_TPU_PALLAS_ATTN=1 a non-deferred decode step takes the reference's
+first flash-decode kernel (ops/cuda/attention.py).  The reference's cast
+points are kept: rms_norm casts before the weight multiply, SiLU runs in
+f32 then casts, and the attention context is cast to the model dtype
+before `wo`.
+
+`fuse_layer_projections` concatenates wq / wk / wv into `wqkv` and w1 / w3
+into `w13` (the reference's recommended serving layout, at tp = 1); a fused
+dense MLP at decode M takes the fused MLP kernel under PIQUANT_MLP_FUSE=1.
+The three switches are the reference's, read at call time.
 
 Projections may be INT2 / INT4 / INT8 or NF4, channelwise or grouped, per
 weight (`quantize_params` overrides, `random_quantized_params`' mixed
@@ -51,7 +60,7 @@ ops/cuda/ragged.py; prefill-sized calls) or dense-masked (every expert on
 every token, weighted by its gate; decode), gate for gate as the
 reference; NF4 expert stacks, and the input-scaled, biased and clamped
 experts of Llama-4 and GPT-OSS, always take the dense-masked route, as
-there.  Expert parallelism and caller-supplied masks are not ported yet;
+there.  Expert parallelism is not ported yet;
 see piquant_tpu_torch.convert.config_from_jax for the flags that raise.
 """
 
@@ -59,12 +68,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from piquant_tpu_torch._device import DeviceLike, resolve_device
+from piquant_tpu_torch.ops.cuda.attention import decode_attention
 from piquant_tpu_torch.ops.cuda.decode_attn2 import decode_attention_state
 from piquant_tpu_torch.ops.cuda.flash import flash_prefill_masked
 from piquant_tpu_torch.quant.kv_cache import (
@@ -78,6 +89,7 @@ from piquant_tpu_torch.quant.kv_cache import (
     unpack4_pairs,
 )
 from piquant_tpu_torch.ops.cuda import ragged as _ragged
+from piquant_tpu_torch.ops.cuda.qmatmul import mlp_fused_matmul
 from piquant_tpu_torch.quant import moe as _moe
 from piquant_tpu_torch.quant.linear import (
     ACT_QUANT_MIN_M,
@@ -595,6 +607,74 @@ def quantize_params(params: Dict, bits: int = 4, *, channelwise: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# fused projections
+# ---------------------------------------------------------------------------
+
+def _concat_qlinear(qls):
+    """Concatenate QuantizedLinear weights along N (same K, bits, group
+    size and codebook); grouped side streams are rebuilt for the whole."""
+    first = qls[0]
+    for q in qls[1:]:
+        if (q.bits, q.k, q.group_size, q.codebook) != (
+                first.bits, first.k, first.group_size, first.codebook):
+            raise ValueError("cannot fuse mismatched quantized linears")
+    return with_grouped_cache(QuantizedLinear(
+        data=torch.cat([q.data for q in qls], dim=1),
+        scale=torch.cat([q.scale for q in qls], dim=1),
+        zero_point=torch.cat([q.zero_point for q in qls], dim=1),
+        bits=first.bits, k=first.k, group_size=first.group_size,
+        codebook=first.codebook))
+
+
+def _tp_not_ported(tp: int) -> None:
+    if tp != 1:
+        raise NotImplementedError(
+            f"fused projections at tp={tp}: tensor parallelism is not ported "
+            "yet (ROADMAP.md queue 1 item 16)")
+
+
+def _interleave_cols(ws, tp: int):
+    """The column concat of `ws` (quantized or float [K, N] weights); the
+    reference interleaves tp shard blocks, which needs tensor parallelism
+    (tp > 1 raises)."""
+    _tp_not_ported(tp)
+    if isinstance(ws[0], QuantizedLinear):
+        return _concat_qlinear(ws)
+    return torch.cat(ws, dim=1)
+
+
+def _split_interleaved(y: torch.Tensor, sizes, tp: int):
+    """Inverse of _interleave_cols on the matmul output: y[..., sum(sizes)]
+    -> the per-projection slices."""
+    _tp_not_ported(tp)
+    return list(torch.split(y, list(sizes), dim=-1))
+
+
+def fuse_layer_projections(params: Dict, cfg: LlamaConfig,
+                           tp: int = 1) -> Dict:
+    """wq / wk / wv -> wqkv and w1 / w3 -> w13 in every layer (column
+    concat), with `fused_tp` (an int) recorded: 7 -> 4 projections a dense
+    layer.  qkv_bias models keep their params unfused; MoE layers fuse only
+    the attention projections.  tp > 1 raises (ROADMAP.md queue 1 item
+    16)."""
+    if cfg.qkv_bias:
+        return params
+    _tp_not_ported(tp)
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        nl = {k: v for k, v in layer.items()
+              if k not in ("wq", "wk", "wv", "w1", "w3")}
+        nl["wqkv"] = _interleave_cols([layer["wq"], layer["wk"],
+                                       layer["wv"]], tp)
+        if "w1" in layer:
+            nl["w13"] = _interleave_cols([layer["w1"], layer["w3"]], tp)
+        nl["fused_tp"] = tp
+        out["layers"].append(nl)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
 
@@ -756,7 +836,8 @@ def _attention(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
                positions: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
                cache: KVCache, layer_idx: int, mask: torch.Tensor,
                attend_in_layer: bool, kv_write_start: Optional[int],
-               pending: Optional[list], flash_ok: bool) -> torch.Tensor:
+               pending: Optional[list], flash_ok: bool,
+               attn_window: Optional[int] = None) -> torch.Tensor:
     b, t, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.dtype
@@ -765,13 +846,18 @@ def _attention(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
     rep = cfg.n_heads // cfg.n_kv_heads
     aq = _act_quant(cfg)
 
-    q = _mm(x, layer["wq"], dt, aq)
-    k = _mm(x, layer["wk"], dt, aq)
-    v = _mm(x, layer["wv"], dt, aq)
-    if cfg.qkv_bias:
-        q = q + layer["bq"]
-        k = k + layer["bk"]
-        v = v + layer["bv"]
+    if "wqkv" in layer:
+        nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        q, k, v = _split_interleaved(_mm(x, layer["wqkv"], dt, aq),
+                                     (nq, nkv, nkv), layer["fused_tp"])
+    else:
+        q = _mm(x, layer["wq"], dt, aq)
+        k = _mm(x, layer["wk"], dt, aq)
+        v = _mm(x, layer["wv"], dt, aq)
+        if cfg.qkv_bias:
+            q = q + layer["bq"]
+            k = k + layer["bk"]
+            v = v + layer["bv"]
     q = q.reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
     k = k.reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
@@ -806,23 +892,43 @@ def _attention(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
         vc_s, vs_s = _quantize_sym(v, cfg.kv_bits)
         pending.append((kc_s, ks_s, vc_s, vs_s))
 
+    if (cache is not None and not attend_in_layer and t == 1
+            and pending is None and cfg.attn_softcap is None and snk is None
+            and cfg.sliding_window is None and cfg.chunk_window is None
+            and cfg.kv_bits == 8
+            and os.environ.get("PIQUANT_TPU_PALLAS_ATTN", "0") == "1"):
+        # the reference's first flash-decode kernel over this layer's cache
+        # (the current token is in it): only on the non-deferred path and
+        # only under its switch
+        ctx1 = decode_attention(
+            qg[:, :, :, 0], cache.k_codes[layer_idx], cache.k_scale[layer_idx],
+            cache.v_codes[layer_idx], cache.v_scale[layer_idx],
+            positions[:, 0], ascale)
+        if ctx1 is not None:
+            ctx = ctx1[:, :, :, None].to(dt).reshape(b, cfg.n_heads, t, hd)
+            # as the reference's route: wo without act-quant, no bo
+            return _mm(ctx.transpose(1, 2).reshape(b, t, cfg.n_heads * hd),
+                       layer["wo"], dt)
+
     if cache is not None and not attend_in_layer:
-        kq, ksq, vq, vsq = pending[-1]
-        if cfg.kv_bits == 4:
-            kq, vq = unpack4(kq), unpack4(vq)
-        pos_b = positions[:, 0]
-        # a sliding window attends to cache positions p > pos - w, a chunk
-        # to the positions of pos's chunk
-        if window is not None:
-            starts = torch.clamp(pos_b - (window - 1), min=0)
-        elif chunk is not None:
-            starts = pos_b // chunk * chunk
-        else:
-            starts = None
-        # under a softcap the reference's decode leaves the kernel
-        st = None if cap else decode_attention_state(
-            qg[:, :, :, 0], cache.k_codes, cache.k_scale, cache.v_codes,
-            cache.v_scale, pos_b, ascale, layer=layer_idx, starts=starts)
+        st = None
+        if pending is not None:
+            kq, ksq, vq, vsq = pending[-1]
+            if cfg.kv_bits == 4:
+                kq, vq = unpack4(kq), unpack4(vq)
+            pos_b = positions[:, 0]
+            # a sliding window attends to cache positions p > pos - w, a
+            # chunk to the positions of pos's chunk
+            if window is not None:
+                starts = torch.clamp(pos_b - (window - 1), min=0)
+            elif chunk is not None:
+                starts = pos_b // chunk * chunk
+            else:
+                starts = None
+            # under a softcap the reference's decode leaves the kernel
+            st = None if cap else decode_attention_state(
+                qg[:, :, :, 0], cache.k_codes, cache.k_scale, cache.v_codes,
+                cache.v_scale, pos_b, ascale, layer=layer_idx, starts=starts)
         if st is not None:
             # fold the current token (not in the cache yet) into the
             # kernel's unnormalized state: a two-part logsumexp
@@ -840,21 +946,35 @@ def _attention(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
             v_self = vq.float() * vsq           # [B, Hkv, 1, D]
             ctx = ((acc * ec + es * v_self) / denom)[:, :, :, None]
         else:
-            # materialized split softmax over the whole cache (the
-            # softcap, geometries the kernel gate refuses)
-            kc = cache.k_codes[layer_idx]       # [B, Hkv, S, D] int8
-            vc = cache.v_codes[layer_idx]
-            ks = cache.k_scale[layer_idx]       # [B, Hkv, S, 1] f32
-            vs = cache.v_scale[layer_idx]
+            # materialized attention over the cache's first w positions
+            # (the softcap, geometries the kernel gate refuses, the
+            # non-deferred path, T > 1 against the cache)
+            w = attn_window or cache.max_len
             if cfg.kv_bits == 4:                # pair-packed rows
-                kc, vc = unpack4_pairs(kc), unpack4_pairs(vc)
-                ks, vs = merge_scale_pairs(ks), merge_scale_pairs(vs)
+                wr = (w + 1) // 2
+                kc = unpack4_pairs(cache.k_codes[layer_idx, :, :, :wr])
+                vc = unpack4_pairs(cache.v_codes[layer_idx, :, :, :wr])
+                ks = merge_scale_pairs(cache.k_scale[layer_idx][..., :wr])
+                vs = merge_scale_pairs(cache.v_scale[layer_idx][..., :wr])
+                kc, vc, ks, vs = (a[:, :, :w] for a in (kc, vc, ks, vs))
+            else:                               # [B, Hkv, W, D] int8
+                kc = cache.k_codes[layer_idx, :, :, :w]
+                vc = cache.v_codes[layer_idx, :, :, :w]
+                ks = cache.k_scale[layer_idx, :, :, :w]   # [B, Hkv, W, 1]
+                vs = cache.v_scale[layer_idx, :, :, :w]
             ks = ks[:, :, None, None, :, 0]
-            vs = vs[..., 0]                     # [B, Hkv, S]
+            vs = vs[..., 0]                     # [B, Hkv, W]
             scores = _dot_bf16("bhrtd,bhsd->bhrts", qg, kc) * ks * ascale
             if cap:                             # before the mask
                 scores = cap * torch.tanh(scores / cap)
             scores = scores + mask[:, None]
+        if st is None and pending is None:
+            # the cache holds every attended position: one softmax
+            probs = _softmax_with_sinks(scores, snk)
+            pscaled = (probs * vs[:, :, None, None, :]).to(torch.bfloat16)
+            ctx = _dot_bf16("bhrts,bhsd->bhrtd", pscaled, vc)
+        elif st is None:
+            # deferred: the current token joins from registers
             s_self = _dot_bf16("bhrtd,bhsd->bhrts", qg, kq) * ksq[:, :, None]
             s_self = s_self * ascale
             if cap:
@@ -896,8 +1016,21 @@ def _mlp(cfg: LlamaConfig, layer: Dict, x: torch.Tensor) -> torch.Tensor:
         return _mlp_moe(cfg, layer, x)
     dt = cfg.dtype
     aq = _act_quant(cfg)
-    g = _mm(x, layer["w1"], dt, aq)
-    u = _mm(x, layer["w3"], dt, aq)
+    if "w13" in layer:
+        if (not aq and layer["fused_tp"] == 1
+                and cfg.mlp_act in ("silu", "gelu")
+                and isinstance(layer["w13"], QuantizedLinear)
+                and isinstance(layer["w2"], QuantizedLinear)):
+            # the fused MLP kernel at decode M, under PIQUANT_MLP_FUSE=1
+            yf = mlp_fused_matmul(x, layer["w13"], layer["w2"], cfg.mlp_act,
+                                  dt)
+            if yf is not None:
+                return yf
+        g, u = _split_interleaved(_mm(x, layer["w13"], dt, aq),
+                                  (cfg.d_ff, cfg.d_ff), layer["fused_tp"])
+    else:
+        g = _mm(x, layer["w1"], dt, aq)
+        u = _mm(x, layer["w3"], dt, aq)
     h = (_glu_act(cfg, g) * u.float()).to(dt)
     return _mm(h, layer["w2"], dt, aq)
 
@@ -1045,49 +1178,67 @@ def _moe_dense(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
 def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None,
+            mask: Optional[torch.Tensor] = None,
             attend_in_layer: bool = False,
             logit_positions: Optional[torch.Tensor] = None,
             kv_write_start: Optional[int] = None,
+            attn_window: Optional[int] = None,
             ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """(logits [B, T, V] f32 — or [B, 1, V] with logit_positions — and the
-    cache, updated in place).  With a cache and T == 1 the step takes the
-    deferred-append decode path; with attend_in_layer it is a fresh
-    prefill that attends over its own K/V while filling the cache."""
+    cache, updated in place).
+
+    With a cache and T == 1 the step takes the deferred-append decode path
+    (the current token joins the softmax from registers; every layer's
+    cache write happens after the layer loop), unless the caller passes a
+    mask or PIQUANT_DEFER_APPEND=0 (read at call time): then each layer
+    appends first and attends to positions <= its own.  With
+    attend_in_layer it is a fresh prefill that attends over its own K/V
+    while filling the cache; T > 1 against the cache (chunked prefill)
+    appends at `kv_write_start` (or at `positions`, scattered) and attends
+    over the cache.  `mask` [B, 1, T, S] is additive and replaces the
+    default causal / window / chunk masks (and flash).  `attn_window`
+    attends only to the cache's first positions (every position must lie
+    below it): S = min(max_len, attn_window)."""
     b, t = tokens.shape
     dt = cfg.dtype
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=tokens.device).expand(b, t)
-    if cache is not None and t > 1 and not attend_in_layer:
-        raise NotImplementedError("multi-token steps against the cache "
-                                  "(chunked prefill) are not ported yet")
 
     x = params["embed"][tokens.long()].to(dt)
     if cfg.scale_embed:
         x = x * _dtype_const(cfg.d_model ** 0.5, x)
     if cfg.embed_multiplier is not None:
         x = x * _dtype_const(cfg.embed_multiplier, x)
-    defer = t == 1 and cache is not None and not attend_in_layer
+    s_len = cache.max_len if cache is not None else t
+    if attn_window is not None:
+        s_len = min(s_len, attn_window)
+    defer = (t == 1 and cache is not None and not attend_in_layer
+             and mask is None
+             and os.environ.get("PIQUANT_DEFER_APPEND", "1") == "1")
     pending: Optional[list] = [] if defer else None
-    flash_ok = t > 1
+    flash_ok = mask is None and t > 1
 
-    qp = positions[:, None, :, None]
-    if attend_in_layer or cache is None:
-        kp = positions[:, None, None, :]
-        ok = kp <= qp
-    else:
-        # decode against the cache: STRICT < (the current token is not in
-        # the cache yet; it joins the softmax from registers)
-        kp = torch.arange(cache.max_len, device=tokens.device)[None, None, None]
-        ok = kp < qp
     masks = {}                           # one per distinct (window, chunk)
-    for w, c in {cfg.layer_window(i) for i in range(len(params["layers"]))}:
-        okw = ok
-        if w is not None:
-            okw = okw & (kp > qp - w)
-        if c is not None:                # Llama-4: kp // C == qp // C
-            okw = okw & (kp // c == qp // c)
-        masks[w, c] = torch.where(okw, 0.0, -1e9).float()
+    if mask is None:
+        qp = positions[:, None, :, None]
+        if attend_in_layer or cache is None:
+            kp = positions[:, None, None, :]
+            ok = kp <= qp
+        else:
+            # against the cache: positions <= the query's, STRICT < when
+            # deferred (the current token is not in the cache yet; it
+            # joins the softmax from registers)
+            kp = torch.arange(s_len, device=tokens.device)[None, None, None]
+            ok = kp < qp if defer else kp <= qp
+        for w, c in {cfg.layer_window(i)
+                     for i in range(len(params["layers"]))}:
+            okw = ok
+            if w is not None:
+                okw = okw & (kp > qp - w)
+            if c is not None:                # Llama-4: kp // C == qp // C
+                okw = okw & (kp // c == qp // c)
+            masks[w, c] = torch.where(okw, 0.0, -1e9).float()
     # one rope table, or a local and a global one (rope_theta_local)
     local_rope = [bool(cfg.rope_theta_local) and cfg.layer_is_local(i)
                   for i in range(len(params["layers"]))]
@@ -1107,8 +1258,9 @@ def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
         h = _attention(cfg, layer,
                        rms_norm(x, layer["attn_norm"], cfg.rms_eps, p1),
                        positions, ropes[local_rope[i]], cache, i,
-                       masks[cfg.layer_window(i)], attend_in_layer,
-                       kv_write_start, pending, flash_ok)
+                       masks[cfg.layer_window(i)] if mask is None else mask,
+                       attend_in_layer, kv_write_start, pending, flash_ok,
+                       attn_window)
         x = x + block_out(h, layer, "post_attn_norm")
         h = _mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.rms_eps, p1))
         x = x + block_out(h, layer, "post_mlp_norm")
@@ -1160,9 +1312,11 @@ def prefill(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: LlamaConfig, params: Dict, token: torch.Tensor,
-                position: torch.Tensor, cache: KVCache
+                position: torch.Tensor, cache: KVCache,
+                attn_window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, KVCache]:
     """One autoregressive step: token [B] int32, position [B] int32."""
     logits, cache = forward(cfg, params, token[:, None],
-                            positions=position[:, None], cache=cache)
+                            positions=position[:, None], cache=cache,
+                            attn_window=attn_window)
     return logits[:, 0], cache

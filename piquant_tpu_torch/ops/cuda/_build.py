@@ -25,8 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "qmatmul_ragged.cu",
-           "decode_attn2.cu", "flash.cu", "quantize.cu", "dequantize.cu",
-           "requantize.cu", "minmax.cu")
+           "qmatmul_mlp.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
+           "dequantize.cu", "requantize.cu", "minmax.cu")
 HEADERS = ("pq_quant.cuh", "pq_tile.cuh")
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,6 +62,12 @@ SIGNATURES = {
     # x, w, scale, zp, block_expert, out, m, k, n, planes, gs, out_bf16,
     # stream
     "pq_wq_ragged_grouped": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w13, s13, zp13, w2, s2, zp2, xsum, out, part_a, h, part_b, m, k,
+    # i_ff, n, ksa, rows_a, ksb, rows_b, gelu, out_bf16, stream
+    "pq_mlp_fused": [_P] * 12 + [_I] * 10 + [_P],
+    # q, kc, ks, vc, vs, pos, ctx, part_acc, part_ml, nb, nh, rep, s_len, d,
+    # sm_scale, stream
+    "pq_decode_attn": [_P] * 9 + [_I] * 5 + [_F, _P],
     # q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer,
     # nb, nh, rep, s_len, d, sm_scale, stream
     "pq_decode_attn2": [_P] * 12 + [_I] * 6 + [_F, _P],

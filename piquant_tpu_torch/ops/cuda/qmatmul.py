@@ -11,10 +11,11 @@
     w4a8        _w4a8_kernel, _w4a8_kernel_ksplit  int8 x, INT4 channelwise
     w8a8        _w8a8_kernel                     int8 x, INT8 channelwise
     w2a8        _w2a8_kernel                     int8 x, INT2 channelwise
+    mlp_fused   _mlp_fused_kernel                w13 -> SwiGLU / GeGLU -> w2
 
 Each wrapper launches its hand-written kernel (the first six are one
 template in csrc/qmatmul_gemv.cu, the int8-x GEMMs one template in
-csrc/qmatmul_a8.cu) on CUDA tensors, counts the launch in `.launches`, and
+csrc/qmatmul_a8.cu, the fused MLP csrc/qmatmul_mlp.cu) on CUDA tensors, counts the launch in `.launches`, and
 runs `<name>_plain`, the same function in plain PyTorch, on CPU tensors.
 The dispatch keeps the reference's shape gates, which decide whether a
 call takes a kernel (and whether activations are quantized at all):
@@ -31,9 +32,11 @@ whole-K block.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from piquant_tpu_torch.ops.cuda import _build
 
@@ -594,3 +597,142 @@ def w2a8_matmul(xq, xs, ql, out_dtype) -> Optional[torch.Tensor]:
     if ql.n % 128 or ql.k % 512:
         return None
     return w2a8(xq, xs, ql.data, *a8_operands(xq, ql), out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the fused MLP: mlp_fused (csrc/qmatmul_mlp.cu)
+# ---------------------------------------------------------------------------
+
+_BLOCKS = (1024, 512, 256)   # the reference's tile sizes, kept as a gate
+
+
+def _mlp_act(g: torch.Tensor, act: str) -> torch.Tensor:
+    """SiLU, or GELU's tanh form (jax.nn.gelu(approximate=True)), in f32."""
+    return F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g)
+
+
+def mlp_fused_plain(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
+                    zp13: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
+                    zp2: torch.Tensor, xsum: torch.Tensor, act: str,
+                    out_dtype) -> torch.Tensor:
+    """x2 [M, K] bf16, w13 [K/2, 2 I] uint8 split-half codes of [w1 | w3]
+    with s13 / zp13 [2 I] f32 / int32, w2 [I/2, N] uint8 with s2 / zp2 [N],
+    xsum [M, 1] f32 (the row sums of x2) -> [M, N]
+    (`_mlp_fused_kernel`): g | u = acc * s13 - xsum * (zp13 * s13) from the
+    raw-code products in f32, h = bf16(act(g) * u); then per chunk of bkh
+    packed w2 rows (the reference's: the first of 1024, 512, 256 dividing
+    I/2) (h_lo . lo + h_hi . hi) * s2 - hsum * (zp2 * s2), hsum the chunk's
+    f32 sum of both h slices, the chunks summed in f32 and rounded once.
+    (The reference adds each chunk into the output in the output dtype;
+    at f32 output the two are the same function.)"""
+    i_ff = w13.shape[1] // 2
+    ih = w2.shape[0]
+    acc = _channel_plain(x2, w13, s13, zp13, xsum, torch.float32, 2)
+    h = (_mlp_act(acc[:, :i_ff], act) * acc[:, i_ff:]).to(torch.bfloat16)
+    lo, hi = (p.float() for p in code_planes(w2, 2))
+    zs2 = zp2.float() * s2
+    bkh = next(c for c in _BLOCKS if ih % c == 0)
+    y = None
+    for c in range(0, ih, bkh):
+        hlo = h[:, c:c + bkh].float()
+        hhi = h[:, ih + c:ih + c + bkh].float()
+        part = hlo @ lo[c:c + bkh] + hhi @ hi[c:c + bkh]
+        hsum = (hlo.sum(dim=1, keepdim=True) + hhi.sum(dim=1, keepdim=True))
+        part = part * s2 - hsum * zs2
+        y = part if y is None else y + part
+    return y.to(out_dtype)
+
+
+def mlp_fused(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
+              zp13: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
+              zp2: torch.Tensor, xsum: torch.Tensor, act: str,
+              out_dtype) -> torch.Tensor:
+    """Kernel wrapper; see `mlp_fused_plain` for the function."""
+    if not x2.is_cuda:
+        return mlp_fused_plain(x2, w13, s13, zp13, w2, s2, zp2, xsum, act,
+                               out_dtype)
+    name = "mlp_fused"
+    m, k = x2.shape
+    i_ff, n = w13.shape[1] // 2, w2.shape[1]
+    _check(name, out_dtype in (torch.bfloat16, torch.float32), TypeError,
+           f"out dtype {out_dtype} not supported")
+    _check(name, act in ("silu", "gelu"), ValueError, f"act {act!r}")
+    _check(name, x2.dtype == torch.bfloat16 and w13.dtype == torch.uint8
+           and w2.dtype == torch.uint8
+           and all(t.dtype == torch.float32 for t in (s13, s2, xsum))
+           and zp13.dtype == torch.int32 and zp2.dtype == torch.int32,
+           TypeError, "x bf16, uint8 codes, f32 scales and xsum, int32 zero "
+                      "points expected")
+    _check(name, w13.shape[0] * 2 == k and w2.shape[0] * 2 == i_ff
+           and w13.shape[1] % 2 == 0 and k % 256 == 0 and i_ff % 256 == 0
+           and n % _COLS == 0 and 0 < m <= M_MAX,
+           what=f"unsupported shape m={m} k={k} i_ff={i_ff} n={n}")
+    _check(name, s13.numel() == zp13.numel() == 2 * i_ff
+           and s2.numel() == zp2.numel() == n and xsum.numel() == m,
+           what="s13 / zp13 [2 I], s2 / zp2 [N], xsum [M, 1]")
+    _check_operands(name, x2, w13, s13, zp13, w2, s2, zp2, xsum)
+    # the w13 and w2 packed rows split over about four work tiles an SM
+    # (the kernel's stages A1 and B1)
+    sms = _build.sm_count(x2.device.index)
+    ksa, rows_a = split_k(m, k, 2 * i_ff, sms)
+    ksb, rows_b = split_k(m, i_ff, n, sms)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+    part_a = torch.empty((ksa, m, 2 * i_ff), **f32)
+    h = torch.empty((m, i_ff), dtype=torch.bfloat16, device=x2.device)
+    part_b = torch.empty((ksb, m, n), **f32)
+    err = _build.library().pq_mlp_fused(
+        x2.data_ptr(), w13.data_ptr(), s13.data_ptr(), zp13.data_ptr(),
+        w2.data_ptr(), s2.data_ptr(), zp2.data_ptr(), xsum.data_ptr(),
+        out.data_ptr(), part_a.data_ptr(), h.data_ptr(), part_b.data_ptr(),
+        m, k, i_ff, n, ksa, rows_a, ksb, rows_b, int(act == "gelu"),
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(x2))
+    _build.check(err, name)
+    mlp_fused.launches += 1
+    return out
+
+
+mlp_fused.launches = 0
+
+
+def _channelwise_int4(ql) -> bool:
+    return (getattr(ql, "bits", None) == 4 and ql.group_size is None
+            and getattr(ql, "codebook", None) is None)
+
+
+def mlp_fused_matmul(x: torch.Tensor, w13, w2, act: str,
+                     out_dtype=torch.bfloat16) -> Optional[torch.Tensor]:
+    """The decode-M gated MLP x [..., K] -> [..., N] through mlp_fused, or
+    None where the reference's `mlp_fused_matmul` declines: the switch
+    PIQUANT_MLP_FUSE=1 is off (read at call time), either weight is not
+    channelwise INT4, M > M_MAX, w13.n is odd, the weights' K do not chain,
+    no block size of 1024 / 512 / 256 divides I, N or I/2, K % 256 or
+    I % 256.  The reference's VMEM budget (PIQUANT_QMM_VMEM_MB) is a TPU
+    tile limit and is dropped."""
+    if os.environ.get("PIQUANT_MLP_FUSE", "0") != "1":
+        return None
+    if not (_channelwise_int4(w13) and _channelwise_int4(w2)):
+        return None
+    lead, k = x.shape[:-1], x.shape[-1]
+    m = 1
+    for d in lead:
+        m *= d
+    if m > M_MAX or w13.n % 2:
+        return None
+    i_ff, n = w13.n // 2, w2.n
+    if w2.k != i_ff or w13.k != k:
+        return None
+    if (any(all(v % c for c in _BLOCKS) for v in (i_ff, n, i_ff // 2))
+            or k % 256 or i_ff % 256):
+        return None
+    x2 = x.reshape(m, k).to(torch.bfloat16).contiguous()
+    xsum = x2.float().sum(dim=1, keepdim=True)
+
+    def side(ql):
+        return (ql.scale.float().reshape(-1).expand(ql.n).contiguous(),
+                ql.zero_point.to(torch.int32).reshape(-1).expand(ql.n)
+                .contiguous())
+
+    y = mlp_fused(x2, w13.data, *side(w13), w2.data, *side(w2), xsum, act,
+                  out_dtype)
+    return y.reshape(*lead, n)

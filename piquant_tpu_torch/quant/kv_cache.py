@@ -26,7 +26,7 @@ the same cache.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -169,21 +169,28 @@ def kv_cache_append_stacked(
     layer: int,
     k_new: torch.Tensor,    # [B, H_kv, T, D] float
     v_new: torch.Tensor,
-    positions: torch.Tensor,  # [B, T] int32, each row [start, start + T)
-    contiguous_start: int,
+    positions: torch.Tensor,  # [B, T] int32
+    contiguous_start: Optional[int] = None,
 ) -> KVCache:
-    """Quantize one layer's prefill K/V and write it, in place, at
-    [start, start + T) of every row (the reference's contiguous path; its
-    scattered path serves chunked prefill, which is not ported yet).  A
-    kv4 start or T of either parity writes whole positions: the other half
-    of a pair row the range only touches keeps its position."""
+    """Quantize one layer's K/V and write it, in place.  With
+    `contiguous_start` every row writes [start, start + T) (the reference's
+    prefill path); without it, or for kv4 at an odd start or an odd T (the
+    reference's lax.cond sends those to its scatter), each row writes at
+    its own `positions`, and a position at or past max_len is dropped as
+    the reference's scatter drops it.  A kv4 write of either parity writes
+    whole positions: the other half of a pair row it only touches keeps its
+    position."""
     bits = cache.bits
+    t = k_new.shape[2]
+    if contiguous_start is None or (bits == 4 and (t % 2
+                                                   or contiguous_start % 2)):
+        _append_scattered(cache, layer, k_new, v_new, positions)
+        return cache
     kc, ks = _quantize_sym(k_new, bits)
     vc, vs = _quantize_sym(v_new, bits)
     new_len = torch.maximum(cache.length[layer],
                             positions.amax(dim=-1).to(torch.int32) + 1)
     cache.length[layer] = torch.clamp(new_len, max=cache.max_len)
-    t = k_new.shape[2]
     sl = slice(contiguous_start, contiguous_start + t)
     _positions_view(cache.k_codes)[layer, :, :, sl] = kc
     _positions_view(cache.v_codes)[layer, :, :, sl] = vc
@@ -196,6 +203,23 @@ def kv_cache_append_stacked(
         cache.k_scale[layer, :, :, sl] = ks
         cache.v_scale[layer, :, :, sl] = vs
     return cache
+
+
+def _append_scattered(cache: KVCache, layer: int, k_new: torch.Tensor,
+                      v_new: torch.Tensor, positions: torch.Tensor) -> None:
+    """One layer's scattered write (`_scatter4` for kv4).  T = 1 (the
+    non-deferred decode append) is the all-layer batch write on this
+    layer's slice, which needs no host sync; T > 1 the unstacked append on
+    this layer's views, which drops what lies past the cache exactly."""
+    if k_new.shape[2] == 1:
+        kc, ks = _quantize_sym(k_new, cache.bits)
+        vc, vs = _quantize_sym(v_new, cache.bits)
+        one = KVCache(*(x[layer:layer + 1] for x in cache.tensors()))
+        kv_cache_append_stacked_batch(one, kc[None], ks[None], vc[None],
+                                      vs[None], positions)
+    else:
+        kv_cache_append(KVCache(*(x[layer] for x in cache.tensors())),
+                        k_new, v_new, positions)
 
 
 def kv_cache_append_stacked_batch(

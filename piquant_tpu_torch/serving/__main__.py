@@ -17,6 +17,7 @@ Examples:
   python -m piquant_tpu_torch.serving --random llama4_scout --benchmark 4 --max-new 8
   python -m piquant_tpu_torch.serving --random gpt_oss_20b --benchmark 4 --max-new 8
   python -m piquant_tpu_torch.serving --random llama3_8b --bits nf4 --kv-bits 4 --benchmark 8
+  python -m piquant_tpu_torch.serving --random llama3_8b --prefill-chunk 256 --attn-windows 512,1024,2048 --benchmark 8
   python -m piquant_tpu_torch.serving --random tiny --device cpu --bits 2 --act-quant-decode --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --bits nf4 --kv-bits 4 --benchmark 4
@@ -124,8 +125,6 @@ def _not_ported(args) -> None:
         todo.append(f"--random {args.random} (queue 1 item 11 (MLA))")
     if args.speculate or args.draft_bits is not None or args.draft_group_size:
         todo.append("--speculate / --draft-* (queue 1 item 10)")
-    if args.prefill_chunk is not None or args.attn_windows:
-        todo.append("--prefill-chunk / --attn-windows (queue 1 item 8)")
     if args.repetition_penalty != 1.0:
         todo.append("--repetition-penalty (queue 1 item 7)")
     if args.serve is not None:
@@ -176,7 +175,10 @@ def build(args):
         params = M.quantize_params(M.init_params(cfg, 0, device=dev),
                                    bits=args.bits, group_size=args.group_size,
                                    overrides=mlp)
-    ec = EngineConfig(batch_slots=args.slots, max_seq_len=args.max_seq_len)
+    windows = (tuple(int(w) for w in args.attn_windows.split(","))
+               if args.attn_windows else ())
+    ec = EngineConfig(batch_slots=args.slots, max_seq_len=args.max_seq_len,
+                      prefill_chunk=args.prefill_chunk, attn_windows=windows)
     eng = Engine(cfg, params, ec, device=dev)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, min_p=args.min_p,

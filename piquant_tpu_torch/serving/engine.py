@@ -5,22 +5,28 @@ A host scheduler drives slot-wise prefill admission and whole-batch decode
 blocks over a fixed pool of batch slots backed by the stacked kv8 or kv4
 cache.
 Queued prompts of one pad bucket are admitted in ONE prefill call (bursts
-truncated to a power of two, as in the reference), and decode runs in
-blocks of `decode_block` steps whose [K, B] tokens come back to the host in
-one copy per block.  The loop is pipelined: block N is launched before
-block N-1's tokens are read, so the readback overlaps device work.
+truncated to a power of two, as in the reference), or, with
+`prefill_chunk`, one prompt at a time in fixed-size chunks against a
+one-slot cache (at most one chunk a tick while slots decode), seeded from
+the prefix cache where a pooled prefix matches.  Decode runs in blocks of
+`decode_block` steps whose [K, B] tokens come back to the host in one copy
+per block, attending over the smallest `attn_windows` bucket that holds
+every active context.  The loop is pipelined: block N is launched before
+block N-1's tokens are read, so the readback overlaps device work; the
+block in flight is the engine's (`_inflight`), so `snapshot` drains it.
 
-Not ported yet (raise NotImplementedError): speculation, chunked prefill,
-the prefix cache, attention-window buckets, token history and penalties,
-guided decoding, LoRA adapters, draft models and snapshot/restore.
+Not ported yet (raise NotImplementedError): speculation, token history and
+penalties, guided decoding, LoRA adapters and draft models.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
+import pickle
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -28,7 +34,7 @@ import torch
 
 from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.models import llama as M
-from piquant_tpu_torch.quant.kv_cache import kv_cache_copy_rows
+from piquant_tpu_torch.quant.kv_cache import KVCache, kv_cache_copy_rows
 from piquant_tpu_torch.serving.sampler import (TOPK_CAND, SamplingParams,
                                                sample_batch)
 
@@ -39,22 +45,28 @@ class EngineConfig:
     max_seq_len: int = 2048
     prefill_pad: int = 64      # prompts are right-padded to a multiple of this
     decode_block: int = 16     # decode steps per block (one token readback)
-    # reference options that are not ported yet: any non-default value
-    # raises NotImplementedError (the reference's warmup_buckets and
-    # max_guide_states only qualify attn_windows and guided decoding)
-    speculate: int = 0
+    speculate: int = 0         # not ported yet (ROADMAP.md queue 1 item 10)
+    # decode attends over the smallest bucket covering the longest active
+    # context (an empty tuple: always max_seq_len)
     attn_windows: tuple = ()
-    track_history: bool = False
+    # accepted as the reference's option: eager PyTorch has no executable
+    # to compile ahead for a bucket, so warming them does nothing here
+    warmup_buckets: bool = True
+    track_history: bool = False  # not ported yet (queue 1 item 7)
+    # prompts prefill in chunks of this many tokens against the cache
     prefill_chunk: Optional[int] = None
+    # pinned KV prefixes (needs prefill_chunk); _auto captures every
+    # admitted prompt's whole chunks, least recently used out first
     prefix_cache: int = 0
     prefix_cache_auto: bool = False
 
     def check_ported(self) -> None:
-        todo = [f.name for f in dataclasses.fields(self)[4:]
-                if getattr(self, f.name) != f.default]
+        todo = [f"{f} (queue 1 item {item})"
+                for f, item in (("speculate", 10), ("track_history", 7))
+                if getattr(self, f) != getattr(EngineConfig, f)]
         if todo:
             raise NotImplementedError(
-                f"EngineConfig options not ported yet: {todo}")
+                f"EngineConfig options not ported yet (ROADMAP.md): {todo}")
 
 
 @dataclasses.dataclass
@@ -78,7 +90,7 @@ class EngineMetrics:
     decode_time_s: float = 0.0
     prefill_tokens: int = 0
     prefill_time_s: float = 0.0
-    prefix_hits: int = 0           # the prefix cache is not ported: 0
+    prefix_hits: int = 0
     prefix_tokens_saved: int = 0
     ttfts: List[float] = dataclasses.field(default_factory=list)
 
@@ -142,6 +154,14 @@ class Engine:
             # a prefill's padded width must fill whole kv4 pair rows
             raise ValueError("kv_bits=4 needs an even prefill_pad and "
                              "max_seq_len")
+        if (econfig.prefill_chunk
+                and econfig.prefill_chunk > econfig.max_seq_len):
+            raise ValueError(
+                f"prefill_chunk={econfig.prefill_chunk} exceeds "
+                f"max_seq_len={econfig.max_seq_len}")
+        if econfig.prefix_cache and not econfig.prefill_chunk:
+            raise ValueError("prefix_cache requires prefill_chunk (the "
+                             "suffix resumes through the chunked path)")
         self.cfg = cfg
         self.params = params
         self.ec = econfig
@@ -162,6 +182,12 @@ class Engine:
         self._topps = np.ones((b,), np.float32)
         self._minps = np.zeros((b,), np.float32)
         self._slot_state_dirty = True
+        self._host_pos = np.zeros((b,), np.int64)  # for the window buckets
+        # token-tuple key -> (one-slot cache, prefix length); insertion
+        # order is the LRU order
+        self._prefix_pool: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._pending_prefill: Optional[dict] = None  # a chunked admission
+        self._inflight = None          # the dispatched, unprocessed block
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -186,12 +212,6 @@ class Engine:
         self._queue.append(req)
         self._all.append(req)
 
-    def snapshot(self) -> dict:
-        raise NotImplementedError("snapshot/restore is not ported yet")
-
-    def restore(self, state: dict) -> None:
-        raise NotImplementedError("snapshot/restore is not ported yet")
-
     def _free_slot_excluding(self, taken) -> Optional[int]:
         for i, r in enumerate(self._slots):
             if r is None and i not in taken:
@@ -202,41 +222,194 @@ class Engine:
         pad = min(-plen % self.ec.prefill_pad, self.ec.max_seq_len - plen)
         return plen + pad
 
-    def _admit(self) -> None:
-        """Admit queued requests into free slots: the head of the queue and
-        every following request of the same pad bucket, while slots last,
-        truncated to a power of two (the rest re-queue for the next tick)."""
+    def _admit(self, max_chunks: Optional[int] = None) -> None:
+        """Admit queued requests into free slots.  One-shot: the head of
+        the queue and every following request of the same pad bucket,
+        while slots last, truncated to a power of two (the rest re-queue
+        for the next tick).  With `prefill_chunk` one request at a time,
+        in chunks, at most `max_chunks` chunks this call (None: to the
+        end), the rest on later calls."""
+        budget = max_chunks
+        while True:
+            if self._pending_prefill is None:
+                if not self._queue:
+                    return
+                slot = self._free_slot_excluding(())
+                if slot is None:
+                    return
+                req = self._queue.popleft()
+                t0 = time.perf_counter()
+                plen = len(req.prompt)
+                if plen + req.sampling.max_new_tokens > self.ec.max_seq_len:
+                    raise ValueError(
+                        f"request {req.rid}: prompt {plen} + max_new "
+                        f"{req.sampling.max_new_tokens} exceeds max_seq_len "
+                        f"{self.ec.max_seq_len}")
+                if not self.ec.prefill_chunk:
+                    self._admit_burst(req, slot, plen, t0)
+                    continue
+                self._pending_prefill = self._start_chunked(req, slot, plen,
+                                                            t0)
+            p = self._pending_prefill
+            c = self.ec.prefill_chunk
+            while p["j"] < len(p["starts"]):
+                if budget is not None and budget <= 0:
+                    return
+                s = p["starts"][p["j"]]
+                final = p["j"] == len(p["starts"]) - 1
+                chunk = p["req"].prompt[s:s + c]
+                chunk = chunk + [0] * (c - len(chunk))
+                p["last"] = self._prefill_chunk(
+                    chunk, s, p["plen"] - 1 - s if final else 0, p["fresh"])
+                p["j"] += 1
+                if budget is not None:
+                    budget -= 1
+            self._finish_chunked(p)
+            self._pending_prefill = None
+
+    def _admit_burst(self, req: Request, slot: int, plen: int,
+                     t0: float) -> None:
+        """One-shot admission of `req` and the queued requests of its pad
+        bucket."""
+        batch = [(req, slot, plen, t0)]
+        pad0 = self._padded_len(plen)
         while self._queue:
-            slot = self._free_slot_excluding(())
-            if slot is None:
-                return
-            req = self._queue.popleft()
-            plen = len(req.prompt)
-            if plen + req.sampling.max_new_tokens > self.ec.max_seq_len:
-                raise ValueError(
-                    f"request {req.rid}: prompt {plen} + max_new "
-                    f"{req.sampling.max_new_tokens} exceeds max_seq_len "
-                    f"{self.ec.max_seq_len}")
-            batch = [(req, slot, plen, time.perf_counter())]
-            pad0 = self._padded_len(plen)
-            while self._queue:
-                nxt = self._queue[0]
-                nplen = len(nxt.prompt)
-                if nplen + nxt.sampling.max_new_tokens > self.ec.max_seq_len:
-                    break  # raised on its own admission
-                if self._padded_len(nplen) != pad0:
-                    break
-                s2 = self._free_slot_excluding([b[1] for b in batch])
-                if s2 is None:
-                    break
-                self._queue.popleft()
-                batch.append((nxt, s2, nplen, time.perf_counter()))
-            # the re-queued extras restart their prefill clock (t0) when
-            # they are admitted, as in the reference
-            keep = 1 << (len(batch).bit_length() - 1)
-            for extra in reversed(batch[keep:]):
-                self._queue.appendleft(extra[0])
-            self._admit_one_shot(batch[:keep])
+            nxt = self._queue[0]
+            nplen = len(nxt.prompt)
+            if nplen + nxt.sampling.max_new_tokens > self.ec.max_seq_len:
+                break  # raised on its own admission
+            if self._padded_len(nplen) != pad0:
+                break
+            s2 = self._free_slot_excluding([b[1] for b in batch])
+            if s2 is None:
+                break
+            self._queue.popleft()
+            batch.append((nxt, s2, nplen, time.perf_counter()))
+        # the re-queued extras restart their prefill clock (t0) when they
+        # are admitted, as in the reference
+        keep = 1 << (len(batch).bit_length() - 1)
+        for extra in reversed(batch[keep:]):
+            self._queue.appendleft(extra[0])
+        self._admit_one_shot(batch[:keep])
+
+    # ------------------------------------------------------------------
+    # chunked prefill and the prefix cache
+    # ------------------------------------------------------------------
+    def _prefill_chunk(self, tokens: List[int], offset: int, last: int,
+                       cache: KVCache) -> torch.Tensor:
+        """One chunk of a prompt through the model against the one-slot
+        `cache` (appended in place at `offset`) -> logits [1, V] at chunk
+        row `last`."""
+        dev = self.device
+        c = len(tokens)
+        positions = (offset + torch.arange(c, dtype=torch.int32,
+                                           device=dev))[None]
+        logits, _ = M.forward(
+            self.cfg, self.params,
+            torch.tensor([tokens], dtype=torch.int32, device=dev),
+            positions=positions, cache=cache,
+            logit_positions=torch.tensor([last], dtype=torch.int32,
+                                         device=dev),
+            kv_write_start=offset)
+        return logits[:, 0]
+
+    def _new_slot_cache(self) -> KVCache:
+        return M.init_kv_cache(self.cfg, 1, max_len=self.ec.max_seq_len,
+                               device=self.device)
+
+    def _complete_chunks(self, n_tokens: int) -> int:
+        """The whole prefill_chunk multiples of `n_tokens` a pool entry may
+        hold, leaving at least one chunk of room for a suffix."""
+        c = self.ec.prefill_chunk
+        return min(n_tokens // c, (self.ec.max_seq_len - c) // c) * c
+
+    def preseed_prefix(self, tokens: List[int], adapter_id: int = 0) -> int:
+        """Prefill `tokens` once and pin their KV in the prefix pool: every
+        later prompt starting with them skips that prefill.  Only whole
+        prefill_chunk multiples are kept (a partial tail chunk would write
+        pad-token KV a suffix does not overwrite before reading it).
+        Entries are keyed by (adapter_id, tokens).  Returns the pooled
+        length."""
+        if not self.ec.prefix_cache:
+            raise ValueError("prefix_cache is 0: enable it in EngineConfig")
+        if adapter_id:
+            raise NotImplementedError("LoRA adapters are not ported yet")
+        c = self.ec.prefill_chunk
+        eff = self._complete_chunks(len(tokens))
+        if eff <= 0:
+            return 0
+        fresh = self._new_slot_cache()
+        for s in range(0, eff, c):
+            self._prefill_chunk(list(tokens[s:s + c]), s, 0, fresh)
+        self._pool_put((adapter_id, tuple(tokens[:eff])), fresh, eff)
+        return eff
+
+    def _pool_put(self, key: tuple, cache: KVCache, eff: int) -> None:
+        pool = self._prefix_pool
+        if key in pool:
+            pool.move_to_end(key)
+            return
+        while len(pool) >= self.ec.prefix_cache:
+            pool.popitem(last=False)           # the least recently used
+        pool[key] = (cache, eff)
+
+    def _match_prefix(self, prompt: List[int], adapter_id: int = 0):
+        """The longest pooled prefix of `prompt` -> (key, cache, eff), or
+        None."""
+        best = None
+        for key, (cache, eff) in self._prefix_pool.items():
+            aid, toks = key
+            if (aid == adapter_id and len(toks) <= len(prompt)
+                    and (best is None or eff > best[2])
+                    and list(toks) == prompt[:len(toks)]):
+                best = (key, cache, eff)
+        if best is not None:
+            self._prefix_pool.move_to_end(best[0])
+        return best
+
+    def _start_chunked(self, req: Request, slot: int, plen: int,
+                       t0: float) -> dict:
+        """The state of a chunked admission: its one-slot cache (a copy of
+        a matching pool entry, or empty) and its chunk starts, from the
+        matched length in prefill_chunk steps, the last one shifted back so
+        that it ends at max_seq_len at most (it re-runs a few prefilled
+        positions, which write the same KV again)."""
+        c = self.ec.prefill_chunk
+        m0, fresh = 0, None
+        if self.ec.prefix_cache:
+            hit = self._match_prefix(req.prompt, req.adapter_id)
+            if hit is not None:
+                _, pcache, eff = hit
+                m0 = min(eff, plen - 1)
+                fresh = KVCache(*(t.clone() for t in pcache.tensors()))
+                self.metrics.prefix_hits += 1
+                self.metrics.prefix_tokens_saved += m0
+        if fresh is None:
+            fresh = self._new_slot_cache()
+        starts = list(range(m0, plen, c))
+        if starts[-1] + c > self.ec.max_seq_len:
+            starts[-1] = self.ec.max_seq_len - c
+        return {"req": req, "slot": slot, "plen": plen, "t0": t0,
+                "starts": starts, "j": 0, "last": None, "fresh": fresh}
+
+    def _finish_chunked(self, p: dict) -> None:
+        """All chunks done: pool the prompt's whole chunks (auto capture),
+        copy the slot cache in and sample the first token."""
+        req, slot, plen = p["req"], p["slot"], p["plen"]
+        if self.ec.prefix_cache and self.ec.prefix_cache_auto:
+            # the slot cache is not written again: pool it as it is (a hit
+            # copies it out)
+            ceff = self._complete_chunks(plen)
+            if ceff > 0:
+                self._pool_put((req.adapter_id, tuple(req.prompt[:ceff])),
+                               p["fresh"], ceff)
+        slots = torch.tensor([slot], device=self.device)
+        kv_cache_copy_rows(self.cache, p["fresh"], slots)
+        tok, lp = self._sample_first(p["last"], [req.sampling])
+        self._cur_tok[slots] = tok
+        self._positions[slots] = plen
+        self._record_first_token(req, int(tok[0]), float(lp[0]), slot, plen,
+                                 p["t0"])
 
     def _admit_one_shot(self, batch) -> None:
         """One prefill call for `batch` = [(req, slot, plen, t0), ...] (all
@@ -258,23 +431,27 @@ class Engine:
                                 torch.from_numpy(rows).to(dev), fresh,
                                 last_positions=plens - 1)
         kv_cache_copy_rows(self.cache, fresh, slots)
-        sps = [req.sampling for req, _, _, _ in batch]
-
-        def vec(vals, dtype):
-            return torch.tensor(vals, dtype=dtype, device=dev)
-
-        tok = sample_batch(last, vec([s.temperature for s in sps], torch.float32),
-                           vec([s.top_k for s in sps], torch.int32),
-                           vec([s.top_p for s in sps], torch.float32),
-                           self._gen,
-                           vec([s.min_p for s in sps], torch.float32))
-        lp = _tok_logprob(last, tok)
+        tok, lp = self._sample_first(last, [req.sampling
+                                            for req, _, _, _ in batch])
         self._cur_tok[slots] = tok
         self._positions[slots] = plens
         toks, lps = tok.cpu().numpy(), lp.cpu().numpy()
         for i, (req, slot, plen, t0) in enumerate(batch):
             self._record_first_token(req, int(toks[i]), float(lps[i]), slot,
                                      plen, t0)
+
+    def _sample_first(self, last: torch.Tensor, sps):
+        """First tokens of prompts from their last logits [Bq, V] and
+        their SamplingParams -> (tokens, logprobs) on the device."""
+        def vec(vals, dtype):
+            return torch.tensor(vals, dtype=dtype, device=self.device)
+
+        tok = sample_batch(last, vec([s.temperature for s in sps], torch.float32),
+                           vec([s.top_k for s in sps], torch.int32),
+                           vec([s.top_p for s in sps], torch.float32),
+                           self._gen,
+                           vec([s.min_p for s in sps], torch.float32))
+        return tok, _tok_logprob(last, tok)
 
     def _record_first_token(self, req: Request, tok: int, lp: float,
                             slot: int, plen: int, t0: float) -> None:
@@ -292,6 +469,7 @@ class Engine:
         self._topps[slot] = req.sampling.top_p
         self._minps[slot] = req.sampling.min_p
         self._slot_state_dirty = True
+        self._host_pos[slot] = plen
         self._maybe_finish(req, slot)
 
     def _maybe_finish(self, req: Request, slot: int) -> None:
@@ -326,12 +504,19 @@ class Engine:
             self._minps_dev = torch.from_numpy(self._minps).to(dev)
             self._active_dev = torch.from_numpy(self._active).to(dev)
             self._slot_state_dirty = False
+        kblk = self.ec.decode_block
+        window = self.ec.max_seq_len
+        if self.ec.attn_windows:
+            need = int(self._host_pos[self._active].max()) + kblk + 1
+            window = min((w for w in self.ec.attn_windows if w >= need),
+                         default=self.ec.max_seq_len)
+        self._host_pos[self._active] += kblk
         tok, pos = self._cur_tok, self._positions
         step_inc = self._active_dev.to(torch.int32)
         toks, lps = [], []
-        for _ in range(self.ec.decode_block):
+        for _ in range(kblk):
             logits, self.cache = M.decode_step(self.cfg, self.params, tok, pos,
-                                               self.cache)
+                                               self.cache, attn_window=window)
             nxt = sample_batch(logits, self._temps_dev, self._topks_dev,
                                self._topps_dev, self._gen, self._minps_dev)
             tok = torch.where(self._active_dev, nxt, tok)
@@ -363,6 +548,92 @@ class Engine:
                     self.metrics.decode_tokens += 1
                     self._maybe_finish(req, i)
 
+    def _step_decode(self) -> None:
+        """Synchronous block step (dispatch, then process); run() pipelines
+        them instead."""
+        self._drain()
+        t0 = time.perf_counter()
+        self._process_block(*self._dispatch_block())
+        self.metrics.decode_time_s += time.perf_counter() - t0
+
+    def _drain(self) -> None:
+        """Process the block in flight, if any."""
+        if self._inflight is not None:
+            payload, self._inflight = self._inflight, None
+            self._process_block(*payload)
+
+    # ------------------------------------------------------------------
+    # snapshot / restore
+    # ------------------------------------------------------------------
+    _SNAP_HOST = ("_temps", "_topks", "_topps", "_minps", "_host_pos",
+                  "_active")
+
+    def snapshot(self) -> dict:
+        """The engine's whole state on the host: the KV cache, per-slot
+        sampler state, in-flight requests, the queue, the generator's
+        state, the metrics and the prefix pool.  Restoring it into a fresh
+        Engine of the same config and params resumes with identical
+        tokens.  Call between scheduler ticks: a chunked admission in
+        progress cannot be snapshotted.  The block in flight is processed
+        first, so its tokens are on their requests (a run_stream in
+        progress does not yield them)."""
+        if self._pending_prefill is not None:
+            raise ValueError("snapshot mid-admission: drain the pending "
+                             "chunked prefill first (one _admit() tick)")
+        self._drain()
+
+        def host(cache):
+            return [t.detach().to("cpu", copy=True) for t in cache.tensors()]
+
+        # the requests and metrics deep-copied together (a slot's request
+        # is also in "all"), so the running engine does not change them
+        state = copy.deepcopy({
+            "slots": self._slots, "queue": list(self._queue),
+            "all": self._all, "metrics": self.metrics})
+        state.update({
+            "cache": host(self.cache),
+            "cur_tok": self._cur_tok.to("cpu", copy=True),
+            "positions": self._positions.to("cpu", copy=True),
+            "generator": self._gen.get_state(),
+            "prefix_pool": [(k, host(c), eff)
+                            for k, (c, eff) in self._prefix_pool.items()],
+        })
+        for f in self._SNAP_HOST:
+            state[f] = getattr(self, f).copy()
+        return state
+
+    def restore(self, state: dict) -> None:
+        """Load a snapshot() into this (freshly built) engine."""
+        def dev(ts):
+            return KVCache(*(t.to(self.device, copy=True) for t in ts))
+
+        self.cache = dev(state["cache"])
+        self._cur_tok = state["cur_tok"].to(self.device, copy=True)
+        self._positions = state["positions"].to(self.device, copy=True)
+        self._gen.set_state(state["generator"])
+        reqs = copy.deepcopy({k: state[k] for k in ("slots", "queue", "all",
+                                                     "metrics")})
+        self._slots = list(reqs["slots"])
+        self._queue = deque(reqs["queue"])
+        self._all = list(reqs["all"])
+        self.metrics = reqs["metrics"]
+        self._prefix_pool = OrderedDict(
+            (k, (dev(c), eff)) for k, c, eff in state["prefix_pool"])
+        for f in self._SNAP_HOST:
+            setattr(self, f, state[f].copy())
+        self._slot_state_dirty = True   # device mirrors rebuilt lazily
+        self._pending_prefill = None
+        self._inflight = None
+
+    def save(self, path: str) -> None:
+        """snapshot() to disk (pickle)."""
+        with open(path, "wb") as f:
+            pickle.dump(self.snapshot(), f, protocol=4)
+
+    def load(self, path: str) -> None:
+        with open(path, "rb") as f:
+            self.restore(pickle.load(f))
+
     # ------------------------------------------------------------------
     def run(self) -> List[Request]:
         """Run until queue and slots drain; returns completed requests."""
@@ -372,15 +643,19 @@ class Engine:
 
     def run_stream(self):
         """Generator form of run(): yields (request, new_token) pairs as
-        each block's tokens are read back."""
-        pending = None
-        while (pending is not None or self._queue
-               or any(r is not None for r in self._slots)):
-            self._admit()
+        each block's tokens are read back.  While slots decode, a chunked
+        admission advances one chunk a tick."""
+        while (self._inflight is not None or self._queue
+               or any(r is not None for r in self._slots)
+               or self._pending_prefill is not None):
+            decoding = any(r is not None for r in self._slots)
+            self._admit(max_chunks=1 if (decoding and self.ec.prefill_chunk)
+                        else None)
             t0 = time.perf_counter()
             nxt = None
             if any(r is not None for r in self._slots):
                 nxt = self._dispatch_block()
+            pending, self._inflight = self._inflight, nxt
             if pending is not None:
                 before = {id(r): len(r.tokens) for r in self._all}
                 self._process_block(*pending)
@@ -390,4 +665,3 @@ class Engine:
                         yield r, tok
             else:
                 self.metrics.decode_time_s += time.perf_counter() - t0
-            pending = nxt

@@ -180,18 +180,42 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
 
 # Each refusal names its item in ROADMAP.md's queue 1 (--random
 # gpt_oss_20b and llama4_scout serve since item 5 was ported:
-# tests/test_torch_llama4_gpt_oss.py::test_cli_presets).
+# tests/test_torch_llama4_gpt_oss.py::test_cli_presets; --prefill-chunk and
+# --attn-windows since item 8: test_cli_serves_item8_flags).
 @pytest.mark.parametrize("argv,item", [
     (["--model", "/no/such/checkpoint"], 9), (["--random", "mla_v2_lite"], 11),
     (["--random", "mla_v2_moe"], 11), (["--random", "mla_tiny"], 11),
     (["--speculate", "4"], 10), (["--draft-bits", "2", "--speculate", "2"], 10),
-    (["--prefill-chunk", "256"], 8), (["--attn-windows", "512,1024"], 8),
     (["--repetition-penalty", "1.1"], 7), (["--serve", "8123"], 12),
     (["--draft-group-size", "32", "--speculate", "2"], 10)])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\b"):
         S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
                 *argv])
+
+
+# The two flags of item 8 reach EngineConfig as the reference CLI passes
+# them, and the tiny model serves its benchmark with them on the CPU: every
+# request completes and the metrics line carries the reference's keys.
+@pytest.mark.parametrize("argv,field,value", [
+    (["--prefill-chunk", "64"], "prefill_chunk", 64),
+    (["--attn-windows", "128,256"], "attn_windows", (128, 256))])
+def test_cli_serves_item8_flags(argv, field, value, capsys):
+    args = S.build_parser().parse_args(
+        ["--random", "tiny", "--device", "cpu", "--benchmark", "2",
+         "--max-new", "4", "--max-seq-len", "256", *argv])
+    cfg, _, eng, sp = S.build(args)
+    assert getattr(eng.ec, field) == value
+    m, done = S.benchmark(args, cfg, eng, sp)
+    assert m["completed"] == 2 and m["decode_tokens"] == 2 * 3
+    assert m["prefill_tokens"] == sum(len(r.prompt) for r in done)
+    for r in done:
+        assert len(r.tokens) == 4 and all(0 <= t < 256 for t in r.tokens)
+    assert S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
+                   "--max-new", "2", "--max-seq-len", "256", *argv]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {"decode_tokens_per_s", "prefill_tokens_per_s", "p50_ttft_ms",
+            "prefix_hits", "wall_s", "completed"} <= set(line)
 
 
 # NF4 weights and the kv4 cache through the CLI on the CPU: 4 requests

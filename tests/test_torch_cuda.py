@@ -1112,3 +1112,114 @@ def test_moe_routes_on_card(dev):
         assert bool(torch.isfinite(y).all())
     assert (R.wq_ragged.launches, Q.w4_gemv.launches) == (
         before[0] + 3, before[1] + 12)
+
+
+# ---------------------------------------------------------------------------
+# the fused MLP (row 23) and the first flash-decode kernel (row 24)
+# ---------------------------------------------------------------------------
+
+from piquant_tpu_torch.ops.cuda import attention as AT  # noqa: E402
+
+
+def _mlp_operands(dev, g, m, k, i_ff, n):
+    """Random split-half codes with a scale and zero point per column (zero
+    points over 0-15, so a dropped fold shows) and x, xsum."""
+    def side(cols, s):
+        return (torch.rand(cols, generator=g, device=dev) * s + s / 2,
+                torch.randint(0, 16, (cols,), generator=g, device=dev,
+                              dtype=torch.int32))
+
+    w13 = torch.randint(0, 256, (k // 2, 2 * i_ff), generator=g, device=dev,
+                        dtype=torch.uint8)
+    w2 = torch.randint(0, 256, (i_ff // 2, n), generator=g, device=dev,
+                       dtype=torch.uint8)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    return (x, w13, *side(2 * i_ff, 0.1 / k ** 0.5), w2,
+            *side(n, 0.1 / i_ff ** 0.5), x.float().sum(1, keepdim=True))
+
+
+# the shapes of chip_smoke.py phase 14 (a): Llama-3-8B's MLP (SiLU) and
+# Gemma-7B's (GeGLU) at M 8, 1, 33, 64, and a small one; GEMV tolerance
+@pytest.mark.parametrize("k,i_ff,n,act", [(4096, 14336, 4096, "silu"),
+                                          (3072, 24576, 3072, "gelu"),
+                                          (512, 1024, 512, "silu")])
+@pytest.mark.parametrize("m", [8, 1, 33, 64])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_mlp_fused_matches_plain(dev, k, i_ff, n, act, m, out_dtype):
+    ops = _mlp_operands(dev, _gen(dev, m + k), m, k, i_ff, n)
+    before = Q.mlp_fused.launches
+    got = Q.mlp_fused(*ops, act, out_dtype)
+    again = Q.mlp_fused(*ops, act, out_dtype)
+    assert Q.mlp_fused.launches == before + 2
+    assert torch.equal(got, again)          # fixed summation order
+    want = Q.mlp_fused_plain(*ops, act, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=1e-2)
+
+
+def test_mlp_fused_refuses(dev):
+    ops = list(_mlp_operands(dev, _gen(dev, 1), 8, 512, 1024, 512))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        Q.mlp_fused(ops[0][:, :256].contiguous(), *ops[1:], "silu",
+                    torch.float32)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        Q.mlp_fused(torch.zeros((65, 512), dtype=torch.bfloat16, device=dev),
+                    *ops[1:7], torch.zeros((65, 1), device=dev), "silu",
+                    torch.float32)
+    with pytest.raises(ValueError):
+        Q.mlp_fused(*ops, "relu", torch.float32)
+    with pytest.raises(TypeError):
+        Q.mlp_fused(ops[0].float(), *ops[1:], "silu", torch.float32)
+
+
+def _v1_cache(dev, g, b, hkv, s, d, peaked=False):
+    kc, vc = (torch.randint(-127, 128, (b, hkv, s, d), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, hkv, s, 1), generator=g, device=dev) * 0.02
+              for _ in range(2))
+    if peaked:      # one key dominates some rows
+        ks[:, :, 5] = 0.5
+    return kc, ks, vc, vs
+
+
+# B 8, Hkv 8, rep 4, S 2048 (Llama-3-8B's decode, phase 14 (a)); every rep
+# at head_dim 128 and 256; S below one kernel chunk; positions 0 (one live
+# key), S - 1 and a chunk wholly past pos; atol 2e-3, rtol 2e-2 as the other
+# attention holds
+@pytest.mark.parametrize("b,hkv,rep,s,d", [
+    (8, 8, 4, 2048, 128), (2, 2, 1, 512, 128), (2, 2, 3, 1024, 128),
+    (2, 2, 5, 1536, 128), (2, 1, 7, 512, 128), (2, 2, 8, 2048, 128),
+    (2, 16, 1, 2048, 256), (2, 1, 8, 2048, 256), (2, 2, 4, 256, 256),
+    (3, 2, 2, 64, 128)])
+@pytest.mark.parametrize("peaked", [False, True])
+def test_decode_attn_matches_plain(dev, b, hkv, rep, s, d, peaked):
+    g = _gen(dev, b * s + rep + d)
+    kc, ks, vc, vs = _v1_cache(dev, g, b, hkv, s, d, peaked)
+    q = torch.randn((b, hkv, rep, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = torch.randint(0, s, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[0] = 0
+    pos[1] = s - 1
+    before = AT.decode_attn.launches
+    got = AT.decode_attn(q, kc, ks, vc, vs, pos, d ** -0.5)
+    assert AT.decode_attn.launches == before + 1
+    want = AT.decode_attn_plain(q, kc, ks, vc, vs, pos, d ** -0.5)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
+
+
+def test_decode_attn_refuses(dev):
+    g = _gen(dev, 3)
+    kc, ks, vc, vs = _v1_cache(dev, g, 2, 2, 256, 128)
+    q = torch.zeros((2, 2, 4, 128), dtype=torch.bfloat16, device=dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="rep"):
+        AT.decode_attn(torch.zeros((2, 2, 9, 128), device=dev), kc, ks, vc,
+                       vs, pos, 0.1)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        AT.decode_attn(torch.zeros((2, 2, 4, 64), device=dev), kc[..., :64],
+                       ks, vc[..., :64], vs, pos, 0.1)
+    with pytest.raises(TypeError):
+        AT.decode_attn(q, kc.to(torch.uint8), ks, vc, vs, pos, 0.1)
+    with pytest.raises(ValueError):
+        AT.decode_attn(q, kc[:, :, :128], ks, vc, vs, pos, 0.1)

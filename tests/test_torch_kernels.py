@@ -235,8 +235,8 @@ def test_kv_cache_writes_bit_exact():
             np.testing.assert_array_equal(getattr(tc_, f).numpy(),
                                           np.asarray(getattr(jc_, f)))
 
-    # contiguous prefill writes (the port has only this form of the
-    # per-layer write: the scattered one serves chunked prefill)
+    # contiguous prefill writes (the scattered per-layer write is held in
+    # tests/test_torch_fused_engine.py::test_stacked_append_byte_equal)
     jc_, tc_ = jcache(), tcache()
     for layer, start in ((1, 4), (0, 0)):
         pos = np.broadcast_to(np.arange(start, start + t, dtype=np.int32),

@@ -190,19 +190,61 @@ def test_engine_sampled_requests_complete(setup):
 
 def test_engine_unported_options_raise(setup, monkeypatch):
     _, _, cfg, params = setup
-    for kw in ({"prefill_chunk": 16}, {"speculate": 2}, {"attn_windows": (64,)},
-               {"track_history": True}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"speculate": 2}, {"track_history": True}):
+        with pytest.raises(NotImplementedError, match="queue 1 item"):
             Engine(cfg, params, EngineConfig(**kw), device=CPU)
     eng = Engine(cfg, params, EngineConfig(max_seq_len=128), device=CPU)
     with pytest.raises(NotImplementedError):
         eng.submit(Request(rid=0, prompt=[1],
                            sampling=SamplingParams(repetition_penalty=1.2)))
-    with pytest.raises(NotImplementedError):
-        eng.snapshot()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, params, EngineConfig(max_seq_len=128))
+
+
+# Options of ROADMAP.md queue 1 item 8 that raised before it was ported:
+# each now serves, with the tokens of single-request generation.
+@pytest.mark.parametrize("ec", [dict(prefill_chunk=16),
+                                dict(attn_windows=(64,)),
+                                dict(prefill_chunk=16, prefix_cache=2,
+                                     prefix_cache_auto=True)])
+def test_engine_item8_options_serve(setup, ec):
+    _, _, cfg, params = setup
+    prompts = _prompts(3, 5, 40, cfg.vocab_size, SEED + 8)
+    _, done = _engine_tokens(cfg, params, prompts, 5, batch_slots=2,
+                             max_seq_len=128, decode_block=4, **ec)
+    fwd = _port_forward(cfg, params)
+    for p, req in zip(prompts, done):
+        assert_tokens_match_guarded(fwd, p, req.tokens,
+                                    _single(cfg, params, p, 5),
+                                    tag=f"rid {req.rid}")
+
+
+def test_engine_snapshot_round_trip(setup):
+    """snapshot() serves where it raised: restored into a fresh engine, the
+    run finishes with the uninterrupted run's tokens."""
+    _, _, cfg, params = setup
+    prompts = _prompts(3, 4, 12, cfg.vocab_size, SEED + 9)
+
+    def make():
+        eng = Engine(cfg, params, EngineConfig(batch_slots=2, max_seq_len=128,
+                                               prefill_pad=4, decode_block=4),
+                     device=CPU)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p,
+                               sampling=SamplingParams(max_new_tokens=6)))
+        return eng
+
+    want = {r.rid: r.tokens for r in make().run()}
+    eng = make()
+    eng._admit()
+    eng._step_decode()
+    state = eng.snapshot()
+    fresh = Engine(cfg, params, EngineConfig(batch_slots=2, max_seq_len=128,
+                                             prefill_pad=4, decode_block=4),
+                   device=CPU)
+    fresh.restore(state)
+    assert {r.rid: r.tokens for r in fresh.run()} == want
 
 
 def test_sampler_greedy_and_modes():
