@@ -132,6 +132,26 @@ Phases (any failure exits non-zero):
      llama3_8b --prefill-chunk 256 --attn-windows 512,1024,2048
      --benchmark 8 --max-new 32` in process at 4 layers, full width:
      exact launches, tokens and its metrics;
+ 15. the mesh, the quantized collectives and the int8 ring: (a) one
+     data-parallel all-reduce of Llama-3-8B's w1 gradient (4096 x 14336
+     f32 a rank) over 8 ranks stacked on the card
+     (`rdma_all_reduce_shard` on a single-process mesh), exact ring_hop /
+     ring_gather launches, bit for bit against `ring_plain`, replicas
+     identical; quantized_all_reduce and quantized_psum in nearest mode,
+     uint8 and uint4, at P = 8 with the quantize / dequantize / min-max
+     launches of their hop count, within the reference tests' bounds of
+     the f32 sum; (b) ring_hop and ring_gather bit for bit against
+     `ring_plain` at P = 2, 4, 8 at the reference tests' shapes and
+     `rdma_ring_selftest(rows=256)`; (c) ring_hop's and ring_gather's
+     times, the whole call's, their bounds and plain versions';
+ 16. token history, penalties and beam search: Llama-3-8B at full width
+     and depth, random INT4 codes, INT8 lm_head, kv8: an Engine with
+     track_history serves 8 greedy requests with repetition penalties of
+     1.1-1.3, frequency and presence penalties of 0.5, a logit_bias ban
+     and min_new_tokens with an eos_token, exact launches, tokens against
+     the port's penalized single-request generation; the same prompts
+     without history for decode tok/s beside; beam_search with 4 beams
+     (sorted hypotheses) and 1 beam (greedy generation's tokens);
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -533,6 +553,7 @@ def kernel_wrappers():
     from piquant_tpu_torch.ops.cuda import quantize as QK
     from piquant_tpu_torch.ops.cuda import ragged as R
     from piquant_tpu_torch.ops.cuda import requantize as RQ
+    from piquant_tpu_torch.ops.cuda import ring as RG
 
     return {"w4_gemv": Q.w4_gemv, "decode_attn2": DA.decode_attn2,
             "flash_prefill": FL.flash_attn, "quantize": QK.quantize,
@@ -544,7 +565,8 @@ def kernel_wrappers():
             "wq_ragged_grouped": R.wq_ragged_grouped,
             "wq_ragged_a8": R.wq_ragged_a8, "nf4_gemv": Q.nf4_gemv,
             "decode_attn2_kv4": DA.decode_attn2_kv4,
-            "mlp_fused": Q.mlp_fused, "decode_attn": AT.decode_attn}
+            "mlp_fused": Q.mlp_fused, "decode_attn": AT.decode_attn,
+            "ring_hop": RG.ring_hop, "ring_gather": RG.ring_gather}
 
 
 def zero_counts() -> None:
@@ -3158,6 +3180,478 @@ def run_fused(torch, dev, gen, args):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh, the quantized collectives and the int8 ring
+# ---------------------------------------------------------------------------
+
+RING_P = 8                    # data-parallel ranks, stacked on the card
+RING_N = 4096 * 14336         # Llama-3-8B's w1 gradient: values a rank
+RING_CHUNK = 65536            # the reference's max_chunk_elems
+# (shape, max_chunk_elems) of the reference tests (tests/test_rdma_ring.py)
+RING_HOLDS = (((4096,), 65536), ((1000,), 65536), ((16, 257), 65536),
+              ((3 * 8 * 1024 + 7,), 1024))
+COLL_N = (1000, 4096)         # quantized_all_reduce / psum values a rank
+COLL_KERNELS = ("quantize", "dequantize", "min_max")
+
+
+def ring_bound(x) -> float:
+    """The int8 ring's bound on |result - exact sum|: tests/test_rdma_ring.py's
+    (P-1) P max|x| / 254, or, where that is tighter (P < 3), the P-1 hops'
+    and the gather's half steps, each of a partial of at most s + 1
+    addends: P (P+1) / 2 max|x| / 254, 5% over for the errors the partials
+    carry."""
+    p, top = x.shape[0], float(x.abs().max())
+    return max((p - 1) * p, 1.05 * p * (p + 1) / 2) * top / 254.0
+
+
+def ring_mesh(dev, p):
+    from piquant_tpu_torch.parallel import make_mesh
+
+    return make_mesh([("x", p)], devices=[dev] * p).axis("x")
+
+
+def check_ring(torch, dev, gen):
+    """Phase 15 (b): the stacked ring over P = 2, 4, 8 ranks on the card at
+    the reference tests' shapes, bit for bit against ring_plain, replicas
+    identical and within the int8 bound; then the P = 2 loopback selftest.
+    Returns the largest difference (0 when bit for bit)."""
+    from piquant_tpu_torch.ops.cuda import ring as RG
+    from piquant_tpu_torch.parallel import (rdma_all_reduce_shard,
+                                            rdma_ring_selftest)
+
+    worst = 0.0
+    for p in (2, 4, 8):
+        axis = ring_mesh(dev, p)
+        for shape, chunk in RING_HOLDS:
+            x = torch.randn((p,) + shape, generator=gen, device=dev)
+            got = rdma_all_reduce_shard(x, axis, max_chunk_elems=chunk)
+            want = RG.ring_plain(x.reshape(p, -1), chunk).reshape(got.shape)
+            worst = max(worst, same(torch, f"ring P={p} {shape}", got, want))
+            if not all(torch.equal(got[0], got[d]) for d in range(1, p)):
+                raise AssertionError(f"ring P={p} {shape}: replicas differ")
+            err = float((got[0] - x.sum(0)).abs().max())
+            if err > ring_bound(x):
+                raise AssertionError(f"ring P={p} {shape}: error {err} past "
+                                     f"{ring_bound(x)}")
+    err = rdma_ring_selftest(rows=256)
+    print(f"ring: P = 2, 4, 8 x {len(RING_HOLDS)} shapes bit for bit against "
+          f"ring_plain, replicas identical; loopback selftest error {err:.4e}",
+          flush=True)
+    return worst
+
+
+def run_collectives(torch, dev, gen):
+    """Phase 15 (a), second half: quantized_all_reduce and quantized_psum,
+    nearest, uint8 and uint4, at P = 8 stacked on the card.  A call makes
+    P(P-1) + P quantizes (each with its min/max) and P(P-1) dequant-ADDs
+    plus P * P dequantizes (every rank's all-gather); the result is within
+    tests/test_collectives.py's bound of the f32 sum.  Returns the
+    quantize / dequantize / min_max launches of all calls."""
+    from piquant_tpu_torch.parallel import (make_mesh, quantized_all_reduce,
+                                            quantized_psum)
+
+    p = RING_P
+    mesh = make_mesh([("x", p)], devices=[dev] * p)
+    wr = kernel_wrappers()
+    zero_counts()
+    calls = 0
+    for n in COLL_N:
+        x = torch.randn((p, n), generator=gen, device=dev)
+        want = x.sum(0)
+        for q in ("uint8", "uint4"):
+            steps = 255 if q == "uint8" else 15
+            tol = p * (float(x.abs().max()) * p * 2 / steps) * 0.5 + 1e-3
+            rep = quantized_all_reduce(x, mesh.axis("x"), q, "nearest")
+            psum = quantized_psum(x, mesh, "x", q, "nearest")
+            calls += 2
+            if not all(torch.equal(rep[0], rep[d]) for d in range(1, p)):
+                raise AssertionError(f"quantized_all_reduce {q}: replicas "
+                                     "differ")
+            if not torch.equal(psum, rep[0]):
+                raise AssertionError(f"quantized_psum {q} != all_reduce")
+            err = float((rep[0] - want).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"quantized_all_reduce {q} n={n}: error "
+                                     f"{err} past {tol}")
+    torch.cuda.synchronize()
+    got = {k: wr[k].launches for k in COLL_KERNELS}
+    expect = {"quantize": calls * p * p, "min_max": calls * p * p,
+              "dequantize": calls * (p * (p - 1) + p * p)}
+    print(f"collectives: {calls} calls at P = {p} (uint8, uint4; n {COLL_N}),"
+          f" launches {got}, expected {expect}", flush=True)
+    if got != expect:
+        raise AssertionError(f"collectives launches {got} != {expect}")
+    return got
+
+
+def run_ring(torch, dev, gen):
+    """Phase 15 (a) and (c): the w1 all-reduce counted, held and timed;
+    the collectives; the holds of (b).  Returns the kernels-line rows of
+    ring_hop and ring_gather and the collectives' launches."""
+    from piquant_tpu_torch.ops.cuda import ring as RG
+    from piquant_tpu_torch.parallel import rdma_all_reduce_shard
+
+    p, n = RING_P, RING_N
+    axis = ring_mesh(dev, p)
+    x = torch.randn((p, n), generator=gen, device=dev)
+    segs, nbytes = RG.segments(n, p, RING_CHUNK)
+    wr = kernel_wrappers()
+    zero_counts()
+    out = rdma_all_reduce_shard(x, axis, max_chunk_elems=RING_CHUNK)
+    torch.cuda.synchronize()
+    launches = {k: wr[k].launches for k in ("ring_hop", "ring_gather")}
+    expect = {"ring_hop": p * len(segs), "ring_gather": len(segs)}
+    print(f"ring: Llama-3-8B w1 all-reduce, {n} f32 a rank over {p} ranks "
+          f"({len(segs)} run(s) of buckets), launches {launches}, expected "
+          f"{expect}", flush=True)
+    if launches != expect:
+        raise AssertionError(f"ring launches {launches} != {expect}")
+    coll = run_collectives(torch, dev, gen)
+    want = RG.ring_plain(x, RING_CHUNK)
+    err = same(torch, "ring w1", out, want)
+    if not all(torch.equal(out[0], out[d]) for d in range(1, p)):
+        raise AssertionError("ring w1: replicas differ")
+    sum_err = float((out[0] - x.sum(0)).abs().max())
+    if sum_err > ring_bound(x):
+        raise AssertionError(f"ring w1: error {sum_err} past the bound")
+    del want
+    err = max(err, check_ring(torch, dev, gen))
+
+    # (c) times at the w1 shape: one hop with a received term (every rank
+    # row, all 112 buckets), the gather of all 8 replicas, the whole call
+    seg = segs[0]
+    bufs = torch.empty((2, p, nbytes), dtype=torch.uint8, device=dev)
+    RG.ring_hop(x, seg, p, 0, bufs[0])
+    hop_ms = cuda_ms(lambda i: RG.ring_hop(x, seg, p, 1, bufs[1], bufs[0],
+                                           0, 1), 10)
+    gather_ms = cuda_ms(lambda i: RG.ring_gather(bufs[1], seg, p, out), 10)
+    call_ms = cuda_ms(lambda i: rdma_all_reduce_shard(
+        x, axis, max_chunk_elems=RING_CHUNK), 3)
+    hop_plain = event_ms(lambda i: RG.ring_hop_plain(
+        x, seg, p, 1, bufs[1], bufs[0], 0, 1), 2, warmup=1)
+    gather_plain = event_ms(lambda i: RG.ring_gather_plain(
+        bufs[1], seg, p, out), 2, warmup=1)
+    call_plain = event_ms(lambda i: RG.ring_plain(x, RING_CHUNK), 1,
+                          warmup=0)
+    # bytes each reads once and writes once: a hop reads every rank's f32
+    # chunk and received int8 codes and writes int8 codes (6 bytes a value
+    # of one rank's n); the gather reads one int8 code a value and writes
+    # P f32 replicas; the call reads P f32 addends and writes P replicas
+    hop_b, hop_by = bound_ms(6 * n + 8 * p * seg.nb, 0)
+    gat_b, gat_by = bound_ms(n + 4 * p * seg.nb + 4 * p * n, 0)
+    call_b, call_by = bound_ms(8 * p * n, 0)
+    print(f"ring: ring_hop {hop_ms:.4f} ms a launch (bound {hop_b:.4f}, "
+          f"plain {hop_plain:.4f}), ring_gather {gather_ms:.4f} ms (bound "
+          f"{gat_b:.4f}, plain {gather_plain:.4f}), the whole call "
+          f"{call_ms:.4f} ms (bound {call_b:.4f} {call_by}, ring_plain "
+          f"{call_plain:.4f}); error against the f32 sum {sum_err:.4e} "
+          f"[{card_line()}]", flush=True)
+    common = dict(route="cuda", source="piquant_tpu_torch/csrc/ring.cu",
+                  replaces="piquant_tpu/parallel/rdma_ring.py:62 "
+                           "(_ring_kernel, via _pallas_ring :153)",
+                  max_abs_err=err, library_ms=None,
+                  library="none: no single PyTorch call quantizes a ring",
+                  timed=f"Llama-3-8B w1 gradient all-reduce, {n} f32 a rank,"
+                        f" P = {p} stacked on one card",
+                  call_ms=call_ms, call_bound_ms=call_b,
+                  call_plain_ms=call_plain, sum_err=sum_err)
+    rows = [dict(name="ring_hop", ms=hop_ms, bound_ms=hop_b, bound_by=hop_by,
+                 plain_ms=hop_plain, **common),
+            dict(name="ring_gather", ms=gather_ms, bound_ms=gat_b,
+                 bound_by=gat_by, plain_ms=gather_plain, **common)]
+    del x, out, bufs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launches, coll
+
+
+# ---------------------------------------------------------------------------
+# phase 16: token history, penalties and beam search
+# ---------------------------------------------------------------------------
+
+HIST_NEW = 16
+HIST_PROMPTS = (100, 600)     # prompt lengths drawn in [lo, hi)
+# per request: (repetition, frequency, presence) penalties; request 6 bans
+# its own unpenalized first token, request 7 takes it as EOS under
+# min_new_tokens 8
+HIST_PENALTIES = ((1.1, 0.0, 0.0), (1.15, 0.5, 0.0), (1.2, 0.0, 0.5),
+                  (1.25, 0.5, 0.5), (1.3, 0.0, 0.0), (1.0, 0.5, 0.5),
+                  (1.1, 0.0, 0.0), (1.2, 0.0, 0.0))
+HIST_MIN_NEW = 8
+
+
+def generate_penalized(torch, M, cfg, params, prompt, sp, dev):
+    """The port's own single-request greedy generation under `sp`'s
+    penalties, as the engine applies them (the first token: repetition
+    over the prompt and the first bias row; then repetition over prompt +
+    generated, frequency and presence over the generated, the bias, EOS
+    below min_new_tokens), stopping at EOS.  Returns the tokens and the
+    top-2 margin of the penalized logits that chose each."""
+    from piquant_tpu_torch.serving.sampler import (apply_freq_presence,
+                                                   apply_repetition_penalty)
+
+    plen, n_new = len(prompt), sp.max_new_tokens
+    cache = M.init_kv_cache(cfg, 1, max_len=plen + n_new, device=dev)
+    logits, cache = M.prefill(cfg, params, torch.tensor(
+        [prompt], device=dev, dtype=torch.int32), cache)
+    bias = torch.zeros(cfg.vocab_size, device=dev)
+    for t, b in sp.logit_bias:
+        bias[t] = b
+    one = lambda v, dt=torch.float32: torch.tensor(  # noqa: E731
+        [v], device=dev, dtype=dt)
+    hist, toks, margins = list(prompt), [], []
+    while True:
+        h = torch.tensor([hist], device=dev, dtype=torch.int32)
+        lg = apply_repetition_penalty(logits, h, one(len(hist), torch.int32),
+                                      one(sp.repetition_penalty))
+        if toks:
+            lg = apply_freq_presence(lg, h, one(plen, torch.int32),
+                                     one(len(hist), torch.int32),
+                                     one(sp.frequency_penalty),
+                                     one(sp.presence_penalty))
+        lg = lg[0] + bias
+        if sp.eos_token >= 0 and len(toks) + 1 <= sp.min_new_tokens:
+            lg[sp.eos_token] = -1e30
+        top = lg.topk(2)
+        toks.append(int(top.indices[0]))
+        margins.append(float(top.values[0] - top.values[1]))
+        hist.append(toks[-1])
+        if len(toks) == n_new or toks[-1] == sp.eos_token:
+            return toks, margins
+        logits, cache = M.decode_step(
+            cfg, params, torch.tensor([toks[-1]], device=dev,
+                                      dtype=torch.int32),
+            torch.tensor([len(hist) - 1], device=dev, dtype=torch.int32),
+            cache)
+
+
+def history_requests(torch, M, cfg, params, dev, seed):
+    """Phase 16's 8 prompts and SamplingParams: the penalties of
+    HIST_PENALTIES; request 6 bans, and request 7 takes as its EOS, its own
+    unpenalized greedy first token (read from one prefill)."""
+    import numpy as np
+
+    from piquant_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed + 16)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             int(rng.integers(*HIST_PROMPTS)))]
+               for _ in HIST_PENALTIES]
+    sps = []
+    for i, (rp, fp, pp) in enumerate(HIST_PENALTIES):
+        kw = dict(repetition_penalty=rp, frequency_penalty=fp,
+                  presence_penalty=pp, max_new_tokens=HIST_NEW)
+        if i >= 6:
+            first = generate_single(torch, M, cfg, params, prompts[i], 1,
+                                    dev)[0][0]
+            kw.update(dict(logit_bias=((first, -1e9),)) if i == 6 else
+                      dict(eos_token=first, min_new_tokens=HIST_MIN_NEW))
+        sps.append(SamplingParams(**kw))
+    return prompts, sps
+
+
+def history_engine(torch, dev, args, cfg, params, prompts, sps, history):
+    """Serve the prompts through an Engine (batch 8, max_seq_len 2048,
+    prefill_pad 128: whole flash tiles) with or without the token history;
+    -> (finished requests, metrics, decode blocks, prefill calls, kernel
+    launches of the run)."""
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    ec = EngineConfig(batch_slots=8, max_seq_len=2048, prefill_pad=128,
+                      decode_block=16, track_history=history)
+    eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
+    counts = {"blocks": 0, "prefills": 0}
+    dispatch, admit = eng._dispatch_block, eng._admit_one_shot
+
+    def counted_dispatch():
+        counts["blocks"] += 1
+        return dispatch()
+
+    def counted_admit(batch):
+        counts["prefills"] += 1
+        return admit(batch)
+
+    eng._dispatch_block, eng._admit_one_shot = counted_dispatch, counted_admit
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        eng.submit(Request(rid=i, prompt=p, sampling=sp if history else
+                           SamplingParams(max_new_tokens=HIST_NEW)))
+    wr = kernel_wrappers()
+    zero_counts()
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    launches = {k: wr[k].launches for k in ("w4_gemv", "decode_attn2",
+                                            "flash_prefill", "w8_gemv")}
+    return eng, done, counts, launches
+
+
+HIST_ORDER = (False, True)    # the served runs, without history first
+# decode blocks of the step comparison: without, with, with, without,
+# each block synchronised; then one profiled block of HIST_PROFILED steps
+# each
+HIST_BLOCKS = (False, True, True, False)
+HIST_PROFILED = 2
+
+
+def compare_history_steps(torch, dev, args, cfg, params, prompts):
+    """Phase 16's step comparison: two engines of one setup, with and
+    without the history (the first with repetition 1.2 and frequency 0.5
+    on every request), decode blocks alternated (HIST_BLOCKS), then one
+    block of HIST_PROFILED steps each under torch.profiler (device time,
+    launches), the
+    penalties' cost alone, and one history step's penalties and history
+    write under CUDA's sync debug mode, which raises at a host sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    engines = {}
+    for history in (False, True):
+        ec = EngineConfig(batch_slots=8, max_seq_len=2048, prefill_pad=128,
+                          decode_block=16, track_history=history)
+        eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
+        pen = dict(repetition_penalty=1.2, frequency_penalty=0.5)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, sampling=SamplingParams(
+                max_new_tokens=2048 - len(p), **(pen if history else {}))))
+        eng._admit()
+        eng._process_block(*eng._dispatch_block())       # warm
+        engines[history] = eng
+    ms = {False: [], True: []}
+    for history in HIST_BLOCKS:
+        eng = engines[history]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._process_block(*eng._dispatch_block())
+        torch.cuda.synchronize()
+        ms[history].append((time.perf_counter() - t0) * 1e3 /
+                           eng.ec.decode_block)
+    prof = {}
+    for history, eng in engines.items():
+        eng.ec = dataclasses.replace(eng.ec, decode_block=HIST_PROFILED)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
+            eng._process_block(*eng._dispatch_block())
+            torch.cuda.synchronize()
+        rows = [(e.device_time_total / 1e3, e.count)
+                for e in pr.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.device_time_total > 0]
+        prof[history] = (sum(r[0] for r in rows) / HIST_PROFILED,
+                         sum(r[1] for r in rows) // HIST_PROFILED)
+    eng = engines[True]
+    logits = torch.randn((8, cfg.vocab_size), generator=torch.Generator(
+        device=dev).manual_seed(args.seed), device=dev)
+    pos = torch.full((8,), 500, dtype=torch.int32, device=dev)
+    tok = torch.ones(8, dtype=torch.int32, device=dev)
+    pen_host = host_ms(lambda i: eng._penalize(logits, pos), 20)
+    pen_dev = event_ms(lambda i: eng._penalize(logits, pos), 20)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._penalize(logits, pos)
+        eng._hist_write(tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mean = {h: sum(v) / len(v) for h, v in ms.items()}
+    print(f"history steps: ms a decode step at batch 8, blocks alternated "
+          f"{HIST_BLOCKS}: with history {[round(v, 2) for v in ms[True]]} "
+          f"(mean {mean[True]:.2f}), without "
+          f"{[round(v, 2) for v in ms[False]]} (mean {mean[False]:.2f}); "
+          f"profiled a step: kernels {prof[True][0]:.3f} against "
+          f"{prof[False][0]:.3f} ms, launches {prof[True][1]} against "
+          f"{prof[False][1]}; the penalties alone {pen_host:.3f} ms eagerly, "
+          f"{pen_dev:.3f} ms back to back on the device; no host sync in a "
+          f"step's penalties and history write [{card_line()}]", flush=True)
+    del engines, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_history(torch, dev, args):
+    """Phase 16: Llama-3-8B at full width and depth, random INT4 codes,
+    INT8 lm_head, kv8: the history engine's tokens and launches, decode
+    tok/s with and without history, the penalties' cost a step, beam
+    search."""
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.models.generate import beam_search
+
+    cfg = M.LlamaConfig.llama3_8b()
+    params = M.random_quantized_params(cfg, seed=args.seed, lm_head_bits=8,
+                                       device=dev)
+    prompts, sps = history_requests(torch, M, cfg, params, dev, args.seed)
+    rates = {}
+    for history in HIST_ORDER:
+        eng, done, counts, launches = history_engine(
+            torch, dev, args, cfg, params, prompts, sps, history)
+        m = eng.metrics
+        steps = counts["blocks"] * 16
+        nl = cfg.n_layers
+        expect = {"w4_gemv": 7 * nl * steps, "decode_attn2": nl * steps,
+                  "flash_prefill": nl * counts["prefills"],
+                  "w8_gemv": steps + counts["prefills"]}
+        label = "with history" if history else "without history"
+        print(f"history engine [{label}]: {counts['blocks']} decode blocks "
+              f"({steps} steps), {counts['prefills']} prefill calls, "
+              f"launches {launches}, expected {expect}", flush=True)
+        if launches != expect:
+            raise AssertionError(f"history engine [{label}]: launches "
+                                 f"{launches} != {expect}")
+        if len(done) != len(prompts) or not all(r.done for r in done):
+            raise AssertionError(f"history engine [{label}]: unfinished")
+        rates[label] = m.decode_tokens_per_s
+        print(f"history_engine_metrics [{label}] " + json.dumps(
+            {"card": card_line(), **m.to_dict(), "decode_steps": steps}),
+            flush=True)
+        del eng
+        if not history:
+            continue
+        for r, sp in zip(done, sps):
+            want, margins = generate_penalized(torch, M, cfg, params,
+                                               r.prompt, sp, dev)
+            verdict = check_tokens_guarded(r.tokens, want, margins)
+            print(f"history engine: request {r.rid} (prompt "
+                  f"{len(r.prompt)}, penalties {sp.repetition_penalty} / "
+                  f"{sp.frequency_penalty} / {sp.presence_penalty}) vs "
+                  f"penalized single-request generation: {verdict}",
+                  flush=True)
+        banned = sps[6].logit_bias[0][0]
+        if banned in done[6].tokens:
+            raise AssertionError("history engine: the banned token came")
+        eos = sps[7].eos_token
+        if eos in done[7].tokens[:HIST_MIN_NEW]:
+            raise AssertionError("history engine: EOS under min_new_tokens")
+        print(f"history engine: request 6 never emits its banned token "
+              f"{banned}; request 7 emits {len(done[7].tokens)} tokens with "
+              f"its EOS {eos} held off for {HIST_MIN_NEW}", flush=True)
+    print(f"history engine: decode {rates['with history']:.2f} tok/s with "
+          f"history and penalties, {rates['without history']:.2f} without "
+          f"(tokens kept over decode time; one run each, without first) "
+          f"[{card_line()}]", flush=True)
+    compare_history_steps(torch, dev, args, cfg, params, prompts)
+
+    prompt = prompts[0]
+    t0 = time.perf_counter()
+    hyps = beam_search(cfg, params, prompt, n_beams=4,
+                       max_new_tokens=HIST_NEW, device=dev)
+    beam_s = time.perf_counter() - t0
+    if (len(hyps) != 4 or any(len(h.tokens) != HIST_NEW for h in hyps)
+            or any(hyps[i].score < hyps[i + 1].score for i in range(3))):
+        raise AssertionError("beam_search: hypotheses unsorted or short")
+    (one,) = beam_search(cfg, params, prompt, n_beams=1,
+                         max_new_tokens=HIST_NEW, device=dev)
+    want, margins = generate_single(torch, M, cfg, params, prompt, HIST_NEW,
+                                    dev)
+    verdict = check_tokens_guarded(one.tokens, want, margins)
+    print(f"beam search: 4 beams in {beam_s:.2f} s, scores "
+          f"{[round(h.score, 4) for h in hyps]}; 1 beam vs greedy "
+          f"generation: {verdict}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3259,12 +3753,21 @@ def main() -> int:
     kernels += fused_rows
     launches.update(fused_launches)
     phase_done(14)
+    torch.cuda.empty_cache()
+    ring_rows, ring_launches, coll = run_ring(torch, dev, gen)
+    kernels += ring_rows
+    launches.update(ring_launches)
+    phase_done(15)
+    run_history(torch, dev, args)
+    phase_done(16)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in gemma:
             kern["gemma_launches"] = gemma[kern["name"]]
         if kern["name"] in l4:
             kern["llama4_gpt_oss_launches"] = l4[kern["name"]]
+        if kern["name"] in coll:
+            kern["collectives_launches"] = coll[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

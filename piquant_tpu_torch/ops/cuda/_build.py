@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "qmatmul_ragged.cu",
            "qmatmul_mlp.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
-           "dequantize.cu", "requantize.cu", "minmax.cu")
+           "dequantize.cu", "requantize.cu", "minmax.cu", "ring.cu")
 HEADERS = ("pq_quant.cuh", "pq_tile.cuh")
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,6 +87,12 @@ SIGNATURES = {
                       _I, _P],
     # x, part, out, n, in_bf16, blocks, stream
     "pq_minmax": [_P, _P, _P, _I64, _I, _I, _P],
+    # x, recv, send, x_off, x_stride, w_off, w_stride, csize, valid, nb, p,
+    # rows, hop, my0, shift, vec, stream
+    "pq_ring_hop": [_P] * 3 + [_I64] * 6 + [_I] * 7 + [_P],
+    # wire, out, x_off, x_stride, w_off, w_stride, csize, valid, nb, p, nrep,
+    # loopback, vec, stream
+    "pq_ring_gather": [_P] * 2 + [_I64] * 6 + [_I] * 5 + [_P],
 }
 
 

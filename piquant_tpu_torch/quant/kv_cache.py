@@ -266,25 +266,29 @@ def kv_cache_append_stacked_batch(
     return cache
 
 
-def kv_cache_copy_rows(dst: KVCache, src: KVCache,
-                       rows: torch.Tensor) -> KVCache:
-    """Copy every position of the stacked cache `src` (a prefill burst's
-    own cache, as wide as its padded prompts) into batch rows `rows` of the
+def kv_cache_copy_rows(dst: KVCache, src: KVCache, rows: torch.Tensor,
+                       n: Optional[int] = None) -> KVCache:
+    """Copy the first `n` positions (default: all) of the stacked cache
+    `src` (a prefill burst's own cache) into batch rows `rows` of the
     stacked cache `dst`, at its first positions, with its lengths.  In
-    place; positions past src's are left as they are."""
+    place; positions past `n` are left as they are (for kv4 an odd `n`
+    copies the even half of the last pair row and its scale only)."""
     if dst.bits != src.bits:
         raise ValueError("caches of different code widths")
-    s = src.max_len
+    s = src.max_len if n is None else n
     for big, small in zip((dst.k_codes, dst.v_codes), (src.k_codes,
                                                        src.v_codes)):
-        _positions_view(big)[:, rows, :, :s] = _positions_view(small)
+        _positions_view(big)[:, rows, :, :s] = _positions_view(small)[
+            ..., :s, :]
     for big, small in zip((dst.k_scale, dst.v_scale), (src.k_scale,
                                                        src.v_scale)):
-        if dst.bits == 4:        # parity-split: S/2 columns a parity
-            big[:, rows, :, :, :s // 2] = small
+        if dst.bits == 4:        # parity-split: position p at [p % 2, p // 2]
+            for par in (0, 1):
+                cols = (s + 1 - par) // 2
+                big[:, rows, :, par, :cols] = small[..., par, :cols]
         else:
-            big[:, rows, :, :s] = small
-    dst.length[:, rows] = src.length
+            big[:, rows, :, :s] = small[..., :s, :]
+    dst.length[:, rows] = torch.clamp(src.length, max=s)
     return dst
 
 

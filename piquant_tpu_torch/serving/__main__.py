@@ -125,8 +125,6 @@ def _not_ported(args) -> None:
         todo.append(f"--random {args.random} (queue 1 item 11 (MLA))")
     if args.speculate or args.draft_bits is not None or args.draft_group_size:
         todo.append("--speculate / --draft-* (queue 1 item 10)")
-    if args.repetition_penalty != 1.0:
-        todo.append("--repetition-penalty (queue 1 item 7)")
     if args.serve is not None:
         todo.append("--serve (HTTP server: queue 1 item 12)")
     if todo:
@@ -178,10 +176,12 @@ def build(args):
     windows = (tuple(int(w) for w in args.attn_windows.split(","))
                if args.attn_windows else ())
     ec = EngineConfig(batch_slots=args.slots, max_seq_len=args.max_seq_len,
-                      prefill_chunk=args.prefill_chunk, attn_windows=windows)
+                      prefill_chunk=args.prefill_chunk, attn_windows=windows,
+                      track_history=args.repetition_penalty != 1.0)
     eng = Engine(cfg, params, ec, device=dev)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, min_p=args.min_p,
+                        repetition_penalty=args.repetition_penalty,
                         max_new_tokens=args.max_new, eos_token=-1)
     return cfg, params, eng, sp
 

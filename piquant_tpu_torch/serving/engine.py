@@ -14,9 +14,14 @@ per block, attending over the smallest `attn_windows` bucket that holds
 every active context.  The loop is pipelined: block N is launched before
 block N-1's tokens are read, so the readback overlaps device work; the
 block in flight is the engine's (`_inflight`), so `snapshot` drains it.
+With `track_history` every slot keeps its token history (prompt and
+generated) on the device, [B, max_seq_len + 2] int32 updated in place each
+step, and decode applies the repetition, frequency and presence
+penalties, `logit_bias` and the `min_new_tokens` EOS floor before
+sampling.
 
-Not ported yet (raise NotImplementedError): speculation, token history and
-penalties, guided decoding, LoRA adapters and draft models.
+Not ported yet (raise NotImplementedError): speculation, guided decoding,
+LoRA adapters and draft models.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.models import llama as M
 from piquant_tpu_torch.quant.kv_cache import KVCache, kv_cache_copy_rows
 from piquant_tpu_torch.serving.sampler import (TOPK_CAND, SamplingParams,
+                                               apply_freq_presence,
+                                               apply_repetition_penalty,
                                                sample_batch)
 
 
@@ -52,7 +59,9 @@ class EngineConfig:
     # accepted as the reference's option: eager PyTorch has no executable
     # to compile ahead for a bucket, so warming them does nothing here
     warmup_buckets: bool = True
-    track_history: bool = False  # not ported yet (queue 1 item 7)
+    # a device-side token history (prompt + generated) for every slot:
+    # needed by the penalties, min_new_tokens and logit_bias
+    track_history: bool = False
     # prompts prefill in chunks of this many tokens against the cache
     prefill_chunk: Optional[int] = None
     # pinned KV prefixes (needs prefill_chunk); _auto captures every
@@ -61,12 +70,10 @@ class EngineConfig:
     prefix_cache_auto: bool = False
 
     def check_ported(self) -> None:
-        todo = [f"{f} (queue 1 item {item})"
-                for f, item in (("speculate", 10), ("track_history", 7))
-                if getattr(self, f) != getattr(EngineConfig, f)]
-        if todo:
+        if self.speculate != EngineConfig.speculate:
             raise NotImplementedError(
-                f"EngineConfig options not ported yet (ROADMAP.md): {todo}")
+                "EngineConfig options not ported yet (ROADMAP.md): "
+                "['speculate (queue 1 item 10)']")
 
 
 @dataclasses.dataclass
@@ -149,11 +156,9 @@ class Engine:
         if econfig.prefill_pad > econfig.max_seq_len:
             econfig = dataclasses.replace(econfig,
                                           prefill_pad=econfig.max_seq_len)
-        if cfg.kv_bits == 4 and (econfig.prefill_pad % 2
-                                 or econfig.max_seq_len % 2):
-            # a prefill's padded width must fill whole kv4 pair rows
-            raise ValueError("kv_bits=4 needs an even prefill_pad and "
-                             "max_seq_len")
+        if cfg.kv_bits == 4 and econfig.max_seq_len % 2:
+            # the reference's init_kv_cache refuses it too
+            raise ValueError("kv_bits=4 needs an even max_seq_len")
         if (econfig.prefill_chunk
                 and econfig.prefill_chunk > econfig.max_seq_len):
             raise ValueError(
@@ -181,8 +186,25 @@ class Engine:
         self._topks = np.zeros((b,), np.int32)
         self._topps = np.ones((b,), np.float32)
         self._minps = np.zeros((b,), np.float32)
+        self._pens = np.ones((b,), np.float32)
+        self._freqs = np.zeros((b,), np.float32)   # frequency penalty
+        self._press = np.zeros((b,), np.float32)   # presence penalty
+        self._plens = np.zeros((b,), np.int32)     # prompt lengths (the
+                                                   # generated-only window)
+        self._eos_ids = np.full((b,), -1, np.int32)
+        self._minnews = np.zeros((b,), np.int32)   # min_new_tokens floors
+        # the [B, V] logit bias has a dirty flag of its own: it is copied to
+        # the device only when a request with a bias comes or goes
+        self._bias_np = np.zeros((b, cfg.vocab_size), np.float32)
+        self._bias_dirty = True
         self._slot_state_dirty = True
         self._host_pos = np.zeros((b,), np.int64)  # for the window buckets
+        if econfig.track_history:
+            # prompt + generated tokens a slot, written in place on the
+            # device (speculation will draft from the same buffer)
+            self._hist = torch.zeros((b, econfig.max_seq_len
+                                      + econfig.speculate + 2),
+                                     dtype=torch.int32, device=self.device)
         # token-tuple key -> (one-slot cache, prefix length); insertion
         # order is the LRU order
         self._prefix_pool: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -198,12 +220,22 @@ class Engine:
             raise ValueError(
                 f"request {req.rid}: top_k={sp.top_k} exceeds the sampler "
                 f"candidate window ({TOPK_CAND})")
-        if (sp.repetition_penalty != 1.0 or sp.frequency_penalty != 0.0
+        if not self.ec.track_history and (
+                sp.repetition_penalty != 1.0 or sp.frequency_penalty != 0.0
                 or sp.presence_penalty != 0.0 or sp.min_new_tokens > 0
                 or sp.logit_bias):
-            raise NotImplementedError(
-                f"request {req.rid}: penalties, min_new_tokens and "
-                "logit_bias need the token history, which is not ported yet")
+            raise ValueError(
+                f"request {req.rid}: repetition/frequency/presence penalties, "
+                "min_new_tokens, and logit_bias need the device-side token "
+                "history — set EngineConfig.track_history=True")
+        if sp.min_new_tokens > 0 and req.guide is not None:
+            raise ValueError(
+                f"request {req.rid}: min_new_tokens cannot combine with a "
+                "guide (the grammar decides when EOS is legal)")
+        for t, _ in sp.logit_bias:
+            if not 0 <= t < self.cfg.vocab_size:
+                raise ValueError(f"request {req.rid}: logit_bias token {t} "
+                                 f"outside vocab {self.cfg.vocab_size}")
         if req.guide is not None or req.adapter_id:
             raise NotImplementedError(
                 f"request {req.rid}: guided decoding and LoRA adapters are "
@@ -405,7 +437,7 @@ class Engine:
                                p["fresh"], ceff)
         slots = torch.tensor([slot], device=self.device)
         kv_cache_copy_rows(self.cache, p["fresh"], slots)
-        tok, lp = self._sample_first(p["last"], [req.sampling])
+        tok, lp = self._sample_first(p["last"], [req])
         self._cur_tok[slots] = tok
         self._positions[slots] = plen
         self._record_first_token(req, int(tok[0]), float(lp[0]), slot, plen,
@@ -423,16 +455,17 @@ class Engine:
         plens = torch.tensor([plen for _, _, plen, _ in batch],
                              dtype=torch.int32, device=dev)
         slots = torch.tensor([slot for _, slot, _, _ in batch], device=dev)
-        # the prompt's KV is built in a cache of its own padded width and
-        # copied into the slots' first `width` positions; positions past it
-        # are never read before decode writes them
-        fresh = M.init_kv_cache(self.cfg, bq, max_len=width, device=dev)
+        # the prompt's KV is built in a cache of its own padded width (kv4:
+        # the next even width, whole pair rows) and its first `width`
+        # positions are copied into the slots; positions past it are never
+        # read before decode writes them
+        even = width + width % 2 if self.cfg.kv_bits == 4 else width
+        fresh = M.init_kv_cache(self.cfg, bq, max_len=even, device=dev)
         last, fresh = M.prefill(self.cfg, self.params,
                                 torch.from_numpy(rows).to(dev), fresh,
                                 last_positions=plens - 1)
-        kv_cache_copy_rows(self.cache, fresh, slots)
-        tok, lp = self._sample_first(last, [req.sampling
-                                            for req, _, _, _ in batch])
+        kv_cache_copy_rows(self.cache, fresh, slots, width)
+        tok, lp = self._sample_first(last, [req for req, _, _, _ in batch])
         self._cur_tok[slots] = tok
         self._positions[slots] = plens
         toks, lps = tok.cpu().numpy(), lp.cpu().numpy()
@@ -440,13 +473,39 @@ class Engine:
             self._record_first_token(req, int(toks[i]), float(lps[i]), slot,
                                      plen, t0)
 
-    def _sample_first(self, last: torch.Tensor, sps):
-        """First tokens of prompts from their last logits [Bq, V] and
-        their SamplingParams -> (tokens, logprobs) on the device."""
+    def _first_bias_row(self, sp: SamplingParams) -> np.ndarray:
+        """[V] logit bias of a request's FIRST token: its logit_bias, and
+        EOS suppressed when min_new_tokens >= 1."""
+        row = np.zeros((self.cfg.vocab_size,), np.float32)
+        for t, bv in sp.logit_bias:
+            row[t] = bv
+        if sp.min_new_tokens > 0 and sp.eos_token >= 0:
+            row[sp.eos_token] = -1e30
+        return row
+
+    def _sample_first(self, last: torch.Tensor, reqs):
+        """First tokens of prompts from their last logits [Bq, V] ->
+        (tokens, logprobs of the raw logits) on the device.  With the
+        token history, the repetition penalty over each prompt and the
+        first bias rows apply first."""
         def vec(vals, dtype):
             return torch.tensor(vals, dtype=dtype, device=self.device)
 
-        tok = sample_batch(last, vec([s.temperature for s in sps], torch.float32),
+        sps = [r.sampling for r in reqs]
+        logits = last
+        if self.ec.track_history:
+            width = max(len(r.prompt) for r in reqs)
+            rows = np.zeros((len(reqs), width), np.int32)
+            for i, r in enumerate(reqs):
+                rows[i, :len(r.prompt)] = r.prompt
+            logits = apply_repetition_penalty(
+                last, torch.from_numpy(rows).to(self.device),
+                vec([len(r.prompt) for r in reqs], torch.int32),
+                vec([s.repetition_penalty for s in sps], torch.float32))
+            logits = logits + torch.from_numpy(np.stack(
+                [self._first_bias_row(s) for s in sps])).to(self.device)
+        tok = sample_batch(logits,
+                           vec([s.temperature for s in sps], torch.float32),
                            vec([s.top_k for s in sps], torch.int32),
                            vec([s.top_p for s in sps], torch.float32),
                            self._gen,
@@ -468,8 +527,24 @@ class Engine:
         self._topks[slot] = req.sampling.top_k
         self._topps[slot] = req.sampling.top_p
         self._minps[slot] = req.sampling.min_p
+        self._pens[slot] = req.sampling.repetition_penalty
+        self._freqs[slot] = req.sampling.frequency_penalty
+        self._press[slot] = req.sampling.presence_penalty
+        self._plens[slot] = plen
+        self._eos_ids[slot] = req.sampling.eos_token
+        self._minnews[slot] = req.sampling.min_new_tokens
+        if req.sampling.logit_bias or self._bias_np[slot].any():
+            self._bias_np[slot] = 0.0
+            for t, bv in req.sampling.logit_bias:
+                self._bias_np[slot, t] = bv
+            self._bias_dirty = True
         self._slot_state_dirty = True
         self._host_pos[slot] = plen
+        if self.ec.track_history:
+            # entries [0, plen] valid: the prompt and the first token
+            row = np.asarray(req.prompt + [tok], np.int32)
+            self._hist[slot, :plen + 1] = torch.from_numpy(row).to(
+                self.device)
         self._maybe_finish(req, slot)
 
     def _maybe_finish(self, req: Request, slot: int) -> None:
@@ -503,7 +578,15 @@ class Engine:
             self._topps_dev = torch.from_numpy(self._topps).to(dev)
             self._minps_dev = torch.from_numpy(self._minps).to(dev)
             self._active_dev = torch.from_numpy(self._active).to(dev)
+            if self.ec.track_history:
+                for f in ("_pens", "_freqs", "_press", "_plens", "_eos_ids",
+                          "_minnews"):
+                    setattr(self, f + "_dev",
+                            torch.from_numpy(getattr(self, f)).to(dev))
             self._slot_state_dirty = False
+        if self.ec.track_history and self._bias_dirty:
+            self._bias_dev = torch.from_numpy(self._bias_np).to(dev)
+            self._bias_dirty = False
         kblk = self.ec.decode_block
         window = self.ec.max_seq_len
         if self.ec.attn_windows:
@@ -517,11 +600,16 @@ class Engine:
         for _ in range(kblk):
             logits, self.cache = M.decode_step(self.cfg, self.params, tok, pos,
                                                self.cache, attn_window=window)
+            raw = logits
+            if self.ec.track_history:
+                logits = self._penalize(logits, pos)
             nxt = sample_batch(logits, self._temps_dev, self._topks_dev,
                                self._topps_dev, self._gen, self._minps_dev)
             tok = torch.where(self._active_dev, nxt, tok)
+            if self.ec.track_history:
+                self._hist_write(tok, pos)
             toks.append(tok)
-            lps.append(_tok_logprob(logits, tok))
+            lps.append(_tok_logprob(raw, tok))
             pos = pos + step_inc
         self._cur_tok, self._positions = tok, pos
         # ONE [K, B] readback per block, started now and awaited when the
@@ -533,6 +621,34 @@ class Engine:
             done = torch.cuda.Event()
             done.record()
         return (tok_host, lp_host, done), list(self._slots)
+
+    def _penalize(self, logits: torch.Tensor, pos: torch.Tensor
+                  ) -> torch.Tensor:
+        """The reference's history-tracking decode step before sampling:
+        the repetition penalty over history entries [0, pos], frequency
+        and presence over the generated ones, the logit bias, and each
+        slot's EOS suppressed while the count of generated tokens after
+        this step (pos + 2 - plen: the first came from the prefill) would
+        still be under its min_new_tokens."""
+        h = self._hist
+        logits = apply_repetition_penalty(logits, h, pos + 1, self._pens_dev)
+        logits = apply_freq_presence(logits, h, self._plens_dev, pos + 1,
+                                     self._freqs_dev, self._press_dev)
+        logits = logits + self._bias_dev
+        supp = (((pos + 2 - self._plens_dev) <= self._minnews_dev)
+                & (self._eos_ids_dev >= 0))
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        return logits.index_put_(
+            (rows, self._eos_ids_dev.clamp(min=0).long()),
+            torch.where(supp, -1e30, 0.0), accumulate=True)
+
+    def _hist_write(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
+        """Each active slot's new token into its history at pos + 1 (the
+        last entry at most), in place on the device."""
+        rows = torch.arange(tok.shape[0], device=tok.device)
+        at = torch.clamp(pos + 1, max=self._hist.shape[1] - 1).long()
+        self._hist[rows, at] = torch.where(self._active_dev, tok,
+                                           self._hist[rows, at])
 
     def _process_block(self, payload, slots_snapshot) -> None:
         """Read a dispatched block's tokens and do the bookkeeping."""
@@ -565,8 +681,9 @@ class Engine:
     # ------------------------------------------------------------------
     # snapshot / restore
     # ------------------------------------------------------------------
-    _SNAP_HOST = ("_temps", "_topks", "_topps", "_minps", "_host_pos",
-                  "_active")
+    _SNAP_HOST = ("_temps", "_topks", "_topps", "_minps", "_pens", "_freqs",
+                  "_press", "_plens", "_bias_np", "_eos_ids", "_minnews",
+                  "_host_pos", "_active")
 
     def snapshot(self) -> dict:
         """The engine's whole state on the host: the KV cache, per-slot
@@ -598,6 +715,8 @@ class Engine:
             "prefix_pool": [(k, host(c), eff)
                             for k, (c, eff) in self._prefix_pool.items()],
         })
+        if self.ec.track_history:
+            state["hist"] = self._hist.to("cpu", copy=True)
         for f in self._SNAP_HOST:
             state[f] = getattr(self, f).copy()
         return state
@@ -621,7 +740,10 @@ class Engine:
             (k, (dev(c), eff)) for k, c, eff in state["prefix_pool"])
         for f in self._SNAP_HOST:
             setattr(self, f, state[f].copy())
+        if "hist" in state:
+            self._hist = state["hist"].to(self.device, copy=True)
         self._slot_state_dirty = True   # device mirrors rebuilt lazily
+        self._bias_dirty = True
         self._pending_prefill = None
         self._inflight = None
 

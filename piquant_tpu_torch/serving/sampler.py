@@ -4,7 +4,8 @@
 Random draws come from an explicit `torch.Generator` and use the Gumbel-max
 form of a categorical draw, as `jax.random.categorical` does; the bits
 differ from JAX's, so tests compare keep-masks exactly and draws by
-frequency.  Repetition / frequency / presence penalties are not ported yet.
+frequency.  The penalties over a token history (repetition: HF/CTRL;
+frequency and presence: OpenAI's) follow the reference op for op.
 """
 
 from __future__ import annotations
@@ -21,18 +22,62 @@ class SamplingParams:
     top_k: int = 0             # 0 => disabled
     top_p: float = 1.0         # 1 => disabled
     min_p: float = 0.0         # 0 => disabled; keep p >= min_p * p_max
-    repetition_penalty: float = 1.0  # penalties: not ported (must stay off)
-    frequency_penalty: float = 0.0
-    presence_penalty: float = 0.0
-    logit_bias: tuple = ()
+    repetition_penalty: float = 1.0  # 1 => off; seen tokens' logits
+                                     # l > 0 -> l / pen, else l * pen
+                                     # (prompt + generated)
+    frequency_penalty: float = 0.0   # l -= fp * count(t) over GENERATED
+                                     # tokens (EngineConfig.track_history)
+    presence_penalty: float = 0.0    # l -= pp * [t generated before]
+    logit_bias: tuple = ()           # ((token_id, bias), ...) added every
+                                     # step (track_history)
     max_new_tokens: int = 128
-    min_new_tokens: int = 0
+    min_new_tokens: int = 0    # EOS suppressed until this many tokens
+                               # (track_history)
     eos_token: int = -1        # -1 => never stops on EOS
     stop_tokens: tuple = ()    # additional stop ids
     stop_sequences: tuple = ()  # multi-token stop suffixes (trimmed)
 
 
 TOPK_CAND = 128  # top-k/top-p candidate window (see sample_batch)
+
+
+def apply_repetition_penalty(logits: torch.Tensor, hist: torch.Tensor,
+                             hist_len: torch.Tensor, penalty: torch.Tensor
+                             ) -> torch.Tensor:
+    """HF/CTRL repetition penalty: for every token id in the first
+    hist_len [B] entries of the row's history hist [B, S] (prompt and
+    generated), logit l -> l / penalty if l > 0 else l * penalty
+    (penalty [B] f32; 1.0 leaves the row as it is).  -> f32 [B, V]."""
+    b, v = logits.shape
+    dev = logits.device
+    valid = (torch.arange(hist.shape[1], device=dev)[None, :]
+             < hist_len[:, None])
+    ids = torch.where(valid, hist.long(), v)   # invalid entries: off the end
+    seen = torch.zeros((b, v + 1), dtype=torch.bool, device=dev).scatter_(
+        1, ids, True)[:, :v]
+    l = logits.float()
+    pen = penalty[:, None]
+    penalized = torch.where(l > 0, l / pen, l * pen)
+    return torch.where(seen & (pen != 1.0), penalized, l)
+
+
+def apply_freq_presence(logits: torch.Tensor, hist: torch.Tensor,
+                        start: torch.Tensor, hist_len: torch.Tensor,
+                        freq: torch.Tensor, presence: torch.Tensor
+                        ) -> torch.Tensor:
+    """OpenAI-style penalties over the GENERATED tokens only, entries
+    [start, hist_len) of each history row (start: the prompt length):
+    l[t] -= freq * count(t) + presence * [count(t) > 0].  -> f32 [B, V]."""
+    b, v = logits.shape
+    dev = logits.device
+    pos = torch.arange(hist.shape[1], device=dev)[None, :]
+    gen = (pos >= start[:, None]) & (pos < hist_len[:, None])
+    ids = torch.where(gen, hist.long(), v)    # the rest: off the end
+    counts = torch.zeros((b, v + 1), dtype=torch.float32, device=dev)
+    counts = counts.scatter_add_(
+        1, ids, torch.ones(ids.shape, dtype=torch.float32, device=dev))[:, :v]
+    l = logits.float()
+    return l - freq[:, None] * counts - presence[:, None] * (counts > 0)
 
 
 def _categorical(logits: torch.Tensor, gen: Optional[torch.Generator]
@@ -45,10 +90,23 @@ def _categorical(logits: torch.Tensor, gen: Optional[torch.Generator]
 
 
 def sample(logits: torch.Tensor, params: SamplingParams,
-           gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """logits [B, V] -> tokens [B] int32 for one SamplingParams."""
+           gen: Optional[torch.Generator] = None,
+           history: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits [B, V] -> tokens [B] int32 for one SamplingParams.
+    `history` [B, S] token ids is required when repetition_penalty != 1
+    (the stateless API has no implicit context)."""
     if params.repetition_penalty != 1.0:
-        raise NotImplementedError("repetition_penalty is not ported yet")
+        if history is None:
+            raise ValueError("repetition_penalty needs `history` token ids")
+        b = logits.shape[0]
+        hist = torch.as_tensor(history, dtype=torch.int32,
+                               device=logits.device)
+        logits = apply_repetition_penalty(
+            logits, hist,
+            torch.full((b,), hist.shape[-1], dtype=torch.int32,
+                       device=logits.device),
+            torch.full((b,), params.repetition_penalty, dtype=torch.float32,
+                       device=logits.device))
     if params.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     l = logits.float() / params.temperature

@@ -186,12 +186,28 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
     (["--model", "/no/such/checkpoint"], 9), (["--random", "mla_v2_lite"], 11),
     (["--random", "mla_v2_moe"], 11), (["--random", "mla_tiny"], 11),
     (["--speculate", "4"], 10), (["--draft-bits", "2", "--speculate", "2"], 10),
-    (["--repetition-penalty", "1.1"], 7), (["--serve", "8123"], 12),
+    (["--serve", "8123"], 12),
     (["--draft-group-size", "32", "--speculate", "2"], 10)])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\b"):
         S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
                 *argv])
+
+
+# --repetition-penalty serves since item 7 was ported: it turns on the
+# engine's token history and reaches every request, as the reference CLI
+# passes it, and the benchmark completes.
+@pytest.mark.parametrize("penalty", ["1.1", "1.3"])
+def test_cli_repetition_penalty_serves(penalty):
+    args = S.build_parser().parse_args(
+        ["--random", "tiny", "--device", "cpu", "--benchmark", "2",
+         "--max-new", "4", "--max-seq-len", "256", "--repetition-penalty",
+         penalty])
+    cfg, _, eng, sp = S.build(args)
+    assert eng.ec.track_history and sp.repetition_penalty == float(penalty)
+    m, done = S.benchmark(args, cfg, eng, sp)
+    assert m["completed"] == 2 and m["decode_tokens"] == 2 * 3
+    assert all(len(r.tokens) == 4 for r in done)
 
 
 # The two flags of item 8 reach EngineConfig as the reference CLI passes

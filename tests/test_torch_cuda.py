@@ -20,6 +20,7 @@ from piquant_tpu_torch.ops.cuda import quantize as QK
 from piquant_tpu_torch.ops.cuda import requantize as RQ
 from piquant_tpu_torch.ops.cuda import flash as FL
 from piquant_tpu_torch.ops.cuda import qmatmul as Q
+from piquant_tpu_torch.ops.cuda import ring as RG
 from piquant_tpu_torch.quant.linear import QuantizedLinear
 
 pytestmark = pytest.mark.cuda
@@ -1223,3 +1224,46 @@ def test_decode_attn_refuses(dev):
         AT.decode_attn(q, kc.to(torch.uint8), ks, vc, vs, pos, 0.1)
     with pytest.raises(ValueError):
         AT.decode_attn(q, kc[:, :, :128], ks, vc, vs, pos, 0.1)
+
+
+# The ring's hop and gather kernels against the whole ring's plain version,
+# bit for bit (no FMA, IEEE division, half to even in both): stacked ranks
+# on the card, full and ragged buckets, misaligned rows (scalar loads), the
+# P = 2 loopback and padding-only chunks.
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("n,max_chunk", [(4096, 65536), (1000, 65536),
+                                         (16 * 257, 65536),
+                                         (3 * 8 * 1024 + 7, 1024),
+                                         (5 * 4 * 2048, 2048)])
+def test_ring_kernels_match_plain(dev, p, n, max_chunk):
+    from piquant_tpu_torch.parallel import make_mesh, rdma_all_reduce_shard
+
+    x = torch.randn((p, n), generator=_gen(dev, p * n), device=dev)
+    axis = make_mesh([("x", p)], devices=[dev] * p).axis("x")
+    hops, gathers = RG.ring_hop.launches, RG.ring_gather.launches
+    got = rdma_all_reduce_shard(x, axis, max_chunk_elems=max_chunk)
+    segs, _ = RG.segments(n, p, max_chunk)
+    assert RG.ring_hop.launches - hops == p * len(segs)
+    assert RG.ring_gather.launches - gathers == len(segs)
+    torch.cuda.synchronize()
+    want = RG.ring_plain(x, max_chunk)
+    assert torch.equal(got, want)
+    for d in range(1, p):
+        assert torch.equal(got[0], got[d])
+
+
+def test_ring_selftest_and_refusals(dev):
+    from piquant_tpu_torch.parallel import rdma_ring_selftest
+
+    assert rdma_ring_selftest(rows=256) <= 0.1
+    x = torch.zeros((2, 1024), device=dev)
+    seg = RG.Segment(0, 1, 512, 1024, 0)
+    send = torch.zeros((2, seg.wire_bytes), dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError):
+        RG.ring_hop(x.double(), seg, 2, 0, send)
+    with pytest.raises(ValueError):
+        RG.ring_hop(x, seg, 2, 0, send[:1])
+    with pytest.raises(ValueError):
+        RG.ring_hop(x, RG.Segment(0, 1, 510, 1020, 0), 2, 0, send)
+    with pytest.raises(ValueError):
+        RG.ring_gather(send[:1], seg, 2, x)

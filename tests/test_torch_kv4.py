@@ -325,6 +325,22 @@ def test_engine_kv4_matches_single_request_generation(kv4_setup):
                                     _single(cfg, params, p, 6),
                                     tag=f"rid {req.rid}")
     assert eng.cache.k_codes.dtype == torch.uint8
-    with pytest.raises(ValueError):
-        Engine(cfg, params, EngineConfig(max_seq_len=128, prefill_pad=5),
+    # an odd max_seq_len is refused, as the reference's init_kv_cache does
+    with pytest.raises(ValueError, match="even max_seq_len"):
+        Engine(cfg, params, EngineConfig(max_seq_len=127, prefill_pad=4),
                device=CPU)
+
+
+def test_engine_kv4_odd_prefill_pad_serves(kv4_setup):
+    """An odd prefill_pad (padded widths 5 and 15): each burst builds its
+    cache at the next even width and copies only its padded width into
+    the slots; the tokens equal single-request generation."""
+    cfg, params = kv4_setup
+    prompts = [[5, 9, 2], [7, 3, 11], list(range(20, 31))]
+    _, done = _engine_tokens(cfg, params, prompts, 6, batch_slots=2,
+                             max_seq_len=128, prefill_pad=5)
+    fwd = _port_forward(cfg, params)
+    for p, req in zip(prompts, done):
+        assert_tokens_match_guarded(fwd, p, req.tokens,
+                                    _single(cfg, params, p, 6),
+                                    tag=f"rid {req.rid}")

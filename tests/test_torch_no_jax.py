@@ -36,7 +36,8 @@ def _imports(tree: ast.AST):
 def test_scan_covers_the_package_and_catches_imports():
     names = {p.name for p in FILES}
     assert {"api.py", "dtypes.py", "dispatch.py", "reference.py",
-            "moe.py", "ragged.py", "chip_smoke.py"} <= names
+            "moe.py", "ragged.py", "chip_smoke.py", "collectives.py",
+            "rdma_ring.py", "mesh.py", "generate.py", "ring.py"} <= names
     probe = ast.parse("def f():\n    import jax.numpy as jnp\n"
                       "from piquant_tpu.ops import reference\n"
                       "import piquant_tpu_torch\n"

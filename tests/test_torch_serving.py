@@ -190,16 +190,38 @@ def test_engine_sampled_requests_complete(setup):
 
 def test_engine_unported_options_raise(setup, monkeypatch):
     _, _, cfg, params = setup
-    for kw in ({"speculate": 2}, {"track_history": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item"):
-            Engine(cfg, params, EngineConfig(**kw), device=CPU)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        Engine(cfg, params, EngineConfig(speculate=2), device=CPU)
+    # track_history serves since queue 1 item 7 was ported
+    # (test_engine_track_history_serves); without it a penalty is refused
+    # with the reference's ValueError
     eng = Engine(cfg, params, EngineConfig(max_seq_len=128), device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="track_history"):
         eng.submit(Request(rid=0, prompt=[1],
                            sampling=SamplingParams(repetition_penalty=1.2)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, params, EngineConfig(max_seq_len=128))
+
+
+# track_history and the penalties raised before queue 1 item 7 was ported:
+# with the history on and every penalty off the engine gives the tokens of
+# single-request generation, and a penalized request serves beside them.
+def test_engine_track_history_serves(setup):
+    _, _, cfg, params = setup
+    prompts = _prompts(3, 4, 12, cfg.vocab_size, SEED + 10)
+    eng, done = _engine_tokens(cfg, params, prompts, 6, batch_slots=2,
+                               max_seq_len=128, prefill_pad=4,
+                               decode_block=4, track_history=True)
+    fwd = _port_forward(cfg, params)
+    for p, req in zip(prompts, done):
+        assert_tokens_match_guarded(fwd, p, req.tokens,
+                                    _single(cfg, params, p, 6),
+                                    tag=f"rid {req.rid}")
+    eng.submit(Request(rid=9, prompt=prompts[0], sampling=SamplingParams(
+        repetition_penalty=1.3, frequency_penalty=0.5, max_new_tokens=6)))
+    (req,) = [r for r in eng.run() if r.rid == 9]
+    assert len(req.tokens) == 6
 
 
 # Options of ROADMAP.md queue 1 item 8 that raised before it was ported:
