@@ -1522,6 +1522,35 @@ def moe_routing(torch, dev, gen, t, n_e=MOE_E, top_k=MOE_K, d=4096):
     return r, counts, ends
 
 
+def check_live_blocks(r, counts) -> int:
+    """The routing's live_blocks against the count reckoning (each expert's
+    tokens rounded up to 128-row blocks); returns the live rows."""
+    want = int(((counts + 127) // 128).sum())
+    if int(r.live_blocks) != want:
+        raise AssertionError(f"live_blocks {int(r.live_blocks)} != {want} "
+                             "from the counts")
+    return 128 * want
+
+
+def ragged_attributes(torch) -> str:
+    """Registers, local (spill) bytes, dynamic shared memory and stages of
+    each ragged_gemm instance (cudaFuncGetAttributes)."""
+    import ctypes
+
+    from piquant_tpu_torch.ops.cuda import _build
+
+    parts = []
+    for mode, tag in ((0, "channel"), (1, "group-step"), (2, "group-row")):
+        for planes in (1, 2, 4):
+            a = (ctypes.c_int * 4)()
+            _build.check(_build.library().pq_ragged_attributes(planes, mode,
+                                                               a),
+                         "pq_ragged_attributes")
+            parts.append(f"P={planes} {tag}: {a[0]} registers, {a[1]} B "
+                         f"local, {a[2]} B shared, {a[3]} stages")
+    return "; ".join(parts)
+
+
 def random_stack(torch, dev, gen, k, n, bits, gs, n_e=MOE_E):
     """A stack of n_e experts of random codes with a scale and zero point of
     their own per expert, column (and group)."""
@@ -1540,7 +1569,10 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
     the bound, summed over one MoE layer's calls.  The bound counts the A routed assignments' operations (2 A K N
     at the bf16 peak, the int8 peak for int8 x) and bytes (their x, the
     stacks of the experts that have a token with their side streams, the
-    bf16 output)."""
+    bf16 output).  The bf16 kernels take the routing's live_blocks: the
+    padding rows must come out zero, computed or not; their TFLOP/s are
+    reckoned on the routed rows and on the live rows (each expert's rows
+    rounded up to 128, what the kernel computes)."""
     from piquant_tpu_torch.ops.cuda import ragged as R
     from piquant_tpu_torch.quant import moe as MO
     from piquant_tpu_torch.quant.linear import _quantize_act
@@ -1552,6 +1584,9 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
     a = int(counts.sum())
     used = int((counts > 0).sum())
     n_e = counts.numel()
+    live_rows = check_live_blocks(r, counts)
+    live = () if a8 else (r.live_blocks,)
+    live_ops = 0.0
     for k, n, uses in shapes or MOE_SHAPES:
         st = random_stack(torch, dev, gen, k, n, bits, gs, n_e)
         xs = MO.scatter_tokens(torch.randn((t or MOE_T, k), generator=gen,
@@ -1573,7 +1608,7 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
                 e = same(torch, f"{name} K={k} N={n} {odt}", got,
                          plain(*ops, odt))
             else:
-                got = R.wq_ragged_matmul(xs, st, be, odt)
+                got = R.wq_ragged_matmul(xs, st, be, odt, *live)
                 # atol 2e-2, rtol 1e-2: bf16 operands in both, f32 sums in
                 # another order, one bf16 output rounding
                 e = hold(torch, f"{name} K={k} N={n} {odt}", got.float(),
@@ -1583,7 +1618,7 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
             pad[r.dest] = False
             if got[pad].any():
                 raise AssertionError(f"{name}: a padding row is not zero")
-        t_k = cuda_ms(lambda i: kern(*ops, torch.bfloat16), 10)
+        t_k = cuda_ms(lambda i: kern(*ops, torch.bfloat16, *live), 10)
         t_p = event_ms(lambda i: plain(*ops, torch.bfloat16), 2, warmup=1)
         # yardstick, never called by the port: one torch._grouped_mm over
         # the bf16-dequantized stack with the experts' padded ends
@@ -1602,12 +1637,16 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
                                  + used * k * n * bits / 8 + side
                                  + a * n * 2)
         tot["ops"] += uses * 2.0 * a * k * n
+        live_ops += uses * 2.0 * live_rows * k * n
         del st, xs, ops, w
     b, by = bound_ms(tot["nbytes"], tot["ops"],
                      INT8_OP_PER_S if a8 else BF16_FLOP_PER_S)
     return dict(max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
                 bound_ms=b, bound_by=by, library_ms=tot["library_ms"],
-                library_call="torch._grouped_mm (bf16 dequantized stack)")
+                library_call="torch._grouped_mm (bf16 dequantized stack)",
+                routed_rows=a, live_rows=live_rows,
+                tflops_routed=tot["ops"] / tot["ms"] * 1e-9,
+                tflops_live=live_ops / tot["ms"] * 1e-9)
 
 
 def check_moe_kernels(torch, dev, gen):
@@ -1636,8 +1675,11 @@ def check_moe_kernels(torch, dev, gen):
             print(f"{name} {tag}: kernel {x['ms']:.4f} ms, bound "
                   f"{x['bound_ms']:.4f} ms ({x['bound_by']}), plain "
                   f"{x['plain_ms']:.4f} ms, {x['library_call']} "
-                  f"{x['library_ms']:.4f} ms [one Mixtral MoE layer, "
-                  f"{MOE_T} tokens; {card}]", flush=True)
+                  f"{x['library_ms']:.4f} ms; {x['routed_rows']} routed, "
+                  f"{x['live_rows']} live of {r.m_pad} rows: "
+                  f"{x['tflops_routed']:.1f} / {x['tflops_live']:.1f} "
+                  f"TFLOP/s [one Mixtral MoE layer, {MOE_T} tokens; {card}]",
+                  flush=True)
             torch.cuda.empty_cache()
         main, *rest = formats
         row = dict(name=name, route="cuda",
@@ -1651,6 +1693,7 @@ def check_moe_kernels(torch, dev, gen):
                    variants={f[0]: res[f[0]] for f in rest})
         row["max_abs_err"] = max(v["max_abs_err"] for v in res.values())
         rows.append(row)
+    print(f"ragged_gemm instances: {ragged_attributes(torch)}", flush=True)
     return rows
 
 
@@ -2333,8 +2376,10 @@ def check_family_kernels(torch, dev, gen, rows):
     print(f"wq_ragged Qwen3-30B-A3B: kernel {res['ms']:.4f} ms, bound "
           f"{res['bound_ms']:.4f} ms ({res['bound_by']}), plain "
           f"{res['plain_ms']:.4f} ms, {res['library_call']} "
-          f"{res['library_ms']:.4f} ms [one MoE layer, {MOE_T} tokens; "
-          f"{card_line()}]", flush=True)
+          f"{res['library_ms']:.4f} ms; {res['routed_rows']} routed, "
+          f"{res['live_rows']} live of {r.m_pad} rows: "
+          f"{res['tflops_routed']:.1f} / {res['tflops_live']:.1f} TFLOP/s "
+          f"[one MoE layer, {MOE_T} tokens; {card_line()}]", flush=True)
     add("wq_ragged", f"Qwen3-30B-A3B INT4: {A3B_E} experts, top {A3B_K}, "
         f"(K, N) (2048, 768) and (768, 2048), {MOE_T} tokens, m_pad "
         f"{r.m_pad}", res)
@@ -3695,7 +3740,7 @@ def main() -> int:
     build = _build.build()
     print(f"build: {build.path.name} in {build.seconds:.1f} s", flush=True)
     for line in build.log.splitlines():
-        if ("registers" in line or line.startswith("==")
+        if ("registers" in line or line.startswith("==") or "wgmma" in line
                 or "spill" in line and " 0 bytes spill stores" not in line):
             print("  " + line.strip(), flush=True)
     _build.library()

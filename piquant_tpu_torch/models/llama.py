@@ -1118,7 +1118,8 @@ def _moe_ragged_try(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
             vq, vs = _quantize_act(v)
             return _ragged.wq_ragged_matmul_a8(vq, vs, stack, r.block_expert,
                                                cfg.dtype)
-        return _ragged.wq_ragged_matmul(v, stack, r.block_expert, cfg.dtype)
+        return _ragged.wq_ragged_matmul(v, stack, r.block_expert, cfg.dtype,
+                                        r.live_blocks)
 
     g = mm(xs, w1s)
     u = mm(xs, layer["moe_w3"])

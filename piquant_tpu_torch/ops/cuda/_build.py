@@ -56,12 +56,14 @@ SIGNATURES = {
     # xq, xs, w, scale, zs, xsum, block_expert, out, m, k, n, planes,
     # out_bf16, stream
     "pq_wq_ragged_a8": [_P] * 8 + [_I] * 5 + [_P],
-    # x, w, scale, zs, xsum, block_expert, out, m, k, n, planes, out_bf16,
-    # stream
-    "pq_wq_ragged": [_P] * 7 + [_I] * 5 + [_P],
-    # x, w, scale, zp, block_expert, out, m, k, n, planes, gs, out_bf16,
-    # stream
-    "pq_wq_ragged_grouped": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w, scale, zs, xsum, block_expert, live_blocks, out, m, k, n,
+    # n_experts, planes, out_bf16, stream
+    "pq_wq_ragged": [_P] * 8 + [_I] * 6 + [_P],
+    # x, w, scale, zp, block_expert, live_blocks, out, m, k, n, n_experts,
+    # planes, gs, out_bf16, stream
+    "pq_wq_ragged_grouped": [_P] * 7 + [_I] * 7 + [_P],
+    # planes, mode, out[4]
+    "pq_ragged_attributes": [_I, _I, _P],
     # x, w13, s13, zp13, w2, s2, zp2, xsum, out, part_a, h, part_b, m, k,
     # i_ff, n, ksa, rows_a, ksb, rows_b, gelu, out_bf16, stream
     "pq_mlp_fused": [_P] * 12 + [_I] * 10 + [_P],

@@ -8,12 +8,15 @@ piquant_tpu/ops/pallas/qmatmul.py, with the TPU kernels they replace:
 x holds the (token, expert) assignments sorted by expert and padded so each
 ROW_BLOCK-row block belongs to one expert, `block_expert[i]` (quant/moe.py
 builds the routing); a block multiplies by its expert's packed weight.  The
-first two wrappers launch the bf16 tensor-core kernels of
-csrc/qmatmul_ragged.cu, the third the int8 template of csrc/qmatmul_a8.cu
-with the expert lookup, on CUDA tensors, and count the launch in
-`.launches`; on CPU tensors they run `<name>_plain`, the same function in
-plain PyTorch.  The kernels take whole 128-row blocks (the routing's bm),
-N % 128 and K/P % 32; the wrappers raise on anything else.
+first two wrappers launch the bf16 wgmma kernels of csrc/qmatmul_ragged.cu,
+the third the int8 template of csrc/qmatmul_a8.cu with the expert lookup,
+on CUDA tensors, and count the launch in `.launches`; on CPU tensors they
+run `<name>_plain`, the same function in plain PyTorch.  The kernels take
+whole 128-row blocks (the routing's bm), N % 128 and K/P % 32; the wrappers
+raise on anything else.  The first two also take the routing's
+`live_blocks` ([1] int32 on the device; None: every block is live): the
+blocks at or past it hold only padding rows, whose outputs are zero, and
+the kernel writes their zero tiles without computing them.
 
 The dispatch functions keep the reference's semantic gates (bits, the
 packed rows, groups that straddle a plane, the side streams' shape, N a
@@ -41,12 +44,16 @@ _STEP = 32        # packed rows a pipeline step stages
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _runs(block_expert: torch.Tensor, m: int, n_experts: int):
-    """(expert, row indices) of each expert that owns rows: the padding
-    blocks past the last expert's end belong to the last expert, as in the
-    routing."""
+def _runs(block_expert: torch.Tensor, m: int, n_experts: int,
+          live_blocks: Optional[torch.Tensor] = None):
+    """(expert, row indices) of each expert that owns rows of the live
+    blocks (every block where live_blocks is None: the padding blocks past
+    the last expert's end then belong to the last expert, as in the
+    routing)."""
     bm = m // block_expert.numel()
     row_e = block_expert.long().repeat_interleave(bm)
+    if live_blocks is not None:
+        row_e = row_e[:int(live_blocks.reshape(-1)[0]) * bm]
     for e in range(n_experts):
         idx = (row_e == e).nonzero()[:, 0]
         if idx.numel():
@@ -55,17 +62,19 @@ def _runs(block_expert: torch.Tensor, m: int, n_experts: int):
 
 def wq_ragged_plain(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
                     zs: torch.Tensor, xsum: torch.Tensor,
-                    block_expert: torch.Tensor, out_dtype) -> torch.Tensor:
+                    block_expert: torch.Tensor, out_dtype,
+                    live_blocks: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """x [M, K] bf16, data [E, K/P, N] uint8 (P = 4 INT2 split-quarter, 2
     INT4 split-half, 1 INT8), scale / zs [E, N] f32 (zs = zp * scale), xsum
     [M, 1] f32, block_expert [M / bm] int32 -> [M, N]: for the rows of
     expert e, the P plane products of e's raw codes (bf16 operands, f32
     accumulation), then acc * scale[e] - xsum * zs[e]
-    (`_wq_ragged_kernel`)."""
+    (`_wq_ragged_kernel`); zero in the blocks at or past live_blocks."""
     m, k = x.shape
     n_e, rows, n = data.shape
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    for e, idx in _runs(block_expert, m, n_e):
+    out = torch.zeros((m, n), dtype=out_dtype, device=x.device)
+    for e, idx in _runs(block_expert, m, n_e, live_blocks):
         xe = x[idx].float()
         acc = None
         for p, plane in enumerate(code_planes(data[e], k // rows)):
@@ -77,17 +86,19 @@ def wq_ragged_plain(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
 
 def wq_ragged_grouped_plain(x: torch.Tensor, data: torch.Tensor,
                             scale: torch.Tensor, zp: torch.Tensor, gs: int,
-                            block_expert: torch.Tensor,
-                            out_dtype) -> torch.Tensor:
+                            block_expert: torch.Tensor, out_dtype,
+                            live_blocks: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """x [M, K] bf16, data [E, K/P, N] uint8, scale [E, G, N] f32, zp [E,
     G, N] int32 (G = K / gs, in natural group order) -> [M, N]: expert e's
     weight dequantized to bf16 as (code - bf16(zp)) * bf16(scale), rounded
     once, then one product with f32 accumulation; no rank-1 fold
-    (`_wq_ragged_grouped_kernel`)."""
+    (`_wq_ragged_grouped_kernel`); zero in the blocks at or past
+    live_blocks."""
     m, k = x.shape
     n_e, rows, n = data.shape
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    for e, idx in _runs(block_expert, m, n_e):
+    out = torch.zeros((m, n), dtype=out_dtype, device=x.device)
+    for e, idx in _runs(block_expert, m, n_e, live_blocks):
         s = scale[e].to(torch.bfloat16).repeat_interleave(gs, dim=0)
         z = zp[e].to(torch.bfloat16).repeat_interleave(gs, dim=0)
         codes = torch.cat(code_planes(data[e], k // rows)).to(torch.bfloat16)
@@ -140,13 +151,23 @@ def _check_ragged(name: str, x: torch.Tensor, data: torch.Tensor,
     return planes
 
 
+def _check_live(name: str, live_blocks, x: torch.Tensor) -> None:
+    _qmm._check(name, live_blocks is None
+                or (live_blocks.dtype == torch.int32
+                    and live_blocks.numel() == 1), TypeError,
+                "live_blocks must be one int32 value")
+    _qmm._check_operands(name, x, live_blocks)
+
+
 def _launch(name: str, entry: str, ptrs: tuple, x: torch.Tensor, n: int,
             ints: tuple, out_dtype) -> torch.Tensor:
+    """Launch `entry` (a None in `ptrs` passes a null pointer)."""
     m, k = x.shape
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     err = getattr(_build.library(), entry)(
-        *(t.data_ptr() for t in ptrs), out.data_ptr(), m, k, n, *ints,
-        int(out_dtype == torch.bfloat16), _build.stream_ptr(x))
+        *(None if t is None else t.data_ptr() for t in ptrs),
+        out.data_ptr(), m, k, n, *ints, int(out_dtype == torch.bfloat16),
+        _build.stream_ptr(x))
     _build.check(err, name)
     return out
 
@@ -158,12 +179,12 @@ def _check_side(name, n_e, n, *tensors) -> None:
                 what="scale / zs must be [E, N]")
 
 
-def wq_ragged(x, data, scale, zs, xsum, block_expert,
-              out_dtype) -> torch.Tensor:
+def wq_ragged(x, data, scale, zs, xsum, block_expert, out_dtype,
+              live_blocks=None) -> torch.Tensor:
     """Kernel wrapper; see `wq_ragged_plain` for the function."""
     if not x.is_cuda:
         return wq_ragged_plain(x, data, scale, zs, xsum, block_expert,
-                               out_dtype)
+                               out_dtype, live_blocks)
     name = "wq_ragged"
     planes = _check_ragged(name, x, data, block_expert, out_dtype,
                            torch.bfloat16)
@@ -173,19 +194,20 @@ def wq_ragged(x, data, scale, zs, xsum, block_expert,
                 "xsum f32 expected")
     _qmm._check(name, xsum.numel() == x.shape[0], what="xsum must be [M, 1]")
     _qmm._check_operands(name, x, scale, zs, xsum)
+    _check_live(name, live_blocks, x)
     out = _launch(name, "pq_wq_ragged",
-                  (x, data, scale, zs, xsum, block_expert), x, n, (planes,),
-                  out_dtype)
+                  (x, data, scale, zs, xsum, block_expert, live_blocks), x, n,
+                  (n_e, planes), out_dtype)
     wq_ragged.launches += 1
     return out
 
 
-def wq_ragged_grouped(x, data, scale, zp, gs: int, block_expert,
-                      out_dtype) -> torch.Tensor:
+def wq_ragged_grouped(x, data, scale, zp, gs: int, block_expert, out_dtype,
+                      live_blocks=None) -> torch.Tensor:
     """Kernel wrapper; see `wq_ragged_grouped_plain` for the function."""
     if not x.is_cuda:
         return wq_ragged_grouped_plain(x, data, scale, zp, gs, block_expert,
-                                       out_dtype)
+                                       out_dtype, live_blocks)
     name = "wq_ragged_grouped"
     planes = _check_ragged(name, x, data, block_expert, out_dtype,
                            torch.bfloat16)
@@ -198,9 +220,10 @@ def wq_ragged_grouped(x, data, scale, zp, gs: int, block_expert,
     _qmm._check(name, tuple(scale.shape) == (n_e, x.shape[1] // gs, n)
                 == tuple(zp.shape), what="scale / zp must be [E, K/gs, N]")
     _qmm._check_operands(name, x, scale, zp)
+    _check_live(name, live_blocks, x)
     out = _launch(name, "pq_wq_ragged_grouped",
-                  (x, data, scale, zp, block_expert), x, n, (planes, gs),
-                  out_dtype)
+                  (x, data, scale, zp, block_expert, live_blocks), x, n,
+                  (n_e, planes, gs), out_dtype)
     wq_ragged_grouped.launches += 1
     return out
 
@@ -246,14 +269,17 @@ def _channel_side(stack):
 
 
 def wq_ragged_matmul(x_sorted: torch.Tensor, stack, block_expert: torch.Tensor,
-                     out_dtype=torch.bfloat16) -> Optional[torch.Tensor]:
+                     out_dtype=torch.bfloat16,
+                     live_blocks=None) -> Optional[torch.Tensor]:
     """x_sorted [M, K] @ the block's expert of `stack` -> [M, N]: channelwise
     or grouped INT2/INT4/INT8 stacks; None where the reference's
-    `wq_ragged_matmul` declines on other than VMEM grounds."""
+    `wq_ragged_matmul` declines on other than VMEM grounds.  live_blocks
+    (the routing's): the blocks at or past it come out zero, uncomputed."""
     if stack.bits not in (2, 4, 8):
         return None
     if stack.group_size is not None:
-        return _wq_ragged_grouped(x_sorted, stack, block_expert, out_dtype)
+        return _wq_ragged_grouped(x_sorted, stack, block_expert, out_dtype,
+                                  live_blocks)
     m, k = x_sorted.shape
     _, rows, n = stack.data.shape
     if (m % block_expert.numel() or n % _COLS
@@ -262,11 +288,11 @@ def wq_ragged_matmul(x_sorted: torch.Tensor, stack, block_expert: torch.Tensor,
     scale, zs = _channel_side(stack)
     xsum = x_sorted.float().sum(dim=-1, keepdim=True)
     return wq_ragged(x_sorted.to(torch.bfloat16).contiguous(), stack.data,
-                     scale, zs, xsum, block_expert, out_dtype)
+                     scale, zs, xsum, block_expert, out_dtype, live_blocks)
 
 
-def _wq_ragged_grouped(x_sorted, stack, block_expert,
-                       out_dtype) -> Optional[torch.Tensor]:
+def _wq_ragged_grouped(x_sorted, stack, block_expert, out_dtype,
+                       live_blocks) -> Optional[torch.Tensor]:
     m, k = x_sorted.shape
     e, rows, n = stack.data.shape
     gs = stack.group_size
@@ -279,7 +305,7 @@ def _wq_ragged_grouped(x_sorted, stack, block_expert,
     return wq_ragged_grouped(x_sorted.to(torch.bfloat16).contiguous(),
                              stack.data, stack.scale.float().contiguous(),
                              stack.zero_point.to(torch.int32).contiguous(),
-                             gs, block_expert, out_dtype)
+                             gs, block_expert, out_dtype, live_blocks)
 
 
 def wq_ragged_matmul_a8(xq: torch.Tensor, xs: torch.Tensor, stack,

@@ -139,11 +139,14 @@ def _quantize_sym(x: torch.Tensor, bits: int = 8
     """Symmetric quantization along the last axis (per token+head): codes
     in [-127, 127] (kv8) or [-7, 7] (kv4, returned pack4'ed, [..., D/2]).
     Rounds half to EVEN like the reference's `jnp.round`, so `torch.round`
-    is the matching op here (not round_half_away)."""
+    is the matching op here (not round_half_away).  The scale divides by a
+    tensor on amax's device: on CUDA, PyTorch turns a division by a Python
+    number into a multiplication by its reciprocal, which is not the
+    reference's IEEE quotient."""
     qmax = _QMAX if bits == 8 else 7.0
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=_EPS) / qmax
+    scale = torch.clamp(amax, min=_EPS) / amax.new_tensor(qmax)
     codes = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
     if bits == 4:
         return pack4(codes), scale

@@ -542,11 +542,13 @@ def _matmul_nf4(x: torch.Tensor, ql: QuantizedLinear,
 def _quantize_act(x: torch.Tensor):
     """Dynamic per-token symmetric int8 activation quantization, the
     reference's op for op: xs = max(amax, 1e-8) / 127 in f32 and xq =
-    clip(round(x / xs), -127, 127) with a true division and round half to
-    even (torch.round, as jnp.round; not the library core's half-away)."""
+    clip(round(x / xs), -127, 127) with true divisions (the scale's by a
+    tensor on amax's device: on CUDA a Python divisor becomes a
+    multiplication by its reciprocal) and round half to even (torch.round,
+    as jnp.round; not the library core's half-away)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    xs = torch.clamp_min(amax, 1e-8) / 127.0
+    xs = torch.clamp_min(amax, 1e-8) / amax.new_tensor(127.0)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     return xq, xs
 

@@ -8,7 +8,9 @@ expert; `block_expert` names it.  The padded row count
     m_pad = ceil((A + E (bm - 1)) / bm) * bm
 depends only on the shapes, so nothing here reads a value back to the
 host: on the card this is plain torch glue, as it is jnp glue in the
-reference.
+reference.  `live_blocks`, the padded rows' end p_end[-1] over bm, stays
+on the device too: the ragged kernels write the blocks past it as zeros
+without computing them (the reference's grid covers all m_pad / bm).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ class RaggedRouting(NamedTuple):
     gate: torch.Tensor          # [A] routing weight of each sorted assignment
     block_expert: torch.Tensor  # [m_pad // bm] int32 expert of each row block
     m_pad: int                  # padded row count (from the shapes alone)
+    live_blocks: torch.Tensor   # [1] int32: row blocks before the padding tail
 
 
 def build_ragged_routing(topi: torch.Tensor, probs: torch.Tensor,
@@ -52,7 +55,8 @@ def build_ragged_routing(topi: torch.Tensor, probs: torch.Tensor,
     return RaggedRouting(dest=dest, token_idx=order // k,
                          gate=probs.reshape(-1)[order],
                          block_expert=block_expert.to(torch.int32),
-                         m_pad=m_pad)
+                         m_pad=m_pad,
+                         live_blocks=(p_end[-1:] // bm).to(torch.int32))
 
 
 def scatter_tokens(x_flat: torch.Tensor, r: RaggedRouting) -> torch.Tensor:

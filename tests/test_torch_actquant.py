@@ -101,6 +101,25 @@ def test_quantize_act_byte_equal(case):
         assert not tq[1].any() and float(ts[1]) == np.float32(1e-8) / 127
 
 
+# The kv8 / kv4 cache scales and the int8 activation scales are IEEE f32
+# quotients amax / q, numpy's, bit for bit over 10^5 rows of amax in [0, 8)
+# (a product with a rounded 1/q differs in 4.7% of rows at q 127, 55% at 7).
+@pytest.mark.parametrize("which,q", [("kv8", 127), ("kv4", 7), ("act", 127)])
+def test_scale_is_ieee_quotient(which, q):
+    from piquant_tpu_torch.quant import kv_cache as TKV
+
+    x = np.random.default_rng(SEED).uniform(-8, 8, (100_000, 8)).astype(
+        np.float32)
+    if which == "act":
+        _, got = TL._quantize_act(_t(x))
+    else:
+        _, got = TKV._quantize_sym(_t(x), 8 if which == "kv8" else 4)
+    want = np.maximum(np.abs(x).max(-1, keepdims=True), np.float32(1e-8)) \
+        / np.float32(q)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
 # ---------------------------------------------------------------------------
 # (b) plain versions against the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------

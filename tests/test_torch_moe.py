@@ -126,6 +126,20 @@ def test_routing_matches_jax(e, k, ntok, bm, skew):
         assert 0 not in r.block_expert[:int(r.dest.max()) // bm + 1].tolist()
 
 
+# live_blocks (the blocks before the padding tail, on the device) is the
+# sum of each expert's count rounded up to whole blocks.
+@pytest.mark.parametrize("e,k,ntok,bm,skew", [
+    (5, 2, 37, 8, False), (8, 2, 300, 128, False), (8, 2, 1024, 128, True),
+    (4, 2, 64, 128, True), (8, 1, 5, 16, False)])
+def test_live_blocks_match_counts(e, k, ntok, bm, skew):
+    topi, probs = _topi(e, k, ntok, SEED + ntok, skew)
+    r = TMOE.build_ragged_routing(_t(topi), _t(probs), e, bm)
+    counts = np.bincount(topi.reshape(-1), minlength=e)
+    assert r.live_blocks.dtype == torch.int32 and r.live_blocks.shape == (1,)
+    assert int(r.live_blocks) == int(((counts + bm - 1) // bm).sum())
+    assert int(r.live_blocks) * bm <= r.m_pad
+
+
 def test_scatter_and_combine_match_jax():
     e, k, ntok, d = 6, 2, 45, 64
     topi, probs = _topi(e, k, ntok, SEED, False)
@@ -300,6 +314,24 @@ def test_ragged_a8_matches_pallas(counted, bits):
                                  be, torch.float32)
     assert counted["wq_ragged_a8"] == 1
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+
+
+# The plain versions with the routing's live_blocks equal them without it:
+# the blocks past it hold only padding rows, whose outputs are zero.
+@pytest.mark.parametrize("gs", [None, 32])
+def test_ragged_plain_live_blocks(gs):
+    e, k, n = 4, 256, 128
+    _, t = _stack_both(4, gs, k, n, e, SEED + 5)
+    topi, probs = _topi(e, 2, 60, SEED + 3, True)
+    r = TMOE.build_ragged_routing(_t(topi), _t(probs), e, TR.ROW_BLOCK)
+    assert int(r.live_blocks) < r.m_pad // TR.ROW_BLOCK
+    xs = TMOE.scatter_tokens(_t(np.random.default_rng(SEED).normal(
+        0, 1, (60, k)).astype(np.float32)).to(torch.bfloat16), r)
+    full = TR.wq_ragged_matmul(xs, t, r.block_expert, torch.float32)
+    live = TR.wq_ragged_matmul(xs, t, r.block_expert, torch.float32,
+                               r.live_blocks)
+    assert torch.equal(full, live)
+    assert not live[int(r.live_blocks) * TR.ROW_BLOCK:].any()
 
 
 def test_ragged_dispatch_declines_as_the_reference():
