@@ -8,7 +8,9 @@ Phases (any failure exits non-zero):
   2. build: the hand-written kernels from piquant_tpu_torch/csrc with nvcc;
   3. kernels: each serving kernel's wrapper against its plain PyTorch
      version at the Llama-3-8B main-path shapes (decode batch 8), with its
-     time, its bound and a one-call PyTorch yardstick;
+     time, its bound and a one-call PyTorch yardstick (flash also with its
+     achieved TFLOP/s and share of the bound, as at every flash hold, and
+     each of its 24 instances' registers, spills and shared memory);
   4. library core: the quantize / dequantize / requantize / min-max kernels
      bit for bit against their plain versions over f32/bf16 x {u8, i8, u16,
      i16, uint4, int4, uint2} at numel 27,264,000 (bench.py's protocol) and
@@ -59,7 +61,7 @@ Phases (any failure exits non-zero):
      decode_attn2 launch a layer a decode step), greedy tokens against
      single-request generation and its metrics;
  11. model families: (a) the flash kernel's sliding window (Mistral-7B's
-     T 6144 and window 4096; a window of 1000 off the 64-key tiles) and GQA
+     T 6144 and window 4096; a window of 1000 off the 128-key tiles) and GQA
      rep 7 (Qwen2-7B) against its plain version, decode_attn2 kv8 and kv4
      on Mistral-7B's 8192-position cache at window starts past 0 and kv8
      at Qwen2-7B's rep 7, w4_gemv at Qwen2-7B's shapes, each with its
@@ -481,6 +483,36 @@ def check_decode_attn2(torch, dev, gen):
                 timed="one layer: B=8, Hkv=8, rep=4, S=2048, mixed positions")
 
 
+def flash_rate(flops: float, ms: float, bnd: float) -> str:
+    """A flash time's achieved rate over the live pairs and its share of
+    the bound."""
+    return (f"{flops / (ms * 1e9):.1f} TFLOP/s, {100 * bnd / ms:.1f}% of "
+            "the bound")
+
+
+def flash_attributes(torch) -> str:
+    """Registers, local (spill) bytes, dynamic shared memory and K/V
+    stages of each of the 24 flash_prefill_kernel instances
+    (cudaFuncGetAttributes)."""
+    import ctypes
+
+    from piquant_tpu_torch.ops.cuda import _build
+
+    parts = []
+    for d in (128, 256):
+        for mode, tag in ((0, "causal"), (1, "window"), (2, "chunk")):
+            for cap in (0, 1):
+                for snk in (0, 1):
+                    a = (ctypes.c_int * 4)()
+                    _build.check(_build.library().pq_flash_attributes(
+                        d, mode, cap, snk, a), "pq_flash_attributes")
+                    parts.append(
+                        f"D={d} {tag}{' softcap' if cap else ''}"
+                        f"{' sinks' if snk else ''}: {a[0]} registers, "
+                        f"{a[1]} B local, {a[2]} B shared, {a[3]} stages")
+    return "; ".join(parts)
+
+
 def check_flash(torch, dev, gen):
     import torch.nn.functional as F
 
@@ -516,8 +548,10 @@ def check_flash(torch, dev, gen):
     flops = 4.0 * d * (t * (t + 1) / 2) * b * hkv * rep
     nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4
     bnd, by = bound_ms(nbytes, flops)
-    print(f"flash_prefill: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-          f"sdpa(causal, gqa) {t_l:.4f} ms", flush=True)
+    print(f"flash_prefill: kernel {t_k:.4f} ms ({flash_rate(flops, t_k, bnd)}"
+          f"), bound {bnd:.4f} ms ({by}), plain {t_p:.4f} ms, "
+          f"sdpa(causal, gqa) {t_l:.4f} ms [{card_line()}]", flush=True)
+    print(f"flash_prefill instances: {flash_attributes(torch)}", flush=True)
     return dict(name="flash_prefill", route="cuda",
                 source="piquant_tpu_torch/csrc/flash.cu",
                 replaces="piquant_tpu/ops/pallas/flash.py:57 (_kernel; also "
@@ -525,6 +559,7 @@ def check_flash(torch, dev, gen):
                          "piquant_tpu/ops/flash_prefill.py:77)",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
                 bound_by=by, library_ms=t_l, eager_ms=t_e,
+                tflops=flops / (t_k * 1e9), bound_share=bnd / t_k,
                 timed="one layer: B=8, T=1024, Hkv=8, rep=4")
 
 
@@ -2206,13 +2241,14 @@ def hold_flash(torch, dev, gen, b, hkv, rep, t, window, iters=10, d=128,
     nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4
     bnd, by = bound_ms(nbytes, flops)
     lib = "none" if t_l is None else f"{t_l:.4f} ms"
-    print(f"{tag}: max_abs_err {err:.3e}; kernel {t_k:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}), plain {t_p:.4f} ms, sdpa {lib} "
-          f"[{card_line()}]", flush=True)
+    print(f"{tag}: max_abs_err {err:.3e}; kernel {t_k:.4f} ms "
+          f"({flash_rate(flops, t_k, bnd)}), bound {bnd:.4f} ms ({by}), "
+          f"plain {t_p:.4f} ms, sdpa {lib} [{card_line()}]", flush=True)
     del q, k, v
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
-                bound_by=by, library_ms=t_l, library_call=call)
+                bound_by=by, library_ms=t_l, library_call=call,
+                tflops=flops / (t_k * 1e9), bound_share=bnd / t_k)
 
 
 def hold_decode(torch, dev, gen, kv4, geometry, pos, start, d=128):
@@ -2332,9 +2368,9 @@ def check_family_kernels(torch, dev, gen, rows):
 
     add("flash_prefill", "Mistral-7B window: B=1, Hkv=8, rep=4, T=6144, "
         "window 4096", hold_flash(torch, dev, gen, 1, 8, 4, 6144, 4096, 5))
-    add("flash_prefill", "a window off the 64-key tiles: B=2, Hkv=8, rep=4, "
-        "T=2048, window 1000", hold_flash(torch, dev, gen, 2, 8, 4, 2048,
-                                          1000))
+    add("flash_prefill", "a window off the 128-key tiles: B=2, Hkv=8, "
+        "rep=4, T=2048, window 1000", hold_flash(torch, dev, gen, 2, 8, 4,
+                                                 2048, 1000))
     add("flash_prefill", "Qwen2-7B: B=8, Hkv=4, rep=7, T=1024, causal",
         hold_flash(torch, dev, gen, 8, 4, 7, 1024, None))
     add("flash_prefill", "rep 8 beside it: B=8, Hkv=4, rep=8, T=1024, "

@@ -29,99 +29,111 @@
 // context), bf16 operands for both products, the probabilities rounded to
 // bf16 before the PV product, and the denominator taken from the unrounded
 // probabilities, the sink joining it as exp(snk - m) against the row's
-// final running max: the TPU kernel's recipe.
+// final running max: the TPU kernel's recipe.  The context is o / l, an
+// IEEE division.
 //
-// Bound on the H100: the live (q, k) pairs' FLOPs at the bf16 tensor-core
-// peak.  Design:
-//   * one block = the rep heads of ONE kv head times bq positions, so
-//     every K/V tile loaded into shared memory serves all rep heads (no K/V
-//     repeat); 8 warps of 16 rows, subs = 8 / rep (integer division)
-//     16-row groups a head, bq = 16 subs: rep 1, 2, 4, 8 fill all 8 warps,
-//     rep 3 runs 6 busy warps on 32-position blocks and rep 5, 6 and 7 run
-//     5, 6 or 7 on 16-position blocks; the idle warps still load tiles and
-//     join every __syncthreads();
-//   * products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate), the S fragment reused as the A operand of PV, V
-//     fragments through ldmatrix.trans.  At D 128 Q stays in registers
-//     (8 k-steps of A fragments) beside a 16 x 128 f32 output; at D 256 the
-//     16 x 256 output alone takes 128 registers a thread, so Q waits in
-//     shared memory and each k-step's A fragment comes through ldmatrix,
-//     and K, V and Q tiles (135 KB) take dynamic shared memory;
-//   * key tiles of 64 walk from the tile holding the block's first row
-//     start, start(q0) rounded down to 64, to the block's last row, so a
-//     windowed or chunked prefill reads only the live K/V bytes, not
-//     O(T^2) (the TPU kernel's dead-block elision); a warp skips tiles
-//     wholly above its own rows or wholly before its first row's start,
-//     and masks only the tiles that cross its diagonal or its last row's
-//     start (rows that straddle a chunk boundary, inside a block or a
-//     warp, are masked element by element); masked scores give
-//     probability 0, and every row keeps its diagonal live;
-//   * the row start is a template mode: causal (the start code compiled
-//     out: the plain walk from key 0 and its one compare a score), window
-//     or chunk; no softcap compiles the softcap out, and no sinks the
-//     sink epilogue (one expf a row after the key loop, yet as a runtime
-//     test it cost the causal D 128 kernel 1.5% on the H100): the D 128
-//     causal instance is the one the Llama path always ran;
-//   * the heaviest query blocks launch first: under a window every block
-//     past the first w positions does the same work, so the order only
-//     moves the light early blocks last;
-//   * ragged T is masked in the kernel (loads zero past T, no stores).
-// Tiles are loaded synchronously; cp.async/TMA pipelining and wgmma are
-// later work.
+// Bound on the H100: the live (q, k) pairs' operations (4 D a pair) at the
+// 989 TFLOP/s bf16 tensor-core peak, or the bytes (q, k, v read once, the
+// f32 context written once: 57% of them at Llama-3-8B's shape) at 3.35
+// TB/s, whichever is larger: 0.0701 ms at B 8, Hkv 8, rep 4, T 1024.  The
+// first design (PRs 1-9: Ampere's warp-level m16n8k16 MMA, 64-key tiles
+// loaded through registers between two __syncthreads(), 16 rows a warp and
+// 16 (8 / rep) positions a block) took 0.6642 ms there, 4.4x SDPA's
+// 0.1519; rep 7 (Qwen2-7B) 0.6158, Gemma-7B (D 256, rep 1) 0.3735,
+// Gemma-2B (D 256, rep 8) 0.3136 (H100 80GB HBM3, 700 W).  What held it
+// back, and this design:
+//   1. products on the warp-level MMA: here both are wgmma (sm_90a).  S =
+//      Q K^T is a shared-memory x shared-memory m64nNk16 (Q and K both
+//      K-major under the 128-byte swizzle, a 64-element atom a row of 128
+//      bytes); O += P V takes P from registers (the S accumulator rounded
+//      to bf16 pairs is exactly wgmma's A fragment of each k16 step) and V
+//      [keys, D] from shared memory as an MN-major B (the transpose bit).
+//      Key tiles: N 128 at D 128 (S 64 and O 64 f32 registers a thread),
+//      N 64 at D 256 (S 32, O 128, as two m64n128 halves).  P is packed
+//      only once the P V that reads the last P has retired: wgmma reads
+//      its A registers until then, and ptxas serializes every wgmma of a
+//      kernel that redefines them earlier;
+//   2. synchronous loads: here TMA, from a producer warpgroup (setmaxnreg:
+//      24 registers a producer thread, 240 a consumer; no spills) whose
+//      one thread loads each item's Q (zero fill past T) and streams K and
+//      V tiles into a ring of S stages (3 at D 128, 2 at D 256: Q 32 KB +
+//      3 x 64 KB, or Q 64 KB + 2 x 64 KB) with a full and an empty
+//      mbarrier for each K slot and each V slot, so the next tile's Q K^T
+//      can start before this tile's V has landed.  The consumers only wait
+//      and release: refilling from a consumer thread stalled its whole
+//      warpgroup at every tile;
+//   3. small, unevenly filled tiles: here a work item is 128 rows, the rep
+//      heads of ONE kv head times bq = 128 / rep (integer division)
+//      positions, head-major (row r * bq + i, the reference's order), so
+//      every K/V tile serves all rep heads and rep 3, 5, 6, 7 fill 126,
+//      125, 126, 126 rows; the padding rows are zeroed once and never
+//      stored.  Two consumer warpgroups own 64 rows each (wgmma M 64);
+//   4. per-element expf and a separate scale: here the scale and log2(e)
+//      are one multiply and the exponent one ex2 (MUFU).  Folding the
+//      scale into the exponent's FFMA saved an instruction an element but
+//      left a row's largest score a rounding short of exp(0) = 1, so it is
+//      not done.  The softmax is issue-bound (an exp2 on the FMA pipes for
+//      part of the elements was slower), so it must run under the tensor
+//      cores: each step issues tile n's Q K^T and tile n - 1's P V, runs
+//      tile n's softmax while they retire, and the two warpgroups take
+//      turns at the tensor cores (FA3's pingpong: named barriers 1 and 2),
+//      so one's softmax runs under the other's products;
+//   5. warp-divergent tile skips and masks: here the walk and the mask
+//      are uniform in the block.  Key tiles walk from the tile holding the
+//      item's first row start (start(q0) rounded down to N) to its last
+//      row (the TPU kernel's dead-block elision: a windowed or chunked
+//      prefill reads only the live K/V bytes); a tile is interior (no
+//      mask) when every key lies at or below the item's first position and
+//      at or past its last row's start, else every element is masked (the
+//      diagonal, a window or chunk start, T).  The choice is made once a
+//      step, with no wgmma of the warpgroup in flight, between two
+//      instantiations of the step; every branch taken while wgmmas are in
+//      flight lives inside an asm block.  A row with no live key yet keeps
+//      the sentinel max, and its exponents are taken against 0.
+// The grid is persistent, one block an SM: the producer loads the next
+// item's Q and tiles while the consumers finish an item and store its
+// context (direct 8-byte stores, four lanes filling a 32-byte sector, none
+// past T; staging it for a TMA store was slower), and the items go
+// heaviest first, snake-wise across the blocks.  The row start is a
+// template mode: causal (its start code compiled out), window or chunk;
+// no softcap compiles the softcap out, and no sinks the sink epilogue: 24
+// instances.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pq_hopper.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;           // 16 query rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kKeys = 64;           // keys per tile
+using namespace pq;
+
+constexpr int kThreads = 256;       // two consumer warpgroups
+constexpr int kBlockThreads = 384;  // and a producer warpgroup
+constexpr int kRows = 128;          // query rows a block (64 a warpgroup)
+constexpr int kMaxRep = 8;
+constexpr int kSmemMax = 232448;    // a block's shared memory
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int D>   // keys a tile
+__host__ __device__ constexpr int keys() { return D == 128 ? 128 : 64; }
+template <int D>   // one K (or V) tile: D / 64 atoms of keys x 128 bytes
+__host__ __device__ constexpr int tile_bytes() { return keys<D>() * D * 2; }
+template <int D>   // Q: D / 64 atoms of 128 rows x 128 bytes
+__host__ __device__ constexpr int q_bytes() { return kRows * D * 2; }
+template <int D>   // K/V stages: as many as fit, at most 3
+__host__ __device__ constexpr int n_stages() {
+  const int fit =
+      (kSmemMax - 1024 - 256 - q_bytes<D>()) / (2 * tile_bytes<D>());
+  return fit < 3 ? fit : 3;
 }
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* smem_ptr) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// A fragment of m16n8k16 (16 rows x 16 columns, row-major in shared
-// memory): lane l gives the address of row l % 16, columns (l / 16) * 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem_ptr) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Q in shared memory at D 256 (registers at D 128); dynamic shared memory
-// of the K, V and Q tiles, in bytes (0: the static K/V tiles)
-template <int D>
-__host__ __device__ constexpr bool q_shared() { return D > 128; }
-template <int D>
-__host__ __device__ constexpr int dyn_smem() {
-  return q_shared<D>() ? (2 * kKeys + kWarps * 16) * (D + 8) * 2 : 0;
+template <int D>   // 1 KB to align, Q, the K and V rings, 2 + 4 S barriers
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024 + q_bytes<D>() + 2 * n_stages<D>() * tile_bytes<D>() +
+         (2 + 4 * n_stages<D>()) * 8;
 }
 
 // the row-start modes: kCausal, the plain causal mask (window, chunk and
@@ -129,246 +141,527 @@ __host__ __device__ constexpr int dyn_smem() {
 // key); kWindow, the sliding window; kChunk, Llama-4's chunk
 constexpr int kCausal = 0, kWindow = 1, kChunk = 2;
 
-// kSoftcap false: no softcap (softcap and inv_softcap are ignored).
-// kSinks false: no sinks (sinks is ignored).
-template <int D, int kMode, bool kSoftcap, bool kSinks>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     float* __restrict__ out,
-                     const int* __restrict__ pos0,
-                     const float* __restrict__ sinks,
-                     int nh, int rep, int t, int window, int chunk,
-                     float sm_scale, float softcap, float inv_softcap) {
-  constexpr int kStride = D + 8;    // smem row stride (bf16), conflict-free
-  constexpr int kSteps = D / 16;    // k-steps of Q K^T over D
-  constexpr bool kQShared = q_shared<D>();
-  __shared__ __align__(16) __nv_bfloat16 ks_static[kQShared ? 8 : kKeys * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs_static[kQShared ? 8 : kKeys * kStride];
-  extern __shared__ __align__(16) __nv_bfloat16 flash_dyn[];
-  __nv_bfloat16* const ks = kQShared ? flash_dyn : ks_static;
-  __nv_bfloat16* const vs = kQShared ? flash_dyn + kKeys * kStride : vs_static;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-  const int subs = kWarps / rep;                 // 16-row groups a head
-  const int bq = 16 * subs;                      // positions per block
-  const int qb = gridDim.x - 1 - blockIdx.x;     // heaviest blocks first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qb * bq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const bool busy = warp < rep * subs;           // the rest only load tiles
-  const int r = busy ? warp / subs : 0;          // query head within group
-  const int qbase = q0 + (warp % subs) * 16;
-  const int qpos0 = qbase + g, qpos1 = qbase + g + 8;
-  // rows start past key 0 (window, chunk): the first live key of row qp
-  constexpr bool kStarts = kMode != kCausal;
-  const int p0 = kMode == kChunk ? pos0[b] : 0;
-  auto row_start = [&](int qp) -> int {
-    if constexpr (kMode == kWindow) return qp - (window - 1);
-    else return (p0 + qp) / chunk * chunk - p0;
-  };
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const size_t kv_off = ((size_t)b * nh + h) * t * D;
-  const __nv_bfloat16* qh = q + (((size_t)b * nh + h) * rep + r) * t * D;
-
-  // Q: A fragments for the k-steps over D in registers (D 128), or the
-  // warp's 16 rows in its own slice of shared memory (D 256), zero past T;
-  // the key loop's first __syncthreads() comes before any read
-  const bool ld0 = busy && qpos0 < t, ld1 = busy && qpos1 < t;
-  uint32_t qa[kQShared ? 1 : kSteps][4];
-  __nv_bfloat16* const qw = flash_dyn + 2 * kKeys * kStride + warp * 16 * kStride;
-  if constexpr (kQShared) {
-    if (busy) {
-      for (int i = lane; i < 16 * (D / 8); i += 32) {
-        const int row = i / (D / 8), ch = i % (D / 8);
-        int4 val = make_int4(0, 0, 0, 0);
-        if (qbase + row < t)
-          val = *reinterpret_cast<const int4*>(qh + (size_t)(qbase + row) * D + ch * 8);
-        *reinterpret_cast<int4*>(qw + row * kStride + ch * 8) = val;
-      }
-    }
-  } else {
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across a wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      const int c = kk * 16 + 2 * tq;
-      const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos0 * D + c);
-      const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qh + (size_t)qpos1 * D + c);
-      qa[kk][0] = ld0 ? r0[0] : 0u;
-      qa[kk][1] = ld1 ? r1[0] : 0u;
-      qa[kk][2] = ld0 ? r0[4] : 0u;   // +8 columns
-      qa[kk][3] = ld1 ? r1[4] : 0u;
-    }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[64 x 128] (= or +=, by acc) A[64 x 16] . B[16 x 128], both bf16 in
+// shared memory, K-major; f32 sums.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, bool acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"((int)acc));
+}
+
+// The same at N 64.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, bool acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"((int)acc));
+}
+
+// A thread's view of its block's work item: the K/V ring, the item's key
+// walk, the thread's rows, their running softmax and context.  Every
+// method is inlined into the kernel, so the arrays live in registers (all
+// their indices are compile-time constants).
+// kSoftcap false: no softcap (softcap and inv_softcap are ignored).
+template <int D, int kMode, bool kSoftcap>
+struct Block {
+  static constexpr int N = keys<D>();
+  static constexpr int S = n_stages<D>();
+  static constexpr int kAtoms = D / 64;     // 64-element atoms of a row
+  static constexpr int kTile = tile_bytes<D>();
+  static constexpr int kQAtom = kRows * 128;   // one atom of Q
+  static constexpr int kKAtom = N * 128;    // one atom of a K or V tile
+  static constexpr int kHalves = D / 128;   // m64n128 halves of O
+  static constexpr bool kStarts = kMode != kCausal;
+
+  const CUtensorMap* k_map;
+  const CUtensorMap* v_map;
+  uint8_t* ks;
+  uint8_t* vs;
+  uint64_t* kfull;
+  uint64_t* vfull;
+  uint64_t* kempty;
+  uint64_t* vempty;
+  uint64_t* qempty;
+  uint32_t q_addr, k_addr, v_addr;
+  // the item's first key, tiles, kv head row and the ring position of its
+  // tile 0 (the ring runs on across a block's items)
+  int kbegin, n_tiles, bh, g0;
+  int wg, lane, tq;
+  int qp_a, qp_b, st_a, st_b;   // the thread's rows' positions and starts
+  bool leader;
+  float sm_scale, inv_softcap, scale_l2, cap_l2;
+
+  float o[kHalves][64];
+  float s[N / 2];
+  uint32_t p[N / 16][4];
+  float m_a, m_b, l_a, l_b;
+
+  // TMA loads of the item's tile n's K (or V) into the slot of ring
+  // position g, issued where `on`
+  __device__ __forceinline__ void load_k(int g, int n, bool on) {
+    const int sl = g % S;
+    mbar_arrive_tx(&kfull[sl], kTile, on);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load_3d(ks + sl * kTile + a * kKAtom, k_map, &kfull[sl], 64 * a,
+                  kbegin + n * N, bh, on);
+  }
+  __device__ __forceinline__ void load_v(int g, int n, bool on) {
+    const int sl = g % S;
+    mbar_arrive_tx(&vfull[sl], kTile, on);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load_3d(vs + sl * kTile + a * kKAtom, v_map, &vfull[sl], 64 * a,
+                  kbegin + n * N, bh, on);
   }
 
-  float o[D / 8][4];
+  // S = Q K^T of the tile in slot sl, one commit group
+  __device__ __forceinline__ void issue_s(int sl) {
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_sw128(q_addr + (kk / 4) * kQAtom + (kk % 4) * 32),
+               desc_sw128(k_addr + sl * kTile + (kk / 4) * kKAtom +
+                          (kk % 4) * 32),
+               kk > 0);
+    wgmma_commit();
+  }
 
-  // keys [kbegin, kend) of the block; the warp's live keys lie in
-  // [warp_kbegin, warp_kend) (none for an idle warp); every key of a tile
-  // from warp_klast on is past the start of all 16 rows of the warp
-  const int kend = min(t, q0 + bq);
-  const int kbegin = kStarts ? max(0, row_start(q0)) / kKeys * kKeys : 0;
-  const int warp_kend = busy ? min(t, qbase + 16) : 0;
-  const int warp_kbegin = kStarts ? row_start(qbase) : 0;
-  const int warp_klast = kStarts ? row_start(qbase + 15) : 0;
-  const int st0 = kStarts ? row_start(qpos0) : 0;
-  const int st1 = kStarts ? row_start(qpos1) : 0;
-  for (int k0 = kbegin; k0 < kend; k0 += kKeys) {
-    __syncthreads();
-    // K/V tile: 64 rows x D/8 chunks of 16 bytes each, zero past T
-    for (int i = threadIdx.x; i < kKeys * (D / 8); i += kThreads) {
-      const int row = i / (D / 8), ch = i % (D / 8);
-      const int key = k0 + row;
-      int4 kv = make_int4(0, 0, 0, 0), vv = kv;
-      if (key < t) {
-        kv = *reinterpret_cast<const int4*>(k + kv_off + (size_t)key * D + ch * 8);
-        vv = *reinterpret_cast<const int4*>(v + kv_off + (size_t)key * D + ch * 8);
-      }
-      *reinterpret_cast<int4*>(&ks[row * kStride + ch * 8]) = kv;
-      *reinterpret_cast<int4*>(&vs[row * kStride + ch * 8]) = vv;
-    }
-    __syncthreads();
-    if (k0 >= warp_kend || k0 + kKeys <= warp_kbegin) continue;
+  // O += P V of the tile in slot sl, one commit group
+  __device__ __forceinline__ void issue_pv(int sl) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf)
+        wgmma_rs<1>(o[hf], p[kk],
+                    desc_sw128(v_addr + sl * kTile + kk * 2048 +
+                                   hf * 2 * kKAtom,
+                               kKAtom));
+    wgmma_commit();
+  }
 
-    // S = Q K^T for 16 rows x 64 keys
-    float s[8][4];
+  // The softmax of the tile at keys k0 in s: the scale in log2 units (and
+  // the cap), the mask (kMask: every element), the running max, the
+  // probabilities in place, the denominator; the O rescale factors into
+  // ca, cb.  s[4j + e] is row a, key k0 + 8j + 2tq + e; s[4j + 2 + e] row
+  // b.  The scale is applied before the max (not folded into the
+  // exponent's FFMA), so a row's largest score gives exactly 1.
+  template <bool kMask>
+  __device__ __forceinline__ void softmax(int k0, float& ca, float& cb) {
+    float mx_a[2] = {kNegInf, kNegInf}, mx_b[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    if constexpr (kQShared) {
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, qw + (lane % 16) * kStride + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const __nv_bfloat16* kr = &ks[(nt * 8 + g) * kStride + 2 * tq + kk * 16];
-          mma_bf16(s[nt], a, *reinterpret_cast<const uint32_t*>(kr),
-                   *reinterpret_cast<const uint32_t*>(kr + 8));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kr = &ks[(nt * 8 + g) * kStride + 2 * tq];
-#pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-          mma_bf16(s[nt], qa[kk], b0, b1);
-        }
-      }
-    }
-    // scale (and cap), then the inclusive causal mask (and the row
-    // starts, except in a tile whose every key is live for all 16 rows of
-    // the warp: below the diagonal and past the last row's start); row
-    // maxima
-    const bool interior = kStarts && k0 + kKeys - 1 <= qbase &&
-                          k0 >= warp_klast;
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + nt * 8 + 2 * tq + j;
-        if constexpr (kStarts || kSoftcap) {
-          s[nt][j] *= sm_scale;
-          s[nt][2 + j] *= sm_scale;
-          if constexpr (kSoftcap) {
-            s[nt][j] = softcap * tanhf(s[nt][j] * inv_softcap);
-            s[nt][2 + j] = softcap * tanhf(s[nt][2 + j] * inv_softcap);
-          }
-          if (kStarts ? !interior : true) {
-            if (key > qpos0 || (kStarts && key < st0)) s[nt][j] = kNegInf;
-            if (key > qpos1 || (kStarts && key < st1)) s[nt][2 + j] = kNegInf;
-          }
+      for (int e = 0; e < 2; ++e) {
+        float xa = s[4 * j + e], xb = s[4 * j + 2 + e];
+        if constexpr (kSoftcap) {
+          xa = cap_l2 * tanhf(xa * sm_scale * inv_softcap);
+          xb = cap_l2 * tanhf(xb * sm_scale * inv_softcap);
         } else {
-          s[nt][j] = key <= qpos0 ? s[nt][j] * sm_scale : kNegInf;
-          s[nt][2 + j] = key <= qpos1 ? s[nt][2 + j] * sm_scale : kNegInf;
+          xa *= scale_l2;
+          xb *= scale_l2;
         }
-        mx0 = fmaxf(mx0, s[nt][j]);
-        mx1 = fmaxf(mx1, s[nt][2 + j]);
+        if constexpr (kMask) {
+          const int key = k0 + 8 * j + 2 * tq + e;
+          if (key > qp_a || (kStarts && key < st_a)) xa = kNegInf;
+          if (key > qp_b || (kStarts && key < st_b)) xb = kNegInf;
+        }
+        s[4 * j + e] = xa;
+        s[4 * j + 2 + e] = xb;
+        mx_a[e] = fmaxf(mx_a[e], xa);
+        mx_b[e] = fmaxf(mx_b[e], xb);
       }
+    float mxa = fmaxf(mx_a[0], mx_a[1]), mxb = fmaxf(mx_b[0], mx_b[1]);
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
+      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
+    const float mn_a = fmaxf(m_a, mxa), mn_b = fmaxf(m_b, mxb);
+    ca = ex2(m_a - mn_a);
+    cb = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
     // under a window or a chunk, a row with no live key yet keeps the
     // sentinel as its max: its exponents are taken against 0, so its
     // masked scores give 0 (causally, key 0 of the first tile is live for
     // every row)
-    const float e0 = kStarts && mn0 == kNegInf ? 0.f : mn0;
-    const float e1 = kStarts && mn1 == kNegInf ? 0.f : mn1;
-    float sum0 = 0.f, sum1 = 0.f;
+    const float e_a = kStarts && mn_a == kNegInf ? 0.f : mn_a;
+    const float e_b = kStarts && mn_b == kNegInf ? 0.f : mn_b;
+    float sum_a[2] = {0.f, 0.f}, sum_b[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int i = 0; i < N / 8; ++i) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[nt][j] = expf(s[nt][j] - e0);
-        s[nt][2 + j] = expf(s[nt][2 + j] - e1);
-        sum0 += s[nt][j];
-        sum1 += s[nt][2 + j];
+      for (int e = 0; e < 2; ++e) {
+        s[4 * i + e] = ex2(s[4 * i + e] - e_a);
+        s[4 * i + 2 + e] = ex2(s[4 * i + 2 + e] - e_b);
+        sum_a[e] += s[4 * i + e];
+        sum_b[e] += s[4 * i + 2 + e];
       }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= c0;
-      o[i][1] *= c0;
-      o[i][2] *= c1;
-      o[i][3] *= c1;
     }
-    // O += bf16(P) V
+    l_a = l_a * ca + (sum_a[0] + sum_a[1]);
+    l_b = l_b * cb + (sum_b[0] + sum_b[1]);
+  }
+
+  // The probabilities in s as bf16 pairs into p, the A fragments of P V:
+  // k16 step kk holds row a's keys 2tq, 2tq + 1, row b's, then both at +8.
+  // Only once no P V is in flight, since p is that product's input.
+  __device__ __forceinline__ void pack() {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int vrow = j * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, &vs[vrow * kStride + dp * 16 + (lane / 16) * 8]);
-        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
-      }
+    for (int i = 0; i < N / 8; ++i) {
+      p[i / 2][2 * (i % 2)] = pack_bf16(s[4 * i], s[4 * i + 1]);
+      p[i / 2][2 * (i % 2) + 1] = pack_bf16(s[4 * i + 2], s[4 * i + 3]);
     }
   }
 
-  if (!busy) return;
-  // the 4 lanes of a row hold partial denominators
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  // The tensor cores alternate between the two warpgroups (FA3's
+  // pingpong): a warpgroup issues its products on its turn (named barrier
+  // 1 + wg) and passes the turn to the other (barrier 2 - wg), so one
+  // warpgroup's softmax runs under the other's products.
+  __device__ __forceinline__ void turn() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(kThreads)
+                 : "memory");
   }
-  // the sink logit joins the denominator against the row's final running
-  // max, which every lane of the row holds
-  if constexpr (kSinks) {
-    const float snk = sinks[h * rep + r];
-    l0 += expf(snk - m0);
-    l1 += expf(snk - m1);
+  __device__ __forceinline__ void pass(bool on) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %2, 0;\n"
+        "@p bar.arrive %0, %1;\n"
+        "}\n" ::"r"(2 - wg),
+        "r"(kThreads), "r"((int)on)
+        : "memory");
   }
-  float* oh = out + (((size_t)b * nh + h) * rep + r) * t * D;
+
+  // Tile 0: its Q K^T alone, then its softmax into p (O is still zero).
+  template <bool kMask>
+  __device__ __forceinline__ void first() {
+    mbar_wait(&kfull[g0 % S], (g0 / S) & 1);
+    turn();
+    issue_s(g0 % S);
+    pass(true);
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(&kempty[g0 % S], lane == 0);
+    float ca, cb;
+    softmax<kMask>(kbegin, ca, cb);
+    pack();
+  }
+
+  // One step of the key walk: tile n's Q K^T and tile n - 1's P V in
+  // flight together, tile n's softmax under the second (and under the
+  // other warpgroup's products), then O rescaled and tile n's P packed;
+  // nothing of the warpgroup is in flight between steps.
+  template <bool kMask>
+  __device__ __forceinline__ void step(int n) {
+    const int g = g0 + n, sl = g % S, pl = (g - 1) % S;
+    mbar_wait(&kfull[sl], (g / S) & 1);
+    mbar_wait(&vfull[pl], ((g - 1) / S) & 1);
+    turn();
+    issue_s(sl);
+    issue_pv(pl);
+    pass(true);
+    wgmma_wait<1>();                          // Q K^T done
+    fence_regs(s);
+    mbar_arrive(&kempty[sl], lane == 0);
+    float ca, cb;
+    softmax<kMask>(kbegin + n * N, ca, cb);
+    wgmma_wait<0>();                          // P V done
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * tq;
-    if (qpos0 < t)
-      *reinterpret_cast<float2*>(oh + (size_t)qpos0 * D + c) =
-          make_float2(o[nt][0] / l0, o[nt][1] / l0);
-    if (qpos1 < t)
-      *reinterpret_cast<float2*>(oh + (size_t)qpos1 * D + c) =
-          make_float2(o[nt][2] / l1, o[nt][3] / l1);
+    for (int hf = 0; hf < kHalves; ++hf) fence_regs(o[hf]);
+    mbar_arrive(&vempty[pl], lane == 0);
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        o[hf][i] *= ca;
+        o[hf][i + 1] *= ca;
+        o[hf][i + 2] *= cb;
+        o[hf][i + 3] *= cb;
+      }
+    pack();
+  }
+
+  // The last tile's P V.  Every Q K^T of the item is done: Q's buffer is
+  // released for the next item first.  Warpgroup 1 passes no turn after
+  // the block's final item: warpgroup 0 takes no more.
+  __device__ __forceinline__ void last(bool final) {
+    mbar_arrive(qempty, lane == 0);
+    const int g = g0 + n_tiles - 1, pl = g % S;
+    mbar_wait(&vfull[pl], (g / S) & 1);
+    turn();
+    issue_pv(pl);
+    pass(wg == 0 || !final);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) fence_regs(o[hf]);
+    mbar_arrive(&vempty[pl], lane == 0);
+  }
+};
+
+// kSinks false: no sinks (sinks is ignored).
+//
+// A persistent grid of G blocks walks the work items in rounds of G,
+// snake-wise: block c takes item r G + c in even rounds r and r G + G - 1
+// - c in odd ones, item i being query block nq - 1 - i / (B Hkv) of kv
+// head row i % (B Hkv).  The heaviest items go first, and the snake evens
+// out each block's sum of work.  Warpgroup 2 is the producer: its thread
+// 0 loads each item's Q once the last item's Q K^T are done, and K/V tiles
+// into the ring as slots free, running on into the next item while the
+// consumers finish this one.
+template <int D, int kMode, bool kSoftcap, bool kSinks>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
+                     const __grid_constant__ CUtensorMap k_map,  // k
+                     const __grid_constant__ CUtensorMap v_map,  // v
+                     float* __restrict__ out,
+                     const int* __restrict__ pos0,
+                     const float* __restrict__ sinks,
+                     int nb, int nh, int rep, int t, int window, int chunk,
+                     float sm_scale, float softcap, float inv_softcap) {
+  using Blk = Block<D, kMode, kSoftcap>;
+  constexpr int N = Blk::N;
+  constexpr int S = Blk::S;
+  constexpr int kAtoms = Blk::kAtoms;
+  constexpr int kTile = Blk::kTile;
+  constexpr int kQAtom = Blk::kQAtom;
+  constexpr bool kStarts = Blk::kStarts;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* const qfull =
+      reinterpret_cast<uint64_t*>(qs + q_bytes<D>() + 2 * S * kTile);
+
+  Blk blk;
+  blk.k_map = &k_map;
+  blk.v_map = &v_map;
+  blk.ks = qs + q_bytes<D>();
+  blk.vs = blk.ks + S * kTile;
+  blk.kfull = qfull + 1;
+  blk.vfull = blk.kfull + S;
+  blk.kempty = blk.vfull + S;
+  blk.vempty = blk.kempty + S;
+  blk.qempty = blk.vempty + S;
+
+  const int bq = kRows / rep;                    // positions a block
+  const int live = rep * bq;                     // rows holding a query
+  const int nq = (t + bq - 1) / bq;
+  const int rows_kv = nb * nh;
+  const int items = nq * rows_kv;
+  // item i: its first position, kv head row and key walk
+  int q0 = 0, p0 = 0, kend = 0, last_start = 0;
+  auto row_start = [&](int qp) -> int {
+    if constexpr (kMode == kWindow) return qp - (window - 1);
+    else return (p0 + qp) / chunk * chunk - p0;
+  };
+  auto item = [&](int i) {
+    q0 = (nq - 1 - i / rows_kv) * bq;
+    blk.bh = i % rows_kv;
+    p0 = kMode == kChunk ? __ldg(pos0 + blk.bh / nh) : 0;
+    kend = min(t, q0 + bq);
+    blk.kbegin = kStarts ? max(0, row_start(q0)) / N * N : 0;
+    blk.n_tiles = (kend - blk.kbegin + N - 1) / N;
+    last_start = kStarts ? row_start(kend - 1) : 0;
+  };
+  // a tile is interior (no mask) when its keys lie at or below q0 and at
+  // or past the last row's start
+  auto masked = [&](int n) -> bool {
+    const int k0 = blk.kbegin + n * N;
+    return k0 + N - 1 > q0 || (kStarts && k0 < last_start);
+  };
+  // block c's item of round r (>= items: none left)
+  auto item_of = [&](int r) -> int {
+    return r * (int)gridDim.x +
+           (r & 1 ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+  blk.leader = threadIdx.x == kThreads;
+
+  if (blk.leader) {
+    mbar_init(qfull, 1);
+    mbar_init(blk.qempty, kThreads / 32);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&blk.kfull[s], 1);              // the leader's arrival
+      mbar_init(&blk.vfull[s], 1);
+      mbar_init(&blk.kempty[s], kThreads / 32); // one arrival a warp
+      mbar_init(&blk.vempty[s], kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the padding rows of Q (no TMA box writes them), zeroed once by the
+  // generic proxy before the async proxy (wgmma) reads them
+  for (int i = threadIdx.x; i < kAtoms * (kRows - live) * 8;
+       i += kBlockThreads) {
+    const int a = i / ((kRows - live) * 8), c = i % ((kRows - live) * 8);
+    *reinterpret_cast<int4*>(qs + a * kQAtom + live * 128 + c * 16) =
+        make_int4(0, 0, 0, 0);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (threadIdx.x >= kThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (blk.leader) {
+      int g = 0;
+      for (int k = 0; item_of(k) < items; ++k) {
+        item(item_of(k));
+        // Q: a (64, bq, rep) box an atom, head-major rows, zeros past T
+        if (k > 0) mbar_wait(blk.qempty, (k - 1) & 1);
+        mbar_arrive_tx(qfull, kAtoms * 128 * live, true);
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_3d(qs + a * kQAtom, &q_map, qfull, 64 * a, q0,
+                      blk.bh * rep, true);
+        for (int n = 0; n < blk.n_tiles; ++n, ++g) {
+          if (g >= S) mbar_wait(&blk.kempty[g % S], ((g - S) / S) & 1);
+          blk.load_k(g, n, true);
+          if (g >= S) mbar_wait(&blk.vempty[g % S], ((g - S) / S) & 1);
+          blk.load_v(g, n, true);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+    blk.wg = wg;
+    blk.lane = threadIdx.x % 32;
+    blk.tq = blk.lane % 4;
+    // the thread's rows a and b (g, g + 8 of its warp's 16) and their
+    // heads; a padding row (head >= rep) repeats a position and is never
+    // stored
+    const int row_a = 64 * wg + 16 * warp + blk.lane / 4, row_b = row_a + 8;
+    const int hr_a = row_a / bq, hr_b = row_b / bq;
+    const int ha = min(hr_a, rep - 1), hb = min(hr_b, rep - 1);
+    blk.q_addr = smem_u32(qs) + wg * 64 * 128;
+    blk.k_addr = smem_u32(blk.ks);
+    blk.v_addr = smem_u32(blk.vs);
+    blk.sm_scale = sm_scale;
+    blk.inv_softcap = inv_softcap;
+    blk.scale_l2 = sm_scale * kLog2e;
+    blk.cap_l2 = softcap * kLog2e;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) blk.s[i] = 0.f;
+    blk.g0 = 0;
+    blk.pass(wg == 1);                          // warpgroup 0 goes first
+    for (int k = 0; item_of(k) < items; ++k) {
+      item(item_of(k));
+      blk.qp_a = q0 + row_a % bq;
+      blk.qp_b = q0 + row_b % bq;
+      blk.st_a = kStarts ? row_start(blk.qp_a) : 0;
+      blk.st_b = kStarts ? row_start(blk.qp_b) : 0;
+#pragma unroll
+      for (int hf = 0; hf < Blk::kHalves; ++hf)
+#pragma unroll
+        for (int j = 0; j < 64; ++j) blk.o[hf][j] = 0.f;
+      blk.m_a = blk.m_b = kNegInf;
+      blk.l_a = blk.l_b = 0.f;
+
+      mbar_wait(qfull, k & 1);
+      if (masked(0)) blk.template first<true>();
+      else blk.template first<false>();
+      for (int n = 1; n < blk.n_tiles; ++n) {
+        if (masked(n)) blk.template step<true>(n);
+        else blk.template step<false>(n);
+      }
+      blk.last(item_of(k + 1) >= items);
+      blk.g0 += blk.n_tiles;
+
+      // the 4 lanes of a row hold partial denominators
+      float l_a = blk.l_a, l_b = blk.l_b;
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      }
+      // the sink logit joins the denominator against the row's final
+      // running max (log2 units, as m), which every lane of the row holds
+      if constexpr (kSinks) {
+        const int hh = blk.bh % nh;
+        l_a += exp2f(__ldg(sinks + hh * rep + ha) * kLog2e - blk.m_a);
+        l_b += exp2f(__ldg(sinks + hh * rep + hb) * kLog2e - blk.m_b);
+      }
+      const bool out_a = hr_a < rep && blk.qp_a < t;
+      const bool out_b = hr_b < rep && blk.qp_b < t;
+      float* const oa = out + (((size_t)blk.bh * rep + ha) * t + blk.qp_a) * D;
+      float* const ob = out + (((size_t)blk.bh * rep + hb) * t + blk.qp_b) * D;
+#pragma unroll
+      for (int hf = 0; hf < Blk::kHalves; ++hf)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 128 * hf + 8 * j + 2 * blk.tq;
+          if (out_a)
+            *reinterpret_cast<float2*>(oa + c) = make_float2(
+                blk.o[hf][4 * j] / l_a, blk.o[hf][4 * j + 1] / l_a);
+          if (out_b)
+            *reinterpret_cast<float2*>(ob + c) = make_float2(
+                blk.o[hf][4 * j + 2] / l_b, blk.o[hf][4 * j + 3] / l_b);
+        }
+    }
   }
 }
 
@@ -378,22 +671,51 @@ int launch(const void* q, const void* k, const void* v, void* out,
            int t, int window, int chunk, float sm_scale, float softcap,
            cudaStream_t stream) {
   auto kern = flash_prefill_kernel<D, kMode, kSoftcap, kSinks>;
-  constexpr int smem = dyn_smem<D>();
-  if constexpr (smem > 48 * 1024) {
-    // once an instance: the opt-in above the 48 KB default
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return (int)attr;
-  }
-  const int bq = 16 * (kWarps / rep);
-  dim3 grid((t + bq - 1) / bq, nh, nb);
+  constexpr int smem = smem_bytes<D>();
+  // once an instance: the opt-in above the 48 KB default
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int bq = kRows / rep;
+  CUtensorMap qm, km, vm;
+  const uint64_t qd[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)nb * nh * rep};
+  const uint32_t qbox[3] = {64, (uint32_t)bq, (uint32_t)rep};
+  const uint64_t kd[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)nb * nh};
+  const uint32_t kbox[3] = {64, (uint32_t)keys<D>(), 1};
+  if (!encode(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, q, qd, qbox,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&km, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, k, kd, kbox,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, v, kd, kbox,
+              CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  // one block an SM (its shared memory allows no more), none idle
+  const int items = (t + bq - 1) / bq * nb * nh;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const int grid = items < sms ? items : sms;
   // the softcap's reciprocal in f32, as the TPU kernel's 1.0 / softcap
   const float inv_softcap = kSoftcap ? (float)(1.0 / (double)softcap) : 0.f;
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), pos0,
-      sinks, nh, rep, t, window, chunk, sm_scale, softcap, inv_softcap);
+  kern<<<grid, kBlockThreads, smem, stream>>>(
+      qm, km, vm, static_cast<float*>(out), pos0, sinks, nb, nh, rep, t,
+      window, chunk, sm_scale, softcap, inv_softcap);
   return (int)cudaGetLastError();
+}
+
+template <int D, int kMode, bool kSoftcap, bool kSinks>
+int attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, flash_prefill_kernel<D, kMode, kSoftcap, kSinks>);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = smem_bytes<D>();
+  out[3] = n_stages<D>();
+  return (int)err;
 }
 
 #define PQ_FLASH_ARGS q, k, v, out, pos0, sinks, nb, nh, rep, t, window, \
@@ -423,6 +745,23 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
   return dispatch_epilogue<D, kCausal>(PQ_FLASH_ARGS);
 }
 
+template <int D, int kMode>
+int attributes_epilogue(int softcap, int sinks, int* out) {
+  if (sinks) return softcap ? attributes<D, kMode, true, true>(out)
+                            : attributes<D, kMode, false, true>(out);
+  return softcap ? attributes<D, kMode, true, false>(out)
+                 : attributes<D, kMode, false, false>(out);
+}
+
+template <int D>
+int attributes_mode(int mode, int softcap, int sinks, int* out) {
+  if (mode == kChunk)
+    return attributes_epilogue<D, kChunk>(softcap, sinks, out);
+  if (mode == kWindow)
+    return attributes_epilogue<D, kWindow>(softcap, sinks, out);
+  return attributes_epilogue<D, kCausal>(softcap, sinks, out);
+}
+
 }  // namespace
 
 // q [B,H,rep,T,D] bf16, k/v [B,H,T,D] bf16, out [B,H,rep,T,D] f32, D 128 or
@@ -442,11 +781,22 @@ extern "C" int pq_flash_prefill(const void* q, const void* k, const void* v,
                                 float sm_scale, float softcap, void* stream) {
   const int* pos0 = static_cast<const int*>(pos0_ptr);
   const float* sinks = static_cast<const float*>(sinks_ptr);
-  if (rep < 1 || rep > kWarps || window < 1 || chunk < 0 ||
+  if (rep < 1 || rep > kMaxRep || window < 1 || chunk < 0 ||
       !(softcap >= 0.f) || (chunk > 0 && (window < t || pos0 == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d == 128) return dispatch<128>(PQ_FLASH_ARGS);
   if (d == 256) return dispatch<256>(PQ_FLASH_ARGS);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Registers, local (spill) bytes, dynamic shared memory and K/V stages of
+// the instance (d 128 or 256; mode 0 causal, 1 window, 2 chunk; softcap,
+// sinks 0 or 1) into out[4].
+extern "C" int pq_flash_attributes(int d, int mode, int softcap, int sinks,
+                                   int* out) {
+  if (mode < kCausal || mode > kChunk) return (int)cudaErrorInvalidValue;
+  if (d == 128) return attributes_mode<128>(mode, softcap, sinks, out);
+  if (d == 256) return attributes_mode<256>(mode, softcap, sinks, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,232 @@
+// Hopper (sm_90a) helpers shared by the wgmma kernels (qmatmul_ragged.cu,
+// flash.cu): mbarriers, TMA tensor loads, shared-memory matrix
+// descriptors, the wgmma fence / commit / wait and the register-A
+// m64n128k16 product on the device; on the host, cuTensorMapEncodeTiled
+// fetched from the driver and a row-major tensor encoded as a TMA map.
+//
+// Every device helper that a warpgroup runs while wgmmas are in flight is
+// branch-free: the predicate of a TMA issue or an arrival lives inside its
+// asm block, and so does the barrier spin, since ptxas serializes wgmmas
+// that are in flight across a branch it cannot prove uniform.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pq {
+
+// ---------------------------------------------------------------------------
+// mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool on) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"((int)on)
+      : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed; trap (a launch
+// error, not a hung card) after 2^28 polls.  The loop lives in one asm
+// block, so ptxas sees no divergent branch while wgmmas are in flight.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 polls;\n"
+      "mov.u32 polls, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 polls, polls, 1;\n"
+      "setp.eq.u32 p, polls, 268435456;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The TMA issue and its expected bytes, predicated on `on` (so every thread
+// of a warpgroup can run the code that issues them, with no branch).
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes,
+                                               bool on) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(bytes), "r"((int)on)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            bool on) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"((int)on)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, bool on) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "@p cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"((int)on)
+      : "memory");
+}
+
+// Shared-memory descriptor of a K-major operand under the 64-byte swizzle:
+// 8-row groups 512 bytes apart (the leading offset is unused).
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// Shared-memory descriptor under the 128-byte swizzle, 8-row groups of
+// 128-byte rows 1024 bytes apart.  K-major (lead unused): the start moves
+// by 32 bytes a k16 step inside a 64-element atom.  MN-major (the
+// transposed B of a product, `lead` the byte distance between 64-element
+// atoms along N): the start moves by two row groups a k16 step.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lead = 16) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>   // until at most N committed groups are in flight
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x 128] += A[64 x 16] (bf16, registers) . B[16 x 128] (bf16, shared
+// memory; kTransB 0: K-major, 1: MN-major), f32 sums.
+template <int kTransB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver API, without linking libcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major tensor of `rank` dims (innermost first, at most 3) as a TMA
+// map; elements of a box past the tensor's edge load as zeros.
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                   int rank, const void* base, const uint64_t* dims,
+                   const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  cuuint64_t gdim[3], gstride[2];
+  cuuint32_t bdim[3], estride[3] = {1, 1, 1};
+  uint64_t stride = elem;
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = dims[i];
+    bdim[i] = box[i];
+    if (i + 1 < rank) {
+      stride *= dims[i];
+      gstride[i] = stride;
+    }
+  }
+  return fn(map, type, rank, const_cast<void*>(base), gdim, gstride, bdim,
+            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace pq

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "qmatmul_ragged.cu",
            "qmatmul_mlp.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
            "dequantize.cu", "requantize.cu", "minmax.cu", "ring.cu")
-HEADERS = ("pq_quant.cuh", "pq_tile.cuh")
+HEADERS = ("pq_quant.cuh", "pq_tile.cuh", "pq_hopper.cuh")
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -77,6 +77,8 @@ SIGNATURES = {
     # q, k, v, out, pos0, sinks, nb, nh, rep, t, window, chunk, d,
     # sm_scale, softcap, stream
     "pq_flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+    # d, mode, softcap, sinks, out[4]
+    "pq_flash_attributes": [_I] * 4 + [_P],
     # x, out, n, in_bf16, bits, is_signed, scale_ptr, scale_val, zp_ptr,
     # zp_val, stochastic, seed, stream
     "pq_quantize": [_P, _P, _I64, _I, _I, _I, _P, _F, _P, _I, _I, _U64, _P],

@@ -616,27 +616,34 @@ def test_decode_attn2_refuses(dev):
 
 # Output element by element within atol 2e-3, rtol 2e-2 (bf16
 # probabilities before PV in both; another tile order for the online
-# softmax).
+# softmax).  The kernel's blocks hold the rep heads of one kv head times
+# 128 // rep positions: T of 1, 17, 64, 127, 129 and 255 put positions
+# either side of each block edge at every rep, and the last block ragged.
 @pytest.mark.parametrize("rep,t", [(1, 256), (2, 384), (4, 200), (8, 128),
-                                   (3, 256), (5, 128), (6, 384), (7, 200)])
+                                   (3, 256), (5, 128), (6, 384), (7, 200)] +
+                         [(rep, t) for rep in range(1, 9)
+                          for t in (1, 17, 64, 127, 129, 255)])
 def test_flash_matches_plain(dev, rep, t):
     g = _gen(dev, rep * t)
     b, hkv, d = 2, 2, 128
     q = torch.randn((b, hkv, rep, t, d), generator=g, device=dev)
     k = torch.randn((b, hkv, t, d), generator=g, device=dev)
     v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    before = FL.flash_attn.launches
     got = FL.flash_attn(q, k, v, d ** -0.5)
+    assert FL.flash_attn.launches == before + 1
     want = FL.flash_attn_plain(q, k, v, d ** -0.5)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
 
 
 # The sliding window as flash_attn_plain takes it, at every rep: windows of
 # 1 (the diagonal alone), 63 and 100 (not multiples of the 64-key tile),
-# 200 and one wider than T (the causal mask); T of whole 128-row tiles and
-# ragged.  Bounds as above.
+# 127 and 129 (either side of the 128-key tile), 200 and one wider than T
+# (the causal mask); T of whole 128-row tiles and ragged.  Bounds as above.
 @pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("window,t", [(1, 256), (63, 384), (100, 200),
-                                      (200, 512), (1000, 256)])
+                                      (127, 384), (129, 300), (200, 512),
+                                      (1000, 256)])
 def test_flash_window_matches_plain(dev, rep, window, t):
     g = _gen(dev, rep * t + window)
     b, hkv, d = 2, 2, 128
@@ -670,7 +677,8 @@ def _context_f32_probs(q, k, v, sm, window, softcap):
 
 
 # Head dim 256 (Gemma) and the softcap: causal and windowed, T of whole
-# tiles and ragged, at the Gemma reps and two more.  Unit-normal scores
+# tiles and ragged, at the Gemma reps and the odd ones (a 128-row block
+# holds 126 rows at rep 3, 6 and 7, 125 at rep 5).  Unit-normal scores
 # (scale d^-0.5; a cap of 2 bites there) within the bounds above.  Peaked
 # scores (q and k doubled at Gemma-2's scale 1/16: a spread of 2.8 at D 128,
 # 4 at D 256) let a few keys dominate a row, and one bf16 rounding of a
@@ -680,7 +688,7 @@ def _context_f32_probs(q, k, v, sm, window, softcap):
 # plus two roundings of the plain version, which rounds against the row's
 # max where the kernel rounds against the running one.
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("rep", [1, 2, 5, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 5, 6, 7, 8])
 @pytest.mark.parametrize("window,softcap,t", [(None, None, 256),
                                               (None, 50.0, 384),
                                               (None, 2.0, 200),
@@ -709,17 +717,21 @@ def test_flash_gemma_matches_plain(dev, d, rep, window, softcap, t, peaked):
 
 
 # Llama-4's chunk (96: off the 64-key tiles; pos0 0, and 40 and 1000 so a
-# boundary falls inside a 16-row warp) and GPT-OSS's sinks (N(0, 1), the
-# first query head's lifted by 3 so the sink dominates some rows), in
-# every combination with each other, the window (63) and the softcap (2),
-# at D 128 and 256, T of whole tiles and ragged, reps 1, 5 and 8.  Chunk
-# starts leave a row few live keys, where one bf16 rounding of a dominant
-# probability moves the context past atol 2e-3 (as under peaked scores
-# above): the kernel stays within the stated bound plus two roundings of
-# the plain version (`rounding_bound`).  Every sink moves the context
-# beyond that bound.
+# boundary falls inside a 16-row warp; pos0 56 and 30 put boundaries of
+# chunks 96 and 100 at positions 40 and 70, inside the first and the
+# second 64-row warpgroup at rep 1 and inside both at rep 2) and GPT-OSS's
+# sinks (N(0, 1), the first query head's lifted by 3 so the sink dominates
+# some rows), in every combination with each other, the window (63) and
+# the softcap (2), at D 128 and 256, T of whole tiles and ragged, reps 1-3
+# and 5-8.  Chunk starts leave a row few live keys, where one bf16
+# rounding of a dominant probability moves the context past atol 2e-3 (as
+# under peaked scores above): the kernel stays within the stated bound
+# plus two roundings of the plain version (`rounding_bound`).  Every sink
+# moves the context beyond that bound.
 FLASH_MODES = {
     "chunk": dict(chunk=96), "chunk_pos0": dict(chunk=96, pos0=(40, 1000)),
+    "chunk_wg0": dict(chunk=96, pos0=(56, 3)),
+    "chunk_wg1": dict(chunk=100, pos0=(30, 0)),
     "sinks": dict(sinks=True), "sinks_window": dict(sinks=True, window=63),
     "sinks_chunk": dict(sinks=True, chunk=96, pos0=(40, 1000)),
     "sinks_softcap": dict(sinks=True, softcap=2.0),
@@ -729,7 +741,7 @@ FLASH_MODES = {
 
 
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("rep", [1, 5, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 5, 6, 7, 8])
 @pytest.mark.parametrize("mode", list(FLASH_MODES))
 @pytest.mark.parametrize("t", [256, 200])
 def test_flash_chunk_sinks_match_plain(dev, d, rep, mode, t):
@@ -772,6 +784,22 @@ def test_flash_chunk_long_matches_plain(dev, p0):
     lim = 2e-3 + 2e-2 * want.abs() + 2 * FL.rounding_bound(
         q, k, v, 128 ** -0.5, chunk=300, pos0=pos0)
     assert bool(((got - want).abs() <= lim).all())
+
+
+# A negative scale and a zero one (every score 0) as the plain version
+# takes them, causal and under a softcap.
+@pytest.mark.parametrize("sm", [-128 ** -0.5, 0.0])
+@pytest.mark.parametrize("softcap", [None, 2.0])
+def test_flash_nonpositive_scale_matches_plain(dev, sm, softcap):
+    g = _gen(dev, 7)
+    q = torch.randn((2, 2, 4, 200, 128), generator=g, device=dev)
+    k = torch.randn((2, 2, 200, 128), generator=g, device=dev)
+    v = torch.randn((2, 2, 200, 128), generator=g, device=dev)
+    before = FL.flash_attn.launches
+    got = FL.flash_attn(q, k, v, sm, softcap=softcap)
+    assert FL.flash_attn.launches == before + 1
+    want = FL.flash_attn_plain(q, k, v, sm, softcap=softcap)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
 
 
 def test_flash_chunk_sinks_refuse(dev):
