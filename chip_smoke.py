@@ -262,6 +262,10 @@ def bound_ms(nbytes: float, flops: float, flop_per_s: float = BF16_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_share(ms: float, bnd: float) -> str:
+    return f"{100 * bnd / ms:.1f}% of the bound"
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -470,9 +474,11 @@ def check_decode_attn2(torch, dev, gen):
     nbytes = (live_pos * hkv * (2 * d + 2 * 4) + q.numel() * 2
               + b * hkv * rep * (d + 2) * 4)
     bnd, by = bound_ms(nbytes, 4 * live_pos * rep * hkv * d)
-    print(f"decode_attn2: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-          f"sdpa(bf16 cache) {t_l:.4f} ms, live positions {live_pos:.0f}",
+    print(f"decode_attn2: kernel {t_k:.4f} ms ({bound_share(t_k, bnd)} "
+          f"{bnd:.4f} ms, {by}), sdpa(bf16 cache) {t_l:.4f} ms, plain "
+          f"{t_p:.4f} ms, live positions {live_pos:.0f} [{card_line()}]",
           flush=True)
+    print(f"decode_attn2 instances: {decode_attributes(torch)}", flush=True)
     del kc, vc, ks, vs, kf, vf
     return dict(name="decode_attn2", route="cuda",
                 source="piquant_tpu_torch/csrc/decode_attn2.cu",
@@ -481,6 +487,25 @@ def check_decode_attn2(torch, dev, gen):
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
                 bound_by=by, library_ms=t_l, eager_ms=t_e,
                 timed="one layer: B=8, Hkv=8, rep=4, S=2048, mixed positions")
+
+
+def decode_attributes(torch) -> str:
+    """Registers, local (spill) bytes, dynamic shared memory (rep 8, 16
+    tiles a split) and ring stages of the six decode_attn2_kernel
+    instances (cudaFuncGetAttributes)."""
+    import ctypes
+
+    from piquant_tpu_torch.ops.cuda import _build
+
+    parts = []
+    for d in (128, 256):
+        for form, tag in ((0, "kv8"), (1, "kv4"), (2, "v1")):
+            a = (ctypes.c_int * 4)()
+            _build.check(_build.library().pq_decode_attn2_attributes(
+                d, form, a), "pq_decode_attn2_attributes")
+            parts.append(f"D={d} {tag}: {a[0]} registers, {a[1]} B local, "
+                         f"{a[2]} B shared, {a[3]} stages")
+    return "; ".join(parts)
 
 
 def flash_rate(flops: float, ms: float, bnd: float) -> str:
@@ -1085,10 +1110,12 @@ def profile_decode(torch, M, cfg, params, dev, steps=4):
               flush=True)
         return
     busy = sum(r[1] for r in rows)
+    launched = sum(r[2] for r in rows)
     print(f"profile: a decode step takes {plain_ms:.2f} ms unprofiled; "
           f"{steps} decode steps, wall {wall_ms:.2f} ms, kernels "
           f"{busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
-          f"{sum(r[2] for r in rows)} kernel launches", flush=True)
+          f"{launched} kernel launches, {launched / steps:.0f} device "
+          f"kernels a decode step", flush=True)
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"profile:   {ms:8.3f} ms  x{n:<6d} {name[:90]}", flush=True)
 
@@ -2028,9 +2055,9 @@ def check_decode_attn2_kv4(torch, dev, gen):
     nbytes = (live_pos * hkv * (2 * d // 2 + 2 * 4) + q.numel() * 2
               + b * hkv * rep * (d + 2) * 4)
     bnd, by = bound_ms(nbytes, 4 * live_pos * rep * hkv * d)
-    print(f"decode_attn2_kv4: kernel {t_k:.4f} ms, bound {bnd:.4f} ms "
-          f"({by}), plain {t_p:.4f} ms, sdpa(bf16 cache) {t_l:.4f} ms, "
-          f"eager {t_e:.4f} ms, live positions {live_pos:.0f} "
+    print(f"decode_attn2_kv4: kernel {t_k:.4f} ms ({bound_share(t_k, bnd)} "
+          f"{bnd:.4f} ms, {by}), sdpa(bf16 cache) {t_l:.4f} ms, plain "
+          f"{t_p:.4f} ms, eager {t_e:.4f} ms, live positions {live_pos:.0f} "
           f"[{card_line()}]", flush=True)
     del kc, vc, ks, vs, kf, vf
     return dict(name="decode_attn2_kv4", route="cuda",
@@ -2315,9 +2342,9 @@ def hold_decode(torch, dev, gen, kv4, geometry, pos, start, d=128):
               + q.numel() * 2 + b * hkv * rep * (d + 2) * 4)
     bnd, by = bound_ms(nbytes, 4 * live * rep * hkv * d)
     print(f"{name}: max_abs_err (normalized context) {err:.3e}; kernel "
-          f"{t_k:.4f} ms, bound {bnd:.4f} ms ({by}), plain {t_p:.4f} ms, "
-          f"sdpa(bf16 cache slice) {t_l:.4f} ms, live positions {live:.0f} "
-          f"[{card_line()}]", flush=True)
+          f"{t_k:.4f} ms ({bound_share(t_k, bnd)} {bnd:.4f} ms, {by}), "
+          f"sdpa(bf16 cache slice) {t_l:.4f} ms, plain {t_p:.4f} ms, live "
+          f"positions {live:.0f} [{card_line()}]", flush=True)
     del kc, vc, ks, vs, kf, vf
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bnd,
@@ -2943,10 +2970,10 @@ def check_decode_attn_v1(torch, dev, gen):
             nbytes = (live * hkv * (2 * d + 2 * 4) + q.numel() * 2
                       + b * hkv * rep * d * 4)
             bnd, by = bound_ms(nbytes, 4 * live * hkv * rep * d)
-            print(f"decode_attn {label} {what}: kernel {t_k:.4f} ms, bound "
-                  f"{bnd:.4f} ms ({by}), plain {t_p:.4f} ms, sdpa(bf16 "
-                  f"cache) {t_l:.4f} ms, eager {t_e:.4f} ms [{card_line()}]",
-                  flush=True)
+            print(f"decode_attn {label} {what}: kernel {t_k:.4f} ms "
+                  f"({bound_share(t_k, bnd)} {bnd:.4f} ms, {by}), sdpa(bf16 "
+                  f"cache) {t_l:.4f} ms, plain {t_p:.4f} ms, eager "
+                  f"{t_e:.4f} ms [{card_line()}]", flush=True)
             res = dict(ms=t_k, bound_ms=bnd, bound_by=by, plain_ms=t_p,
                        library_ms=t_l, eager_ms=t_e)
             main = main or res

@@ -1,399 +1,677 @@
 // decode_attn2: flash-decode over the stacked INT8 (kv8) or pair-packed
-// INT4 (kv4) KV cache.
+// INT4 (kv4) KV cache, and the first flash-decode kernel's function (V1).
 //
-// Replaces piquant_tpu/ops/pallas/decode_attn2.py::_kernel in both forms.
-// For every (batch row b, kv head h) it returns the UNNORMALIZED flash state
-// over the live cache window start[b] <= p < pos[b]:
+// Replaces piquant_tpu/ops/pallas/decode_attn2.py::_kernel in both forms
+// and piquant_tpu/ops/pallas/attention.py::_decode_attn_kernel (V1).  For
+// every (batch row b, kv head h) the kv8 / kv4 forms return the
+// UNNORMALIZED flash state over the live cache window start[b] <= p < pos[b]:
 //   m   = max_p s_p,   l = sum_p exp(s_p - m),
 //   acc = sum_p bf16(exp(s_p - m) * vs_p) * v_codes[p],
 //   s_p = (q . k_codes[p]) * (ks_p * sm_scale)
 // for the rep query heads of h at once.  A row with no live position gets
-// the same sentinel as the TPU kernel: m = -1e30, l = 0, acc = 0 (a -inf
-// would turn the caller's fold with the current token into NaN).
+// the TPU kernel's sentinel: m = -1e30, l = 0, acc = 0 (a -inf would turn
+// the caller's fold with the current token into NaN).  V1 reads one
+// layer's kv8 cache [B, Hkv, S, D] (layer 0 of a stack of one), attends
+// 0 <= p <= pos[b] (the current token is in the cache) and returns the
+// NORMALIZED context acc / l.
 //
-// Bound on the H100: the live K/V code bytes plus their f32 scales (the
-// cache is int8; q and the outputs are a few KB).  Design:
-//   * the cache is the STACKED buffer [L, B, Hkv, S, D] and the layer is a
-//     pointer offset, so no per-layer copy is ever made;
-//   * the grid is (B * Hkv, S / 256): each block takes one 256-position
-//     chunk of one (b, h) and returns at once if the chunk holds no live
-//     position, so dead chunks cost no reads;
-//   * the rep query heads share every K/V load: a group of D / 16 lanes
-//     reads one cache row, 16 dims a lane (kv8: 16 bytes; kv4: 8 bytes),
-//     and forms all rep dots, so a lane holds the same registers at head
-//     dim 128 (8 lanes a row, 4 rows a warp) and 256 (16 lanes, 2 rows a
-//     warp); REP and D are template arguments, instantiated for every rep
-//     from 1 to 8 at D 128 and 256 (the 4 warps take the chunk softmax's
-//     rows r, r + 4, ..., so an odd REP leaves some warps a row fewer; the
-//     scores and the warp reduction take REP KB + 4 REP D / 256 KB of
-//     static shared memory: 40 KB at REP 8, D 256);
-//   * per-chunk (m, l, acc) partials are merged by a second small kernel
-//     that reads only the live chunks.
-// Products: bf16 q times int8 codes (exact) with f32 sums, probabilities
-// scaled by the V scale and rounded to bf16 before the PV sum, as the TPU
-// kernel does.
+// Bound on the H100: the live K/V code bytes and their f32 scales (q and
+// the outputs are a few KB); about 2 rep operations a code byte, far below
+// the tensor cores' ~295 a byte.  Design:
+//   * both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//     sums).  The codes are exact in bf16 (kv8 -128..127 from 0x4300 | low
+//     7 bits minus 0x4300 | sign bit; kv4 0x4300 | nibble minus 136), so a
+//     code costs ~2 integer operations and no rep-fold FMAs.  S^T = Q K^T
+//     puts the rep heads on M (padded to 16: the upper 8 rows are zero) and
+//     16 positions on N: each thread's scores are then the B fragment of
+//     O^T = V^T P^T (dims on M, rep heads on N, 16 positions on K).  A k16
+//     step takes a thread's 4 consecutive bytes of a K row as k-slots (2t,
+//     2t+1, 2t+8, 2t+9) = dims (d0, d0+2, d0+1, d0+3), and q is loaded in
+//     the same order (a sum over dims ignores their order); kv4's bytes give
+//     a low-nibble k16 step (dims j..) and a high one (dims j + D/2..).  V's
+//     k-slots are positions, so its bytes are gathered across 2 rows with
+//     one __byte_perm a register;
+//   * two passes a split, D / 32 warps a block: the scores of all its
+//     tiles (pass 1, each warp 16 or 8 positions of a tile) into shared
+//     memory, then P = bf16(exp(s - m) vs) at the split's own maximum, then
+//     O (pass 2, each warp 32 dims over all 64 positions of a tile), so no
+//     running rescale and no fold of the warps' O;
+//   * a grid of (B * Hkv, splits): the wrapper splits S into at most 8
+//     splits of whole 64-position tiles (decode_attn2.py::split_tiles, from
+//     S alone: no pos is read on the host); a split with no live position
+//     returns at once;
+//   * bytes in flight: a ring of up to 96 KB of 64-position K tiles, then V
+//     tiles (16 KB a tile at D 256 kv8), filled by plain bulk copies of the
+//     live rows (a tile of one (layer, b, h) slab is one contiguous run, in
+//     both forms) on an mbarrier a stage; the split's live scales come in
+//     up front, one 4-byte cp.async each;
+//   * one launch a call: a row whose window lies in one split writes its
+//     result directly.  Otherwise each split writes an f32 partial, takes a
+//     ticket (an int32 atomic per (b, h)), and the split that takes the
+//     last ticket merges all partials in split order (identical bits on
+//     every call and graph replay) and resets the ticket to 0;
+//   * REP is a runtime count of live N columns: one instance per D (128,
+//     256) and form (kv8, kv4, V1), six in all.
+// The probabilities are rounded to bf16 at each split's maximum, as the TPU
+// kernel rounds them at its 512-position chunk's running maximum (the same
+// function within those roundings).
 //
 // kv4 (quant/kv_cache.py): codes [L, B, Hkv, S/2, D] uint8, where row t
-// holds position 2t's D/2 bytes then position 2t+1's, and byte j of a
-// position holds dim j in its low nibble and dim j + D/2 in its high one,
-// each plus 8; scales [L, B, Hkv, 2, S/2] with position p at [p % 2, p / 2].
-// A position is half the bytes of kv8: each of the D / 16 lanes on a row
-// reads 8 bytes (dims 8g .. 8g+7 and D/2+8g .. D/2+8g+7) and subtracts the
-// offset in registers, so the code values are the exact integers (c - 8)
-// the TPU kernel folds in as -8 sum(q) and -8 sum(pv).  Everything else is
-// the kv8 kernel.
-//
-// V1 (pq_decode_attn) replaces piquant_tpu/ops/pallas/attention.py::
-// _decode_attn_kernel, the first flash-decode kernel: one layer's kv8 cache
-// [B, Hkv, S, D] (a stacked cache of one layer: layer 0), every position
-// 0 <= p <= pos[b] live (the current token is already in the cache), and
-// the NORMALIZED context acc / l.  The chunk kernel runs with start 0 and
-// the inclusive end; the merge divides.  The TPU kernel walks 512-position
-// chunks in order with an online softmax; here the 256-position chunks run
-// in parallel and the merge rescales them, so the probabilities are rounded
-// to bf16 against other running maxima (the same function within those
-// roundings).
+// holds position 2t's D/2 bytes then position 2t+1's, so position p is the
+// D/2 bytes at p * D/2 of its slab; byte j holds dim j in its low nibble
+// and dim j + D/2 in its high one, each plus 8; scales [L, B, Hkv, 2, S/2]
+// with position p at [p % 2, p / 2].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pq_hopper.cuh"
+
 namespace {
 
-constexpr int kChunk = 256;               // cache positions per block
-constexpr int kThreads = 128;             // 4 warps
+constexpr int kTile = 64;        // cache positions a ring stage holds
+constexpr int kMaxStages = 8;
+constexpr int kRingBytes = 98304;   // the ring's K or V tiles in flight
+constexpr int kMaxTps = 16;         // tiles a split (its scores: 2 KB each)
+constexpr int kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;
 
-// Lanes on one cache row (16 dims each), position groups in flight, and the
-// positions each group takes of a chunk, at head dim D.
-template <int D>
-struct Geom {
-  static constexpr int kLanes = D / 16;
-  static constexpr int kGroups = kThreads / kLanes;
-  static constexpr int kPerGroup = kChunk / kGroups;
+struct Args {
+  const __nv_bfloat16* q;    // [B, Hkv, rep, D]
+  const uint8_t* kc;         // [L, B, Hkv, S, D] int8 / [L, B, Hkv, S/2, D] u8
+  const float* ks;           // [L, B, Hkv, S] / [L, B, Hkv, 2, S/2]
+  const uint8_t* vc;
+  const float* vs;
+  const int* pos;            // [B]
+  const int* start;          // [B]
+  float* acc;                // [B, Hkv, rep, D] (V1: the context)
+  float* m;                  // [B, Hkv, rep]
+  float* l;
+  float* part_acc;           // [B, Hkv, nsplit, rep, D]
+  float* part_ml;            // [B, Hkv, nsplit, rep, 2]
+  int* tickets;              // [B * Hkv], zero between calls
+  int layer, nb, nh, rep, s_len, tps, nstage, region;
+  float sm_scale;
 };
 
-__device__ __forceinline__ void codes16(const int8_t* p, float* out) {
-  const int4 raw = *reinterpret_cast<const int4*>(p);
-  const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[i * 4 + j] = (float)(int8_t)((words[i] >> (8 * j)) & 0xff);
-}
-
-// kv4: 8 bytes of one position -> out[0..7] the low nibbles (dims 8g..),
-// out[8..15] the high ones (dims D/2+8g..), each minus the offset 8.
-__device__ __forceinline__ void nibbles16(const uint8_t* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const uint32_t words[2] = {raw.x, raw.y};
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t byte = (words[i] >> (8 * j)) & 0xffu;
-      out[i * 4 + j] = (float)((int)(byte & 15u) - 8);
-      out[8 + i * 4 + j] = (float)((int)(byte >> 4) - 8);
-    }
-}
-
-// Head dim of element j (0..15) of lane group slice g (0..D/16-1).
 template <bool KV4, int D>
-__device__ __forceinline__ int dim_of(int g, int j) {
-  if constexpr (KV4) return j < 8 ? g * 8 + j : D / 2 + g * 8 + (j - 8);
-  return g * 16 + j;
+struct Form {
+  static constexpr int kRow = KV4 ? D / 2 : D;     // code bytes a position
+  static constexpr int kTileBytes = kTile * kRow;
+  static constexpr int kSteps = D / 16;            // k16 steps of Q K^T
+  static constexpr int kWarps = D / 32;   // a block: D threads
+  static constexpr int kThreads = D;
+  static constexpr int kNt = 8 / kWarps;  // n8 tiles of scores a warp a tile
+  static constexpr int kOut4 = 2;         // float4s of rep 8 x D a thread
+};
+
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Element offset of position p's codes for lane group slice g, and of its
-// scale, within one (layer, b, h) of the stacked cache (s_len positions).
-template <bool KV4, int D>
-__device__ __forceinline__ size_t code_at(int p, int g) {
-  if constexpr (KV4) return (size_t)(p / 2) * D + (p % 2) * (D / 2) + g * 8;
-  return (size_t)p * D + g * 16;
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// int8 codes in bytes 0 and 2 of w -> bf16x2 (low half: byte 0), exactly:
+// (128 + low 7 bits) - (128, or 256 when the sign bit is set)
+__device__ __forceinline__ uint32_t s8_pair(uint32_t w) {
+  return bf16x2_sub((w & 0x007F007Fu) | 0x43004300u,
+                    (w & 0x00800080u) | 0x43004300u);
+}
+
+// offset-8 nibbles in bits 0-3 of bytes 0 and 2 of w -> bf16x2, exactly
+__device__ __forceinline__ uint32_t u4_pair(uint32_t w) {
+  return bf16x2_sub((w & 0x000F000Fu) | 0x43004300u, 0x43084308u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// byte j of a into bytes 0 and 1, byte j of b into bytes 2 and 3
+__device__ __forceinline__ uint32_t gather(uint32_t a, uint32_t b, int j) {
+  return __byte_perm(a, b, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   pq::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 template <bool KV4>
 __device__ __forceinline__ size_t scale_at(int p, int s_len) {
-  if constexpr (KV4) return (size_t)(p % 2) * (s_len / 2) + p / 2;
+  if constexpr (KV4) return (size_t)(p & 1) * (s_len / 2) + (p >> 1);
   return (size_t)p;
 }
 
-template <bool KV4>
-__device__ __forceinline__ void load16(const void* base, size_t off,
-                                       float* out) {
-  if constexpr (KV4) {
-    nibbles16(static_cast<const uint8_t*>(base) + off, out);
-  } else {
-    codes16(static_cast<const int8_t*>(base) + off, out);
-  }
+// First of the 4 dims (d0, d0+2 | d0+1, d0+3) of k16 step kk for thread t.
+template <bool KV4, int D>
+__device__ __forceinline__ int q_dim(int kk, int t) {
+  if constexpr (KV4)
+    return 64 * (kk >> 3) + 16 * t + 4 * ((kk >> 1) & 3) + (kk & 1) * (D / 2);
+  return 64 * (kk >> 2) + 16 * t + 4 * (kk & 3);
 }
 
-template <int REP, bool KV4, int D, bool V1>
-__global__ void __launch_bounds__(kThreads)
-decode_attn2_chunk(const __nv_bfloat16* __restrict__ q,   // [B,H,REP,D]
-                   const void* __restrict__ kc,   // [L,B,H,S,D] / [L,B,H,S/2,D]
-                   const float* __restrict__ ks,  // [L,B,H,S] / [L,B,H,2,S/2]
-                   const void* __restrict__ vc,
-                   const float* __restrict__ vs,
-                   const int* __restrict__ pos,           // [B]
-                   const int* __restrict__ start,         // [B]
-                   float* __restrict__ part_acc,          // [B,H,nsplit,REP,D]
-                   float* __restrict__ part_ml,           // [B,H,nsplit,REP,2]
-                   int layer, int nb, int nh, int s_len, float sm_scale) {
-  __shared__ float sc[REP][kChunk];
-  __shared__ float red[4][REP][D];
-  constexpr int kLanes = Geom<D>::kLanes, kGroups = Geom<D>::kGroups;
-  constexpr int kPerGroup = Geom<D>::kPerGroup;
-  __shared__ float row_m[REP];
 
-  const int bh = blockIdx.x;
-  const int b = bh / nh;
-  const int split = blockIdx.y;
-  const int nsplit = gridDim.y;
-  const int c0 = split * kChunk;
-  // V1: positions 0 .. pos inclusive
-  const int lo = V1 ? c0 : max(start[b], c0);
-  const int hi = min(min(V1 ? pos[b] + 1 : pos[b], s_len), c0 + kChunk);
-  if (lo >= hi) return;   // dead chunk: the merge kernel skips it
+template <bool KV4, int D, bool V1>
+__global__ void __launch_bounds__(D, D == 128 ? 4 : 2)
+decode_attn2_kernel(const Args a) {
+  using F = Form<KV4, D>;
+  constexpr int kWarps = F::kWarps, kThreads = F::kThreads, kNt = F::kNt;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int b = bh / a.nh, rep = a.rep;
+  const int span = a.tps * kTile;
+  const int lo = V1 ? 0 : max(a.start[b], 0);
+  const int hi = min(V1 ? a.pos[b] + 1 : a.pos[b], a.s_len);
+  const int first = lo / span;
+  const int nlive = hi > lo ? (hi - 1) / span - first + 1 : 0;
+  const int n4 = rep * D / 4;   // float4s of a (b, h)'s rep x D result
+  if (nlive == 0) {             // no live position: split 0 writes the sentinel
+    if (split == 0) {
+      for (int i = tid; i < n4; i += kThreads)
+        reinterpret_cast<float4*>(a.acc)[(size_t)bh * n4 + i] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!V1 && tid < rep) {
+        a.m[bh * rep + tid] = kNegInf;
+        a.l[bh * rep + tid] = 0.f;
+      }
+    }
+    return;
+  }
+  const int p_lo = max(lo, split * span), p_hi = min(hi, (split + 1) * span);
+  if (p_lo >= p_hi) return;     // dead split
+  const int t_first = p_lo / kTile;
+  const int ntile = (p_hi - 1) / kTile - t_first + 1;
+  const int nst = min(a.nstage, 2 * ntile);
 
-  // (layer, b, h) slab: s_len positions of codes (D bytes each for kv8,
-  // D / 2 for kv4) and s_len scales
-  const size_t lbh = (size_t)layer * nb * nh + bh;
-  const size_t code0 = lbh * s_len * (KV4 ? D / 2 : D);
-  const size_t scale0 = lbh * s_len;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int gl = lane % kLanes;                          // 16-dim slice
-  const int grp = warp * (32 / kLanes) + lane / kLanes;  // position group
+  // [region: the code ring, later the merge] [sco: tps x 8 n8 tiles x 32
+  // lanes x 2 scores, then their P] [sks, svs: tps x 64 scales each]
+  // [bars: nstage] [sml: warps x 8 rows x (m, l)] [fin: 8 x (m, l)] [flag]
+  uint8_t* ring = smem;
+  float* sco = reinterpret_cast<float*>(smem + a.region);
+  float* sks = sco + a.tps * 512;
+  float* svs = sks + a.tps * kTile;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(svs + a.tps * kTile);
+  float* sml = reinterpret_cast<float*>(bar + a.nstage);
+  float* fin = sml + kWarps * 16;
+  int* flag = reinterpret_cast<int*>(fin + 16);
 
-  // ---- scores: s[r][p] for the live positions of the chunk ------------
+  const int s_len = a.s_len;
+  const size_t lbh = (size_t)a.layer * a.nb * a.nh + bh;
+  const uint8_t* kslab = a.kc + lbh * s_len * F::kRow;
+  const uint8_t* vslab = a.vc + lbh * s_len * F::kRow;
+  const float* kss = a.ks + lbh * s_len;
+  const float* vss = a.vs + lbh * s_len;
+
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) pq::mbar_init(&bar[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Load L of the block (K tiles 0 .. ntile-1, then V tiles) into stage
+  // L % nst: the tile's live rows by one bulk copy.
+  auto fetch = [&](int L) {
+    if (tid == 0) {
+      const int s = L % nst;
+      const bool is_v = L >= ntile;
+      const int p0 = (t_first + (is_v ? L - ntile : L)) * kTile;
+      const int r0 = max(p_lo - p0, 0), r1 = min(p_hi - p0, kTile);
+      const uint32_t n = (uint32_t)(r1 - r0) * F::kRow;
+      pq::mbar_arrive_tx(&bar[s], n, true);
+      pq::bulk_load(ring + s * F::kTileBytes + r0 * F::kRow,
+                    (is_v ? vslab : kslab) + (size_t)(p0 + r0) * F::kRow, n,
+                    &bar[s]);
+    }
+  };
+  for (int L = 0; L < nst; ++L) fetch(L);
+  // the split's live K and V scales, one cp.async each
+  for (int j = tid; j < 2 * ntile * kTile; j += kThreads) {
+    const int is_v = j >= ntile * kTile;
+    const int jj = is_v ? j - ntile * kTile : j;
+    const int p = t_first * kTile + jj;
+    if (p >= p_lo && p < p_hi)
+      cp_async4((is_v ? svs : sks) + jj,
+                (is_v ? vss : kss) + scale_at<KV4>(p, s_len));
+  }
+  auto wait = [&](int L) {
+    pq::mbar_wait(&bar[L % nst], (uint32_t)((L / nst) & 1));
+  };
+  // once every warp is done with load L's stage, refill it with L + nst
+  auto refill = [&](int L) {
+    if (L + nst < 2 * ntile) {
+      __syncthreads();
+      fetch(L + nst);
+    }
+  };
+
+  // ---- pass 1: scores S^T[rep][positions] of the split's tiles into
+  // shared memory; warp w takes the n8 tiles n = w kNt + nt of each tile,
+  // where thread (g, t) holds row g at positions 8n + 2t + e
+  float mx = kNegInf;
   {
-    float qf[REP][16];
+    // q as the A operand of S^T (rows >= rep zero), in the K bytes' order
+    uint32_t qa[F::kSteps][2];
+    const __nv_bfloat16* qrow = a.q + ((size_t)bh * rep + g) * D;
 #pragma unroll
-    for (int r = 0; r < REP; ++r)
+    for (int kk = 0; kk < F::kSteps; ++kk) {
+      uint2 v = make_uint2(0u, 0u);
+      if (g < rep)
+        v = *reinterpret_cast<const uint2*>(qrow + q_dim<KV4, D>(kk, t));
+      qa[kk][0] = __byte_perm(v.x, v.y, 0x5410);   // dims d0, d0+2
+      qa[kk][1] = __byte_perm(v.x, v.y, 0x7632);   // dims d0+1, d0+3
+    }
+    cp_async_wait_all();
+    __syncthreads();             // the scales have landed
+    for (int i = 0; i < ntile; ++i) {
+      wait(i);
+      const uint8_t* kt = ring + (i % nst) * F::kTileBytes;
+      const int p0 = (t_first + i) * kTile;
+      float sacc[kNt][2][4];   // [n8 tile][chain][fragment]
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        qf[r][j] = __bfloat162float(
-            q[((size_t)bh * REP + r) * D + dim_of<KV4, D>(gl, j)]);
-#pragma unroll 4
-    for (int i = 0; i < kPerGroup; ++i) {
-      const int p = c0 + grp + kGroups * i;
-      const bool live = p >= lo && p < hi;
-      float dot[REP];
+      for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
-      for (int r = 0; r < REP; ++r) dot[r] = 0.f;
-      if (live) {
-        float kf[16];
-        load16<KV4>(kc, code0 + code_at<KV4, D>(p, gl), kf);
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int r = 0; r < REP; ++r)
+          for (int e = 0; e < 4; ++e) sacc[nt][h][e] = 0.f;
+      if constexpr (!KV4) {
 #pragma unroll
-          for (int j = 0; j < 16; ++j) dot[r] = fmaf(qf[r][j], kf[j], dot[r]);
+        for (int c = 0; c < D / 64; ++c) {
+          uint4 kw[kNt];
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+            kw[nt] = *reinterpret_cast<const uint4*>(
+                kt + (8 * (w * kNt + nt) + g) * D + 64 * c + 16 * t);
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+              const uint32_t x = word(kw[nt], ii);
+              mma16816(sacc[nt][ii & 1], qa[4 * c + ii][0], 0u,
+                       qa[4 * c + ii][1], 0u, s8_pair(x), s8_pair(x >> 8));
+            }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < D / 128; ++c) {
+          uint4 kw[kNt];
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+            kw[nt] = *reinterpret_cast<const uint4*>(
+                kt + (8 * (w * kNt + nt) + g) * (D / 2) + 64 * c + 16 * t);
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int nt = 0; nt < kNt; ++nt) {
+                const uint32_t x = word(kw[nt], ii) >> (4 * h);
+                const int kk = 8 * c + 2 * ii + h;
+                mma16816(sacc[nt][h], qa[kk][0], 0u, qa[kk][1], 0u,
+                         u4_pair(x), u4_pair(x >> 8));
+              }
+        }
       }
 #pragma unroll
-      for (int r = 0; r < REP; ++r)
+      for (int nt = 0; nt < kNt; ++nt) {
+        const int n = w * kNt + nt, pl = 8 * n + 2 * t;
+        const float2 k2 =
+            *reinterpret_cast<const float2*>(sks + i * kTile + pl);
+        float sc[2];
 #pragma unroll
-        for (int off = kLanes / 2; off > 0; off >>= 1)
-          dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
-      if (gl == 0) {
-        const float kscale =
-            live ? ks[scale0 + scale_at<KV4>(p, s_len)] * sm_scale : 0.f;
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-          sc[r][p - c0] = live ? dot[r] * kscale : kNegInf;
+        for (int e = 0; e < 2; ++e) {
+          const int p = p0 + pl + e;
+          const float dot = sacc[nt][0][e] + sacc[nt][1][e];
+          sc[e] = p >= p_lo && p < p_hi
+                      ? dot * ((e ? k2.y : k2.x) * a.sm_scale)
+                      : kNegInf;
+          mx = fmaxf(mx, sc[e]);
+        }
+        reinterpret_cast<float2*>(sco)[(i * 8 + n) * 32 + lane] =
+            make_float2(sc[0], sc[1]);
       }
+      refill(i);
+    }
+  }
+  // the split's maximum of row g: over t, then over the warps
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  if (t == 0) sml[(w * 8 + g) * 2] = mx;
+  __syncthreads();
+  float m_blk = kNegInf;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) m_blk = fmaxf(m_blk, sml[(v * 8 + g) * 2]);
+
+  // ---- P = bf16(exp(s - m) * vs) at the split's maximum, in place of
+  // each thread's scores: n8 tile n's are the k-slots 2t, 2t+1 (n even) or
+  // 2t+8, 2t+9 (n odd) of the k16 step over positions 16 (n / 2) ..
+  float l_run = 0.f;
+  for (int i = 0; i < ntile; ++i) {
+    const int p0 = (t_first + i) * kTile;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      const int n = w * kNt + nt, slot = (i * 8 + n) * 32 + lane;
+      const float2 s2 = reinterpret_cast<const float2*>(sco)[slot];
+      float pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pl = 8 * n + 2 * t + e;
+        const bool live = p0 + pl >= p_lo && p0 + pl < p_hi;
+        const float pr = live ? __expf((e ? s2.y : s2.x) - m_blk) : 0.f;
+        l_run += pr;
+        pv[e] = live ? pr * svs[i * kTile + pl] : 0.f;
+      }
+      reinterpret_cast<uint32_t*>(sco)[slot * 2] = pack_bf16(pv[0], pv[1]);
     }
   }
   __syncthreads();
 
-  // ---- chunk softmax: m, l, and bf16(p * vs) in place of the scores ----
-  for (int r = warp; r < REP; r += 4) {
-    float mx = kNegInf;
-    for (int j = lane; j < kChunk; j += 32) mx = fmaxf(mx, sc[r][j]);
+  // ---- pass 2: O^T[dims][rep] += V^T[dims][64 positions] P^T; warp w
+  // takes the tile's 64 positions (4 k16 steps) for 32 dims (kv4: 16 bytes
+  // of each position), thread t's k-slots being positions 16kk + (2t, 2t+1
+  // | 2t+8, 2t+9); m-tile mt holds the dims of byte 2mt (row g) and 2mt+1
+  // (row g+8) of the thread's 4 bytes (kv8), or the low (row g) and high
+  // (row g+8) nibble of byte mt of its 2 (kv4)
+  constexpr int kBytes = KV4 ? 2 : 4;   // a thread's bytes a row
+  constexpr int kMt = 2;
+  float o[kMt][4];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int j = lane; j < kChunk; j += 32) {
-      const int p = c0 + j;
-      const bool live = p >= lo && p < hi;
-      const float e = live ? expf(sc[r][j] - mx) : 0.f;
-      sum += e;
-      sc[r][j] = live ? __bfloat162float(__float2bfloat16(
-                            e * vs[scale0 + scale_at<KV4>(p, s_len)]))
-                      : 0.f;
-    }
+  for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) {
-      row_m[r] = mx;
-      float* ml = part_ml + (((size_t)bh * nsplit + split) * REP + r) * 2;
-      ml[0] = mx;
-      ml[1] = sum;
+    for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+  const int col = w * (F::kRow / kWarps) + kBytes * g;
+  for (int i = 0; i < ntile; ++i) {
+    const int L = ntile + i;
+    wait(L);
+    const uint8_t* vt = ring + (L % nst) * F::kTileBytes + col;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t* pk = reinterpret_cast<const uint32_t*>(sco);
+      const uint2 bp = make_uint2(pk[((i * 8 + 2 * kk) * 32 + lane) * 2],
+                                  pk[((i * 8 + 2 * kk + 1) * 32 + lane) * 2]);
+      // rows 16kk + 2t + (0, 1, 8, 9)
+      const uint8_t* vr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        vr[r] = vt + (16 * kk + 2 * t + (r & 1) + 8 * (r >> 1)) * F::kRow;
+      {
+        uint32_t vw[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          vw[r] = kBytes == 4 ? *reinterpret_cast<const uint32_t*>(vr[r])
+                              : *reinterpret_cast<const uint16_t*>(vr[r]);
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          if constexpr (!KV4) {
+            mma16816(o[mt], s8_pair(gather(vw[0], vw[1], 2 * mt)),
+                     s8_pair(gather(vw[0], vw[1], 2 * mt + 1)),
+                     s8_pair(gather(vw[2], vw[3], 2 * mt)),
+                     s8_pair(gather(vw[2], vw[3], 2 * mt + 1)), bp.x, bp.y);
+          } else {
+            const uint32_t x01 = gather(vw[0], vw[1], mt);
+            const uint32_t x23 = gather(vw[2], vw[3], mt);
+            mma16816(o[mt], u4_pair(x01), u4_pair(x01 >> 4), u4_pair(x23),
+                     u4_pair(x23 >> 4), bp.x, bp.y);
+          }
+        }
+      }
     }
+    refill(L);
   }
-  __syncthreads();
 
-  // ---- PV: acc[r][d] = sum_p pv[r][p] * v_codes[p][d] ------------------
-  float acc[REP][16];
+  // ---- the split's l (sums in a fixed order), then its result: each
+  // warp's dims straight from its registers
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+  if (t == 0) sml[(w * 8 + g) * 2 + 1] = l_run;
+  __syncthreads();
+  if (tid < rep) {
+    float mm = kNegInf, ll = 0.f;
 #pragma unroll
-  for (int r = 0; r < REP; ++r)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < kPerGroup; ++i) {
-    const int p = c0 + grp + kGroups * i;
-    if (p < lo || p >= hi) continue;
-    float vf[16];
-    load16<KV4>(vc, code0 + code_at<KV4, D>(p, gl), vf);
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      const float pv = sc[r][p - c0];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[r][j] = fmaf(pv, vf[j], acc[r][j]);
+    for (int v = 0; v < kWarps; ++v) {
+      mm = fmaxf(mm, sml[(v * 8 + tid) * 2]);
+      ll += sml[(v * 8 + tid) * 2 + 1];
     }
-  }
-  // the groups of a warp hold the same dims: fold them by shuffles, then
-  // the 4 warps through shared memory
-#pragma unroll
-  for (int r = 0; r < REP; ++r)
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int off = kLanes; off < 32; off <<= 1)
-        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], off);
-  if (lane < kLanes) {
-#pragma unroll
-    for (int r = 0; r < REP; ++r)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) red[warp][r][dim_of<KV4, D>(gl, j)] = acc[r][j];
+    fin[tid * 2] = mm;
+    fin[tid * 2 + 1] = ll;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < REP * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const float s = red[0][r][d] + red[1][r][d] + red[2][r][d] + red[3][r][d];
-    part_acc[(((size_t)bh * nsplit + split) * REP + r) * D + d] = s;
+  const size_t part = (size_t)bh * nsplit + split;
+  float* dst = nlive > 1 ? a.part_acc + part * rep * D
+                         : a.acc + (size_t)bh * rep * D;
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = 2 * t + (x & 1);
+      if (r < rep) {
+        const int d = KV4 ? col + mt + (x >> 1) * (D / 2) : col + 2 * mt + (x >> 1);
+        dst[r * D + d] = V1 && nlive == 1 ? o[mt][x] / fin[r * 2 + 1]
+                                          : o[mt][x];
+      }
+    }
+  if (nlive == 1) {
+    if (!V1 && tid < rep) {
+      a.m[bh * rep + tid] = fin[tid * 2];
+      a.l[bh * rep + tid] = fin[tid * 2 + 1];
+    }
+    return;
+  }
+
+  // ---- partial (m, l), ticket; the last split merges them in split order
+  if (tid < rep)
+    reinterpret_cast<float2*>(a.part_ml)[part * rep + tid] =
+        make_float2(fin[tid * 2], fin[tid * 2 + 1]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(a.tickets + bh, 1) == nlive - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  float* msl = reinterpret_cast<float*>(smem);   // [nlive][rep][2]
+  float* wgt = msl + 2 * nlive * rep;             // [nlive][rep]
+  const size_t part0 = (size_t)bh * nsplit + first;
+  for (int i = tid; i < 2 * nlive * rep; i += kThreads)
+    msl[i] = __ldcg(a.part_ml + part0 * rep * 2 + i);
+  __syncthreads();
+  if (tid < rep) {
+    float mm = kNegInf, ll = 0.f;
+    for (int s = 0; s < nlive; ++s) mm = fmaxf(mm, msl[(s * rep + tid) * 2]);
+    for (int s = 0; s < nlive; ++s) {
+      const float e = __expf(msl[(s * rep + tid) * 2] - mm);
+      wgt[s * rep + tid] = e;
+      ll += msl[(s * rep + tid) * 2 + 1] * e;
+    }
+    fin[tid * 2] = mm;
+    fin[tid * 2 + 1] = ll;
+  }
+  __syncthreads();
+  // thread tid owns float4s tid + 128 k of the rep x D result; 16 float4
+  // loads in flight at a time, summed in split order
+  constexpr int kSplits = 8;
+  const float4* pacc = reinterpret_cast<const float4*>(a.part_acc);
+  float4 out[F::kOut4];
+#pragma unroll
+  for (int k = 0; k < F::kOut4; ++k) out[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < nlive; s0 += kSplits) {
+    float4 xs[kSplits][F::kOut4];
+#pragma unroll
+    for (int u = 0; u < kSplits; ++u)
+#pragma unroll
+      for (int k = 0; k < F::kOut4; ++k) {
+        const int i4 = tid + kThreads * k;
+        xs[u][k] = s0 + u < nlive && i4 < n4
+                       ? __ldcg(pacc + (part0 + s0 + u) * n4 + i4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+    for (int u = 0; u < kSplits; ++u)
+#pragma unroll
+      for (int k = 0; k < F::kOut4; ++k) {
+        const int i4 = tid + kThreads * k;
+        if (s0 + u < nlive && i4 < n4) {
+          const float e = wgt[(s0 + u) * rep + (4 * i4) / D];
+          out[k].x += xs[u][k].x * e;
+          out[k].y += xs[u][k].y * e;
+          out[k].z += xs[u][k].z * e;
+          out[k].w += xs[u][k].w * e;
+        }
+      }
+  }
+  if (tid == 0) a.tickets[bh] = 0;
+#pragma unroll
+  for (int k = 0; k < F::kOut4; ++k) {
+    const int i4 = tid + kThreads * k;
+    if (i4 < n4) {
+      float4 v = out[k];
+      if (V1) {
+        const float ll = fin[((4 * i4) / D) * 2 + 1];
+        v = make_float4(v.x / ll, v.y / ll, v.z / ll, v.w / ll);
+      }
+      reinterpret_cast<float4*>(a.acc)[(size_t)bh * n4 + i4] = v;
+    }
+  }
+  if (!V1 && tid < rep) {
+    a.m[bh * rep + tid] = fin[tid * 2];
+    a.l[bh * rep + tid] = fin[tid * 2 + 1];
   }
 }
 
-// Merge the live chunks of each (b, h): one block per (b, h), one thread
-// per head dim.  V1 writes the normalized context acc / l into `acc` and
-// no m or l.
-template <int REP, int D, bool V1>
-__global__ void decode_attn2_merge(const float* __restrict__ part_acc,
-                                   const float* __restrict__ part_ml,
-                                   const int* __restrict__ pos,
-                                   const int* __restrict__ start,
-                                   float* __restrict__ acc,   // [B,H,REP,D]
-                                   float* __restrict__ m_out, // [B,H,REP]
-                                   float* __restrict__ l_out,
-                                   int nh, int nsplit, int s_len) {
-  const int bh = blockIdx.x;
-  const int b = bh / nh;
-  const int d = threadIdx.x;
-  const int lo = V1 ? 0 : start[b];
-  const int hi = min(V1 ? pos[b] + 1 : pos[b], s_len);
-  for (int r = 0; r < REP; ++r) {
-    float m = kNegInf;
-    for (int sp = 0; sp < nsplit; ++sp) {
-      const int c0 = sp * kChunk;
-      if (max(lo, c0) >= min(hi, c0 + kChunk)) continue;
-      m = fmaxf(m, part_ml[(((size_t)bh * nsplit + sp) * REP + r) * 2]);
-    }
-    float l = 0.f, a = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp) {
-      const int c0 = sp * kChunk;
-      if (max(lo, c0) >= min(hi, c0 + kChunk)) continue;
-      const size_t i = ((size_t)bh * nsplit + sp) * REP + r;
-      const float e = expf(part_ml[i * 2] - m);
-      l += part_ml[i * 2 + 1] * e;
-      a += part_acc[i * D + d] * e;
-    }
-    if (V1) {
-      acc[((size_t)bh * REP + r) * D + d] = a / l;
-      continue;
-    }
-    acc[((size_t)bh * REP + r) * D + d] = a;
-    if (d == 0) {
-      m_out[(size_t)bh * REP + r] = m;
-      l_out[(size_t)bh * REP + r] = l;
-    }
-  }
+int n_splits(int s_len, int tps) {
+  const int tiles = (s_len + kTile - 1) / kTile;
+  return (tiles + tps - 1) / tps;
 }
 
-template <int REP, bool KV4, int D, bool V1>
-void launch(const void* q, const void* kc, const void* ks, const void* vc,
-            const void* vs, const void* pos, const void* start, void* acc,
-            void* m, void* l, void* part_acc, void* part_ml, int layer,
-            int nb, int nh, int s_len, float sm_scale, cudaStream_t st) {
-  const int nsplit = (s_len + kChunk - 1) / kChunk;
-  decode_attn2_chunk<REP, KV4, D, V1><<<dim3(nb * nh, nsplit), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), kc,
-      static_cast<const float*>(ks), vc,
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(start), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), layer, nb, nh, s_len, sm_scale);
-  decode_attn2_merge<REP, D, V1><<<nb * nh, D, 0, st>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<const int*>(pos), static_cast<const int*>(start),
-      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
-      nh, nsplit, s_len);
+// Dynamic shared memory of a launch; sets a.nstage and a.region.
+template <bool KV4, int D>
+size_t smem_bytes(Args& a, int nsplit) {
+  using F = Form<KV4, D>;
+  int st = kRingBytes / F::kTileBytes;
+  if (st > kMaxStages) st = kMaxStages;
+  if (st > 2 * a.tps) st = 2 * a.tps;
+  a.nstage = st;
+  size_t region = (size_t)st * F::kTileBytes;
+  const size_t merge = (size_t)12 * nsplit * a.rep;       // 3 x nsplit x rep
+  if (merge > region) region = merge;
+  region = (region + 127) & ~(size_t)127;
+  a.region = (int)region;
+  return region + (size_t)a.tps * (2048 + 2 * kTile * 4) + (size_t)st * 8 +
+         (F::kWarps * 16 + 16) * 4 + 16;
 }
 
 template <bool KV4, int D, bool V1>
-int dispatch(const void* q, const void* kc, const void* ks, const void* vc,
-             const void* vs, const void* pos, const void* start, void* acc,
-             void* m, void* l, void* part_acc, void* part_ml, int layer,
-             int nb, int nh, int rep, int s_len, float sm_scale,
-             cudaStream_t st) {
-  switch (rep) {
-    case 1: launch<1, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 2: launch<2, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 3: launch<3, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 4: launch<4, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 5: launch<5, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 6: launch<6, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 7: launch<7, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    case 8: launch<8, KV4, D, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer, nb, nh, s_len, sm_scale, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch(Args a, cudaStream_t st) {
+  const int nsplit = n_splits(a.s_len, a.tps);
+  const size_t smem = smem_bytes<KV4, D>(a, nsplit);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_attn2_kernel<KV4, D, V1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  decode_attn2_kernel<KV4, D, V1>
+      <<<dim3(a.nb * a.nh, nsplit), Form<KV4, D>::kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool KV4, bool V1>
-int dispatch_d(const void* q, const void* kc, const void* ks, const void* vc,
-               const void* vs, const void* pos, const void* start, void* acc,
-               void* m, void* l, void* part_acc, void* part_ml, int layer,
-               int nb, int nh, int rep, int s_len, int d, float sm_scale,
-               void* stream) {
+int dispatch(const Args& a, int d, void* stream) {
+  if (a.rep < 1 || a.rep > 8 || a.tps < 1 || a.tps > kMaxTps || a.s_len < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return dispatch<KV4, 128, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l,
-                              part_acc, part_ml, layer, nb, nh, rep, s_len,
-                              sm_scale, st);
-  if (d == 256)
-    return dispatch<KV4, 256, V1>(q, kc, ks, vc, vs, pos, start, acc, m, l,
-                              part_acc, part_ml, layer, nb, nh, rep, s_len,
-                              sm_scale, st);
+  if (d == 128) return launch<KV4, 128, V1>(a, st);
+  if (d == 256) return launch<KV4, 256, V1>(a, st);
   return (int)cudaErrorInvalidValue;
+}
+
+Args make_args(const void* q, const void* kc, const void* ks, const void* vc,
+               const void* vs, const void* pos, const void* start, void* acc,
+               void* m, void* l, void* part_acc, void* part_ml, void* tickets,
+               int layer, int nb, int nh, int rep, int s_len, int tps,
+               float sm_scale) {
+  Args a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kc = static_cast<const uint8_t*>(kc);
+  a.ks = static_cast<const float*>(ks);
+  a.vc = static_cast<const uint8_t*>(vc);
+  a.vs = static_cast<const float*>(vs);
+  a.pos = static_cast<const int*>(pos);
+  a.start = static_cast<const int*>(start);
+  a.acc = static_cast<float*>(acc);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.tickets = static_cast<int*>(tickets);
+  a.layer = layer;
+  a.nb = nb;
+  a.nh = nh;
+  a.rep = rep;
+  a.s_len = s_len;
+  a.tps = tps;
+  a.nstage = 0;
+  a.region = 0;
+  a.sm_scale = sm_scale;
+  return a;
+}
+
+template <bool KV4, int D, bool V1>
+int attributes(int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&fa, decode_attn2_kernel<KV4, D, V1>);
+  Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, 0, 1, 1, 8, 2048, kMaxTps, 1.f);
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)smem_bytes<KV4, D>(a, n_splits(a.s_len, a.tps));
+  out[3] = a.nstage;
+  return (int)err;
 }
 
 }  // namespace
 
 // q [B,H,rep,D] bf16; k/v codes [L,B,H,S,D] int8; k/v scales [L,B,H,S] f32;
 // pos/start [B] int32; outputs acc [B,H,rep,D], m/l [B,H,rep] f32; scratch
-// part_acc [B,H,ceil(S/256),rep,D], part_ml [B,H,ceil(S/256),rep,2].  D must
-// be 128 or 256, rep 1 to 8.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unsupported D or rep.
+// part_acc [B,H,nsplit,rep,D] and part_ml [B,H,nsplit,rep,2] f32 with
+// nsplit = ceil(ceil(S/64) / tps), tickets [B*H] int32 zeroed before the
+// first call (every call leaves them zero); tps: 64-position tiles a split,
+// 1 to 16.  D must be 128 or 256, rep 1 to 8.  Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for an unsupported D, rep or tps.
 extern "C" int pq_decode_attn2(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* pos,
                                const void* start, void* acc, void* m, void* l,
-                               void* part_acc, void* part_ml, int layer,
-                               int nb, int nh, int rep, int s_len, int d,
-                               float sm_scale, void* stream) {
-  return dispatch_d<false, false>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
-                           part_ml, layer, nb, nh, rep, s_len, d, sm_scale,
-                           stream);
+                               void* part_acc, void* part_ml, void* tickets,
+                               int layer, int nb, int nh, int rep, int s_len,
+                               int d, int tps, float sm_scale, void* stream) {
+  return dispatch<false, false>(
+      make_args(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml,
+                tickets, layer, nb, nh, rep, s_len, tps, sm_scale),
+      d, stream);
 }
 
 // As pq_decode_attn2 over the kv4 cache: k/v codes [L,B,H,S/2,D] uint8
@@ -403,25 +681,44 @@ extern "C" int pq_decode_attn2_kv4(const void* q, const void* kc,
                                    const void* vs, const void* pos,
                                    const void* start, void* acc, void* m,
                                    void* l, void* part_acc, void* part_ml,
-                                   int layer, int nb, int nh, int rep,
-                                   int s_len, int d, float sm_scale,
-                                   void* stream) {
-  return dispatch_d<true, false>(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
-                          part_ml, layer, nb, nh, rep, s_len, d, sm_scale,
-                          stream);
+                                   void* tickets, int layer, int nb, int nh,
+                                   int rep, int s_len, int d, int tps,
+                                   float sm_scale, void* stream) {
+  return dispatch<true, false>(
+      make_args(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml,
+                tickets, layer, nb, nh, rep, s_len, tps, sm_scale),
+      d, stream);
 }
 
 // The first flash-decode kernel's function (V1): q [B,H,rep,D] bf16, one
 // layer's kv8 cache, codes [B,H,S,D] int8 and scales [B,H,S] f32, pos [B]
 // int32 (positions 0 .. pos inclusive attend) -> ctx [B,H,rep,D] f32, the
-// normalized context; scratch part_acc / part_ml as pq_decode_attn2's.
-// D 128 or 256, rep 1 to 8.
+// normalized context; scratch and tickets as pq_decode_attn2's.
 extern "C" int pq_decode_attn(const void* q, const void* kc, const void* ks,
                               const void* vc, const void* vs, const void* pos,
                               void* ctx, void* part_acc, void* part_ml,
-                              int nb, int nh, int rep, int s_len, int d,
-                              float sm_scale, void* stream) {
-  return dispatch_d<false, true>(q, kc, ks, vc, vs, pos, pos, ctx, nullptr,
-                                 nullptr, part_acc, part_ml, 0, nb, nh, rep,
-                                 s_len, d, sm_scale, stream);
+                              void* tickets, int nb, int nh, int rep,
+                              int s_len, int d, int tps, float sm_scale,
+                              void* stream) {
+  return dispatch<false, true>(
+      make_args(q, kc, ks, vc, vs, pos, pos, ctx, nullptr, nullptr, part_acc,
+                part_ml, tickets, 0, nb, nh, rep, s_len, tps, sm_scale),
+      d, stream);
+}
+
+// Registers, local (spill) bytes, dynamic shared memory (rep 8, S 2048,
+// 16 tiles a split: the most) and ring stages of the instance for head dim
+// d and form (0 kv8, 1 kv4, 2 V1) into out[4].
+extern "C" int pq_decode_attn2_attributes(int d, int form, int* out) {
+  if (d == 128) {
+    if (form == 0) return attributes<false, 128, false>(out);
+    if (form == 1) return attributes<true, 128, false>(out);
+    if (form == 2) return attributes<false, 128, true>(out);
+  }
+  if (d == 256) {
+    if (form == 0) return attributes<false, 256, false>(out);
+    if (form == 1) return attributes<true, 256, false>(out);
+    if (form == 2) return attributes<false, 256, true>(out);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) helpers shared by the wgmma kernels (qmatmul_ragged.cu,
-// flash.cu): mbarriers, TMA tensor loads, shared-memory matrix
+// flash.cu) and the decode kernel's ring (decode_attn2.cu): mbarriers, TMA
+// tensor loads and plain bulk copies, shared-memory matrix
 // descriptors, the wgmma fence / commit / wait and the register-A
 // m64n128k16 product on the device; on the host, cuTensorMapEncodeTiled
 // fetched from the driver and a row-major tensor encoded as a TMA map.
@@ -105,6 +106,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "}\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"((int)on)
+      : "memory");
+}
+
+// A plain (1-D) bulk copy of `bytes` contiguous bytes, global to shared,
+// that completes on `bar`: no tensor map; both addresses and the size are
+// multiples of 16 bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -67,13 +67,15 @@ SIGNATURES = {
     # x, w13, s13, zp13, w2, s2, zp2, xsum, out, part_a, h, part_b, m, k,
     # i_ff, n, ksa, rows_a, ksb, rows_b, gelu, out_bf16, stream
     "pq_mlp_fused": [_P] * 12 + [_I] * 10 + [_P],
-    # q, kc, ks, vc, vs, pos, ctx, part_acc, part_ml, nb, nh, rep, s_len, d,
-    # sm_scale, stream
-    "pq_decode_attn": [_P] * 9 + [_I] * 5 + [_F, _P],
-    # q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, layer,
-    # nb, nh, rep, s_len, d, sm_scale, stream
-    "pq_decode_attn2": [_P] * 12 + [_I] * 6 + [_F, _P],
-    "pq_decode_attn2_kv4": [_P] * 12 + [_I] * 6 + [_F, _P],
+    # q, kc, ks, vc, vs, pos, ctx, part_acc, part_ml, tickets, nb, nh, rep,
+    # s_len, d, tps, sm_scale, stream
+    "pq_decode_attn": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, tickets,
+    # layer, nb, nh, rep, s_len, d, tps, sm_scale, stream
+    "pq_decode_attn2": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "pq_decode_attn2_kv4": [_P] * 13 + [_I] * 7 + [_F, _P],
+    # d, form (0 kv8, 1 kv4, 2 V1), out[4]
+    "pq_decode_attn2_attributes": [_I, _I, _P],
     # q, k, v, out, pos0, sinks, nb, nh, rep, t, window, chunk, d,
     # sm_scale, softcap, stream
     "pq_flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _F, _P],

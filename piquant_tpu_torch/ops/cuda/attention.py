@@ -18,10 +18,10 @@ from typing import Optional
 import torch
 
 from piquant_tpu_torch.ops.cuda import _build
+from piquant_tpu_torch.ops.cuda.decode_attn2 import scratch
 
 S_CHUNK = 512      # the reference's chunk of the online softmax
 NEG_INF = -1e30
-_KERNEL_CHUNK = 256   # cache positions per block (csrc/decode_attn2.cu)
 _D = (128, 256)      # head dims the kernel takes
 
 
@@ -95,16 +95,15 @@ def decode_attn(q, k_codes, k_scale, v_codes, v_scale, positions,
                              "device")
     qb = q.to(torch.bfloat16).contiguous()
     pos = positions.to(device=q.device, dtype=torch.int32).contiguous()
-    nsplit = -(-s_len // _KERNEL_CHUNK)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    ctx = torch.empty((b, hkv, rep, d), **f32)
-    part_acc = torch.empty((b, hkv, nsplit, rep, d), **f32)
-    part_ml = torch.empty((b, hkv, nsplit, rep, 2), **f32)
+    ctx = torch.empty((b, hkv, rep, d), dtype=torch.float32,
+                      device=q.device)
+    tps, part_acc, part_ml, tick = scratch(q, s_len)
     err = _build.library().pq_decode_attn(
         qb.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
-        ctx.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, hkv,
-        rep, s_len, d, float(sm_scale), _build.stream_ptr(q))
+        ctx.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        tick.data_ptr(), b, hkv, rep, s_len, d, tps, float(sm_scale),
+        _build.stream_ptr(q))
     _build.check(err, name)
     decode_attn.launches += 1
     return ctx

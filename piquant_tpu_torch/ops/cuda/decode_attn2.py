@@ -21,8 +21,55 @@ from piquant_tpu_torch.quant.kv_cache import merge_scale_pairs, unpack4_pairs
 
 S_CHUNK = 512      # the reference's chunk; only its shape gate is kept here
 NEG_INF = -1e30
-_KERNEL_CHUNK = 256   # cache positions per block (csrc/decode_attn2.cu)
+TILE = 64          # cache positions a ring stage holds (csrc/decode_attn2.cu)
+MAX_TILES = 16     # tiles a split at most (the kernel keeps their scores)
+SPLITS = 8         # splits a (b, kv head) at most, where S allows
 _D = (128, 256)      # head dims the kernel takes
+_TICKETS_MIN = 4096  # int32 tickets a device's buffer holds at first
+
+
+def split_tiles(s_len: int) -> Tuple[int, int]:
+    """(tiles a split, splits) of the decode kernel's grid (B * Hkv,
+    splits) over S = `s_len` positions: the S / 64 tiles shared by at most
+    SPLITS splits, with at most 16 tiles a split.  A function of the
+    shapes alone (no sync on the positions): a split with no live position
+    costs the kernel a block that returns at once, and the last live split
+    of a (b, kv head) merges the partials of all, so past 8-16 splits the
+    merge costs more than their parallel loads gain (a sweep of 4-32
+    splits at the phase 3, 11, 12 and 14 shapes)."""
+    tiles = -(-s_len // TILE)
+    tps = min(MAX_TILES, -(-tiles // SPLITS))
+    return tps, -(-tiles // tps)
+
+
+_tickets_by_device = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's zeroed int32 tickets, one a (b, kv head), shared by the
+    decode kernels (each call leaves them zero again; calls on one device
+    run in stream order).  Grown outside a CUDA-graph capture only."""
+    buf = _tickets_by_device.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode attention: call it once outside the "
+                               "CUDA-graph capture first (its ticket buffer "
+                               f"must hold {n})")
+        buf = torch.zeros(max(n, _TICKETS_MIN), dtype=torch.int32,
+                          device=device)
+        _tickets_by_device[device] = buf
+    return buf
+
+
+def scratch(q: torch.Tensor, s_len: int):
+    """(tiles a split, partial acc, partial (m, l), tickets) of one launch
+    on q's device (q [B, Hkv, rep, D])."""
+    b, hkv, rep, d = q.shape
+    tps, nsplit = split_tiles(s_len)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (tps, torch.empty((b, hkv, nsplit, rep, d), **f32),
+            torch.empty((b, hkv, nsplit, rep, 2), **f32),
+            tickets(q.device, b * hkv))
 
 
 def decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale, positions,
@@ -87,19 +134,17 @@ def _launch(entry, kv4, q, k_codes, k_scale, v_codes, v_scale, positions,
     qb = q.to(torch.bfloat16).contiguous()
     pos = positions.to(device=q.device, dtype=torch.int32).contiguous()
     st = starts.to(device=q.device, dtype=torch.int32).contiguous()
-    nsplit = -(-s_len // _KERNEL_CHUNK)
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.empty((b, hkv, rep, d), **f32)
     m = torch.empty((b, hkv, rep, 1), **f32)
     l = torch.empty((b, hkv, rep, 1), **f32)
-    part_acc = torch.empty((b, hkv, nsplit, rep, d), **f32)
-    part_ml = torch.empty((b, hkv, nsplit, rep, 2), **f32)
+    tps, part_acc, part_ml, tick = scratch(q, s_len)
     err = getattr(_build.library(), entry)(
         qb.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
         st.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), layer, b, hkv, rep, s_len,
-        d, float(sm_scale), _build.stream_ptr(q))
+        part_acc.data_ptr(), part_ml.data_ptr(), tick.data_ptr(), layer, b,
+        hkv, rep, s_len, d, tps, float(sm_scale), _build.stream_ptr(q))
     _build.check(err, name)
     return acc, m, l
 

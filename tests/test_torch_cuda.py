@@ -375,7 +375,7 @@ def test_decode_attn2_kv4_matches_plain(dev, rep, s):
 # position is 128 bytes here: dim j in the low nibble, dim j + 128 in the
 # high one.
 @pytest.mark.parametrize("kv", ["kv8", "kv4"])
-@pytest.mark.parametrize("rep", [1, 2, 3, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_decode_attn2_d256_matches_plain(dev, kv, rep):
     g = _gen(dev, 256 + rep + (kv == "kv4"))
     nl, b, hkv, s, d = 3, 5, 2, 1000, 256
@@ -403,6 +403,98 @@ def test_decode_attn2_d256_matches_plain(dev, kv, rep):
     torch.testing.assert_close(l, pl, rtol=2e-2, atol=0)
     torch.testing.assert_close(acc[1:] / l[1:], pacc[1:] / pl[1:],
                                atol=2e-3, rtol=2e-2)
+
+
+def _decode_cache(dev, g, kv, nl, b, hkv, s, d):
+    if kv == "kv4":
+        return _kv4_cache(dev, g, nl, b, hkv, s, d)
+    shape = (nl, b, hkv, s, d)
+    kc, vc = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:-1] + (1,), generator=g, device=dev) * 0.02
+              for _ in range(2))
+    return kc, ks, vc, vs
+
+
+# Live windows whose ends lie on either side of a 64-position tile's edge
+# and of a split's (the chooser's tiles a split times 64): the last or first
+# position alone, 2 positions inside one split, 16 across a tile edge, 64
+# on each side of a split edge, long windows from and to either side; on
+# Llama-3-8B's decode grid (B 8, Hkv 8), a lone row (B * Hkv = 1) at D 256
+# and at an S off the tile, and a wide batch; bounds as above.  (A window
+# with only a few positions on one side of a split edge is left out: each
+# split rounds its bf16 probabilities at its own maximum, as the reference
+# kernel does at its 512-position chunk edges, and the plain version at the
+# global one, so with cancelling codes a short sum can differ by one bf16
+# ulp of a term, past atol 2e-3.)
+@pytest.mark.parametrize("kv", ["kv8", "kv4"])
+@pytest.mark.parametrize("b,hkv,rep,s,d", [
+    (8, 8, 4, 2048, 128), (1, 1, 8, 2048, 256), (1, 1, 7, 1000, 128),
+    (16, 8, 2, 4096, 128)])
+def test_decode_attn2_split_edges(dev, kv, b, hkv, rep, s, d):
+    g = _gen(dev, b * hkv + s + rep)
+    kc, ks, vc, vs = _decode_cache(dev, g, kv, 2, b, hkv, s, d)
+    kern = DA.decode_attn2_kv4 if kv == "kv4" else DA.decode_attn2
+    q = torch.randn((b, hkv, rep, d), generator=g, device=dev)
+    tps, _ = DA.split_tiles(s)
+    e = tps * DA.TILE
+    pairs = [(64, 63), (65, 64), (72, 56), (129, 64), (e, e - 1),
+             (e + 1, e), (e + 64, e - 64), (e + 2, e), (e + 1, 65), (s, e),
+             (s - 1, 1), (e - 1, 0), (s, 0), (2 * e + 1, e + 1)]
+    for p_, s_ in pairs:
+        p_, s_ = min(p_, s), min(s_, s)
+        if p_ <= s_:
+            continue
+        pos = torch.full((b,), p_, dtype=torch.int32, device=dev)
+        start = torch.full((b,), s_, dtype=torch.int32, device=dev)
+        acc, m, l = kern(q, kc, ks, vc, vs, pos, start, d ** -0.5, 1)
+        pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                             d ** -0.5, 1)
+        torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(l, pl, rtol=2e-2, atol=0)
+        torch.testing.assert_close(acc / l, pacc / pl, atol=2e-3, rtol=2e-2)
+
+
+# Two calls on the same inputs, then a CUDA graph of one call replayed
+# twice, give identical bits in all three forms (the split partials are
+# merged in split order, never in arrival order), and every call leaves
+# the ticket buffer zeroed for the next.  B * Hkv = 4 at S 4096: 64
+# one-tile splits a row.
+@pytest.mark.parametrize("form", ["kv8", "kv4", "v1"])
+def test_decode_attn2_repeatable(dev, form):
+    g = _gen(dev, 41)
+    b, hkv, rep, s, d = 2, 2, 8, 4096, 256
+    kc, ks, vc, vs = _decode_cache(dev, g, "kv4" if form == "kv4" else "kv8",
+                                   2, b, hkv, s, d)
+    q = torch.randn((b, hkv, rep, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = torch.tensor([s, 3001], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 5], dtype=torch.int32, device=dev)
+    if form == "v1":
+        call = lambda: (AT.decode_attn(  # noqa: E731
+            q, kc[1], ks[1], vc[1], vs[1], pos - 1, d ** -0.5),)
+    else:
+        kern = DA.decode_attn2_kv4 if form == "kv4" else DA.decode_attn2
+        call = lambda: kern(q, kc, ks, vc, vs, pos, start,  # noqa: E731
+                            d ** -0.5, 1)
+    first = [x.clone() for x in call()]
+    second = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([x.clone() for x in out])
+    for got in (second, *replays):
+        assert all(torch.equal(x, y) for x, y in zip(got, first))
+    assert int(DA.tickets(q.device, b * hkv).abs().sum()) == 0
 
 
 def test_decode_attn2_kv4_refuses(dev):
@@ -1268,7 +1360,9 @@ def _v1_cache(dev, g, b, hkv, s, d, peaked=False):
     (8, 8, 4, 2048, 128), (2, 2, 1, 512, 128), (2, 2, 3, 1024, 128),
     (2, 2, 5, 1536, 128), (2, 1, 7, 512, 128), (2, 2, 8, 2048, 128),
     (2, 16, 1, 2048, 256), (2, 1, 8, 2048, 256), (2, 2, 4, 256, 256),
-    (3, 2, 2, 64, 128)])
+    (3, 2, 2, 64, 128), (2, 2, 6, 1024, 128), (2, 1, 2, 2048, 256),
+    (2, 1, 3, 1024, 256), (2, 2, 5, 512, 256), (2, 1, 6, 2048, 256),
+    (2, 1, 7, 1024, 256)])
 @pytest.mark.parametrize("peaked", [False, True])
 def test_decode_attn_matches_plain(dev, b, hkv, rep, s, d, peaked):
     g = _gen(dev, b * s + rep + d)
