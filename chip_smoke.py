@@ -33,15 +33,19 @@ Phases (any failure exits non-zero):
      --act-quant-decode at INT2 and with the INT2-g32 MLP), each with the
      reference CLI's INT8 lm_head: exact launch counts, greedy tokens
      against single-request generation, and its metrics;
-  8. int8 activations: the w4a8, w8a8 and w2a8 kernels bit for bit
-     against their plain versions at the Llama-3-8B projections (M = 1024,
-     8, 1, 33, 1000), and the chunk kernel's int8-x form (INT2-g32 MLP,
-     INT4-g128) at M = 8, 1, 33, with times, bounds and yardsticks;
+  8. int8 activations: the a8 instances' registers, spills and shared
+     memory, both prefill tiles timed at each projection (M = 1024 and
+     256), the w4a8, w8a8 and w2a8 kernels bit for bit against their plain
+     versions at the Llama-3-8B projections (M = 1024, 8, 1, 33, 1000) with
+     each row's share of the int8 peak beside torch._int_mm's, and the
+     chunk kernel's int8-x form (INT2-g32 MLP, INT4-g128) at M = 8, 1, 33,
+     with times, bounds and yardsticks;
   9. Mixtral-8x7B MoE: (a) the ragged expert GEMMs (wq_ragged,
      wq_ragged_grouped, wq_ragged_a8) against their plain versions at the
      Mixtral expert shapes, routed from a random router over 1024 tokens
      (one expert without a token, one with nearly all), in INT4 / INT2 /
-     INT8, INT4-g128 / INT2-g32 and int8-x INT4 / INT2, with times, bounds
+     INT8, INT4-g128 / INT2-g32 and int8-x INT4 / INT2 under the
+     routing's live_blocks (live against padded rows), with times, bounds
      and a torch._grouped_mm yardstick; (b) one full-width MoE layer's
      ragged route against its dense-masked route at 256 tokens; (c) `python
      -m piquant_tpu_torch.serving --random mixtral_8x7b --benchmark 8
@@ -1333,7 +1337,8 @@ def check_a8(torch, dev, gen, name, bits, shapes):
         b, by = bound_ms(t["nbytes"], t["ops"], INT8_OP_PER_S)
         res[m] = dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                       bound_ms=b, bound_by=by, library_ms=t["library_ms"],
-                      library_call=t["library_call"], eager_ms=t["eager_ms"])
+                      library_call=t["library_call"], eager_ms=t["eager_ms"],
+                      ops=t["ops"])
     return res
 
 
@@ -1349,6 +1354,12 @@ def a8_row(torch, dev, gen, name, replaces, bits, shapes, what):
               f"{r['library_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms "
               f"[{what}; {card}]", flush=True)
     prefill, decode = A8_TIMED_M
+    r = res[prefill]
+    peak = INT8_OP_PER_S * 1e-3          # operations a millisecond
+    print(f"{name} M={prefill}: {r['ops'] / r['ms'] * 1e-9:.1f} TOP/s, "
+          f"{100 * r['ops'] / r['ms'] / peak:.1f}% of the int8 peak; "
+          f"{r['library_call']} {100 * r['ops'] / r['library_ms'] / peak:.1f}"
+          f"% [{card}]", flush=True)
     return dict(name=name, route="cuda",
                 source="piquant_tpu_torch/csrc/qmatmul_a8.cu",
                 replaces=f"piquant_tpu/ops/pallas/qmatmul.py:{replaces}",
@@ -1356,10 +1367,76 @@ def a8_row(torch, dev, gen, name, replaces, bits, shapes, what):
                 variants={f"{what} at M={decode}": res[decode]})
 
 
+def a8_attributes(torch) -> str:
+    """Registers, local (spill) bytes, shared memory and ring stages of each
+    a8 instance (cudaFuncGetAttributes): the mma.sync decode tiles (16 and
+    64 rows) and the wgmma prefill tiles (128 and 256 tokens) at P = 1, 2,
+    4."""
+    import ctypes
+
+    from piquant_tpu_torch.ops.cuda import _build
+
+    parts = []
+    for planes in (1, 2, 4):
+        for bm in (16, 64, 128, 256):
+            a = (ctypes.c_int * 4)()
+            _build.check(_build.library().pq_a8_attributes(planes, bm, a),
+                         "pq_a8_attributes")
+            parts.append(f"P={planes} bm={bm}: {a[0]} registers, {a[1]} B "
+                         f"local, {a[2]} B shared, {a[3]} stages")
+    return "; ".join(parts)
+
+
+def a8_tiles(torch, dev, gen, m=1024):
+    """Both prefill tiles (128 tokens x 256 columns, 256 x 128) of each a8
+    entry at each Llama-3-8B shape and M = m, K split as a8_split chooses
+    for the tile: device ms a call and the tile `a8_prefill_bm` picks,
+    one line a P (the evidence for that choice)."""
+    from piquant_tpu_torch.ops.cuda import _build
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+    from piquant_tpu_torch.quant.linear import _quantize_act
+
+    lib = _build.library()
+    card = card_line()
+    for bits, entry in ((8, "pq_w8a8"), (4, "pq_w4a8"), (2, "pq_w2a8")):
+        planes = Q.PLANES[bits]
+        parts = []
+        for k, n, _ in W4_SHAPES:
+            if bits == 8 and k > 8192:
+                continue
+            ql = random_qlin(torch, dev, gen, k, n, bits, None)
+            xq, xs = _quantize_act(torch.randn(
+                (m, k), generator=gen, device=dev).to(torch.bfloat16))
+            ops = (xq, xs, ql.data,
+                   *Q.a8_operands(xq, ql, 128 if bits == 8 else 0))
+            out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            times = [f"picks {Q.a8_prefill_bm(m, k, planes)}"]
+            for bm in (128, 256):
+                bm, ksplit, per = Q.a8_split(m, k, n, _build.sm_count(
+                    dev.index or 0), planes, bm)
+                part = torch.empty((ksplit, m, n), dtype=torch.int32,
+                                   device=dev)
+
+                def call(i, bm=bm, ksplit=ksplit, per=per, part=part):
+                    _build.check(getattr(lib, entry)(
+                        *(t.data_ptr() for t in ops), out.data_ptr(),
+                        part.data_ptr(), m, k, n, bm, ksplit, per, 1,
+                        torch.cuda.current_stream().cuda_stream), entry)
+                times.append(f"bm {bm} (ksplit {ksplit}) "
+                             f"{cuda_ms(call, 20):.4f}")
+            parts.append(f"K={k} N={n}: {', '.join(times)}")
+            del ql, ops, out
+        print(f"a8 tiles P={planes} M={m} (device ms): {'; '.join(parts)} "
+              f"[{card}]", flush=True)
+
+
 def check_act_quant(torch, dev, gen, wg_row):
     """Phase 8: one kernels-line row per a8 wrapper at the shapes the
     act-quant CLI runs give it; the chunk kernel's int8-x form joins the
     wg_chunk row (`wg_row`) as variants."""
+    print(f"a8 instances: {a8_attributes(torch)}", flush=True)
+    a8_tiles(torch, dev, gen)
+    a8_tiles(torch, dev, gen, 256)
     rows = [
         a8_row(torch, dev, gen, "w4a8",
                "408 (_w4a8_kernel), piquant_tpu/ops/pallas/qmatmul.py:450 "
@@ -1631,8 +1708,8 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
     the bound, summed over one MoE layer's calls.  The bound counts the A routed assignments' operations (2 A K N
     at the bf16 peak, the int8 peak for int8 x) and bytes (their x, the
     stacks of the experts that have a token with their side streams, the
-    bf16 output).  The bf16 kernels take the routing's live_blocks: the
-    padding rows must come out zero, computed or not; their TFLOP/s are
+    bf16 output).  The kernels take the routing's live_blocks: the padding
+    rows must come out zero, computed or not; their TFLOP/s (TOP/s) are
     reckoned on the routed rows and on the live rows (each expert's rows
     rounded up to 128, what the kernel computes)."""
     from piquant_tpu_torch.ops.cuda import ragged as R
@@ -1647,7 +1724,7 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
     used = int((counts > 0).sum())
     n_e = counts.numel()
     live_rows = check_live_blocks(r, counts)
-    live = () if a8 else (r.live_blocks,)
+    live = (r.live_blocks,)
     live_ops = 0.0
     for k, n, uses in shapes or MOE_SHAPES:
         st = random_stack(torch, dev, gen, k, n, bits, gs, n_e)
@@ -1666,9 +1743,9 @@ def check_ragged(torch, dev, gen, name, bits, gs, r, counts, ends,
             ops = (xs, st.data, s, zs, xs.float().sum(1, keepdim=True), be)
         for odt in (torch.bfloat16, torch.float32):
             if a8:
-                got = R.wq_ragged_matmul_a8(xq, xsc, st, be, odt)
+                got = R.wq_ragged_matmul_a8(xq, xsc, st, be, odt, *live)
                 e = same(torch, f"{name} K={k} N={n} {odt}", got,
-                         plain(*ops, odt))
+                         plain(*ops, odt, *live))
             else:
                 got = R.wq_ragged_matmul(xs, st, be, odt, *live)
                 # atol 2e-2, rtol 1e-2: bf16 operands in both, f32 sums in

@@ -1117,7 +1117,7 @@ def _moe_ragged_try(cfg: LlamaConfig, layer: Dict, x: torch.Tensor,
         if want_aq:
             vq, vs = _quantize_act(v)
             return _ragged.wq_ragged_matmul_a8(vq, vs, stack, r.block_expert,
-                                               cfg.dtype)
+                                               cfg.dtype, r.live_blocks)
         return _ragged.wq_ragged_matmul(v, stack, r.block_expert, cfg.dtype,
                                         r.live_blocks)
 

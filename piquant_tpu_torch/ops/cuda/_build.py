@@ -53,9 +53,11 @@ SIGNATURES = {
     "pq_w4a8": [_P] * 8 + [_I] * 7 + [_P],
     "pq_w8a8": [_P] * 8 + [_I] * 7 + [_P],
     "pq_w2a8": [_P] * 8 + [_I] * 7 + [_P],
-    # xq, xs, w, scale, zs, xsum, block_expert, out, m, k, n, planes,
-    # out_bf16, stream
-    "pq_wq_ragged_a8": [_P] * 8 + [_I] * 5 + [_P],
+    # xq, xs, w, scale, zs, xsum, block_expert, live_blocks, out, m, k, n,
+    # n_experts, planes, out_bf16, stream
+    "pq_wq_ragged_a8": [_P] * 9 + [_I] * 6 + [_P],
+    # planes, bm, out[4]
+    "pq_a8_attributes": [_I, _I, _P],
     # x, w, scale, zs, xsum, block_expert, live_blocks, out, m, k, n,
     # n_experts, planes, out_bf16, stream
     "pq_wq_ragged": [_P] * 8 + [_I] * 6 + [_P],

@@ -425,24 +425,47 @@ def quantized_matmul(x: torch.Tensor, ql, out_dtype=torch.bfloat16
 # int8 activations: w4a8, w8a8, w2a8 (csrc/qmatmul_a8.cu)
 # ---------------------------------------------------------------------------
 
-_A8_COLS = 128    # output columns per block (csrc/qmatmul_a8.cu)
-_A8_ROWS = 32     # packed rows per pipeline step
+_A8_COLS = 128    # output columns of a decode tile (csrc/qmatmul_a8.cu)
+_A8_ROWS = 32     # packed rows of a decode tile's pipeline step
+_A8_MIN_STAGES = 4   # stages (of 128 / P packed rows) a split at least
 
 
-def a8_split(m: int, k: int, n: int, sms: int, planes: int):
-    """(output rows per block, ksplit, packed rows per split): blocks of 16
-    rows at decode batch, 64 up to M_MAX, 128 at prefill M; K is split
-    over blocks when the output tiles are fewer than one wave (prefill
-    tiles) or four blocks an SM (decode tiles), keeping >= 128 packed rows
-    a split, each a multiple of the 32-row pipeline step."""
-    bm = 16 if m <= 16 else 64 if m <= M_MAX else 128
+def a8_prefill_bm(m: int, k: int, planes: int) -> int:
+    """Tokens of a prefill tile: 128 (a block of 256 weight columns) up to
+    M 128, where 256 tokens would be half padding; above it 256 (a block of
+    128 columns, which unpacks half the codes a product), except at INT2
+    with K > 8192, where its stages of 32-byte x rows (1.5x the other
+    tile's bytes) run the long K loop slower (chip_smoke.a8_tiles times
+    both)."""
+    if m <= 128:
+        return 128
+    return 256 if planes <= 2 or k <= 8192 else 128
+
+
+def a8_split(m: int, k: int, n: int, sms: int, planes: int,
+             prefill_bm: Optional[int] = None):
+    """(tokens a block, ksplit, packed rows a split).  Decode M (<= M_MAX):
+    mma.sync tiles of 16 or 64 rows x 128 columns, K split over blocks up
+    to four blocks an SM, >= 128 packed rows a split, each a multiple of
+    the 32-row pipeline step.  Prefill M: wgmma tiles of `prefill_bm`
+    (default `a8_prefill_bm`) tokens x 32768 / prefill_bm columns, K split
+    in whole stages of 128 / P packed rows (>= _A8_MIN_STAGES a split)
+    where the tiles fill less than one wave of one block an SM."""
     rows = k // planes
-    blocks = (n // _A8_COLS) * -(-m // bm)
-    want = max(1, (sms if bm == 128 else 4 * sms) // blocks)
-    ksplit = max(1, min(want, rows // 128))
-    per = -(-rows // ksplit)
-    per += -per % _A8_ROWS
-    return bm, -(-rows // per), per
+    if m <= M_MAX:
+        bm = 16 if m <= 16 else 64
+        blocks = (n // _A8_COLS) * -(-m // bm)
+        want = max(1, 4 * sms // blocks)
+        ksplit = max(1, min(want, rows // 128))
+        per = -(-rows // ksplit)
+        per += -per % _A8_ROWS
+        return bm, -(-rows // per), per
+    bm = prefill_bm or a8_prefill_bm(m, k, planes)
+    stages = k // 128
+    tiles = -(-n // (32768 // bm)) * -(-m // bm)
+    ksplit = max(1, min(sms // tiles, stages // _A8_MIN_STAGES))
+    per = -(-stages // ksplit)
+    return bm, -(-stages // per), per * (128 // planes)
 
 
 def _a8_plain(xq, xs, data, scale, zs, xsum, out_dtype, planes, shift):

@@ -9,14 +9,14 @@ x holds the (token, expert) assignments sorted by expert and padded so each
 ROW_BLOCK-row block belongs to one expert, `block_expert[i]` (quant/moe.py
 builds the routing); a block multiplies by its expert's packed weight.  The
 first two wrappers launch the bf16 wgmma kernels of csrc/qmatmul_ragged.cu,
-the third the int8 template of csrc/qmatmul_a8.cu with the expert lookup,
-on CUDA tensors, and count the launch in `.launches`; on CPU tensors they
-run `<name>_plain`, the same function in plain PyTorch.  The kernels take
-whole 128-row blocks (the routing's bm), N % 128 and K/P % 32; the wrappers
-raise on anything else.  The first two also take the routing's
-`live_blocks` ([1] int32 on the device; None: every block is live): the
-blocks at or past it hold only padding rows, whose outputs are zero, and
-the kernel writes their zero tiles without computing them.
+the third the int8 wgmma template of csrc/qmatmul_a8.cu with the expert
+lookup, on CUDA tensors, and count the launch in `.launches`; on CPU
+tensors they run `<name>_plain`, the same function in plain PyTorch.  The
+kernels take whole 128-row blocks (the routing's bm), N % 128 and K/P %
+32 (int8 x: K % 256); the wrappers raise on anything else.  All three take
+the routing's `live_blocks` ([1] int32 on the device; None: every block is
+live): the blocks at or past it hold only padding rows, whose outputs are
+zero, and the kernel writes their zero tiles without computing them.
 
 The dispatch functions keep the reference's semantic gates (bits, the
 packed rows, groups that straddle a plane, the side streams' shape, N a
@@ -110,16 +110,18 @@ def wq_ragged_grouped_plain(x: torch.Tensor, data: torch.Tensor,
 def wq_ragged_a8_plain(xq: torch.Tensor, xs: torch.Tensor, data: torch.Tensor,
                        scale: torch.Tensor, zs: torch.Tensor,
                        xsum: torch.Tensor, block_expert: torch.Tensor,
-                       out_dtype) -> torch.Tensor:
+                       out_dtype,
+                       live_blocks: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """xq [M, K] int8, xs [M, 1] f32, data [E, K/P, N] uint8 (INT2 or
     INT4), scale / zs [E, N] f32, xsum [M, 1] f32 (row sums of xq) -> [M,
     N]: for the rows of expert e, acc = xq @ codes exactly in int32, then
     (acc * scale[e] - xsum * zs[e]) * xs, as `w4a8_plain` / `w2a8_plain`
-    (`_wq_ragged_a8_kernel`)."""
+    (`_wq_ragged_a8_kernel`); zero in the blocks at or past live_blocks."""
     m, k = xq.shape
     n_e, rows, n = data.shape
-    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    for e, idx in _runs(block_expert, m, n_e):
+    out = torch.zeros((m, n), dtype=out_dtype, device=xq.device)
+    for e, idx in _runs(block_expert, m, n_e, live_blocks):
         out[idx] = _qmm._a8_plain(xq[idx], xs[idx], data[e], scale[e], zs[e],
                                   xsum[idx], out_dtype, k // rows, 0)
     return out
@@ -229,11 +231,11 @@ def wq_ragged_grouped(x, data, scale, zp, gs: int, block_expert, out_dtype,
 
 
 def wq_ragged_a8(xq, xs, data, scale, zs, xsum, block_expert,
-                 out_dtype) -> torch.Tensor:
+                 out_dtype, live_blocks=None) -> torch.Tensor:
     """Kernel wrapper; see `wq_ragged_a8_plain` for the function."""
     if not xq.is_cuda:
         return wq_ragged_a8_plain(xq, xs, data, scale, zs, xsum,
-                                  block_expert, out_dtype)
+                                  block_expert, out_dtype, live_blocks)
     name = "wq_ragged_a8"
     planes = _check_ragged(name, xq, data, block_expert, out_dtype,
                            torch.int8)
@@ -246,9 +248,10 @@ def wq_ragged_a8(xq, xs, data, scale, zs, xsum, block_expert,
     _qmm._check(name, xs.numel() == xsum.numel() == xq.shape[0],
                 what="xs / xsum must be [M, 1]")
     _qmm._check_operands(name, xq, xs, scale, zs, xsum)
+    _check_live(name, live_blocks, xq)
     out = _launch(name, "pq_wq_ragged_a8",
-                  (xq, xs, data, scale, zs, xsum, block_expert), xq, n,
-                  (planes,), out_dtype)
+                  (xq, xs, data, scale, zs, xsum, block_expert, live_blocks),
+                  xq, n, (n_e, planes), out_dtype)
     wq_ragged_a8.launches += 1
     return out
 
@@ -310,11 +313,13 @@ def _wq_ragged_grouped(x_sorted, stack, block_expert, out_dtype,
 
 def wq_ragged_matmul_a8(xq: torch.Tensor, xs: torch.Tensor, stack,
                         block_expert: torch.Tensor,
-                        out_dtype=torch.bfloat16) -> Optional[torch.Tensor]:
+                        out_dtype=torch.bfloat16,
+                        live_blocks=None) -> Optional[torch.Tensor]:
     """Act-quant ragged expert matmul: xq [M, K] int8 with per-row scales
     xs [M, 1] against a channelwise INT2/INT4 stack; None where the
     reference's `wq_ragged_matmul_a8` declines on other than VMEM
-    grounds."""
+    grounds.  live_blocks (the routing's): the blocks at or past it come
+    out zero, uncomputed."""
     if stack.bits not in (2, 4) or stack.group_size is not None:
         return None
     m, k = xq.shape
@@ -325,4 +330,4 @@ def wq_ragged_matmul_a8(xq: torch.Tensor, xs: torch.Tensor, stack,
     scale, zs = _channel_side(stack)
     xsum = xq.float().sum(dim=-1, keepdim=True)
     return wq_ragged_a8(xq, xs.float(), stack.data, scale, zs, xsum,
-                        block_expert, out_dtype)
+                        block_expert, out_dtype, live_blocks)

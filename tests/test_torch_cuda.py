@@ -244,12 +244,15 @@ A8 = {2: ("w2a8", 4), 4: ("w4a8", 2), 8: ("w8a8", 1)}
 
 # Bit for bit: int32 accumulation is exact in both, and the epilogue runs
 # unfused in the reference's order (__fmul_rn / __fsub_rn).  M covers the
-# three tile heights (16, 64, 128 rows) and their ragged edges; the small
-# weights at small M split K over blocks, the large ones at M 1000 do not.
-@pytest.mark.parametrize("m", [1, 8, 16, 17, 33, 64, 65, 256, 1000])
+# decode tiles (16, 64 rows), the prefill tile (128 or 256 tokens) and
+# their ragged edges; the small weights at small M and N 1024 at M 1024
+# (INT2, INT4, INT8) split K over blocks, the large ones at M 1000 do not.
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 33, 64, 65, 127, 128, 129, 255,
+                               256, 257, 1000, 1024, 2048])
 @pytest.mark.parametrize("bits,k,n", [(4, 512, 256), (4, 4096, 1024),
                                       (4, 14336, 4096), (8, 512, 384),
-                                      (8, 4096, 14336), (2, 512, 384),
+                                      (8, 4096, 14336), (8, 4096, 1024),
+                                      (2, 512, 384), (2, 4096, 1024),
                                       (2, 14336, 4096)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_a8_matches_plain(dev, m, bits, k, n, out_dtype):
@@ -1211,7 +1214,10 @@ def _hold_ragged(dev, skew, bits, gs, e, k, n, out_dtype, ntok):
 
 
 # int8 x: bit for bit, as the dense a8 kernels (exact int32 products, the
-# epilogue unfused in the reference's order).
+# epilogue unfused in the reference's order).  With the routing's
+# live_blocks and every padding row of xq filled with nonzero codes, the
+# rows past live_blocks come out zero from both: a kernel that computed
+# those blocks would write nonzero rows there.
 @pytest.mark.parametrize("skew", ["random", "zero", "all"])
 @pytest.mark.parametrize("bits,e,k,n", [(4, 4, 512, 256), (4, 8, 4096, 384),
                                         (2, 4, 1024, 256), (2, 8, 2048, 128)])
@@ -1223,15 +1229,79 @@ def test_ragged_a8_matches_plain(dev, skew, bits, e, k, n, out_dtype):
     st = _stack(dev, e, k, n, bits, None, k + n)
     x, r = _routed_x(dev, e, k, 300, skew, e + k + 1)
     xq, xs = _quantize_act(x)
+    s, zs = R._channel_side(st)
     before = R.wq_ragged_a8.launches
     got = R.wq_ragged_matmul_a8(xq, xs, st, r.block_expert, out_dtype)
     assert R.wq_ragged_a8.launches == before + 1
-    s, zs = R._channel_side(st)
     want = R.wq_ragged_a8_plain(xq, xs, st.data, s, zs,
                                 xq.float().sum(1, keepdim=True),
                                 r.block_expert, out_dtype)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert not got[_pad_rows(r, x.shape[0])].any()
+
+    xq[_pad_rows(r, x.shape[0])] = 5
+    tail = int(r.live_blocks) * R.ROW_BLOCK
+    got = R.wq_ragged_matmul_a8(xq, xs, st, r.block_expert, out_dtype,
+                                r.live_blocks)
+    want = R.wq_ragged_a8_plain(xq, xs, st.data, s, zs,
+                                xq.float().sum(1, keepdim=True),
+                                r.block_expert, out_dtype, r.live_blocks)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert not got[tail:].any() and not want[tail:].any()
+    if skew != "all":               # "all": every block is live
+        assert tail < x.shape[0]
+
+
+def _replays(fn):
+    """fn() captured in a CUDA graph (after one eager call) and replayed
+    twice: the two outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return first, out.clone()
+
+
+# Two calls, and two replays of a CUDA graph, give the same bits: at a K
+# split of the prefill tile (N 1024 at M 1024: four splits' int32 partials
+# summed by a second pass) and at a ragged shape.
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_a8_repeats_bit_for_bit(dev, bits):
+    from piquant_tpu_torch.ops.cuda import ragged as R
+    from piquant_tpu_torch.quant.linear import _quantize_act
+
+    name, planes = A8[bits]
+    kern = getattr(Q, name)
+    ops = _a8_inputs(dev, 1024, 4096, 1024, bits, 11)
+    assert Q.a8_split(1024, 4096, 1024, 132, planes)[1] > 1
+    calls = [kern(*ops, torch.bfloat16) for _ in range(2)]
+    assert torch.equal(calls[0], calls[1])
+    assert torch.equal(calls[0], getattr(Q, name + "_plain")(*ops,
+                                                             torch.bfloat16))
+    for out in _replays(lambda: kern(*ops, torch.bfloat16)):
+        assert torch.equal(out, calls[0])
+    if bits == 8:
+        return
+    st = _stack(dev, 8, 4096, 1024, bits, None, 12)
+    x, r = _routed_x(dev, 8, 4096, 1024, "zero", 13)
+    xq, xs = _quantize_act(x)
+
+    def ragged():
+        return R.wq_ragged_matmul_a8(xq, xs, st, r.block_expert,
+                                     torch.float32, r.live_blocks)
+
+    first = ragged()
+    assert torch.equal(first, ragged())
+    for out in _replays(ragged):
+        assert torch.equal(out, first)
 
 
 def test_ragged_refuses(dev):
