@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
      version at the Llama-3-8B main-path shapes (decode batch 8), with its
      time, its bound and a one-call PyTorch yardstick (flash also with its
      achieved TFLOP/s and share of the bound, as at every flash hold, and
-     each of its 24 instances' registers, spills and shared memory);
+     each of its 24 instances' registers, spills and shared memory; the
+     GEMV template's 40 instances' registers, spills, shared memory, ring
+     stages and rows a stage);
   4. library core: the quantize / dequantize / requantize / min-max kernels
      bit for bit against their plain versions over f32/bf16 x {u8, i8, u16,
      i16, uint4, int4, uint2} at numel 27,264,000 (bench.py's protocol) and
@@ -24,7 +26,7 @@ Phases (any failure exits non-zero):
   6. weight-format kernels: the INT8, INT2 and grouped GEMVs against their
      plain versions at the Llama-3-8B shapes (the INT8 lm_head; INT2 and
      INT4-g128 projections; the INT2-g32 MLP; the INT4-g256 w2) at M = 8,
-     1 and 33, with their times, bounds and a torch.matmul yardstick;
+     1, 33 and 64, with their times, bounds and a torch.matmul yardstick;
   7. CLI: `python -m piquant_tpu_torch.serving --random llama3_8b
      --benchmark 8 --max-new 32` in process (at 4 of its 32 layers since
      phase 11 came, full width), in four weight formats
@@ -55,7 +57,7 @@ Phases (any failure exits non-zero):
      generation, its metrics and peak memory;
  10. NF4 weights and the kv4 cache: (a) nf4_gemv against its plain version
      at the seven Llama-3-8B projections, channelwise and grouped g64 /
-     g128, at M = 8, 1 and 33 with bf16 and f32 outputs, with times, bounds
+     g128, at M = 8, 1, 33 and 64 with bf16 and f32 outputs, with times, bounds
      and a torch.matmul yardstick; (b) the kv4 form of decode_attn2 against
      its plain version on a stacked kv4 cache of Llama-3-8B's geometry
      (ragged positions, a row with no live position, odd positions and
@@ -285,7 +287,8 @@ def hold(torch, name, got, want, atol, rtol) -> float:
 # (K, N, uses per decode layer) of the Llama-3-8B projections
 W4_SHAPES = ((4096, 4096, 2), (4096, 1024, 2), (4096, 14336, 2),
              (14336, 4096, 1))
-HOLD_M = (8, 1, 33)           # decode batch 8, a lone row, a ragged M <= 64
+HOLD_M = (8, 1, 33, 64)       # decode batch 8, a lone row, a ragged M, the
+                              # largest M the GEMVs take (one block, all rows)
 
 
 def random_qlin(torch, dev, gen, k, n, bits, gs):
@@ -323,9 +326,9 @@ def gemv_operands(name, ql, x):
         if gs is None:
             return (ql.data, ql.scale.reshape(-1), 0), n * 4
         return (ql.data, ql.scale, gs), (ql.k // gs) * n * 4
-    if name in ("w4_gemv", "w8_gemv", "w2_gemv"):
+    if name in ("w4_gemv", "w8_gemv", "w2_gemv"):   # as the dispatch: no xsum
         return ((ql.data, ql.scale.reshape(-1), ql.zero_point.reshape(-1),
-                 x.float().sum(1, keepdim=True)), n * 8)
+                 None), n * 8)
     g = ql.k // gs
     if name == "wg_chunk":
         ch = grouped_chunk_factor(ql.k, gs, Q.PLANES[ql.bits])
@@ -403,6 +406,23 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
                 bound_ms=b, bound_by=by, library_ms=tot["library_ms"],
                 library_call="torch.matmul (bf16 dequantized W)",
                 eager_ms=tot["eager_ms"])
+
+
+def gemv_attributes(torch) -> str:
+    """Registers, local (spill) bytes, dynamic shared memory, ring stages
+    and packed rows a stage of each instance of csrc/qmatmul_gemv.cu
+    (cudaFuncGetAttributes): ten forms at 1, 2, 4 and 8 n8 token tiles, the
+    grouped ones at group size 128."""
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+
+    parts = []
+    for form, tag in enumerate(Q.GEMV_FORMS):
+        for mt in (1, 2, 4, 8):
+            a = Q.gemv_attributes(form, mt, 128)
+            parts.append(f"{tag} M<={8 * mt}: {a[0]} registers, {a[1]} B "
+                         f"local, {a[2]} B shared, {a[3]} stages of {a[5]} "
+                         f"rows")
+    return "; ".join(parts)
 
 
 def gemv_row(torch, dev, gen, name, replaces, timed, bits, gs, shapes,
@@ -1016,7 +1036,9 @@ def locate_fork(torch, M, cfg, params, prompt, n_new, dev, width, max_len,
             if n == "_attention":
                 entered[0] += 1
             elif n in ("w4_gemv", "w8_gemv", "w2_gemv"):
-                log.append((f"xsum into {n}", entered[0], a[4][0].float()))
+                xs = (a[4] if a[4] is not None
+                      else a[0].float().sum(1, keepdim=True))
+                log.append((f"xsum into {n}", entered[0], xs[0].float()))
             out = real[n](*a, **kw)
             log.append((n, entered[0], out[0].float()))
             return out
@@ -3893,6 +3915,7 @@ def main() -> int:
                         W4_SHAPES, torch.bfloat16),
                check_decode_attn2(torch, dev, gen),
                check_flash(torch, dev, gen)]
+    print(f"gemv instances: {gemv_attributes(torch)}", flush=True)
     phase_done(3)
     torch.cuda.empty_cache()
     errs = check_library(torch, dev, gen, LIB_N)

@@ -35,19 +35,20 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I64, _U64 = ctypes.c_int64, ctypes.c_uint64
 SIGNATURES = {
-    # x, w, scale, zp, xsum, out, partial, m, k, n, ksplit, rows, out_bf16,
+    # x, w, scale, zp, xsum (or null), out, m, k, n, ksplit, rows, out_bf16,
     # stream
-    "pq_w4_gemv": [_P] * 7 + [_I] * 6 + [_P],
-    "pq_w8_gemv": [_P] * 7 + [_I] * 6 + [_P],
-    "pq_w2_gemv": [_P] * 7 + [_I] * 6 + [_P],
-    # x, w, s_chunk, z_chunk, xs, out, partial, m, k, n, gs, ch, planes,
-    # ksplit, rows, out_bf16, stream
-    "pq_wg_gemv": [_P] * 7 + [_I] * 9 + [_P],
-    # x, w, scale, zp, out, partial, m, k, n, gs, ksplit, rows, out_bf16,
-    # stream
-    "pq_w4g_gemv": [_P] * 6 + [_I] * 7 + [_P],
-    # x, w, scale, out, partial, m, k, n, gs, ksplit, rows, out_bf16, stream
-    "pq_nf4_gemv": [_P] * 5 + [_I] * 7 + [_P],
+    "pq_w4_gemv": [_P] * 6 + [_I] * 6 + [_P],
+    "pq_w8_gemv": [_P] * 6 + [_I] * 6 + [_P],
+    "pq_w2_gemv": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w, s_chunk, z_chunk, xs, out, m, k, n, gs, ch, planes, ksplit, rows,
+    # out_bf16, stream
+    "pq_wg_gemv": [_P] * 6 + [_I] * 9 + [_P],
+    # x, w, scale, zp, out, m, k, n, gs, ksplit, rows, out_bf16, stream
+    "pq_w4g_gemv": [_P] * 5 + [_I] * 7 + [_P],
+    # x, w, scale, out, m, k, n, gs, ksplit, rows, out_bf16, stream
+    "pq_nf4_gemv": [_P] * 4 + [_I] * 7 + [_P],
+    # form, n8 tiles, gs, ksplit, out[5]
+    "pq_gemv_attributes": [_I, _I, _I, _I, _P],
     # xq, xs, w, scale, zs, xsum, out, partial, m, k, n, bm, ksplit, rows,
     # out_bf16, stream
     "pq_w4a8": [_P] * 8 + [_I] * 7 + [_P],

@@ -32,8 +32,9 @@ whole-K block.
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,9 +42,15 @@ import torch.nn.functional as F
 from piquant_tpu_torch.ops.cuda import _build
 
 M_MAX = 64        # decode-sized M; larger M takes the dequant matmul path
-_COLS = 128       # output columns per block (csrc/qmatmul_gemv.cu)
-_MT = 8           # x rows per block
+_COLS = 128       # output columns per block (csrc/qmatmul_gemv.cu, qmatmul_mlp.cu)
+_MT = 8           # x rows per block of csrc/qmatmul_mlp.cu
 PLANES = {2: 4, 4: 2, 8: 1}   # codes per byte by bit width
+GEMV_CLUSTER = 8  # blocks of a thread-block cluster, the portable limit
+# The instances of csrc/qmatmul_gemv.cu by number (pq_gemv_attributes' form)
+GEMV_FORMS = ("INT8", "INT4", "INT2", "INT4 chunk", "INT2 chunk",
+              "int8-x INT4 chunk", "int8-x INT2 chunk", "W4A16", "NF4",
+              "NF4 grouped")
+_FORM = {name: i for i, name in enumerate(GEMV_FORMS)}
 
 
 def code_planes(data: torch.Tensor, planes: int) -> List[torch.Tensor]:
@@ -56,10 +63,10 @@ def code_planes(data: torch.Tensor, planes: int) -> List[torch.Tensor]:
 
 def split_k(m: int, k: int, n: int, sms: int, planes: int = 2,
             align: int = 8):
-    """(ksplit, rows per split): split the K/planes packed rows over blocks
-    up to four blocks per SM (so the grid is about one wave), keeping >= 64
-    packed rows a split and each split a multiple of `align` rows (whole
-    groups for grouped weights)."""
+    """(ksplit, rows per split) of the fused MLP's stages
+    (csrc/qmatmul_mlp.cu): split the K/planes packed rows over blocks up
+    to four blocks per SM (so the grid is about one wave), keeping >= 64
+    packed rows a split and each split a multiple of `align` rows."""
     total = k // planes
     blocks = (n // _COLS) * -(-m // _MT)
     want = max(1, 4 * sms // blocks)
@@ -67,6 +74,62 @@ def split_k(m: int, k: int, n: int, sms: int, planes: int = 2,
     rows = -(-total // ksplit)
     rows += -rows % align
     return -(-total // rows), rows
+
+
+def gemv_tiles(m: int) -> int:
+    """n8 token tiles of a GEMV block: every row of M <= 64 in one block."""
+    return 1 if m <= 8 else 2 if m <= 16 else 4 if m <= 32 else 8
+
+
+def gemv_split(k: int, n: int, sms: int, planes: int, stage: int,
+               resident: Optional[Callable[[int], int]] = None):
+    """(ksplit, packed rows a split) of csrc/qmatmul_gemv.cu.  A block
+    holds 128 columns and all M rows and streams whole ring stages of
+    `stage` packed rows (the instance's, a multiple of 32).  K splits over
+    the blocks of a thread-block cluster: the largest ksplit up to
+    GEMV_CLUSTER and the stage count whose grid (column tiles x ksplit) the
+    card holds at once, `resident(ksplit)` blocks (clusters of that size
+    that fit, times the size; default `sms`).  The last split may hold
+    fewer rows.  Every 32-row unit of a split lies in one group of any
+    group size the kernels take, so a split need not hold whole groups."""
+    stages = -(-(k // planes) // stage)
+    tiles = n // _COLS
+    best = 1
+    for ks in range(2, min(GEMV_CLUSTER, stages) + 1):
+        if tiles * ks <= (resident(ks) if resident else sms):
+            best = ks
+    per = -(-stages // best)
+    return -(-stages // per), per * stage
+
+
+def gemv_attributes(form: int, mt: int, gs: int, ksplit: int = 0,
+                    device: Optional[int] = None) -> tuple:
+    """pq_gemv_attributes of the instance of csrc/qmatmul_gemv.cu for
+    `form` (an index of GEMV_FORMS), `mt` n8 token tiles and group size
+    `gs`, on `device`: (registers, local (spill) bytes, dynamic shared
+    memory, ring stages, clusters of `ksplit` blocks the card holds at once
+    (0 for ksplit 0), packed rows a stage)."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        _build.check(_build.library().pq_gemv_attributes(form, mt, gs, ksplit,
+                                                         out),
+                     "pq_gemv_attributes")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(device: int, form: int, m: int, k: int, n: int, gs: int,
+              planes: int):
+    """(n8 token tiles, ksplit, packed rows a split) of a GEMV call on
+    `device`: gemv_split with the instance's stage rows and cluster
+    residency, asked of the card once a shape."""
+    mt = gemv_tiles(m)
+    stage = gemv_attributes(form, mt, gs, 0, device)[5]
+    return (mt,) + gemv_split(
+        k, n, _build.sm_count(device), planes, stage,
+        lambda ks: ks * gemv_attributes(form, mt, gs, ks, device)[4])
 
 
 def _check(name: str, ok: bool, err=ValueError, what: str = "") -> None:
@@ -82,11 +145,13 @@ def _check_operands(name: str, x2: torch.Tensor, *rest) -> None:
                     "one device")
 
 
-def _launch(name: str, entry: str, x2: torch.Tensor, data: torch.Tensor,
-            side: tuple, ints: tuple, planes: int, align: int,
-            out_dtype, x_dtype=torch.bfloat16) -> torch.Tensor:
-    """Shared checks, scratch and launch of the GEMV entry points (a None
-    in `side` passes a null pointer)."""
+def _launch(name: str, entry: str, form: str, x2: torch.Tensor,
+            data: torch.Tensor, side: tuple, ints: tuple, planes: int,
+            out_dtype, gs: int = 1, x_dtype=torch.bfloat16) -> torch.Tensor:
+    """Shared checks and the one launch of the GEMV entry points (a None in
+    `side` passes a null pointer); `form` (a GEMV_FORMS name) and `gs` name
+    the kernel instance whose stage rows and cluster residency set the K
+    split."""
     m, k = x2.shape
     n = data.shape[1]
     _check(name, out_dtype in (torch.bfloat16, torch.float32), TypeError,
@@ -97,15 +162,13 @@ def _launch(name: str, entry: str, x2: torch.Tensor, data: torch.Tensor,
            and k % 256 == 0 and 0 < m <= M_MAX,
            what=f"unsupported shape m={m} k={k} n={n}")
     _check_operands(name, x2, data, *side)
-    ksplit, rows = split_k(m, k, n, _build.sm_count(x2.device.index), planes,
-                           align)
+    _, ksplit, rows = gemv_plan(x2.device.index, _FORM[form], m, k, n, gs,
+                                planes)
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
-    partial = (torch.empty((ksplit, m, n), dtype=torch.float32,
-                           device=x2.device) if ksplit > 1 else out)
     err = getattr(_build.library(), entry)(
         x2.data_ptr(), data.data_ptr(),
         *(None if t is None else t.data_ptr() for t in side),
-        out.data_ptr(), partial.data_ptr(), m, k, n, *ints, ksplit, rows,
+        out.data_ptr(), m, k, n, *ints, ksplit, rows,
         int(out_dtype == torch.bfloat16), _build.stream_ptr(x2))
     _build.check(err, name)
     return out
@@ -117,21 +180,24 @@ def _launch(name: str, entry: str, x2: torch.Tensor, data: torch.Tensor,
 
 def _channel_plain(x2, data, scale, zp, xsum, out_dtype, planes):
     """The P plane products of the raw codes with f32 accumulation, then
-    acc * scale - xsum * (zp * scale)."""
+    acc * scale - xsum * (zp * scale); xsum None: the f32 row sums of x2."""
     rows = data.shape[0]
     acc = None
     for p, plane in enumerate(code_planes(data, planes)):
         part = x2[:, p * rows:(p + 1) * rows].float() @ plane.float()
         acc = part if acc is None else acc + part
+    if xsum is None:
+        xsum = x2.float().sum(1, keepdim=True)
     return (acc * scale - xsum * (zp.float() * scale)).to(out_dtype)
 
 
 def w4_gemv_plain(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
-                  zp: torch.Tensor, xsum: torch.Tensor,
+                  zp: torch.Tensor, xsum: Optional[torch.Tensor],
                   out_dtype) -> torch.Tensor:
     """x2 [M, K] bf16, data [K/2, N] uint8, scale [N] f32, zp [N] int32,
-    xsum [M, 1] f32 -> [M, N]: the two nibble-plane products with f32
-    accumulation, then acc * scale - xsum * (zp * scale)."""
+    xsum [M, 1] f32 (the row sums of x2; None: computed here) -> [M, N]:
+    the two nibble-plane products with f32 accumulation, then acc * scale -
+    xsum * (zp * scale)."""
     return _channel_plain(x2, data, scale, zp, xsum, out_dtype, 2)
 
 
@@ -147,19 +213,23 @@ def w2_gemv_plain(x2, data, scale, zp, xsum, out_dtype) -> torch.Tensor:
 
 
 def _channel(name, entry, planes, x2, data, scale, zp, xsum, out_dtype):
+    form = {1: "INT8", 2: "INT4", 4: "INT2"}[planes]
     _check(name, scale.dtype == torch.float32 and zp.dtype == torch.int32
-           and xsum.dtype == torch.float32, TypeError,
+           and (xsum is None or xsum.dtype == torch.float32), TypeError,
            "scale f32, zp int32, xsum f32 expected")
     n = data.shape[1]
     _check(name, scale.numel() == n and zp.numel() == n
-           and xsum.numel() == x2.shape[0], what="scale/zp [N], xsum [M, 1]")
-    return _launch(name, entry, x2, data, (scale, zp, xsum), (), planes, 8,
-                   out_dtype)
+           and (xsum is None or xsum.numel() == x2.shape[0]),
+           what="scale/zp [N], xsum [M, 1]")
+    return _launch(name, entry, form, x2, data, (scale, zp, xsum), (),
+                   planes, out_dtype)
 
 
 def w4_gemv(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
-            zp: torch.Tensor, xsum: torch.Tensor, out_dtype) -> torch.Tensor:
-    """Kernel wrapper; see `w4_gemv_plain` for the function."""
+            zp: torch.Tensor, xsum: Optional[torch.Tensor],
+            out_dtype) -> torch.Tensor:
+    """Kernel wrapper; see `w4_gemv_plain` for the function (xsum None: the
+    kernel sums the rows of x2 itself)."""
     if not x2.is_cuda:
         return w4_gemv_plain(x2, data, scale, zp, xsum, out_dtype)
     out = _channel("w4_gemv", "pq_w4_gemv", 2, x2, data, scale, zp, xsum,
@@ -267,11 +337,14 @@ def wg_chunk(x2, data, s_chunk, z_chunk, gs: int, ch: int, out_dtype,
            "s_chunk bf16, z_chunk int8 expected")
     _check(name, ch > 0 and (x2.shape[1] // planes // gs) % ch == 0,
            what=f"chunk factor {ch} does not divide the groups of a plane")
+    _check(name, gs % 32 == 0,
+           what=f"group size {gs} is off the kernel's 32-row units")
     if xs is not None:
         _check(name, xs.dtype == torch.float32, TypeError, "xs f32 expected")
         _check(name, xs.numel() == x2.shape[0], what="xs must be [M, 1]")
-    out = _launch(name, "pq_wg_gemv", x2, data, (s_chunk, z_chunk, xs),
-                  (gs, ch, planes), planes, gs, out_dtype,
+    form = ("" if xs is None else "int8-x ") + f"INT{8 // planes} chunk"
+    out = _launch(name, "pq_wg_gemv", form, x2, data, (s_chunk, z_chunk, xs),
+                  (gs, ch, planes), planes, out_dtype, gs,
                   torch.bfloat16 if xs is None else torch.int8)
     wg_chunk.launches += 1
     return out
@@ -287,8 +360,8 @@ def w4_grouped(x2, data, scale, zp, gs: int, out_dtype) -> torch.Tensor:
     _grouped_shape(name, x2, data, scale, zp, gs, 2)
     _check(name, scale.dtype == torch.float32 and zp.dtype == torch.int32,
            TypeError, "scale f32, zp int32 expected")
-    out = _launch(name, "pq_w4g_gemv", x2, data, (scale, zp), (gs,), 2, gs,
-                  out_dtype)
+    out = _launch(name, "pq_w4g_gemv", "W4A16", x2, data, (scale, zp), (gs,),
+                  2, out_dtype, gs)
     w4_grouped.launches += 1
     return out
 
@@ -335,8 +408,8 @@ def nf4_gemv(x2, data, scale, gs: int, out_dtype) -> torch.Tensor:
         _grouped_shape(name, x2, data, scale, scale, gs, 2)
     else:
         _check(name, scale.numel() == n, what="scale must be [N]")
-    out = _launch(name, "pq_nf4_gemv", x2, data, (scale,), (gs,), 2,
-                  gs or 8, out_dtype)
+    out = _launch(name, "pq_nf4_gemv", "NF4 grouped" if gs else "NF4", x2,
+                  data, (scale,), (gs,), 2, out_dtype, gs or 1)
     nf4_gemv.launches += 1
     return out
 
@@ -414,11 +487,10 @@ def quantized_matmul(x: torch.Tensor, ql, out_dtype=torch.bfloat16
                            ql.zero_point.to(torch.int32).contiguous(), gs,
                            out_dtype)
         return y.reshape(*lead, n)
-    xsum = x2.float().sum(dim=1, keepdim=True)
     scale = ql.scale.float().reshape(-1).expand(n).contiguous()
     zp = ql.zero_point.to(torch.int32).reshape(-1).expand(n).contiguous()
     gemv = {4: w4_gemv, 8: w8_gemv, 2: w2_gemv}[ql.bits]
-    return gemv(x2, ql.data, scale, zp, xsum, out_dtype).reshape(*lead, n)
+    return gemv(x2, ql.data, scale, zp, None, out_dtype).reshape(*lead, n)
 
 
 # ---------------------------------------------------------------------------

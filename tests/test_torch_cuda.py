@@ -37,24 +37,86 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
+# Every M the GEMV template takes in one block: its n8-tile steps (1, 2, 4,
+# 8 tiles), their edges and ragged M.
+GEMV_M = [1, 8, 9, 16, 33, 63, 64]
+
+
 # bf16 outputs: atol 2e-2 + rtol 1e-2 (the quantized_matmul bound of the
-# JAX tests, which also covers one bf16 rounding of an O(1) output)
-@pytest.mark.parametrize("m,k,n", [(1, 256, 512), (8, 4096, 1024),
-                                   (33, 512, 384), (64, 8704, 1024)])
+# JAX tests, which also covers one bf16 rounding of an O(1) output).  The
+# shapes: a single stage, N an odd multiple of 128 (1152, 384), K split
+# over a cluster (N 1024 and 4096) and unsplit (K 256; N 14336 at M > 8).
+# xsum given (the caller's) or None (summed in the kernel).
+@pytest.mark.parametrize("m", GEMV_M)
+@pytest.mark.parametrize("k,n", [(256, 512), (4096, 1024), (512, 384),
+                                 (8704, 1024), (4096, 1152), (14336, 4096),
+                                 (4096, 14336)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_w4_gemv_matches_plain(dev, m, k, n, out_dtype):
+@pytest.mark.parametrize("given", [True, False])
+def test_w4_gemv_matches_plain(dev, m, k, n, out_dtype, given):
     g = _gen(dev, m + k)
     data = torch.randint(0, 256, (k // 2, n), generator=g, device=dev,
                          dtype=torch.uint8)
     scale = torch.rand(n, generator=g, device=dev) * 0.02 + 0.01
     zp = torch.randint(0, 16, (n,), generator=g, device=dev, dtype=torch.int32)
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    xsum = x.float().sum(1, keepdim=True)
+    xsum = x.float().sum(1, keepdim=True) if given else None
     before = Q.w4_gemv.launches
     got = Q.w4_gemv(x, data, scale, zp, xsum, out_dtype).float()
     assert Q.w4_gemv.launches == before + 1
     want = Q.w4_gemv_plain(x, data, scale, zp, xsum, out_dtype).float()
     torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+def test_gemv_split_on_card(dev):
+    """The chooser with this card's stage rows and cluster residency: a K
+    split over a cluster at the Llama-3-8B projections at M = 8 (all but
+    the INT8 lm_head, whose 1002 column tiles fill the card alone), none at
+    K 256; every split whole stages, covering the packed rows once."""
+    index = torch.cuda.current_device()
+    for form in range(len(Q.GEMV_FORMS)):
+        for mt in (1, 2, 4, 8):
+            assert Q.gemv_attributes(form, mt, 128)[5] % 32 == 0
+
+    def split(m, k, n, planes, form):
+        mt, ksplit, per = Q.gemv_plan(index, form, m, k, n, 1, planes)
+        stage = Q.gemv_attributes(form, mt, 1)[5]
+        assert per % stage == 0
+        assert ksplit * per >= k // planes > (ksplit - 1) * per
+        return ksplit
+
+    for k, n in ((4096, 4096), (4096, 1024), (14336, 4096)):
+        assert split(8, k, n, 2, 1) > 1
+    assert split(8, 4096, 128256, 1, 0) == 1
+    assert split(8, 256, 512, 2, 1) == 1
+    assert split(64, 4096, 14336, 2, 1) == 1
+
+
+def test_gemv_rejects_split_off_stage(dev):
+    """The C entry refuses a split that is not whole stages or does not
+    cover the packed rows once (the host's tables and the kernel's stage
+    rows would have drifted), and takes the chooser's."""
+    from piquant_tpu_torch.ops.cuda import _build
+
+    m, k, n = 8, 4096, 1024
+    x = torch.zeros((m, k), dtype=torch.bfloat16, device=dev)
+    data = torch.zeros((k // 2, n), dtype=torch.uint8, device=dev)
+    scale = torch.ones(n, device=dev)
+    zp = torch.zeros(n, dtype=torch.int32, device=dev)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    _, ksplit, per = Q.gemv_plan(torch.cuda.current_device(), 1, m, k, n, 1,
+                                 2)
+
+    def launch(ks, rows):
+        return _build.library().pq_w4_gemv(
+            x.data_ptr(), data.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+            None, out.data_ptr(), m, k, n, ks, rows, 1, _build.stream_ptr(x))
+
+    assert launch(ksplit, per) == 0
+    torch.cuda.synchronize()
+    assert launch(ksplit, per + 16) != 0      # not whole stages (>= 32 rows)
+    assert launch(ksplit + 1, per) != 0       # a split with no rows
+    assert ksplit > 1 and launch(1, per) != 0   # rows left uncovered
 
 
 def test_w4_gemv_refuses(dev):
@@ -94,15 +156,18 @@ def _x(dev, m, k, seed):
 # Element by element within atol 2e-2, rtol 1e-2 (the quantized_matmul
 # bound of the JAX tests): the f32 sums run in another order, and a bf16
 # output may round the other way once.
-@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("m", GEMV_M)
 @pytest.mark.parametrize("bits,k,n", [(8, 512, 384), (8, 4096, 128256),
                                       (2, 512, 384), (2, 4096, 1024),
                                       (2, 14336, 4096)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_channel_gemv_matches_plain(dev, m, bits, k, n, out_dtype):
+@pytest.mark.parametrize("given", [True, False])
+def test_channel_gemv_matches_plain(dev, m, bits, k, n, out_dtype, given):
+    """xsum given (the caller's row sums) or None (the dispatch's call: the
+    kernel sums its staged x, for INT8 with the zp - 128 fold)."""
     ql = _qlin(dev, k, n, bits, None, k + n)
     x = _x(dev, m, k, m)
-    xsum = x.float().sum(1, keepdim=True)
+    xsum = x.float().sum(1, keepdim=True) if given else None
     s, z = ql.scale.reshape(-1).contiguous(), ql.zero_point.reshape(-1).contiguous()
     kern, plain = ((Q.w8_gemv, Q.w8_gemv_plain) if bits == 8
                    else (Q.w2_gemv, Q.w2_gemv_plain))
@@ -113,7 +178,7 @@ def test_channel_gemv_matches_plain(dev, m, bits, k, n, out_dtype):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("m", GEMV_M)
 @pytest.mark.parametrize("bits,k,n,gs", [(4, 512, 256, 32), (4, 4096, 1024, 128),
                                          (4, 14336, 4096, 128),
                                          (4, 4096, 4096, 256),
@@ -136,7 +201,7 @@ def test_wg_chunk_matches_plain(dev, m, bits, k, n, gs, out_dtype):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("m", GEMV_M)
 @pytest.mark.parametrize("k,n,gs", [(512, 256, 16), (1024, 384, 64),
                                     (14336, 4096, 256)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -155,7 +220,7 @@ def test_w4_grouped_matches_plain(dev, m, k, n, gs, out_dtype):
 # NF4: the same bound (bf16 table values in both; f32 sums in another
 # order).  Channelwise and grouped (the Llama-3-8B shapes at g64 / g128, a
 # group of 8 and a K split into many blocks), every M of the GEMV range.
-@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("m", GEMV_M)
 @pytest.mark.parametrize("k,n,gs", [(512, 256, None), (4096, 1024, None),
                                     (14336, 4096, None), (4096, 14336, 64),
                                     (14336, 4096, 128), (512, 384, 8),
@@ -280,7 +345,7 @@ def test_a8_refuses(dev):
 
 # The int8-x chunk form: atol 2e-2, rtol 1e-2 as the bf16-x form (exact
 # products; the f32 sums run in another order).
-@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("m", GEMV_M)
 @pytest.mark.parametrize("bits,k,n,gs", [(4, 512, 256, 32), (4, 4096, 1024, 128),
                                          (2, 1024, 256, 32), (2, 14336, 4096, 32)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -1302,6 +1367,81 @@ def test_a8_repeats_bit_for_bit(dev, bits):
     assert torch.equal(first, ragged())
     for out in _replays(ragged):
         assert torch.equal(out, first)
+
+
+def _gemv_calls(dev):
+    """(name, call) of each GEMV entry point at Llama-3-8B's wk (K 4096, N
+    1024, M 8: K split over a cluster, merged in the launch), w4_gemv also
+    at K 256 (no split), and the dispatch of a channelwise INT4 weight
+    (which no longer sums x in launches of its own)."""
+    from piquant_tpu_torch.quant.linear import (_quantize_act,
+                                                grouped_chunk_factor)
+
+    x = _x(dev, 8, 4096, 21)
+    xq, xs = _quantize_act(x)
+    bf = torch.bfloat16
+    calls = []
+
+    def channel(name, bits, k, n, seed):
+        ql = _qlin(dev, k, n, bits, None, seed)
+        s = ql.scale.reshape(-1).contiguous()
+        z = ql.zero_point.reshape(-1).contiguous()
+        xx = x[:, :k].contiguous()
+        return (f"{name} K={k}",
+                lambda: getattr(Q, name)(xx, ql.data, s, z, None, bf))
+
+    calls.append(channel("w4_gemv", 4, 4096, 1024, 31))
+    calls.append(channel("w4_gemv", 4, 256, 512, 32))
+    calls.append(channel("w8_gemv", 8, 4096, 1024, 33))
+    calls.append(channel("w2_gemv", 2, 4096, 1024, 34))
+    for bits, gs in ((4, 128), (2, 32)):
+        ql = _qlin(dev, 4096, 1024, bits, gs, 40 + bits)
+        ch = grouped_chunk_factor(4096, gs, Q.PLANES[bits])
+        calls.append((f"wg_chunk INT{bits}", lambda ql=ql, gs=gs, ch=ch:
+                      Q.wg_chunk(x, ql.data, ql.s_chunk, ql.z_chunk, gs, ch,
+                                 bf)))
+        calls.append((f"wg_chunk int8-x INT{bits}", lambda ql=ql, gs=gs, ch=ch:
+                      Q.wg_chunk(xq, ql.data, ql.s_chunk, ql.z_chunk, gs, ch,
+                                 bf, xs)))
+    qg = _qlin(dev, 4096, 1024, 4, 256, 50)
+    calls.append(("w4_grouped", lambda: Q.w4_grouped(
+        x, qg.data, qg.scale, qg.zero_point, 256, bf)))
+    for gs in (None, 128):
+        qn = _qlin(dev, 4096, 1024, "nf4", gs, 60 + (gs or 0))
+        scale = (qn.scale if gs else qn.scale.reshape(-1)).contiguous()
+        calls.append((f"nf4_gemv gs={gs}", lambda qn=qn, gs=gs, scale=scale:
+                      Q.nf4_gemv(x, qn.data, scale, gs or 0, bf)))
+    q4 = _qlin(dev, 4096, 1024, 4, None, 70)
+    calls.append(("quantized_matmul INT4", lambda: Q.quantized_matmul(x, q4)))
+    return calls
+
+
+# Two calls, and two replays of a CUDA graph, give the same bits: the
+# cluster's blocks add their partial sums in split order.
+def test_gemv_repeats_bit_for_bit(dev):
+    for name, call in _gemv_calls(dev):
+        first = call()
+        assert torch.equal(first, call()), name
+        for out in _replays(call):
+            assert torch.equal(out, first), name
+
+
+# One wrapper call is one kernel launch, with the K split merged in it (no
+# second pass, no row-sum launches).
+def test_gemv_one_launch(dev):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, call in _gemv_calls(dev):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1, (name, kernels)
+        assert "gemv_tc" in kernels[0], (name, kernels)
 
 
 def test_ragged_refuses(dev):
