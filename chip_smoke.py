@@ -18,7 +18,9 @@ Phases (any failure exits non-zero):
      i16, uint4, int4, uint2} at numel 27,264,000 (bench.py's protocol) and
      a ragged tail, with the edge values (ties, NaN, +-inf, 3e9); then the
      public API end to end at that size with launch counts; then each
-     kernel's time, bound, plain time and PyTorch yardstick;
+     kernel's time (graph replay, and events around eager launches as the
+     yardstick is timed), bound, plain time and PyTorch yardstick, and
+     dequantize at numel 1,048,576;
   5. engine: the port's Engine serving 16 requests on Llama-3-8B at full
      width (random INT4 codes from a seed), launch counts of every kernel,
      engine tokens against the port's own single-request generation, and
@@ -122,8 +124,9 @@ Phases (any failure exits non-zero):
      spies show none;
  14. fused projections and the rest of the engine: (a) mlp_fused against
      its plain version at Llama-3-8B's SwiGLU and Gemma-7B's GeGLU MLPs (M
-     8, 1, 33, 64; f32 and bf16 out; two runs bit-equal) with its time,
-     bound and the two-kernel route's time, decode_attn (the first
+     8, 1, 33, 64; f32 and bf16 out; two runs bit-equal; no row sums of x
+     passed, as the dispatch) with its time, bound and the two-kernel
+     route's time at M 8, 1 and 64, decode_attn (the first
      flash-decode kernel) at Llama-3-8B's and the Gemma geometries (ragged
      positions, one dominant key) with its time, bound and an SDPA
      yardstick; (b) the Engine on Llama-3-8B at full width and depth,
@@ -132,7 +135,9 @@ Phases (any failure exits non-zero):
      of 256, a 2-entry prefix cache with a preseeded 512-token system
      prompt and auto capture, window buckets (512, 1024, 2048): 12 greedy
      requests, exactly 64 w4_gemv, 32 mlp_fused and 32 decode_attn
-     launches a decode step, 8 prefix hits, a snapshot after the first
+     launches a decode step (and in a profiled step one fused-MLP kernel
+     a layer, no reduction launched just before it), 8 prefix hits, a
+     snapshot after the first
      tick restored into a fresh engine with identical tokens, tokens
      against single-request chunked generation on the same route, one
      decode step's logits against the unfused default route, and the same
@@ -841,10 +846,15 @@ def run_library(torch, dev, gen, n, seed):
     return launches
 
 
+LIB_SMALL_N = 1_048_576       # the quantized collectives' calls
+
+
 def time_library(torch, dev, gen, n, errs):
-    """Device ms of each library kernel at numel n (f32 input, uint8 codes),
-    its plain version, its host cost per eager call, and one PyTorch call
-    computing the same function as a yardstick (never used by the port)."""
+    """Device ms of each library kernel at numel n (f32 input, uint8 codes)
+    by CUDA-graph replay and, as the yardstick is timed, by events around
+    eager launches (`event_ms`); its plain version, its host cost per eager
+    call, and one PyTorch call computing the same function as a yardstick
+    (never used by the port)."""
     from piquant_tpu_torch.dtypes import DTYPES
     from piquant_tpu_torch.ops import reference as ref
     from piquant_tpu_torch.ops.cuda import dequantize as DQ
@@ -866,19 +876,21 @@ def time_library(torch, dev, gen, n, errs):
     def row(name, source, replaces, call, plain, lib, lib_name, nbytes, ops,
             timed):
         t_k = cuda_ms(call, 50)
+        t_ke = event_ms(call, 50)
         t_e = host_ms(call)
         t_p = cuda_ms(plain, 5)
         t_l = event_ms(lib, 50)
         b, by = bound_ms(nbytes, ops * n, F32_FLOP_PER_S)
-        print(f"{name}: kernel {t_k:.4f} ms, bound {b:.4f} ms ({by}), plain "
-              f"{t_p:.4f} ms, {lib_name} {t_l:.4f} ms, eager {t_e:.4f} ms "
-              f"[{timed}; {card}]", flush=True)
+        print(f"{name}: kernel {t_k:.4f} ms (events {t_ke:.4f} ms), bound "
+              f"{b:.4f} ms ({by}), plain {t_p:.4f} ms, {lib_name} {t_l:.4f} "
+              f"ms (events), eager {t_e:.4f} ms [{timed}; {card}]",
+              flush=True)
         rows.append(dict(name=name, route="cuda",
                          source=f"piquant_tpu_torch/csrc/{source}",
                          replaces=replaces, max_abs_err=errs[name], ms=t_k,
-                         plain_ms=t_p, bound_ms=b, bound_by=by,
-                         library_ms=t_l, library_call=lib_name, eager_ms=t_e,
-                         timed=timed))
+                         event_ms=t_ke, plain_ms=t_p, bound_ms=b,
+                         bound_by=by, library_ms=t_l, library_call=lib_name,
+                         eager_ms=t_e, timed=timed))
         return t_k
 
     row("quantize", "quantize.cu",
@@ -891,14 +903,17 @@ def time_library(torch, dev, gen, n, errs):
         f"f32 -> uint8, numel {n}")
 
     def variant(tag, call, plain, nbytes):
-        """Another path of the last row's kernel: its ms, plain ms, bound."""
+        """Another path of the last row's kernel: its ms (graph replay and
+        events), plain ms, bound."""
         t_k = cuda_ms(call, 50)
+        t_ke = event_ms(call, 50)
         t_p = cuda_ms(plain, 5)
         b, _ = bound_ms(nbytes, 0)
-        print(f"{rows[-1]['name']} {tag}: kernel {t_k:.4f} ms, bound {b:.4f} "
-              f"ms, plain {t_p:.4f} ms [{card}]", flush=True)
+        print(f"{rows[-1]['name']} {tag}: kernel {t_k:.4f} ms (events "
+              f"{t_ke:.4f} ms), bound {b:.4f} ms, plain {t_p:.4f} ms "
+              f"[{card}]", flush=True)
         rows[-1].setdefault("variants", {})[tag] = dict(
-            ms=t_k, plain_ms=t_p, bound_ms=b)
+            ms=t_k, event_ms=t_ke, plain_ms=t_p, bound_ms=b)
 
     variant("f32 -> uint4", lambda i: QK.quantize(x, scale, zp, u4),
             lambda i: QK.quantize_plain(x, scale, zp, u4), 4.5 * n)
@@ -918,6 +933,12 @@ def time_library(torch, dev, gen, n, errs):
             lambda i: DQ.dequantize(codes4, n, scale, zp, u4, f32),
             lambda i: DQ.dequantize_plain(codes4, n, scale, zp, u4, f32),
             4.5 * n)
+    ns = min(n, LIB_SMALL_N)
+    small = codes[:ns]
+    variant(f"uint8 -> f32 SET numel {ns}",
+            lambda i: DQ.dequantize(small, ns, scale, zp, u8, f32),
+            lambda i: DQ.dequantize_plain(small, ns, scale, zp, u8, f32),
+            5.0 * ns)
     row("requantize", "requantize.cu",
         "piquant_tpu/ops/pallas/requantize.py:34 (_requant_kernel)",
         lambda i: RQ.requantize(x, scale, zp, u8),
@@ -2926,6 +2947,7 @@ def switched(on: bool = True):
 MLP_FUSED_SHAPES = ((4096, 14336, 4096, "silu", "Llama-3-8B"),
                     (3072, 24576, 3072, "gelu", "Gemma-7B"))
 MLP_FUSED_M = (8, 1, 33, 64)
+MLP_TIMED_M = (8, 1, 64)      # the timed calls: M = 8 is the kernels line's
 
 
 def check_mlp_fused(torch, dev, gen):
@@ -2933,11 +2955,15 @@ def check_mlp_fused(torch, dev, gen):
     M in MLP_FUSED_M, f32 and bf16 output (GEMV tolerance: atol 2e-2, rtol
     1e-2), each call made twice and the two bit-equal (a fixed summation
     order); zero points drawn over 0-15, so a kernel that drops a fold
-    fails.  Then its device ms at M = 8 (bf16 out, two weight copies: 176
-    MB streamed from HBM, not L2), the plain version's, the port's
-    two-kernel route on the same weights (w4_gemv on w13, the activation,
-    w4_gemv on w2: the reference's A/B), the eager host cost and the bound.
-    No single PyTorch call computes the function: library_ms is null."""
+    fails.  Every call passes no row sums of x, as the dispatch
+    (mlp_fused_matmul) does: the kernel sums its staged x (the caller's
+    sums are held in tests/test_torch_cuda.py).  Then, at each M of
+    MLP_TIMED_M (bf16 out, two weight copies: 176 MB streamed from HBM,
+    not L2), its device ms, the port's two-kernel route on the same weights
+    and the same operands (w4_gemv on w13 with no row sums, the activation,
+    w4_gemv on w2 with none: the dispatch's A/B), the eager host cost and
+    the bound; at M = 8 also the plain version's ms.  No single PyTorch
+    call computes the function: library_ms is null."""
     from piquant_tpu_torch.ops.cuda import qmatmul as Q
 
     err, variants, main = 0.0, {}, None
@@ -2953,8 +2979,7 @@ def check_mlp_fused(torch, dev, gen):
             w13, w2 = ws[c]
             return (x, w13.data, w13.scale.reshape(-1),
                     w13.zero_point.reshape(-1), w2.data, w2.scale.reshape(-1),
-                    w2.zero_point.reshape(-1), x.float().sum(1, keepdim=True),
-                    act)
+                    w2.zero_point.reshape(-1), None, act)
 
         for m in MLP_FUSED_M:
             x = torch.randn((m, k), generator=gen, device=dev).to(
@@ -2969,36 +2994,15 @@ def check_mlp_fused(torch, dev, gen):
                 err = max(err, e)
         print(f"mlp_fused {label}: max_abs_err {err:.3e} at M {MLP_FUSED_M}, "
               "f32 and bf16, runs bit-equal", flush=True)
-        x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
-        args = [ops(x, c) for c in range(copies)]
-        call = lambda i: Q.mlp_fused(*args[i % copies],  # noqa: E731
-                                     torch.bfloat16)
-        t_k = cuda_ms(call, 20)
-        t_e = host_ms(call)
-        t_p = event_ms(lambda i: Q.mlp_fused_plain(*args[i % copies],
-                                                   torch.bfloat16), 3)
-
-        def two(i):
-            xx, d13, s13, z13, d2, s2, z2, xs, _ = args[i % copies]
-            gu = Q.w4_gemv(xx, d13, s13, z13, xs, torch.bfloat16).float()
-            h = (Q._mlp_act(gu[:, :i_ff], act) * gu[:, i_ff:]).to(
-                torch.bfloat16)
-            return Q.w4_gemv(h, d2, s2, z2, h.float().sum(1, keepdim=True),
-                             torch.bfloat16)
-
-        t_two = cuda_ms(two, 20)
-        nbytes = (k // 2 * 2 * i_ff + i_ff // 2 * n + (2 * i_ff + n) * 8
-                  + 8 * k * 2 + 8 * 4 + 8 * n * 2)
-        bnd, by = bound_ms(nbytes, 2 * 8 * (k * 2 * i_ff + i_ff * n))
-        print(f"mlp_fused {label}: kernel {t_k:.4f} ms, two-kernel route "
-              f"{t_two:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
-              f"{t_p:.4f} ms, eager {t_e:.4f} ms [{card_line()}]",
-              flush=True)
-        res = dict(ms=t_k, bound_ms=bnd, bound_by=by, plain_ms=t_p,
-                   two_kernel_ms=t_two, eager_ms=t_e)
-        main = main or res
-        variants[label] = res
-        del ws, args
+        for m in MLP_TIMED_M:
+            res = time_mlp_fused(torch, dev, gen, Q, ops, copies, m, k, i_ff,
+                                 n, act, label)
+            if m == MLP_TIMED_M[0]:
+                main = main or res
+                variants[label] = res
+            else:
+                variants[f"{label} M={m}"] = res
+        del ws
     return dict(name="mlp_fused", route="cuda",
                 source="piquant_tpu_torch/csrc/qmatmul_mlp.cu",
                 replaces="piquant_tpu/ops/pallas/qmatmul.py:1200 "
@@ -3006,6 +3010,41 @@ def check_mlp_fused(torch, dev, gen):
                 max_abs_err=err, library_ms=None, **main,
                 timed="Llama-3-8B MLP (K 4096, I 14336, N 4096) at M=8, "
                       "bf16 out", variants=variants)
+
+
+def time_mlp_fused(torch, dev, gen, Q, ops, copies, m, k, i_ff, n, act,
+                   label):
+    """Device ms of mlp_fused at M = m (bf16 out, the operands of `ops`,
+    cycling over `copies` weight copies), of the two-kernel route on the
+    same operands, the eager host cost, the bound; at M = 8 the plain
+    version's ms."""
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    args = [ops(x, c) for c in range(copies)]
+    call = lambda i: Q.mlp_fused(*args[i % copies],  # noqa: E731
+                                 torch.bfloat16)
+    t_k = cuda_ms(call, 20)
+    t_e = host_ms(call)
+    t_p = None
+    if m == 8:
+        t_p = event_ms(lambda i: Q.mlp_fused_plain(*args[i % copies],
+                                                   torch.bfloat16), 3)
+
+    def two(i):
+        xx, d13, s13, z13, d2, s2, z2, xs, _ = args[i % copies]
+        gu = Q.w4_gemv(xx, d13, s13, z13, xs, torch.bfloat16).float()
+        h = (Q._mlp_act(gu[:, :i_ff], act) * gu[:, i_ff:]).to(torch.bfloat16)
+        return Q.w4_gemv(h, d2, s2, z2, None, torch.bfloat16)
+
+    t_two = cuda_ms(two, 20)
+    nbytes = (k // 2 * 2 * i_ff + i_ff // 2 * n + (2 * i_ff + n) * 8
+              + m * k * 2 + m * n * 2)
+    bnd, by = bound_ms(nbytes, 2 * m * (k * 2 * i_ff + i_ff * n))
+    plain_txt = "" if t_p is None else f", plain {t_p:.4f} ms"
+    print(f"mlp_fused {label} M={m}: kernel {t_k:.4f} ms, two-kernel route "
+          f"{t_two:.4f} ms, bound {bnd:.4f} ms ({by}){plain_txt}, eager "
+          f"{t_e:.4f} ms [{card_line()}]", flush=True)
+    return dict(ms=t_k, bound_ms=bnd, bound_by=by, plain_ms=t_p,
+                two_kernel_ms=t_two, eager_ms=t_e, m=m)
 
 
 # (B, Hkv, rep, S, D, model) of the first flash-decode kernel's holds
@@ -3257,6 +3296,7 @@ def run_fused_engine(torch, dev, args):
                           f"generation on the same route: {verdict}",
                           flush=True)
                 profile_decode(torch, M, cfg, fused, dev)
+                check_mlp_one_launch(torch, M, cfg, fused, dev)
                 del fresh, state
             else:
                 profile_decode(torch, M, cfg, params, dev)
@@ -3268,6 +3308,71 @@ def run_fused_engine(torch, dev, args):
     gc.collect()
     torch.cuda.empty_cache()
     return counted
+
+
+def region_kernels(prof, region: str) -> list:
+    """The device kernels launched inside each `record_function(region)`
+    range of a torch.profiler trace (CPU and CUDA activities), one list a
+    range: the host's launch calls inside the range, matched to their
+    kernels by correlation id."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.events())
+    kernels = {}
+    for e in evs:
+        if e.device_type == DeviceType.CUDA:
+            kernels.setdefault(e.id, []).append(e.name)
+    host = [e for e in evs if e.device_type == DeviceType.CPU]
+    launches = [e for e in host if e.name.startswith("cu")
+                and "Launch" in e.name and e.id in kernels]
+    return [[k for e in launches if r.time_range.start <= e.time_range.start
+             and e.time_range.end <= r.time_range.end for k in kernels[e.id]]
+            for r in sorted((e for e in host if e.name == region),
+                            key=lambda e: e.time_range.start)]
+
+
+def check_mlp_one_launch(torch, M, cfg, params, dev):
+    """One decode step at batch 8 on the fused, switched route under
+    torch.profiler, each `mlp_fused_matmul` call in a range of its own: one
+    range a layer, and in each exactly one kernel, the fused MLP's (no
+    cast, no row sum of x: the dispatch once launched both)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cache = M.init_kv_cache(cfg, 8, max_len=2048, device=dev)
+    tok = torch.ones(8, dtype=torch.int32, device=dev)
+    pos = torch.arange(500, 516, 2, dtype=torch.int32, device=dev)
+    inner = M.mlp_fused_matmul
+
+    def tagged(*a, **kw):
+        with record_function("mlp_fused_matmul"):
+            return inner(*a, **kw)
+
+    with switched():
+        M.decode_step(cfg, params, tok, pos, cache)
+        torch.cuda.synchronize()
+        M.mlp_fused_matmul = tagged
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                M.decode_step(cfg, params, tok, pos + 1, cache)
+                torch.cuda.synchronize()
+        finally:
+            M.mlp_fused_matmul = inner
+    per_call = region_kernels(prof, "mlp_fused_matmul")
+    n_dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    print(f"fused MLP launches: {len(per_call)} mlp_fused_matmul calls in a "
+          f"decode step of {n_dev} device kernels; kernels a call: "
+          f"{sorted({tuple(k[:60] for k in ks) for ks in per_call})}",
+          flush=True)
+    if not n_dev:
+        raise AssertionError("fused MLP: the profiler traced no device "
+                             "kernel, so one launch a call is not shown")
+    if (len(per_call) != cfg.n_layers
+            or any(len(ks) != 1 or "mlp_tc" not in ks[0] for ks in per_call)):
+        raise AssertionError("fused MLP: not one mlp_fused_matmul call a "
+                             "layer, or a call launched other kernels than "
+                             "the fused MLP's")
 
 
 ROUTE_TOL = 5e-2              # of the largest logit, 32 layers apart

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "qmatmul_ragged.cu",
            "qmatmul_mlp.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
            "dequantize.cu", "requantize.cu", "minmax.cu", "ring.cu")
-HEADERS = ("pq_quant.cuh", "pq_tile.cuh", "pq_hopper.cuh")
+HEADERS = ("pq_quant.cuh", "pq_tile.cuh", "pq_hopper.cuh", "pq_gemv.cuh")
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -67,9 +67,13 @@ SIGNATURES = {
     "pq_wq_ragged_grouped": [_P] * 7 + [_I] * 7 + [_P],
     # planes, mode, out[4]
     "pq_ragged_attributes": [_I, _I, _P],
-    # x, w13, s13, zp13, w2, s2, zp2, xsum, out, part_a, h, part_b, m, k,
-    # i_ff, n, ksa, rows_a, ksb, rows_b, gelu, out_bf16, stream
-    "pq_mlp_fused": [_P] * 12 + [_I] * 10 + [_P],
+    # x, w13, s13, zp13, w2, s2, zp2, xsum (or null), out, h, part_b,
+    # state, m, k, i_ff, n, ksb, rows_b, blocks, gelu, out_bf16, stream
+    "pq_mlp_fused": [_P] * 12 + [_I] * 9 + [_P],
+    # n8 tiles, out[6]
+    "pq_mlp_attributes": [_I, _P],
+    # k, i_ff, n, ksb, rows_b, out[5 * items + ksb]
+    "pq_mlp_queue": [_I] * 5 + [_P],
     # q, kc, ks, vc, vs, pos, ctx, part_acc, part_ml, tickets, nb, nh, rep,
     # s_len, d, tps, sm_scale, stream
     "pq_decode_attn": [_P] * 10 + [_I] * 6 + [_F, _P],
@@ -182,3 +186,25 @@ def stream_ptr(t: torch.Tensor) -> int:
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS_MIN = 4096  # int32 counts a device's buffer holds at first
+_tickets_by_device = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's int32 counts, zero between launches, that the kernels
+    with an in-launch merge or work queue share (the decode kernels' tickets
+    and the fused MLP's queue and counts): a kernel may use the first `n`
+    and must leave them zero when it ends.  Calls on one device run in
+    stream order.  Grown outside a CUDA-graph capture only."""
+    buf = _tickets_by_device.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("call the kernel once outside the CUDA-graph "
+                               "capture first (its ticket buffer must hold "
+                               f"{n})")
+        buf = torch.zeros(max(n, _TICKETS_MIN), dtype=torch.int32,
+                          device=device)
+        _tickets_by_device[device] = buf
+    return buf

@@ -25,7 +25,6 @@ TILE = 64          # cache positions a ring stage holds (csrc/decode_attn2.cu)
 MAX_TILES = 16     # tiles a split at most (the kernel keeps their scores)
 SPLITS = 8         # splits a (b, kv head) at most, where S allows
 _D = (128, 256)      # head dims the kernel takes
-_TICKETS_MIN = 4096  # int32 tickets a device's buffer holds at first
 
 
 def split_tiles(s_len: int) -> Tuple[int, int]:
@@ -42,25 +41,6 @@ def split_tiles(s_len: int) -> Tuple[int, int]:
     return tps, -(-tiles // tps)
 
 
-_tickets_by_device = {}
-
-
-def tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The device's zeroed int32 tickets, one a (b, kv head), shared by the
-    decode kernels (each call leaves them zero again; calls on one device
-    run in stream order).  Grown outside a CUDA-graph capture only."""
-    buf = _tickets_by_device.get(device)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("decode attention: call it once outside the "
-                               "CUDA-graph capture first (its ticket buffer "
-                               f"must hold {n})")
-        buf = torch.zeros(max(n, _TICKETS_MIN), dtype=torch.int32,
-                          device=device)
-        _tickets_by_device[device] = buf
-    return buf
-
-
 def scratch(q: torch.Tensor, s_len: int):
     """(tiles a split, partial acc, partial (m, l), tickets) of one launch
     on q's device (q [B, Hkv, rep, D])."""
@@ -69,7 +49,7 @@ def scratch(q: torch.Tensor, s_len: int):
     f32 = dict(dtype=torch.float32, device=q.device)
     return (tps, torch.empty((b, hkv, nsplit, rep, d), **f32),
             torch.empty((b, hkv, nsplit, rep, 2), **f32),
-            tickets(q.device, b * hkv))
+            _build.tickets(q.device, b * hkv))
 
 
 def decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale, positions,

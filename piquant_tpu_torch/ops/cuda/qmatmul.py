@@ -43,7 +43,6 @@ from piquant_tpu_torch.ops.cuda import _build
 
 M_MAX = 64        # decode-sized M; larger M takes the dequant matmul path
 _COLS = 128       # output columns per block (csrc/qmatmul_gemv.cu, qmatmul_mlp.cu)
-_MT = 8           # x rows per block of csrc/qmatmul_mlp.cu
 PLANES = {2: 4, 4: 2, 8: 1}   # codes per byte by bit width
 GEMV_CLUSTER = 8  # blocks of a thread-block cluster, the portable limit
 # The instances of csrc/qmatmul_gemv.cu by number (pq_gemv_attributes' form)
@@ -59,21 +58,6 @@ def code_planes(data: torch.Tensor, planes: int) -> List[torch.Tensor]:
     bits = 8 // planes
     mask = (1 << bits) - 1
     return [(data >> (bits * p)) & mask for p in range(planes)]
-
-
-def split_k(m: int, k: int, n: int, sms: int, planes: int = 2,
-            align: int = 8):
-    """(ksplit, rows per split) of the fused MLP's stages
-    (csrc/qmatmul_mlp.cu): split the K/planes packed rows over blocks up
-    to four blocks per SM (so the grid is about one wave), keeping >= 64
-    packed rows a split and each split a multiple of `align` rows."""
-    total = k // planes
-    blocks = (n // _COLS) * -(-m // _MT)
-    want = max(1, 4 * sms // blocks)
-    ksplit = max(1, min(want, total // 64))
-    rows = -(-total // ksplit)
-    rows += -rows % align
-    return -(-total // rows), rows
 
 
 def gemv_tiles(m: int) -> int:
@@ -699,6 +683,104 @@ def w2a8_matmul(xq, xs, ql, out_dtype) -> Optional[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 _BLOCKS = (1024, 512, 256)   # the reference's tile sizes, kept as a gate
+MLP_TILE = 256    # weight columns a work item of csrc/qmatmul_mlp.cu
+                  # streams: two 128-column boxes (an A item's gate and up
+MLP_HIDDEN = 128  # columns of 128 hidden ones)
+MLP_EPILOGUE = 3.0   # an item's epilogue and the wait for its first
+                     # stage, in ring stages (H100, M <= 8: ~2.2 + ~1.9 us
+                     # against ~1.7 us a stage, tools/mlp_timeline.py)
+
+
+def mlp_queue(k: int, i_ff: int, n: int, rows_b: int) -> list:
+    """The fused MLP's work items in the order its blocks claim them, the
+    kernel's `Queue` (csrc/qmatmul_mlp.cu; `pq_mlp_queue` reports it, and a
+    GPU test holds the two equal): I / 128 A items ("A", hidden tile, 0,
+    K/2 packed rows, first and last B split whose h they write), the tiles
+    j and j + I/2 in pairs, then split-major the B items ("B", output tile
+    of 256, its split's packed rows r0, r1, split), w2's I/2 packed rows
+    in splits of `rows_b`."""
+    ih, n_a = i_ff // 2, i_ff // MLP_HIDDEN
+    items = []
+    for u in range(n_a):
+        tile = (u & 1) * (n_a // 2) + (u >> 1)
+        j = tile * MLP_HIDDEN % ih
+        items.append(("A", tile, 0, k // 2, j // rows_b,
+                      (j + MLP_HIDDEN - 1) // rows_b))
+    for q in range(-(-ih // rows_b)):
+        for c in range(-(-n // MLP_TILE)):
+            items.append(("B", c, q * rows_b, min(q * rows_b + rows_b, ih),
+                          q, q))
+    return items
+
+
+def mlp_makespan(k: int, i_ff: int, n: int, stage: int, blocks: int,
+                 per: int) -> float:
+    """The fused MLP's time in ring stages (csrc/qmatmul_mlp.cu) with stage
+    B split in `per` stages of `stage` rows: `blocks` blocks take the
+    items of mlp_queue in order, each when it is free, a B item no sooner
+    than the last A item that writes its split's h ends; an item costs its
+    stages plus MLP_EPILOGUE."""
+    import heapq
+
+    free = [0.0] * blocks
+    ready = {}                          # when each B split's h is written
+    for kind, _, r0, r1, q0, q1 in mlp_queue(k, i_ff, n, per * stage):
+        start = heapq.heappop(free)
+        if kind == "B":
+            start = max(start, ready[q0])
+        end = start + -(-(r1 - r0) // stage) + MLP_EPILOGUE
+        heapq.heappush(free, end)
+        if kind == "A":
+            for q in range(q0, q1 + 1):
+                ready[q] = max(ready.get(q, 0.0), end)
+    return max(free)
+
+
+def mlp_split(k: int, i_ff: int, n: int, stage: int, blocks: int):
+    """(ksb, packed rows a split) of the fused MLP's stage B
+    (csrc/qmatmul_mlp.cu): the I/2 packed rows of w2 in whole ring stages
+    of `stage` rows, split for the shortest mlp_makespan (ties: fewer
+    splits, so fewer epilogues and parts).  The last split may hold fewer
+    rows."""
+    stages = -(-(i_ff // 2) // stage)
+    best = None
+    for ksb in sorted({-(-stages // p) for p in range(1, stages + 1)}):
+        per = -(-stages // ksb)
+        t = mlp_makespan(k, i_ff, n, stage, blocks, per)
+        if best is None or t < best[0] - 1e-9:
+            best = (t, -(-stages // per), per * stage)
+    return best[1], best[2]
+
+
+def mlp_attributes(mt: int, device: Optional[int] = None) -> tuple:
+    """pq_mlp_attributes of the fused MLP's instance at `mt` n8 token tiles
+    on `device`: (registers, local (spill) bytes, dynamic shared memory,
+    ring stages, packed rows a stage, blocks an SM holds at once)."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        _build.check(_build.library().pq_mlp_attributes(mt, out),
+                     "pq_mlp_attributes")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(device: int, m: int, k: int, i_ff: int, n: int):
+    """(n8 token tiles, blocks, ksb, packed rows a B split) of a fused-MLP
+    call on `device`: a persistent grid of the blocks the card holds at
+    once (no more than the work items), and mlp_split with the instance's
+    stage rows; asked of the card once a shape.  Stage A is not split: its
+    i_ff / 128 items (112 at Llama-3-8B, 192 at Gemma-7B) each stream all
+    of K, and the queue balances them with stage B's, whose weight boxes
+    load while stage A ends (a K split of stage A, its parts added by a
+    ticket, ran slower on an H100 at every split tried)."""
+    mt = gemv_tiles(m)
+    att = mlp_attributes(mt, device)
+    blocks = _build.sm_count(device) * att[5]
+    ksb, rows_b = mlp_split(k, i_ff, n, att[4], blocks)
+    items = i_ff // MLP_HIDDEN + -(-n // MLP_TILE) * ksb
+    return mt, min(blocks, items), ksb, rows_b
 
 
 def _mlp_act(g: torch.Tensor, act: str) -> torch.Tensor:
@@ -708,11 +790,11 @@ def _mlp_act(g: torch.Tensor, act: str) -> torch.Tensor:
 
 def mlp_fused_plain(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
                     zp13: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
-                    zp2: torch.Tensor, xsum: torch.Tensor, act: str,
+                    zp2: torch.Tensor, xsum: Optional[torch.Tensor], act: str,
                     out_dtype) -> torch.Tensor:
     """x2 [M, K] bf16, w13 [K/2, 2 I] uint8 split-half codes of [w1 | w3]
     with s13 / zp13 [2 I] f32 / int32, w2 [I/2, N] uint8 with s2 / zp2 [N],
-    xsum [M, 1] f32 (the row sums of x2) -> [M, N]
+    xsum [M, 1] f32 (the row sums of x2; None: computed here) -> [M, N]
     (`_mlp_fused_kernel`): g | u = acc * s13 - xsum * (zp13 * s13) from the
     raw-code products in f32, h = bf16(act(g) * u); then per chunk of bkh
     packed w2 rows (the reference's: the first of 1024, 512, 256 dividing
@@ -740,9 +822,10 @@ def mlp_fused_plain(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
 
 def mlp_fused(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
               zp13: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
-              zp2: torch.Tensor, xsum: torch.Tensor, act: str,
+              zp2: torch.Tensor, xsum: Optional[torch.Tensor], act: str,
               out_dtype) -> torch.Tensor:
-    """Kernel wrapper; see `mlp_fused_plain` for the function."""
+    """Kernel wrapper; see `mlp_fused_plain` for the function (xsum None:
+    the kernel sums the rows of x2 itself)."""
     if not x2.is_cuda:
         return mlp_fused_plain(x2, w13, s13, zp13, w2, s2, zp2, xsum, act,
                                out_dtype)
@@ -754,7 +837,8 @@ def mlp_fused(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
     _check(name, act in ("silu", "gelu"), ValueError, f"act {act!r}")
     _check(name, x2.dtype == torch.bfloat16 and w13.dtype == torch.uint8
            and w2.dtype == torch.uint8
-           and all(t.dtype == torch.float32 for t in (s13, s2, xsum))
+           and all(t is None or t.dtype == torch.float32
+                   for t in (s13, s2, xsum))
            and zp13.dtype == torch.int32 and zp2.dtype == torch.int32,
            TypeError, "x bf16, uint8 codes, f32 scales and xsum, int32 zero "
                       "points expected")
@@ -763,24 +847,21 @@ def mlp_fused(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
            and n % _COLS == 0 and 0 < m <= M_MAX,
            what=f"unsupported shape m={m} k={k} i_ff={i_ff} n={n}")
     _check(name, s13.numel() == zp13.numel() == 2 * i_ff
-           and s2.numel() == zp2.numel() == n and xsum.numel() == m,
+           and s2.numel() == zp2.numel() == n
+           and (xsum is None or xsum.numel() == m),
            what="s13 / zp13 [2 I], s2 / zp2 [N], xsum [M, 1]")
     _check_operands(name, x2, w13, s13, zp13, w2, s2, zp2, xsum)
-    # the w13 and w2 packed rows split over about four work tiles an SM
-    # (the kernel's stages A1 and B1)
-    sms = _build.sm_count(x2.device.index)
-    ksa, rows_a = split_k(m, k, 2 * i_ff, sms)
-    ksb, rows_b = split_k(m, i_ff, n, sms)
-    f32 = dict(dtype=torch.float32, device=x2.device)
+    _, blocks, ksb, rows_b = mlp_plan(x2.device.index, m, k, i_ff, n)
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
-    part_a = torch.empty((ksa, m, 2 * i_ff), **f32)
     h = torch.empty((m, i_ff), dtype=torch.bfloat16, device=x2.device)
-    part_b = torch.empty((ksb, m, n), **f32)
+    part_b = torch.empty((ksb, m, n), dtype=torch.float32, device=x2.device)
+    state = _build.tickets(x2.device, 2 + -(-n // MLP_TILE) + ksb)
     err = _build.library().pq_mlp_fused(
         x2.data_ptr(), w13.data_ptr(), s13.data_ptr(), zp13.data_ptr(),
-        w2.data_ptr(), s2.data_ptr(), zp2.data_ptr(), xsum.data_ptr(),
-        out.data_ptr(), part_a.data_ptr(), h.data_ptr(), part_b.data_ptr(),
-        m, k, i_ff, n, ksa, rows_a, ksb, rows_b, int(act == "gelu"),
+        w2.data_ptr(), s2.data_ptr(), zp2.data_ptr(),
+        None if xsum is None else xsum.data_ptr(), out.data_ptr(),
+        h.data_ptr(), part_b.data_ptr(), state.data_ptr(), m, k, i_ff, n,
+        ksb, rows_b, blocks, int(act == "gelu"),
         int(out_dtype == torch.bfloat16), _build.stream_ptr(x2))
     _build.check(err, name)
     mlp_fused.launches += 1
@@ -821,13 +902,12 @@ def mlp_fused_matmul(x: torch.Tensor, w13, w2, act: str,
             or k % 256 or i_ff % 256):
         return None
     x2 = x.reshape(m, k).to(torch.bfloat16).contiguous()
-    xsum = x2.float().sum(dim=1, keepdim=True)
 
     def side(ql):
         return (ql.scale.float().reshape(-1).expand(ql.n).contiguous(),
                 ql.zero_point.to(torch.int32).reshape(-1).expand(ql.n)
                 .contiguous())
 
-    y = mlp_fused(x2, w13.data, *side(w13), w2.data, *side(w2), xsum, act,
+    y = mlp_fused(x2, w13.data, *side(w13), w2.data, *side(w2), None, act,
                   out_dtype)
     return y.reshape(*lead, n)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from piquant_tpu_torch.dtypes import DTYPES
+from piquant_tpu_torch.ops.cuda import _build
 from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
 from piquant_tpu_torch.ops.cuda import dequantize as DQ
 from piquant_tpu_torch.ops.cuda import minmax as MM
@@ -562,7 +563,7 @@ def test_decode_attn2_repeatable(dev, form):
         replays.append([x.clone() for x in out])
     for got in (second, *replays):
         assert all(torch.equal(x, y) for x, y in zip(got, first))
-    assert int(DA.tickets(q.device, b * hkv).abs().sum()) == 0
+    assert int(_build.tickets(q.device, b * hkv).abs().sum()) == 0
 
 
 def test_decode_attn2_kv4_refuses(dev):
@@ -1519,22 +1520,108 @@ def _mlp_operands(dev, g, m, k, i_ff, n):
 
 
 # the shapes of chip_smoke.py phase 14 (a): Llama-3-8B's MLP (SiLU) and
-# Gemma-7B's (GeGLU) at M 8, 1, 33, 64, and a small one; GEMV tolerance
+# Gemma-7B's (GeGLU) at M 8, 1, 33, 64, a small one, and one whose last
+# 256-column output tile holds 128 columns; GEMV tolerance
 @pytest.mark.parametrize("k,i_ff,n,act", [(4096, 14336, 4096, "silu"),
                                           (3072, 24576, 3072, "gelu"),
-                                          (512, 1024, 512, "silu")])
+                                          (512, 1024, 512, "silu"),
+                                          (768, 1536, 384, "gelu")])
 @pytest.mark.parametrize("m", [8, 1, 33, 64])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_mlp_fused_matches_plain(dev, k, i_ff, n, act, m, out_dtype):
+@pytest.mark.parametrize("given", [True, False])
+def test_mlp_fused_matches_plain(dev, k, i_ff, n, act, m, out_dtype, given):
+    """The caller's row sums of x (given) or none (the dispatch's call: the
+    kernel sums its staged x) against the plain version with the sums."""
     ops = _mlp_operands(dev, _gen(dev, m + k), m, k, i_ff, n)
+    call = ops if given else ops[:-1] + (None,)
     before = Q.mlp_fused.launches
-    got = Q.mlp_fused(*ops, act, out_dtype)
-    again = Q.mlp_fused(*ops, act, out_dtype)
+    got = Q.mlp_fused(*call, act, out_dtype)
+    again = Q.mlp_fused(*call, act, out_dtype)
     assert Q.mlp_fused.launches == before + 2
     assert torch.equal(got, again)          # fixed summation order
     want = Q.mlp_fused_plain(*ops, act, out_dtype)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=1e-2)
+
+
+# Stage B in one-stage splits of one output tile each, so a block's ring
+# holds stages of several splits.  With a few more blocks than A items,
+# blocks take B items while every A item runs at once, so the splits' h
+# completes in no fixed order; with 3 blocks, A and B meet at the end of
+# stage A.  Every free block of the h scratch's size is filled with NaN
+# before each call, so an h box read before stage A wrote it shows.
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("extra", [-61, 2, 6])
+def test_mlp_fused_short_splits(dev, monkeypatch, m, extra):
+    k, i_ff, n = 4096, 8192, 256
+    mt = Q.mlp_plan(dev.index or 0, m, k, i_ff, n)[0]
+    att = Q.mlp_attributes(mt, dev.index)
+    stage, blocks = att[4], i_ff // 128 + extra
+    ksb = i_ff // 2 // stage
+    assert ksb > att[3] and blocks <= _build.sm_count(dev.index or 0)
+    monkeypatch.setattr(Q, "mlp_plan", lambda *a: (mt, blocks, ksb, stage))
+    g = _gen(dev, m + blocks)
+    ops = _mlp_operands(dev, g, m, k, i_ff, n)
+    for _ in range(24):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        want = Q.mlp_fused_plain(x, *ops[1:7], None, "silu", torch.float32)
+        poison = [torch.full((m, i_ff), float("nan"), dtype=torch.bfloat16,
+                             device=dev) for _ in range(8)]
+        del poison                      # every free block of h's size
+        got = Q.mlp_fused(x, *ops[1:7], None, "silu", torch.float32)
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("k,i_ff,n", [(4096, 14336, 4096),
+                                      (3072, 24576, 3072), (512, 1024, 512),
+                                      (768, 1536, 384)])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_mlp_queue_matches_kernel(dev, k, i_ff, n, m):
+    """The planner's model of the work queue (mlp_queue) is the kernel's
+    (pq_mlp_queue): the items in claim order and each split's A items, at
+    the plan's split and at one-stage splits."""
+    import ctypes
+
+    mt, _, ksb, rows_b = Q.mlp_plan(dev.index or 0, m, k, i_ff, n)
+    stage = Q.mlp_attributes(mt, dev.index)[4]
+    for rb in (rows_b, stage):
+        kb = -(-(i_ff // 2) // rb)
+        want = Q.mlp_queue(k, i_ff, n, rb)
+        out = (ctypes.c_int * (5 * len(want) + kb))()
+        assert _build.library().pq_mlp_queue(k, i_ff, n, kb, rb,
+                                             out) == len(want)
+        got = [tuple(out[5 * i: 5 * i + 5]) for i in range(len(want))]
+        assert got == [(0, t, r1, q0, q1) if kind == "A" else
+                       (1, t, r0, r1, q0)
+                       for kind, t, r0, r1, q0, q1 in want]
+        assert list(out[5 * len(want):]) == [
+            sum(1 for it in want if it[0] == "A" and it[4] <= q <= it[5])
+            for q in range(kb)]
+
+
+def test_mlp_fused_one_launch(dev, monkeypatch):
+    """The dispatch's fused-MLP call is one kernel: no cast or row-sum
+    launch before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from piquant_tpu_torch.quant.linear import quantize_linear_weight
+
+    monkeypatch.setenv("PIQUANT_MLP_FUSE", "1")
+    g = _gen(dev, 3)
+    w13 = quantize_linear_weight(torch.randn(512, 2048, generator=g,
+                                             device=dev) * 0.05, 4)
+    w2 = quantize_linear_weight(torch.randn(1024, 512, generator=g,
+                                            device=dev) * 0.05, 4)
+    x = torch.randn((1, 8, 512), generator=g, device=dev).to(torch.bfloat16)
+    y = Q.mlp_fused_matmul(x, w13, w2, "silu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y2 = Q.mlp_fused_matmul(x, w13, w2, "silu")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "mlp_tc" in kernels[0], kernels
+    assert torch.equal(y, y2)
 
 
 def test_mlp_fused_refuses(dev):
