@@ -155,8 +155,12 @@ Phases (any failure exits non-zero):
      launches of their hop count, within the reference tests' bounds of
      the f32 sum; (b) ring_hop and ring_gather bit for bit against
      `ring_plain` at P = 2, 4, 8 at the reference tests' shapes and
-     `rdma_ring_selftest(rows=256)`; (c) ring_hop's and ring_gather's
-     times, the whole call's, their bounds and plain versions';
+     `rdma_ring_selftest(rows=256)`, and the w1 all-reduce in the
+     process-group form (each rank's hop its own launch) bit for bit
+     against the stacked replicas; (c) ring_hop's and ring_gather's times
+     in both forms beside their bounds (and fill_ beside the gather), the
+     whole call's, the plain versions', the kernels' registers, spills
+     and cluster size;
  16. token history, penalties and beam search: Llama-3-8B at full width
      and depth, random INT4 codes, INT8 lm_head, kv8: an Engine with
      track_history serves 8 greedy requests with repetition penalties of
@@ -3552,6 +3556,28 @@ def check_ring(torch, dev, gen):
     return worst
 
 
+def ring_group_form(torch, RG, x, segs, p, nbytes):
+    """The process-group form's kernel launches on one card: at every hop
+    each rank's ring_hop is its own launch (rows 1, my0 r) reading its left
+    neighbour's send row of the previous hop, the last hop's rows are the
+    owners' rows every rank holds after the forwarding, and each rank's
+    ring_gather writes its one replica.  -> [P, n] replicas."""
+    sends = torch.empty((2, p, nbytes), dtype=torch.uint8, device=x.device)
+    for hop in range(p):
+        for r in range(p):
+            left = (r - 1) % p
+            prev = sends[(hop - 1) % 2][left:left + 1]
+            for seg in segs:
+                RG.ring_hop(x[r:r + 1], seg, p, hop,
+                            sends[hop % 2][r:r + 1],
+                            None if hop == 0 else prev, r)
+    out = torch.empty_like(x)
+    for r in range(p):
+        for seg in segs:
+            RG.ring_gather(sends[(p - 1) % 2], seg, p, out[r:r + 1])
+    return out
+
+
 def run_collectives(torch, dev, gen):
     """Phase 15 (a), second half: quantized_all_reduce and quantized_psum,
     nearest, uint8 and uint4, at P = 8 stacked on the card.  A call makes
@@ -3627,16 +3653,39 @@ def run_ring(torch, dev, gen):
     if sum_err > ring_bound(x):
         raise AssertionError(f"ring w1: error {sum_err} past the bound")
     del want
+    got = ring_group_form(torch, RG, x, segs, p, nbytes)
+    if not torch.equal(got, out):
+        raise AssertionError("ring w1: the group form differs from the "
+                             "stacked replicas")
+    del got
+    print("ring: w1 in the process-group form (one ring_hop launch a rank a "
+          "hop, one ring_gather a rank) bit for bit against the stacked "
+          "replicas", flush=True)
     err = max(err, check_ring(torch, dev, gen))
 
-    # (c) times at the w1 shape: one hop with a received term (every rank
-    # row, all 112 buckets), the gather of all 8 replicas, the whole call
+    # (c) times at the w1 shape: one hop with a received term, stacked
+    # (every rank row, all 112 buckets, one launch) and in the process-group
+    # form (one rank row a launch, the 8 ranks in turn, each with its own x,
+    # recv and send rows); the gather of all 8 replicas (stacked) and of one
+    # (the group form), beside fill_ of the same rows (writes only); the
+    # whole call
     seg = segs[0]
     bufs = torch.empty((2, p, nbytes), dtype=torch.uint8, device=dev)
+    out1 = torch.empty((1, n), device=dev)
     RG.ring_hop(x, seg, p, 0, bufs[0])
+
+    def group_hop(i):
+        r, left = i % p, (i - 1) % p
+        RG.ring_hop(x[r:r + 1], seg, p, 1, bufs[1][r:r + 1],
+                    bufs[0][left:left + 1], r, 0)
+
     hop_ms = cuda_ms(lambda i: RG.ring_hop(x, seg, p, 1, bufs[1], bufs[0],
                                            0, 1), 10)
+    group_ms = cuda_ms(group_hop, 32)
     gather_ms = cuda_ms(lambda i: RG.ring_gather(bufs[1], seg, p, out), 10)
+    gather1_ms = cuda_ms(lambda i: RG.ring_gather(bufs[1], seg, p, out1), 20)
+    fill_ms = cuda_ms(lambda i: out.fill_(0.5), 10)
+    fill1_ms = cuda_ms(lambda i: out1.fill_(0.5), 20)
     call_ms = cuda_ms(lambda i: rdma_all_reduce_shard(
         x, axis, max_chunk_elems=RING_CHUNK), 3)
     hop_plain = event_ms(lambda i: RG.ring_hop_plain(
@@ -3645,33 +3694,61 @@ def run_ring(torch, dev, gen):
         bufs[1], seg, p, out), 2, warmup=1)
     call_plain = event_ms(lambda i: RG.ring_plain(x, RING_CHUNK), 1,
                           warmup=0)
-    # bytes each reads once and writes once: a hop reads every rank's f32
-    # chunk and received int8 codes and writes int8 codes (6 bytes a value
-    # of one rank's n); the gather reads one int8 code a value and writes
-    # P f32 replicas; the call reads P f32 addends and writes P replicas
-    hop_b, hop_by = bound_ms(6 * n + 8 * p * seg.nb, 0)
+    # bytes each reads once and writes once: a hop reads a rank row's f32
+    # chunks and received int8 codes and writes int8 codes (6 bytes a value
+    # of one rank's n / P, and 8 bytes of scales a chunk), for every rank
+    # row stacked or for one in the group form; the gather reads one int8
+    # code a value and writes nrep f32 replicas; the call reads P f32
+    # addends and writes P replicas
+    vals = seg.nb * seg.csize
+    hop_b, hop_by = bound_ms(6 * p * vals + 8 * p * seg.nb, 0)
+    group_b, _ = bound_ms(6 * vals + 8 * seg.nb, 0)
     gat_b, gat_by = bound_ms(n + 4 * p * seg.nb + 4 * p * n, 0)
+    gat1_b, _ = bound_ms(n + 4 * p * seg.nb + 4 * n, 0)
     call_b, call_by = bound_ms(8 * p * n, 0)
-    print(f"ring: ring_hop {hop_ms:.4f} ms a launch (bound {hop_b:.4f}, "
-          f"plain {hop_plain:.4f}), ring_gather {gather_ms:.4f} ms (bound "
-          f"{gat_b:.4f}, plain {gather_plain:.4f}), the whole call "
-          f"{call_ms:.4f} ms (bound {call_b:.4f} {call_by}, ring_plain "
-          f"{call_plain:.4f}); error against the f32 sum {sum_err:.4e} "
-          f"[{card_line()}]", flush=True)
+    plan = RG.hop_plan(seg.csize)
+    att = {"ring_hop": RG.ring_attributes("hop", plan),
+           "ring_hop two-pass": RG.ring_attributes("hop", RG.HopPlan(0, 8)),
+           "ring_gather": RG.ring_attributes("gather")}
+    card = card_line()
+    print(f"ring: ring_hop stacked {hop_ms:.4f} ms a launch (bound "
+          f"{hop_b:.4f}, {bound_share(hop_ms, hop_b)}; plain "
+          f"{hop_plain:.4f}), group form (rows 1) {group_ms:.4f} ms (bound "
+          f"{group_b:.4f}, {bound_share(group_ms, group_b)}); ring_gather "
+          f"nrep 8 {gather_ms:.4f} ms (bound {gat_b:.4f}, "
+          f"{bound_share(gather_ms, gat_b)}; fill_ of its rows "
+          f"{fill_ms:.4f}; plain {gather_plain:.4f}), nrep 1 "
+          f"{gather1_ms:.4f} ms (bound {gat1_b:.4f}, "
+          f"{bound_share(gather1_ms, gat1_b)}; fill_ {fill1_ms:.4f}); the "
+          f"whole call {call_ms:.4f} ms (bound {call_b:.4f} {call_by}, "
+          f"ring_plain {call_plain:.4f}); error against the f32 sum "
+          f"{sum_err:.4e} [{card}]", flush=True)
+    print("ring instances (registers, spilled bytes, blocks an SM, clusters "
+          "at once): " + "; ".join(
+              f"{k} {v}" for k, v in att.items())
+          + f"; w1 plan: {plan.vals} values a thread, clusters of "
+          f"{plan.cluster} [{card}]", flush=True)
     common = dict(route="cuda", source="piquant_tpu_torch/csrc/ring.cu",
                   replaces="piquant_tpu/parallel/rdma_ring.py:62 "
                            "(_ring_kernel, via _pallas_ring :153)",
                   max_abs_err=err, library_ms=None,
                   library="none: no single PyTorch call quantizes a ring",
                   timed=f"Llama-3-8B w1 gradient all-reduce, {n} f32 a rank,"
-                        f" P = {p} stacked on one card",
+                        f" P = {p} stacked on one card; group_*: one rank "
+                        f"row a launch (the process-group form)",
                   call_ms=call_ms, call_bound_ms=call_b,
                   call_plain_ms=call_plain, sum_err=sum_err)
     rows = [dict(name="ring_hop", ms=hop_ms, bound_ms=hop_b, bound_by=hop_by,
-                 plain_ms=hop_plain, **common),
+                 plain_ms=hop_plain, group_ms=group_ms,
+                 group_bound_ms=group_b, vals=plan.vals,
+                 cluster=plan.cluster, registers=att["ring_hop"][0],
+                 spill_bytes=att["ring_hop"][1], **common),
             dict(name="ring_gather", ms=gather_ms, bound_ms=gat_b,
-                 bound_by=gat_by, plain_ms=gather_plain, **common)]
-    del x, out, bufs
+                 bound_by=gat_by, plain_ms=gather_plain, group_ms=gather1_ms,
+                 group_bound_ms=gat1_b, fill_ms=fill_ms,
+                 group_fill_ms=fill1_ms, registers=att["ring_gather"][0],
+                 spill_bytes=att["ring_gather"][1], **common)]
+    del x, out, out1, bufs
     gc.collect()
     torch.cuda.empty_cache()
     return rows, launches, coll

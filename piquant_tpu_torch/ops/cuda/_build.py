@@ -101,11 +101,13 @@ SIGNATURES = {
     # x, part, out, n, in_bf16, blocks, stream
     "pq_minmax": [_P, _P, _P, _I64, _I, _I, _P],
     # x, recv, send, x_off, x_stride, w_off, w_stride, csize, valid, nb, p,
-    # rows, hop, my0, shift, vec, stream
-    "pq_ring_hop": [_P] * 3 + [_I64] * 6 + [_I] * 7 + [_P],
+    # rows, hop, my0, shift, vec, vals, cluster, stream
+    "pq_ring_hop": [_P] * 3 + [_I64] * 6 + [_I] * 9 + [_P],
     # wire, out, x_off, x_stride, w_off, w_stride, csize, valid, nb, p, nrep,
     # loopback, vec, stream
     "pq_ring_gather": [_P] * 2 + [_I64] * 6 + [_I] * 5 + [_P],
+    # kind, vals, cluster, out[4]
+    "pq_ring_attributes": [_I] * 3 + [_P],
 }
 
 

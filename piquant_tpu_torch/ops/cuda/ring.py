@@ -14,10 +14,12 @@ the left neighbour's row), and each hop's compute is one launch:
   * `ring_gather`: out = codes * scale of every chunk's owner, for the P
     chunks of every bucket, into `nrep` replica rows.
 Both launch the hand-written kernels (csrc/ring.cu) on CUDA tensors and run
-`ring_hop_plain` / `ring_gather_plain` on CPU tensors.  `ring_plain` is the
-whole ring (the reference's schedule, bucketing included) in plain
-PyTorch, written rank by rank like the reference tests' numpy model; it is
-what the kernels' results are held against.
+`ring_hop_plain` / `ring_gather_plain` on CPU tensors.  `hop_plan` picks
+`ring_hop`'s path for a chunk size: the chunk held on chip across a
+thread-block cluster, or, past ONCHIP_MAX values, read twice.
+`ring_plain` is the whole ring (the reference's schedule, bucketing
+included) in plain PyTorch, written rank by rank like the reference tests'
+numpy model; it is what the kernels' results are held against.
 
 A `Segment` is a run of buckets of one chunk size in a rank's flat addend
 (x_off: its first element; nb buckets of P chunks of csize elements, of
@@ -38,6 +40,12 @@ from piquant_tpu_torch.ops.cuda import _build
 QUANTUM = 1024      # chunks are padded to multiples of 8 x 128 values
 _QMAX = 127.0
 _FLOOR = 1e-30
+HOP_THREADS = 512   # threads of a ring_hop block
+HOP_VALS = (4, 8, 16, 32)   # values a thread holds on chip (the instances)
+CLUSTERS = (1, 2, 4, 8)     # blocks a chunk (portable cluster sizes)
+PREF_CLUSTER = 4    # the cluster a chunk is spread over before vals grows
+PASS_UNROLL = 4     # groups a thread a step on the two-pass path
+ONCHIP_MAX = CLUSTERS[-1] * HOP_THREADS * HOP_VALS[-1]   # 131,072 values
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +59,46 @@ class Segment:
     @property
     def wire_bytes(self) -> int:
         return self.nb * (self.csize + 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class HopPlan:
+    vals: int       # values a thread holds on chip; 0: the two-pass path
+    cluster: int    # blocks a chunk
+
+
+def hop_plan(csize: int) -> HopPlan:
+    """ring_hop's launch for chunks of csize values (a multiple of 4).  Up
+    to ONCHIP_MAX a chunk stays in registers: the fewest values a thread
+    (HOP_VALS) that cover it with PREF_CLUSTER blocks, then the smallest
+    cluster that covers it at those values.  Past ONCHIP_MAX the two-pass
+    path on clusters of 8 blocks."""
+    if csize > ONCHIP_MAX:
+        return HopPlan(0, CLUSTERS[-1])
+    per = -(-csize // (HOP_THREADS * PREF_CLUSTER))
+    vals = next((v for v in HOP_VALS if v >= per), HOP_VALS[-1])
+    return HopPlan(vals, next(c for c in CLUSTERS
+                              if c * HOP_THREADS * vals >= csize))
+
+
+def hop_groups(plan: HopPlan, csize: int) -> torch.Tensor:
+    """The groups of 4 chunk elements (group g: elements 4 g .. 4 g + 3)
+    that ring_hop's threads take under `plan`, as csrc/ring.cu orders them:
+    [cluster rank, thread, slot] -> g, or -1 where a slot holds none.  On
+    chip block k's thread t holds groups (k * vals / 4 + s) * 512 + t; on
+    the two-pass path it takes k * 512 + t + s * cluster * 512, PASS_UNROLL
+    slots a step."""
+    ng = csize // 4
+    k = torch.arange(plan.cluster)[:, None, None]
+    t = torch.arange(HOP_THREADS)[None, :, None]
+    if plan.vals:
+        slot = torch.arange(plan.vals // 4)[None, None, :]
+        g = (k * (plan.vals // 4) + slot) * HOP_THREADS + t
+    else:
+        step = plan.cluster * HOP_THREADS
+        slots = PASS_UNROLL * -(-ng // (PASS_UNROLL * step))
+        g = k * HOP_THREADS + t + torch.arange(slots)[None, None, :] * step
+    return torch.where(g < ng, g, -1)
 
 
 def _round_up(n: int, q: int) -> int:
@@ -156,6 +204,23 @@ def _vec(x: torch.Tensor, seg: Segment) -> int:
                and seg.x_off % 4 == 0)
 
 
+def _words(seg: Segment, *wires: torch.Tensor) -> bool:
+    """The kernels read and write codes 4 bytes at a time."""
+    return not (seg.csize % 4 or seg.w_off % 4 or any(
+        w.data_ptr() % 4 or w.shape[1] % 4 for w in wires))
+
+
+def _hop_launch(x: torch.Tensor, seg: Segment, p: int, hop: int,
+                send: torch.Tensor, recv: Optional[torch.Tensor], my0: int,
+                shift: int, plan: HopPlan) -> None:
+    err = _build.library().pq_ring_hop(
+        x.data_ptr(), None if recv is None else recv.data_ptr(),
+        send.data_ptr(), seg.x_off, x.shape[1], seg.w_off, send.shape[1],
+        seg.csize, seg.valid, seg.nb, p, x.shape[0], hop, my0, shift,
+        _vec(x, seg), plan.vals, plan.cluster, _build.stream_ptr(x))
+    _build.check(err, "ring_hop")
+
+
 def ring_hop(x: torch.Tensor, seg: Segment, p: int, hop: int,
              send: torch.Tensor, recv: Optional[torch.Tensor] = None,
              my0: int = 0, shift: int = 0) -> None:
@@ -167,15 +232,11 @@ def ring_hop(x: torch.Tensor, seg: Segment, p: int, hop: int,
                                   or recv.shape != send.shape)):
         raise TypeError("ring_hop: f32 x and u8 wire rows expected")
     _check("ring_hop", x, send, *(() if recv is None else (recv,)))
-    if send.shape[0] != x.shape[0] or seg.csize % 4 or seg.w_off % 4:
+    if send.shape[0] != x.shape[0] or not _words(
+            seg, send, *(() if recv is None else (recv,))):
         raise ValueError("ring_hop: one wire row a rank row, chunks of a "
-                         "multiple of 4 values")
-    err = _build.library().pq_ring_hop(
-        x.data_ptr(), None if recv is None else recv.data_ptr(),
-        send.data_ptr(), seg.x_off, x.shape[1], seg.w_off, send.shape[1],
-        seg.csize, seg.valid, seg.nb, p, x.shape[0], hop, my0, shift,
-        _vec(x, seg), _build.stream_ptr(x))
-    _build.check(err, "ring_hop")
+                         "multiple of 4 values, wire rows 4-byte aligned")
+    _hop_launch(x, seg, p, hop, send, recv, my0, shift, hop_plan(seg.csize))
     ring_hop.launches += 1
 
 
@@ -187,15 +248,32 @@ def ring_gather(wire: torch.Tensor, seg: Segment, p: int, out: torch.Tensor,
     if wire.dtype != torch.uint8 or out.dtype != torch.float32:
         raise TypeError("ring_gather: u8 wire rows and f32 out expected")
     _check("ring_gather", wire, out)
-    if wire.shape[0] != (1 if loopback else p) or seg.csize % 4:
+    if wire.shape[0] != (1 if loopback else p) or not _words(seg, wire):
         raise ValueError("ring_gather: one wire row a rank (one in "
-                         "loopback), chunks of a multiple of 4 values")
+                         "loopback), chunks of a multiple of 4 values, wire "
+                         "rows 4-byte aligned")
     err = _build.library().pq_ring_gather(
         wire.data_ptr(), out.data_ptr(), seg.x_off, out.shape[1], seg.w_off,
         wire.shape[1], seg.csize, seg.valid, seg.nb, p, out.shape[0],
         int(loopback), _vec(out, seg), _build.stream_ptr(wire))
     _build.check(err, "ring_gather")
     ring_gather.launches += 1
+
+
+def ring_attributes(kind: str, plan: HopPlan = HopPlan(0, 1),
+                    device: Optional[int] = None) -> tuple:
+    """pq_ring_attributes of a 16-byte ring kernel on `device`:
+    (registers, local (spill) bytes, blocks an SM holds, clusters of
+    plan.cluster blocks the card holds at once).  kind "hop" (plan.vals 0:
+    the two-pass path) or "gather" (plan ignored)."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    k, vals, cl = (0, plan.vals, plan.cluster) if kind == "hop" else (1, 0, 1)
+    with torch.cuda.device(device):
+        _build.check(_build.library().pq_ring_attributes(k, vals, cl, out),
+                     "pq_ring_attributes")
+    return tuple(out)
 
 
 ring_hop.launches = 0

@@ -1697,12 +1697,22 @@ def test_decode_attn_refuses(dev):
 # The ring's hop and gather kernels against the whole ring's plain version,
 # bit for bit (no FMA, IEEE division, half to even in both): stacked ranks
 # on the card, full and ragged buckets, misaligned rows (scalar loads), the
-# P = 2 loopback and padding-only chunks.
+# P = 2 loopback and padding-only chunks; a second segment whose wire
+# offset is 4-byte but not 16-byte aligned (14336 at max_chunk 1024, P 4
+# and 8); chunks past the on-chip capacity (max_chunk 262144: the two-pass
+# path, with a ragged tail that takes the on-chip path, or at P 2 and 4 a
+# ragged tail past it too, 16-byte and scalar x rows); a gather over many
+# runs of 512 tiles with a ragged last run (8 * 65536 * 17 + 12345).
 @pytest.mark.parametrize("p", [2, 4, 8])
 @pytest.mark.parametrize("n,max_chunk", [(4096, 65536), (1000, 65536),
                                          (16 * 257, 65536),
                                          (3 * 8 * 1024 + 7, 1024),
-                                         (5 * 4 * 2048, 2048)])
+                                         (5 * 4 * 2048, 2048),
+                                         (14336, 1024),
+                                         (65536, 32768),
+                                         (2 * 262144 + 5000, 262144),
+                                         (2 * 262144 + 300007, 262144),
+                                         (8 * 65536 * 17 + 12345, 65536)])
 def test_ring_kernels_match_plain(dev, p, n, max_chunk):
     from piquant_tpu_torch.parallel import make_mesh, rdma_all_reduce_shard
 
@@ -1720,6 +1730,116 @@ def test_ring_kernels_match_plain(dev, p, n, max_chunk):
         assert torch.equal(got[0], got[d])
 
 
+def _group_form(x, segs, p, nbytes):
+    """The process-group form's kernels on one card: at every hop each
+    rank's `ring_hop` is its own launch (rows 1, my0 r) reading its left
+    neighbour's send row, then each rank's `ring_gather` (nrep 1) of the
+    owners' rows.  Returns the send rows after every hop and the replicas."""
+    sends = torch.empty((p, p, nbytes), dtype=torch.uint8, device=x.device)
+    for hop in range(p):
+        for r in range(p):
+            left = (r - 1) % p
+            for seg in segs:
+                RG.ring_hop(x[r:r + 1], seg, p, hop, sends[hop, r:r + 1],
+                            None if hop == 0 else sends[hop - 1, left:left + 1],
+                            r)
+    out = torch.empty_like(x)
+    for r in range(p):
+        for seg in segs:
+            RG.ring_gather(sends[p - 1], seg, p, out[r:r + 1])
+    return sends, out
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("n,max_chunk", [(16 * 257, 65536),
+                                         (3 * 8 * 1024 + 7, 1024),
+                                         (14336, 1024),
+                                         (8 * 65536 * 2 + 4096, 65536),
+                                         (2 * 262144 + 5000, 262144)])
+def test_ring_group_form_matches_stacked(dev, p, n, max_chunk):
+    """Each rank's hop as its own launch (the process-group form) writes
+    the stacked launch's send rows bit for bit at every hop, and its
+    replicas equal ring_plain's."""
+    x = torch.randn((p, n), generator=_gen(dev, p + n), device=dev)
+    segs, nbytes = RG.segments(n, p, max_chunk)
+    sends, out = _group_form(x, segs, p, nbytes)
+    bufs = torch.empty((p, p, nbytes), dtype=torch.uint8, device=dev)
+    for hop in range(p):
+        for seg in segs:
+            RG.ring_hop(x, seg, p, hop, bufs[hop],
+                        None if hop == 0 else bufs[hop - 1], 0, 1)
+    torch.cuda.synchronize()
+    for hop in range(p):
+        assert torch.equal(sends[hop], bufs[hop]), hop
+    assert torch.equal(out, RG.ring_plain(x, max_chunk))
+
+
+def test_ring_hop_repeats_bit_for_bit(dev):
+    """The on-chip path's scale rests on every cluster block reading the
+    same maximum after the cluster barrier: 50 launches of the w1-sized
+    chunk at P = 8 (a cluster of 4 blocks a chunk) give the same wire rows
+    as the first, and ring_hop_plain's."""
+    p, n = 8, 8 * 65536 * 16
+    x = torch.randn((p, n), generator=_gen(dev, 7), device=dev)
+    segs, nbytes = RG.segments(n, p, 65536)
+    assert RG.hop_plan(segs[0].csize).cluster > 1
+    prev = torch.empty((p, nbytes), dtype=torch.uint8, device=dev)
+    RG.ring_hop(x, segs[0], p, 0, prev)
+    want = torch.empty_like(prev)
+    RG.ring_hop_plain(x, segs[0], p, 1, want, prev, 0, 1)
+    got = torch.empty_like(prev)
+    for _ in range(50):
+        got.zero_()
+        RG.ring_hop(x, segs[0], p, 1, got, prev, 0, 1)
+        assert torch.equal(got, want)
+
+
+def _edge_chunks(gen):
+    """Chunks of 1024 f32 that stress ring_hop's division and rounding:
+    quotients exactly on half integers (scale 2^-3), scales at and past the
+    [2^-100, 2^100] range of the reciprocal path, the 1e-30 floor with
+    subnormal and tiny values, and an ordinary chunk."""
+    def scaled(absmax):
+        v = torch.rand(1024, generator=gen, dtype=torch.float64) * 2 - 1
+        v[0] = 1.0
+        return (v * absmax).float()
+
+    half = (torch.arange(1024, dtype=torch.float64) % 254 - 127 + 0.5) / 8
+    half[0], half[1] = 127 / 8, -127 / 8
+    tiny = torch.tensor([1e-45, -1e-44, 3e-39, -1e-38, 1e-36, 0.0] * 170 +
+                        [1e-36] * 4)
+    return [half.float(), scaled(127 * 2.0 ** 100), scaled(127 * 2.0 ** 101),
+            scaled(1e38), tiny.float(), scaled(1e-28), scaled(5e-29),
+            scaled(2.5)]
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_ring_hop_rounding_edges(dev, two_pass):
+    """Each edge chunk as every rank's chunk of a hop at P = 2, with and
+    without a received term, bit for bit against ring_hop_plain; on the
+    on-chip path and on the two-pass path (chunks of 2 x ONCHIP_MAX values
+    whose first 1024 are the edge chunk, the rest zeros)."""
+    gen = torch.Generator().manual_seed(3)
+    csize = 2 * RG.ONCHIP_MAX if two_pass else 1024
+    assert (RG.hop_plan(csize).vals == 0) == two_pass
+    for chunk in _edge_chunks(gen):
+        x = torch.zeros((2, 2 * csize))
+        x[0, :1024] = x[1, csize:csize + 1024] = chunk
+        x[1, :1024] = x[0, csize:csize + 1024] = chunk.flip(0)
+        x = x.to(dev)
+        seg = RG.Segment(0, 1, csize, 2 * csize, 0)
+        recv = torch.empty((2, seg.wire_bytes), dtype=torch.uint8,
+                           device=dev)
+        RG.ring_hop_plain(x, seg, 2, 0, recv)
+        for hop, rv in ((0, None), (1, recv)):
+            got = torch.empty_like(recv)
+            want = torch.empty_like(recv)
+            RG.ring_hop(x, seg, 2, hop, got, rv, 0, 1)
+            RG.ring_hop_plain(x, seg, 2, hop, want, rv, 0, 1)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (float(chunk.abs().max()), hop)
+
+
 def test_ring_selftest_and_refusals(dev):
     from piquant_tpu_torch.parallel import rdma_ring_selftest
 
@@ -1735,3 +1855,9 @@ def test_ring_selftest_and_refusals(dev):
         RG.ring_hop(x, RG.Segment(0, 1, 510, 1020, 0), 2, 0, send)
     with pytest.raises(ValueError):
         RG.ring_gather(send[:1], seg, 2, x)
+    odd = torch.zeros(2 * seg.wire_bytes + 1, dtype=torch.uint8,
+                      device=dev)[1:].view(2, seg.wire_bytes)
+    with pytest.raises(ValueError):    # wire rows not 4-byte aligned
+        RG.ring_gather(odd, seg, 2, x)
+    with pytest.raises(ValueError):
+        RG.ring_hop(x, seg, 2, 0, odd)

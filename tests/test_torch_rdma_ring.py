@@ -164,3 +164,56 @@ def test_padding_only_chunks_give_zeros():
 
 def test_loopback_selftest_cpu():
     assert 0.0 <= rdma_ring_selftest(rows=64, device="cpu") < 0.1
+
+
+# ring_hop's plan: every csize that is a multiple of QUANTUM up to twice the
+# on-chip capacity, and the csizes of the reference tests' shapes (and the
+# selftest's 32768 and Llama-3-8B's w1 at P = 8).
+PLAN_CSIZES = sorted(set(range(R.QUANTUM, 2 * R.ONCHIP_MAX + 1, R.QUANTUM))
+                     | {s.csize for shape, chunk in (
+                         ((4096,), 65536), ((1000,), 65536),
+                         ((16 * 257,), 65536), ((3 * 8 * 1024 + 7,), 1024),
+                         ((4096 * 14336,), 65536))
+                        for p in (2, 4, 8)
+                        for s in R.segments(int(np.prod(shape)), p, chunk)[0]}
+                     | {32768, 4, 1020, 2 * R.ONCHIP_MAX + 4})
+
+
+def test_hop_plan_covers_each_group_once():
+    """hop_plan's launch, in the kernels' group order (`hop_groups`), takes
+    every group of 4 values of a chunk exactly once; the chunk stays on chip
+    up to ONCHIP_MAX values and takes the two-pass path only past it."""
+    for csize in PLAN_CSIZES:
+        plan = R.hop_plan(csize)
+        assert plan.cluster in R.CLUSTERS, csize
+        if csize <= R.ONCHIP_MAX:
+            assert plan.vals in R.HOP_VALS, csize
+            assert plan.cluster * R.HOP_THREADS * plan.vals >= csize, csize
+        else:
+            assert plan.vals == 0, csize
+        g = R.hop_groups(plan, csize)
+        live = g[g >= 0]
+        assert torch.equal(live.sort().values,
+                           torch.arange(csize // 4)), csize
+
+
+def test_hop_plan_picks():
+    """Llama-3-8B's w1 chunk (65,536 values) on a cluster of PREF_CLUSTER
+    blocks of 32 values a thread; small chunks on one block; a chunk just
+    past the capacity on the two-pass path."""
+    assert R.hop_plan(65536) == R.HopPlan(32, R.PREF_CLUSTER)
+    assert R.hop_plan(1024) == R.HopPlan(4, 1)
+    assert R.hop_plan(R.ONCHIP_MAX) == R.HopPlan(32, 8)
+    assert R.hop_plan(R.ONCHIP_MAX + 1024).vals == 0
+
+
+def test_ring_gpu_cases_reach_each_path():
+    """The GPU tests' shapes (tests/test_torch_cuda.py) reach both hop
+    paths and a second segment whose wire offset is 4-byte but not 16-byte
+    aligned."""
+    segs, _ = R.segments(2 * 262144 + 300007, 2, 262144)
+    assert [R.hop_plan(s.csize).vals == 0 for s in segs] == [True, True]
+    segs, _ = R.segments(2 * 262144 + 5000, 2, 262144)
+    assert [R.hop_plan(s.csize).vals == 0 for s in segs] == [True, False]
+    segs, _ = R.segments(14336, 4, 1024)
+    assert segs[1].w_off % 4 == 0 and segs[1].w_off % 16
