@@ -169,6 +169,19 @@ Phases (any failure exits non-zero):
      the port's penalized single-request generation; the same prompts
      without history for decode tok/s beside; beam_search with 4 beams
      (sorted hypotheses) and 1 beam (greedy generation's tokens);
+ 17. speculative decoding and requantize_params: w4_gemv at a verify's M
+     = 40 against its plain version, with its times; Llama-3-8B at full
+     width and depth, random INT4 codes, INT8 lm_head, kv8, 8 slots,
+     decode_block 4, speculate 4: (a) prompt lookup on 8 requests (4
+     prompts repeating a 96-token segment, 4 random) against plain greedy
+     under the near-tie guard, exact launches, no plain version; (b) an
+     INT2 requantize_params draft, then the target as its own draft (at
+     least 90% of verify rows emit G + 1, each rejection at a near-tie);
+     (c) rejection sampling at temperature 0.9 twice from one seed
+     (identical), a top-k slot left to plain decode, the Monte-Carlo
+     marginal of rejection_sample_step with a CUDA generator; (d) the
+     CLI's --speculate, --draft-bits 2 and --draft-group-size 32 at
+     CLI_DEPTH layers;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -346,9 +359,10 @@ def gemv_operands(name, ql, x):
 
 
 def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
-               a8=False, hold_f32=False):
+               a8=False, hold_f32=False, hold_m=HOLD_M, m_timed=8):
     """Wrapper `name` against its plain version at each (K, N) of `shapes`
-    and M in HOLD_M (with hold_f32 at f32 output as well); then its device ms at M = 8 summed over the shapes'
+    and M in `hold_m` (with hold_f32 at f32 output as well); then its device
+    ms at M = `m_timed` summed over the shapes'
     uses (enough weights that the loop streams from HBM, not L2), the plain
     version's, a torch.matmul against the bf16-dequantized weight, the host
     cost of an eager call, and the bound.  a8: x is the per-token int8 of a
@@ -376,7 +390,7 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
         copies = max(1, -(-256 * 2**20 // (k * n * wbits // 8)))
         qls = [random_qlin(torch, dev, gen, k, n, bits, gs)
                for _ in range(copies)]
-        for m in HOLD_M:
+        for m in hold_m:
             x, extra, _ = inputs(m, k)
             ops, _ = gemv_operands(name, qls[0], x)
             # atol 2e-2, rtol 1e-2: the quantized_matmul bound of the JAX
@@ -386,9 +400,9 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
                          kern(x, *ops, odt, *extra).float(),
                          plain(x, *ops, odt, *extra).float(), 2e-2, 1e-2)
                 err = max(err, e)
-        print(f"{name} K={k} N={n}: max_abs_err {err:.3e} at M {HOLD_M}",
+        print(f"{name} K={k} N={n}: max_abs_err {err:.3e} at M {hold_m}",
               flush=True)
-        x, extra, xb = inputs(8, k)
+        x, extra, xb = inputs(m_timed, k)
         ops = [gemv_operands(name, ql, x) for ql in qls]
         side = ops[0][1]
         call = lambda i: kern(x, *ops[i % copies][0], out_dtype,  # noqa: E731
@@ -405,10 +419,11 @@ def check_gemv(torch, dev, gen, name, bits, gs, shapes, out_dtype,
         tot["ms"] += uses * t_k
         tot["plain_ms"] += uses * t_p
         tot["library_ms"] += uses * t_l
-        xbytes = 8 * k + 8 * 4 if a8 else 8 * k * 2
+        mt = m_timed
+        xbytes = mt * k + mt * 4 if a8 else mt * k * 2
         tot["nbytes"] += uses * (k * n * wbits / 8 + side + xbytes
-                                 + 8 * n * obytes)
-        tot["flops"] += uses * 2 * 8 * k * n
+                                 + mt * n * obytes)
+        tot["flops"] += uses * 2 * mt * k * n
         del qls, ops, w_bf16
     b, by = bound_ms(tot["nbytes"], tot["flops"])
     return dict(max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -4041,6 +4056,436 @@ def run_history(torch, dev, args):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 17: speculative decoding (prompt lookup, a draft model, rejection
+# sampling) and requantize_params
+# ---------------------------------------------------------------------------
+
+SPEC_G = 4                    # drafts a verify: 8 slots x 5 = 40 GEMV rows
+SPEC_NEW = 48
+SPEC_SEG = 96                 # the lookup prompts repeat a segment 3 times
+SPEC_RANDOM = (128, 513)      # the random prompts' lengths, [lo, hi)
+SPEC_PERFECT = 4              # requests of the target-as-its-own-draft run
+SPEC_FULL = 0.9               # of its verify rows emit G + 1 tokens at least
+SPEC_TEMP = 0.9
+SPEC_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "decode_attn2",
+                "flash_prefill")
+SPEC_CLI_RUNS = ((), ("--draft-bits", "2"),
+                 ("--draft-bits", "2", "--draft-group-size", "32"))
+MC_V, MC_G, MC_N = 8, 2, 4096  # the reference's Monte-Carlo marginal check
+
+
+def spec_prompts(cfg, seed):
+    """Phase 17's 8 prompts: 4 that repeat a random 96-token segment three
+    times (the bigrams recur, so prompt lookup finds drafts) and 4 random
+    ones of 128-512 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 17)
+    prompts = []
+    for i in range(8):
+        if i < 4:
+            seg = rng.integers(1, cfg.vocab_size, SPEC_SEG).tolist()
+            prompts.append(seg * 3)
+        else:
+            prompts.append(rng.integers(1, cfg.vocab_size,
+                                        int(rng.integers(*SPEC_RANDOM))
+                                        ).tolist())
+    return [[int(t) for t in p] for p in prompts]
+
+
+@contextlib.contextmanager
+def no_plain_versions(torch, dev):
+    """On the card, the plain versions of phase 17's kernels raise while
+    the block runs: the path must take the kernels."""
+    from piquant_tpu_torch.ops.cuda import decode_attn2 as DA
+    from piquant_tpu_torch.ops.cuda import flash as FL
+    from piquant_tpu_torch.ops.cuda import qmatmul as Q
+
+    mods = ((Q, "w4_gemv_plain"), (Q, "w8_gemv_plain"), (Q, "w2_gemv_plain"),
+            (Q, "wg_chunk_plain"), (DA, "decode_attn2_plain"),
+            (FL, "flash_attn_plain"))
+    real = {n: getattr(m, n) for m, n in mods}
+
+    def refuse(n):
+        def call(*a, **kw):
+            raise AssertionError(f"{n} ran on the speculative path")
+        return call
+
+    if dev.type == "cuda":
+        for m, n in mods:
+            setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for m, n in mods:
+            setattr(m, n, real[n])
+
+
+def spec_engine(torch, dev, args, cfg, params, prompts, sps, speculate,
+                draft=None, gaps=None):
+    """Serve `prompts` under `sps` through an Engine (8 slots, max_seq_len
+    2048, prefill_pad 128, decode_block 4) with `speculate` drafts a verify
+    and `draft` -> (requests by rid, metrics, counts: plain decode blocks,
+    speculative blocks, prefill calls, and the [K, B] emit counts of every
+    speculative block; the launches of SPEC_KERNELS).  With `gaps` (a list)
+    each verify appends, per row and draft position, the verify's top logit
+    less the draft token's."""
+    from piquant_tpu_torch.models import speculative as SP
+    from piquant_tpu_torch.serving import Engine, EngineConfig, Request
+
+    ec = EngineConfig(batch_slots=8, max_seq_len=2048, prefill_pad=128,
+                      decode_block=4, speculate=speculate)
+    eng = Engine(cfg, params, ec, rng_seed=args.seed, draft=draft,
+                 device=dev)
+    counts = {"plain": 0, "spec": 0, "prefills": 0, "n_emit": []}
+    dispatch, admit = eng._dispatch_block, eng._admit_one_shot
+    process_spec = eng._process_spec
+
+    def counted_dispatch():
+        payload, snap = dispatch()
+        counts["spec" if payload[0] == "spec" else "plain"] += 1
+        return payload, snap
+
+    def counted_admit(batch):
+        counts["prefills"] += 1
+        return admit(batch)
+
+    def counted_spec(emits, lps, n_emit, snap):
+        counts["n_emit"].append(n_emit.copy())
+        return process_spec(emits, lps, n_emit, snap)
+
+    eng._dispatch_block, eng._admit_one_shot = counted_dispatch, counted_admit
+    eng._process_spec = counted_spec
+    real_verify = SP._verify_forward
+
+    def verify(cfg_, params_, tokens, positions, cache):
+        logits, cache = real_verify(cfg_, params_, tokens, positions, cache)
+        lf = logits[:, :-1].float()
+        gaps.append(lf.amax(-1) - torch.gather(
+            lf, -1, tokens[:, 1:].long()[..., None])[..., 0])
+        return logits, cache
+
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        eng.submit(Request(rid=i, prompt=p, sampling=sp))
+    wr = kernel_wrappers()
+    zero_counts()
+    if gaps is not None:
+        SP._verify_forward = verify
+    try:
+        with no_plain_versions(torch, dev):
+            done = sorted(eng.run(), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+    finally:
+        SP._verify_forward = real_verify
+    launches = {k: wr[k].launches for k in SPEC_KERNELS}
+    if len(done) != len(prompts) or not all(r.done for r in done):
+        raise AssertionError(f"speculate {speculate}: unfinished requests")
+    for r in done:
+        if len(r.tokens) != r.sampling.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"speculate {speculate} request {r.rid}: "
+                                 f"{len(r.tokens)} tokens or outside vocab")
+        if not all(math.isfinite(lp) and lp <= 0 for lp in r.logprobs):
+            raise AssertionError(f"speculate {speculate} request {r.rid}: "
+                                 "non-finite log-probs")
+    m = eng.metrics
+    del eng, dispatch, admit, process_spec
+    gc.collect()
+    return done, m, counts, launches
+
+
+def forced_margin(torch, M, cfg, params, prompt, toks, t, dev):
+    """The top-2 margin of the logits that chose toks[t] after the prompt
+    and toks[:t], read by one-row greedy decoding along `toks`."""
+    cache = M.init_kv_cache(cfg, 1, max_len=len(prompt) + t + 1, device=dev)
+    logits, cache = M.prefill(cfg, params, torch.tensor(
+        [prompt], device=dev, dtype=torch.int32), cache)
+    for i in range(t):
+        logits, cache = M.decode_step(
+            cfg, params, torch.tensor([toks[i]], device=dev,
+                                      dtype=torch.int32),
+            torch.tensor([len(prompt) + i], device=dev, dtype=torch.int32),
+            cache)
+    top = logits[0].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def guard_fork(torch, M, cfg, params, prompt, got, want, dev):
+    """got == want, or they fork first where want's margin (forced_margin)
+    is under NEAR_TIE; returns the verdict."""
+    if got == want:
+        return "equal"
+    t = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if t is None:
+        raise AssertionError("token lists differ in length")
+    margin = forced_margin(torch, M, cfg, params, prompt, want, t, dev)
+    if margin >= NEAR_TIE:
+        raise AssertionError(f"speculation diverged at step {t} with a "
+                             f"decisive margin {margin}")
+    return f"near-tie fork at step {t} (margin {margin:.4e})"
+
+
+def spec_stats(counts, g):
+    """Verify rows (active row-steps), tokens a verify row, rows that
+    accepted a draft, rows that emitted all G + 1."""
+    import numpy as np
+
+    n = (np.concatenate(counts["n_emit"]) if counts["n_emit"]
+         else np.zeros((0, 8), np.int32))
+    rows = n[n > 0]
+    return dict(verify_forwards=int(n.shape[0]), verify_rows=int(rows.size),
+                tokens_per_row=float(rows.mean()) if rows.size else 0.0,
+                accepted_rows=int((rows > 1).sum()),
+                full_rows=int((rows == g + 1).sum()))
+
+
+def check_rejection_marginal(torch, dev):
+    """rejection_sample_step on the card with a CUDA generator against the
+    reference's Monte-Carlo marginal: TV < 0.04, acceptance in (0.05, 1)."""
+    import numpy as np
+
+    from piquant_tpu_torch.models import speculative as SP
+
+    rng = np.random.default_rng(0xACC)
+    p_row = torch.from_numpy(rng.dirichlet(np.ones(MC_V)).astype(
+        np.float32)).to(dev)
+    q_row = torch.from_numpy(rng.dirichlet(np.ones(MC_V) * 0.3).astype(
+        np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = p_row.expand(MC_N, MC_G + 1, MC_V)
+    q = q_row.expand(MC_N, MC_G, MC_V)
+    drafts = torch.multinomial(q.reshape(-1, MC_V), 1, generator=gen).reshape(
+        MC_N, MC_G).to(torch.int32)
+    n_acc, next_tok = SP.rejection_sample_step(p, q, drafts, gen)
+    first = torch.where(n_acc >= 1, drafts[:, 0], next_tok).long()
+    emp = torch.bincount(first, minlength=MC_V).double() / MC_N
+    tv = 0.5 * float((emp - p_row.double()).abs().sum())
+    acc = float((n_acc >= 1).double().mean())
+    print(f"spec (c): rejection_sample_step on the card, V {MC_V}, G {MC_G}, "
+          f"n {MC_N}: TV {tv:.4f} (< 0.04), acceptance {acc:.4f}",
+          flush=True)
+    if not (tv < 0.04 and 0.05 < acc < 1.0):
+        raise AssertionError(f"rejection sampling marginal: TV {tv}, "
+                             f"acceptance {acc}")
+
+
+def run_spec_cli(torch, dev, args):
+    """Phase 17 (d): the CLI's speculative flags at CLI_DEPTH layers, full
+    width: every request completes; the launches of SPEC_KERNELS summed."""
+    from piquant_tpu_torch.serving import __main__ as S
+
+    total = dict.fromkeys(SPEC_KERNELS, 0)
+    wr = kernel_wrappers()
+    for flags in SPEC_CLI_RUNS:
+        argv = ["--random", "llama3_8b", "--speculate", str(SPEC_G),
+                "--benchmark", "4", "--max-new", "16", *flags]
+        cli_args = S.build_parser().parse_args(argv)
+        cfg, params, eng, sp = S.build(cli_args)
+        zero_counts()
+        with no_plain_versions(torch, dev):
+            metrics, done = S.benchmark(cli_args, cfg, eng, sp)
+        torch.cuda.synchronize()
+        launches = {k: wr[k].launches for k in SPEC_KERNELS}
+        tag = " ".join(argv[2:])
+        want = ({"wg_chunk"} if "--draft-group-size" in flags else
+                {"w2_gemv"} if flags else set()) | {"w4_gemv", "w8_gemv"}
+        if flags:
+            want.add("decode_attn2")
+        print(f"spec cli [{tag}]: launches {launches}; "
+              f"{json.dumps(metrics)} [{card_line()}]", flush=True)
+        if metrics["completed"] != 4 or any(len(r.tokens) != 16
+                                            for r in done):
+            raise AssertionError(f"spec cli [{tag}]: unfinished requests")
+        if not all(launches[k] > 0 for k in want):
+            raise AssertionError(f"spec cli [{tag}]: {sorted(want)} not all "
+                                 "launched")
+        for k in total:
+            total[k] += launches[k]
+        del params, eng, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def run_speculative(torch, dev, gen, args, w4_row):
+    """Phase 17: Llama-3-8B at full width and depth, random INT4 codes,
+    INT8 lm_head, kv8, 8 slots, decode_block 4, speculate 4: (a) prompt
+    lookup against plain greedy, (b) an INT2 requantize_params draft and
+    the target as its own draft, (c) rejection sampling, (d) the CLI.
+    Adds the M = 40 hold and times of w4_gemv to its kernels-line row and
+    returns the launches of SPEC_KERNELS over the phase."""
+    import numpy as np
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    m40 = check_gemv(torch, dev, gen, "w4_gemv", 4, None, W4_SHAPES,
+                     torch.bfloat16, hold_m=(8 * (SPEC_G + 1),),
+                     m_timed=8 * (SPEC_G + 1))
+    print(f"spec: w4_gemv at M = {8 * (SPEC_G + 1)} (one verify layer, 7 "
+          f"projections): kernel {m40['ms']:.4f} ms, bound "
+          f"{m40['bound_ms']:.4f} ms ({m40['bound_by']}), plain "
+          f"{m40['plain_ms']:.4f} ms, torch.matmul {m40['library_ms']:.4f} "
+          f"ms, max_abs_err {m40['max_abs_err']:.3e} [{card_line()}]",
+          flush=True)
+    w4_row["verify_m40"] = {k: m40[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    total = dict.fromkeys(SPEC_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    cfg = M.LlamaConfig.llama3_8b()
+    nl = cfg.n_layers
+    params = M.random_quantized_params(cfg, seed=args.seed, lm_head_bits=8,
+                                       device=dev)
+    prompts = spec_prompts(cfg, args.seed)
+    greedy = [SamplingParams(max_new_tokens=SPEC_NEW)] * len(prompts)
+
+    # (a) prompt lookup against plain greedy
+    plain, pm, pc, pl = spec_engine(torch, dev, args, cfg, params, prompts,
+                                    greedy, 0)
+    add(pl)
+    spec, sm, sc, sl = spec_engine(torch, dev, args, cfg, params, prompts,
+                                   greedy, SPEC_G)
+    add(sl)
+    st = spec_stats(sc, SPEC_G)
+    v, p = st["verify_forwards"], sc["prefills"]
+    expect = {"w4_gemv": 7 * nl * v, "w8_gemv": v + p, "w2_gemv": 0,
+              "wg_chunk": 0, "decode_attn2": 0, "flash_prefill": nl * p}
+    print(f"spec (a) prompt lookup: {sc['spec']} speculative blocks and "
+          f"{sc['plain']} plain, {v} verify forwards, {st['verify_rows']} "
+          f"verify rows, {st['tokens_per_row']:.3f} tokens emitted a verify "
+          f"row, {st['accepted_rows']} rows accepted a draft, "
+          f"{st['full_rows']} all {SPEC_G}; launches {sl}, expected "
+          f"{expect}; a verify forward launches "
+          f"{ {k: sl[k] / v for k in ('w4_gemv', 'w8_gemv')} } (the "
+          f"prefills' lm_head besides)", flush=True)
+    if sl != expect or sc["plain"]:
+        raise AssertionError(f"spec (a): launches {sl} != {expect}, or "
+                             f"{sc['plain']} plain blocks")
+    if not st["accepted_rows"]:
+        raise AssertionError("spec (a): prompt lookup accepted no draft")
+    for r, w in zip(spec, plain):
+        verdict = guard_fork(torch, M, cfg, params, r.prompt, r.tokens,
+                             w.tokens, dev)
+        print(f"spec (a): request {r.rid} (prompt {len(r.prompt)}) vs plain "
+              f"greedy: {verdict}", flush=True)
+    print(f"spec (a): decode {sm.decode_tokens_per_s:.2f} tok/s with prompt "
+          f"lookup, {pm.decode_tokens_per_s:.2f} without (one run each, in "
+          f"this call only; served rates move between calls) "
+          f"[{card_line()}]", flush=True)
+
+    # (b) an INT2 draft made by requantize_params, then the target itself
+    t0 = time.perf_counter()
+    dparams = M.requantize_params(params, 2)
+    torch.cuda.synchronize()
+    print(f"spec (b): requantize_params(params, 2) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    got, dm, dc, dl = spec_engine(torch, dev, args, cfg, params, prompts,
+                                  greedy, SPEC_G, draft=(cfg, dparams))
+    add(dl)
+    st = spec_stats(dc, SPEC_G)
+    v, p = st["verify_forwards"], dc["prefills"]
+    steps = v * (SPEC_G + 1)       # the draft's decode steps
+    expect = {"w4_gemv": 7 * nl * v, "w8_gemv": v + p,
+              "w2_gemv": (7 * nl + 1) * steps + p, "wg_chunk": 0,
+              "decode_attn2": nl * steps, "flash_prefill": 2 * nl * p}
+    print(f"spec (b) INT2 draft: {v} verify forwards, {st['verify_rows']} "
+          f"verify rows, {st['tokens_per_row']:.3f} tokens a verify row, "
+          f"{st['accepted_rows']} rows accepted a draft, {st['full_rows']} "
+          f"all {SPEC_G}; launches {dl}, expected {expect}", flush=True)
+    if dl != expect or dc["plain"]:
+        raise AssertionError(f"spec (b): launches {dl} != {expect}, or "
+                             f"{dc['plain']} plain blocks")
+    for r, w in zip(got, plain):
+        verdict = guard_fork(torch, M, cfg, params, r.prompt, r.tokens,
+                             w.tokens, dev)
+        print(f"spec (b): INT2 draft, request {r.rid} vs plain greedy: "
+              f"{verdict}", flush=True)
+    print(f"spec (b): decode {dm.decode_tokens_per_s:.2f} tok/s with the "
+          f"INT2 draft (this call only) [{card_line()}]", flush=True)
+    gaps = []
+    got, _, fc, fl = spec_engine(torch, dev, args, cfg, params,
+                                 prompts[:SPEC_PERFECT],
+                                 greedy[:SPEC_PERFECT], SPEC_G,
+                                 draft=(cfg, params), gaps=gaps)
+    add(fl)
+    st = spec_stats(fc, SPEC_G)
+    n_emit = np.concatenate(fc["n_emit"])
+    gap = torch.stack(gaps).cpu().numpy()            # [V, B, G]
+    if gap.shape[0] != n_emit.shape[0]:
+        raise AssertionError(f"spec (b): {gap.shape[0]} verify calls, "
+                             f"{n_emit.shape[0]} counted")
+    worst = 0.0
+    for vi, b in zip(*(n_emit > 0).nonzero()):
+        j = int(n_emit[vi, b]) - 1                   # the rejected draft
+        if j < SPEC_G:
+            worst = max(worst, float(gap[vi, b, j]))
+    share = st["full_rows"] / max(st["verify_rows"], 1)
+    print(f"spec (b) the target as its own draft, {SPEC_PERFECT} requests: "
+          f"{st['verify_forwards']} verify forwards, {st['verify_rows']} "
+          f"verify rows, {st['full_rows']} emitted {SPEC_G + 1} "
+          f"({100 * share:.1f}%), {st['tokens_per_row']:.3f} tokens a "
+          f"verify row, {st['verify_rows'] - st['full_rows']} rejections, "
+          f"the largest verify gap at a rejected draft {worst:.4e}; "
+          f"launches {fl} [{card_line()}]", flush=True)
+    if share < SPEC_FULL or worst >= NEAR_TIE:
+        raise AssertionError(f"spec (b): {share:.3f} of verify rows emitted "
+                             f"G + 1, a rejection at gap {worst}")
+    for r, w in zip(got, plain):
+        verdict = guard_fork(torch, M, cfg, params, r.prompt, r.tokens,
+                             w.tokens, dev)
+        print(f"spec (b): perfect draft, request {r.rid} vs plain greedy: "
+              f"{verdict}", flush=True)
+
+    # (c) rejection sampling: pure temperature, the INT2 draft, twice
+    sampled = [SamplingParams(temperature=SPEC_TEMP,
+                              max_new_tokens=SPEC_NEW)] * 4
+    runs = []
+    for _ in range(2):
+        done, cm, cc, cl = spec_engine(torch, dev, args, cfg, params,
+                                       prompts[2:6], sampled, SPEC_G,
+                                       draft=(cfg, dparams))
+        add(cl)
+        if cc["plain"] or not cc["spec"]:
+            raise AssertionError("spec (c): a temperature block left "
+                                 "rejection sampling")
+        runs.append([r.tokens for r in done])
+    st = spec_stats(cc, SPEC_G)
+    print(f"spec (c) rejection sampling, temperature {SPEC_TEMP}, INT2 "
+          f"draft: {st['verify_forwards']} verify forwards, "
+          f"{st['tokens_per_row']:.3f} tokens a verify row; two runs from "
+          f"one seed {'identical' if runs[0] == runs[1] else 'DIFFER'}; "
+          f"decode {cm.decode_tokens_per_s:.2f} tok/s; launches {cl} "
+          f"[{card_line()}]", flush=True)
+    if runs[0] != runs[1]:
+        raise AssertionError("spec (c): sampled runs from one seed differ")
+    eng = Engine(cfg, params, EngineConfig(batch_slots=8, max_seq_len=2048,
+                                           decode_block=4, speculate=SPEC_G),
+                 draft=(cfg, dparams), device=dev)
+    eng.submit(Request(rid=0, prompt=prompts[4], sampling=SamplingParams(
+        temperature=SPEC_TEMP, top_k=50, max_new_tokens=4)))
+    eng._admit()
+    if eng._spec_mode() is not None:
+        raise AssertionError("spec (c): a top-k slot speculated")
+    del eng
+    check_rejection_marginal(torch, dev)
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the CLI
+    with cut_depth("llama3_8b", CLI_DEPTH):
+        add(run_spec_cli(torch, dev, args))
+    print(f"spec: phase 17 launches {total}", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4150,8 +4595,15 @@ def main() -> int:
     phase_done(15)
     run_history(torch, dev, args)
     phase_done(16)
+    spec = run_speculative(torch, dev, gen, args, next(
+        k for k in kernels if k["name"] == "w4_gemv"))
+    for name, n in spec.items():
+        launches[name] += n
+    phase_done(17)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
+        if kern["name"] in spec:
+            kern["speculative_launches"] = spec[kern["name"]]
         if kern["name"] in gemma:
             kern["gemma_launches"] = gemma[kern["name"]]
         if kern["name"] in l4:

@@ -25,7 +25,9 @@ weight (`quantize_params` overrides, `random_quantized_params`' mixed
 recipe), and affine ones take int8 per-token activations under
 `act_quant_prefill` (M >= 256) or `act_quant_decode` (every M) as the
 reference's seven projections do; the lm_head never does.  The KV cache is
-kv8 or the pair-packed kv4 (`kv_bits`).
+kv8 or the pair-packed kv4 (`kv_bits`).  `requantize_params` re-quantizes
+every quantized projection at another format: the draft model of
+two-model speculation (models/speculative.py).
 
 Model-family flags of Mistral, Qwen2, Qwen3 and Phi-3: `sliding_window`
 (every layer attends to its last w positions: flash prefill and decode
@@ -603,6 +605,35 @@ def quantize_params(params: Dict, bits: int = 4, *, channelwise: bool = True,
     if quantize_lm_head:
         out["lm_head"] = quantize_linear_weight(params["lm_head"], 8,
                                                 channelwise=channelwise)
+    return out
+
+
+def requantize_params(params: Dict, bits=4, *,
+                      group_size: Optional[int] = None) -> Dict:
+    """Re-quantize every already-quantized linear at another format
+    (dequantize to f32, then quantize_linear_weight at `bits` -- 2, 4, 8 or
+    "nf4" -- and `group_size`): each QuantizedLinear, each expert of a
+    QuantizedExpertStack, and a quantized lm_head.  Float leaves (and the
+    fused layers' `fused_tp`) pass through as the same objects.  The usual
+    DRAFT model of two-model speculation: a harder-quantized copy of the
+    target agrees with it on most tokens."""
+    def conv(v):
+        if isinstance(v, QuantizedLinear):
+            return quantize_linear_weight(v.dequantize(torch.float32), bits,
+                                          group_size=group_size)
+        if isinstance(v, QuantizedExpertStack):
+            return QuantizedExpertStack.stack([
+                quantize_linear_weight(
+                    v.expert(e).dequantize(torch.float32), bits,
+                    group_size=group_size)
+                for e in range(v.n_experts)])
+        return v
+
+    out = dict(params)
+    out["layers"] = [{k: conv(v) for k, v in layer.items()}
+                     for layer in params["layers"]]
+    if isinstance(params.get("lm_head"), QuantizedLinear):
+        out["lm_head"] = conv(params["lm_head"])
     return out
 
 

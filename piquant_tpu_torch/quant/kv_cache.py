@@ -142,11 +142,12 @@ def _quantize_sym(x: torch.Tensor, bits: int = 8
     is the matching op here (not round_half_away).  The scale divides by a
     tensor on amax's device: on CUDA, PyTorch turns a division by a Python
     number into a multiplication by its reciprocal, which is not the
-    reference's IEEE quotient."""
+    reference's IEEE quotient.  The divisor is filled there (`new_full`):
+    a tensor made from a host value is a host copy that synchronises."""
     qmax = _QMAX if bits == 8 else 7.0
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=_EPS) / amax.new_tensor(qmax)
+    scale = torch.clamp(amax, min=_EPS) / amax.new_full((), qmax)
     codes = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
     if bits == 4:
         return pack4(codes), scale
@@ -210,19 +211,15 @@ def kv_cache_append_stacked(
 
 def _append_scattered(cache: KVCache, layer: int, k_new: torch.Tensor,
                       v_new: torch.Tensor, positions: torch.Tensor) -> None:
-    """One layer's scattered write (`_scatter4` for kv4).  T = 1 (the
-    non-deferred decode append) is the all-layer batch write on this
-    layer's slice, which needs no host sync; T > 1 the unstacked append on
-    this layer's views, which drops what lies past the cache exactly."""
-    if k_new.shape[2] == 1:
-        kc, ks = _quantize_sym(k_new, cache.bits)
-        vc, vs = _quantize_sym(v_new, cache.bits)
-        one = KVCache(*(x[layer:layer + 1] for x in cache.tensors()))
-        kv_cache_append_stacked_batch(one, kc[None], ks[None], vc[None],
-                                      vs[None], positions)
-    else:
-        kv_cache_append(KVCache(*(x[layer] for x in cache.tensors())),
-                        k_new, v_new, positions)
+    """One layer's scattered write (`_scatter4` for kv4): the all-layer
+    batch write on this layer's slice, which needs no host sync (the
+    non-deferred decode append at T = 1, a speculative verify's G + 1
+    positions a row)."""
+    kc, ks = _quantize_sym(k_new, cache.bits)
+    vc, vs = _quantize_sym(v_new, cache.bits)
+    one = KVCache(*(x[layer:layer + 1] for x in cache.tensors()))
+    kv_cache_append_stacked_batch(one, kc[None], ks[None], vc[None],
+                                  vs[None], positions)
 
 
 def kv_cache_append_stacked_batch(
@@ -240,32 +237,38 @@ def kv_cache_append_stacked_batch(
     scatter relies on XLA aliasing the buffer.
 
     A position at or past max_len is dropped, as the reference's scatter
-    drops it (the engine's finished slots step on for up to two blocks):
-    it is aimed at the last position and writes back what is there.  For
-    kv4 that is the odd half of the last pair row and its scale, so the
-    even half and its scale are never touched.  That assumes no row also
-    writes the last position in the same call, which holds for decode
-    (T = 1)."""
+    drops it (the engine's finished slots step on for up to two blocks),
+    without a host sync: its write is aimed at its row's first position
+    inside the cache with that position's own new value, or, when no
+    position of the row is inside, at the last position with what is
+    there.  So a cell is written twice only with one value, and for kv4
+    the other half of a pair row and its scale are never touched.  The
+    positions of a row must be distinct, as a scatter's must."""
     s = cache.max_len
     kv4 = cache.bits == 4
     new_len = torch.maximum(cache.length,
                             positions.amax(dim=-1).to(torch.int32)[None] + 1)
     cache.length.copy_(torch.clamp(new_len, max=s))
-    nl, nb, nh = k_codes.shape[:3]
+    nl, nb, nh, t = k_codes.shape[:4]
     dev = k_codes.device
-    inside = (positions < s)[None, :, None, :]            # [1, B, 1, T]
+    inside = positions < s                                # [B, T]
+    first = inside.to(torch.int8).argmax(dim=1, keepdim=True)  # 0 if none
+    src = torch.where(inside, torch.arange(t, device=dev)[None], first)
+    tgt = torch.gather(positions, 1, src).clamp(max=s - 1)
+    fresh = inside.any(dim=1)[None, :, None, None]        # [1, B, 1, 1]
     lead = (torch.arange(nl, device=dev)[:, None, None, None],
             torch.arange(nb, device=dev)[None, :, None, None],
             torch.arange(nh, device=dev)[None, None, :, None])
-    p = positions.clamp(max=s - 1).long()[None, :, None, :]
+    p = tgt.long()[None, :, None, :]
+    at = lead[:3] + (src[None, :, None, :],)              # the new values
     cidx = lead + (p,)
     sidx = lead + _scale_at(p, kv4)
     for buf, new in ((cache.k_codes, k_codes), (cache.v_codes, v_codes)):
         view = _positions_view(buf)
-        view.index_put_(cidx, torch.where(inside[..., None],
-                                          new.to(buf.dtype), view[cidx]))
+        view.index_put_(cidx, torch.where(fresh[..., None],
+                                          new[at].to(buf.dtype), view[cidx]))
     for buf, new in ((cache.k_scale, k_scale), (cache.v_scale, v_scale)):
-        buf.index_put_(sidx, torch.where(inside, new[..., 0], buf[sidx]))
+        buf.index_put_(sidx, torch.where(fresh, new[..., 0][at], buf[sidx]))
     return cache
 
 

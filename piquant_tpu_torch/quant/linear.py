@@ -412,8 +412,11 @@ def quantize_linear_weight(
         rmin = wf.amin().reshape(1, 1)
         rmax = wf.amax().reshape(1, 1)
     span = rmax - rmin
+    # a CUDA tensor divided by a Python number is multiplied by its
+    # rounded reciprocal; a tensor divisor (filled on the device: no host
+    # copy) keeps the IEEE quotient of the CPU and of the reference
     scale = torch.where(span == 0, torch.ones_like(span),
-                        span / (qmax - qmin)).float()
+                        span / span.new_full((), qmax - qmin)).float()
     if group_size is not None and bits in (2, 4):
         scale = scale.to(torch.bfloat16).float()
     zp = torch.clamp(round_half_away(qmin - rmin / scale), qmin, qmax)
@@ -543,12 +546,13 @@ def _quantize_act(x: torch.Tensor):
     """Dynamic per-token symmetric int8 activation quantization, the
     reference's op for op: xs = max(amax, 1e-8) / 127 in f32 and xq =
     clip(round(x / xs), -127, 127) with true divisions (the scale's by a
-    tensor on amax's device: on CUDA a Python divisor becomes a
-    multiplication by its reciprocal) and round half to even (torch.round,
-    as jnp.round; not the library core's half-away)."""
+    tensor filled on amax's device: on CUDA a Python divisor becomes a
+    multiplication by its reciprocal, and a tensor made from a host value
+    is a copy that synchronises) and round half to even (torch.round, as
+    jnp.round; not the library core's half-away)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    xs = torch.clamp_min(amax, 1e-8) / amax.new_tensor(127.0)
+    xs = torch.clamp_min(amax, 1e-8) / amax.new_full((), 127.0)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     return xq, xs
 

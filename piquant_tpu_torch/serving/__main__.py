@@ -18,8 +18,10 @@ Examples:
   python -m piquant_tpu_torch.serving --random gpt_oss_20b --benchmark 4 --max-new 8
   python -m piquant_tpu_torch.serving --random llama3_8b --bits nf4 --kv-bits 4 --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --prefill-chunk 256 --attn-windows 512,1024,2048 --benchmark 8
+  python -m piquant_tpu_torch.serving --random llama3_8b --speculate 4 --draft-bits 2 --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --bits 2 --act-quant-decode --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --benchmark 4
+  python -m piquant_tpu_torch.serving --random tiny --device cpu --speculate 2 --benchmark 2
   python -m piquant_tpu_torch.serving --random tiny --device cpu --bits nf4 --kv-bits 4 --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu 1,2,3 4,5
 
@@ -93,10 +95,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--act-quant-decode", action="store_true",
                     help="int8 per-token activations at every M, decode "
                          "included")
-    ap.add_argument("--speculate", type=int, default=0)
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="speculative decoding: drafts per verify step "
+                         "(prompt lookup unless --draft-bits)")
     ap.add_argument("--draft-bits", type=_bits_arg, default=None,
-                    choices=[2, 4, 8, "nf4"])
-    ap.add_argument("--draft-group-size", type=int, default=None)
+                    choices=[2, 4, 8, "nf4"],
+                    help="two-model speculation: the draft is this model "
+                         "re-quantized at this width (requantize_params); "
+                         "greedy verify, or rejection sampling at "
+                         "temperature > 0.  Needs --speculate")
+    ap.add_argument("--draft-group-size", type=int, default=None,
+                    help="group size of the --draft-bits weights")
     ap.add_argument("--benchmark", type=int, metavar="N", default=None,
                     help="run a synthetic N-request load benchmark and print "
                          "engine metrics JSON")
@@ -123,8 +132,6 @@ def _not_ported(args) -> None:
         todo.append("--model (HF loader: queue 1 item 9)")
     if args.random not in (None,) + FLOAT_INIT + RANDOM_CODES:
         todo.append(f"--random {args.random} (queue 1 item 11 (MLA))")
-    if args.speculate or args.draft_bits is not None or args.draft_group_size:
-        todo.append("--speculate / --draft-* (queue 1 item 10)")
     if args.serve is not None:
         todo.append("--serve (HTTP server: queue 1 item 12)")
     if todo:
@@ -150,7 +157,9 @@ def build(args):
     weight-format flags (--group-size, --mlp-bits, --mlp-group-size), which
     the reference CLI applies only to the float-quantized presets; the MoE
     experts take --bits and --group-size.  The FLOAT_INIT presets quantize
-    a random float init, as the reference CLI builds them."""
+    a random float init, as the reference CLI builds them.  --draft-bits
+    gives the engine a draft model: the params re-quantized at that width
+    (and --draft-group-size) where they lie."""
     _not_ported(args)
     from piquant_tpu_torch._device import resolve_device
     from piquant_tpu_torch.models import llama as M
@@ -176,9 +185,18 @@ def build(args):
     windows = (tuple(int(w) for w in args.attn_windows.split(","))
                if args.attn_windows else ())
     ec = EngineConfig(batch_slots=args.slots, max_seq_len=args.max_seq_len,
-                      prefill_chunk=args.prefill_chunk, attn_windows=windows,
+                      prefill_chunk=args.prefill_chunk,
+                      speculate=args.speculate, attn_windows=windows,
                       track_history=args.repetition_penalty != 1.0)
-    eng = Engine(cfg, params, ec, device=dev)
+    draft = None
+    if args.draft_bits is not None:
+        if args.speculate <= 0:
+            raise SystemExit("--draft-bits needs --speculate > 0")
+        print(f"building {args.draft_bits}-bit draft model "
+              "(requantize_params)...", file=sys.stderr, flush=True)
+        draft = (cfg, M.requantize_params(params, args.draft_bits,
+                                          group_size=args.draft_group_size))
+    eng = Engine(cfg, params, ec, draft=draft, device=dev)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, min_p=args.min_p,
                         repetition_penalty=args.repetition_penalty,

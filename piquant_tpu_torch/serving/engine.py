@@ -20,8 +20,17 @@ step, and decode applies the repetition, frequency and presence
 penalties, `logit_bias` and the `min_new_tokens` EOS floor before
 sampling.
 
-Not ported yet (raise NotImplementedError): speculation, guided decoding,
-LoRA adapters and draft models.
+With `speculate` G > 0 a block whose live slots are all greedy (and
+unpenalized) runs `decode_block` speculative verify steps instead
+(models/speculative.py): drafts from prompt lookup over the token history
+(kept for every slot, as with `track_history`), or from a draft model
+(`draft=(dcfg, dparams)`, its own cache filled at admission), which with
+pure-temperature slots samples its drafts and accepts them by rejection
+sampling.  A block's emitted tokens and their counts come back in one
+copy, as a plain block's do.
+
+Not ported yet (raise NotImplementedError): guided decoding and LoRA
+adapters.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 
 from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.models import llama as M
+from piquant_tpu_torch.models import speculative as SP
 from piquant_tpu_torch.quant.kv_cache import KVCache, kv_cache_copy_rows
 from piquant_tpu_torch.serving.sampler import (TOPK_CAND, SamplingParams,
                                                apply_freq_presence,
@@ -52,7 +62,9 @@ class EngineConfig:
     max_seq_len: int = 2048
     prefill_pad: int = 64      # prompts are right-padded to a multiple of this
     decode_block: int = 16     # decode steps per block (one token readback)
-    speculate: int = 0         # not ported yet (ROADMAP.md queue 1 item 10)
+    # speculative decoding: drafts verified a model call (0: off); greedy
+    # ticks draft by prompt lookup, or with a draft model (Engine(draft=))
+    speculate: int = 0
     # decode attends over the smallest bucket covering the longest active
     # context (an empty tuple: always max_seq_len)
     attn_windows: tuple = ()
@@ -68,12 +80,6 @@ class EngineConfig:
     # admitted prompt's whole chunks, least recently used out first
     prefix_cache: int = 0
     prefix_cache_auto: bool = False
-
-    def check_ported(self) -> None:
-        if self.speculate != EngineConfig.speculate:
-            raise NotImplementedError(
-                "EngineConfig options not ported yet (ROADMAP.md): "
-                "['speculate (queue 1 item 10)']")
 
 
 @dataclasses.dataclass
@@ -145,10 +151,6 @@ class Engine:
     def __init__(self, cfg: M.LlamaConfig, params: Dict,
                  econfig: EngineConfig, *, rng_seed: int = 0, draft=None,
                  device: DeviceLike = None):
-        if draft is not None:
-            raise NotImplementedError("draft-model speculation is not "
-                                      "ported yet")
-        econfig.check_ported()
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -199,17 +201,41 @@ class Engine:
         self._bias_dirty = True
         self._slot_state_dirty = True
         self._host_pos = np.zeros((b,), np.int64)  # for the window buckets
-        if econfig.track_history:
+        if econfig.speculate > 0 or econfig.track_history:
             # prompt + generated tokens a slot, written in place on the
-            # device (speculation will draft from the same buffer)
+            # device: the penalties read it, prompt lookup drafts from it
             self._hist = torch.zeros((b, econfig.max_seq_len
                                       + econfig.speculate + 2),
                                      dtype=torch.int32, device=self.device)
+        self._draft = draft
+        if draft is not None:
+            dcfg, _ = draft
+            self._check_draft(dcfg, econfig)
+            self._dcache = M.init_kv_cache(dcfg, b,
+                                           max_len=econfig.max_seq_len,
+                                           device=self.device)
         # token-tuple key -> (one-slot cache, prefix length); insertion
         # order is the LRU order
         self._prefix_pool: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._pending_prefill: Optional[dict] = None  # a chunked admission
         self._inflight = None          # the dispatched, unprocessed block
+
+    def _check_draft(self, dcfg, ec: EngineConfig) -> None:
+        """The reference's checks of a draft model."""
+        if not isinstance(dcfg, M.LlamaConfig):
+            raise NotImplementedError(
+                f"a {type(dcfg).__name__} draft model: MLA is not ported yet "
+                "(ROADMAP.md queue 1 item 11)")
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(f"draft vocab {dcfg.vocab_size} != target "
+                             f"vocab {self.cfg.vocab_size}")
+        if ec.speculate <= 0:
+            raise ValueError("a draft model needs EngineConfig.speculate > 0 "
+                             "(the proposal length)")
+        if ec.prefill_chunk or ec.prefix_cache:
+            raise ValueError("draft-model speculation supports one-shot "
+                             "admission only (no prefill_chunk / "
+                             "prefix_cache)")
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -465,6 +491,15 @@ class Engine:
                                 torch.from_numpy(rows).to(dev), fresh,
                                 last_positions=plens - 1)
         kv_cache_copy_rows(self.cache, fresh, slots, width)
+        if self._draft is not None:
+            # the draft model needs the prompts' KV too, in the same slots
+            dcfg, dparams = self._draft
+            even = width + width % 2 if dcfg.kv_bits == 4 else width
+            dfresh = M.init_kv_cache(dcfg, bq, max_len=even, device=dev)
+            _, dfresh = M.prefill(dcfg, dparams,
+                                  torch.from_numpy(rows).to(dev), dfresh,
+                                  last_positions=plens - 1)
+            kv_cache_copy_rows(self._dcache, dfresh, slots, width)
         tok, lp = self._sample_first(last, [req for req, _, _, _ in batch])
         self._cur_tok[slots] = tok
         self._positions[slots] = plens
@@ -540,7 +575,7 @@ class Engine:
             self._bias_dirty = True
         self._slot_state_dirty = True
         self._host_pos[slot] = plen
-        if self.ec.track_history:
+        if hasattr(self, "_hist"):
             # entries [0, plen] valid: the prompt and the first token
             row = np.asarray(req.prompt + [tok], np.int32)
             self._hist[slot, :plen + 1] = torch.from_numpy(row).to(
@@ -568,9 +603,45 @@ class Engine:
                 self._slot_state_dirty = True
 
     # ------------------------------------------------------------------
+    def _spec_mode(self) -> Optional[str]:
+        """None: no speculation this block; "greedy": greedy verify;
+        "sample": rejection sampling (a draft model and pure-temperature
+        slots only: truncation samplers would need the same truncation of
+        both distributions).  Reads host state only."""
+        if self.ec.speculate <= 0:
+            return None
+        live = [i for i, r in enumerate(self._slots) if r is not None]
+        if any(self._pens[i] != 1.0 or self._freqs[i] != 0.0
+               or self._press[i] != 0.0 or self._minnews[i] > 0
+               or self._bias_np[i].any() for i in live):
+            return None      # a penalized slot: the plain decode path
+        bound = self.ec.decode_block * (self.ec.speculate + 1) + 1
+        if (int(self._host_pos[self._active].max()) + bound
+                >= self.ec.max_seq_len):
+            return None
+        if all(self._temps[i] <= 0 for i in live):
+            return "greedy"
+        if self._draft is not None and all(
+                self._temps[i] > 0 and self._topks[i] == 0
+                and self._topps[i] >= 1.0 and self._minps[i] <= 0
+                for i in live):
+            return "sample"
+        return None
+
+    def _readback(self, kind: str, *tensors):
+        """Start the block's one device-to-host copy of `tensors`; the
+        payload carries the copies and an event to wait on."""
+        hosts = [t.to("cpu", non_blocking=True) for t in tensors]
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return (kind, *hosts, done)
+
     def _dispatch_block(self):
-        """Launch one decode block and start its token readback; returns
-        the pending readback and the slot snapshot for attribution."""
+        """Launch one decode block (plain or speculative) and start its
+        token readback; returns the pending readback and the slot snapshot
+        for attribution."""
         dev = self.device
         if self._slot_state_dirty:
             self._temps_dev = torch.from_numpy(self._temps).to(dev)
@@ -588,6 +659,9 @@ class Engine:
             self._bias_dev = torch.from_numpy(self._bias_np).to(dev)
             self._bias_dirty = False
         kblk = self.ec.decode_block
+        mode = self._spec_mode()
+        if mode is not None:
+            return self._dispatch_spec(mode, kblk), list(self._slots)
         window = self.ec.max_seq_len
         if self.ec.attn_windows:
             need = int(self._host_pos[self._active].max()) + kblk + 1
@@ -596,6 +670,10 @@ class Engine:
         self._host_pos[self._active] += kblk
         tok, pos = self._cur_tok, self._positions
         step_inc = self._active_dev.to(torch.int32)
+        # prompt lookup drafts from the history: plain blocks keep it
+        # current (a draft model does not read it)
+        keep_hist = self.ec.track_history or (self.ec.speculate > 0
+                                              and self._draft is None)
         toks, lps = [], []
         for _ in range(kblk):
             logits, self.cache = M.decode_step(self.cfg, self.params, tok, pos,
@@ -606,7 +684,7 @@ class Engine:
             nxt = sample_batch(logits, self._temps_dev, self._topks_dev,
                                self._topps_dev, self._gen, self._minps_dev)
             tok = torch.where(self._active_dev, nxt, tok)
-            if self.ec.track_history:
+            if keep_hist:
                 self._hist_write(tok, pos)
             toks.append(tok)
             lps.append(_tok_logprob(raw, tok))
@@ -614,13 +692,36 @@ class Engine:
         self._cur_tok, self._positions = tok, pos
         # ONE [K, B] readback per block, started now and awaited when the
         # block is processed (after the next block has been launched)
-        tok_host = torch.stack(toks).to("cpu", non_blocking=True)
-        lp_host = torch.stack(lps).to("cpu", non_blocking=True)
-        done = None
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return (tok_host, lp_host, done), list(self._slots)
+        return (self._readback("plain", torch.stack(toks), torch.stack(lps)),
+                list(self._slots))
+
+    def _dispatch_spec(self, mode: str, kblk: int):
+        """`kblk` speculative verify steps (no attention window, as in the
+        reference); the payload of their [K, B, G+1] tokens, log-probs and
+        [K, B] emit counts."""
+        g = self.ec.speculate
+        # a conservative bound; _process_block corrects it to the counts
+        self._host_pos[self._active] += kblk * (g + 1)
+        tok, pos = self._cur_tok, self._positions
+        if mode == "sample":
+            dcfg, dparams = self._draft
+            (emit, lp, n_emit, tok, pos, self.cache,
+             self._dcache) = SP.draft_spec_block_sample(
+                self.cfg, self.params, dcfg, dparams, tok, pos, self.cache,
+                self._dcache, self._temps_dev, self._gen, self._active_dev,
+                kblk, g)
+        elif self._draft is not None:
+            dcfg, dparams = self._draft
+            (emit, lp, n_emit, tok, pos, self.cache,
+             self._dcache) = SP.draft_spec_block(
+                self.cfg, self.params, dcfg, dparams, tok, pos, self.cache,
+                self._dcache, self._active_dev, kblk, g)
+        else:
+            emit, lp, n_emit, tok, pos, self._hist, self.cache = (
+                SP.spec_block(self.cfg, self.params, tok, pos, self.cache,
+                              self._hist, self._active_dev, kblk, g))
+        self._cur_tok, self._positions = tok, pos
+        return self._readback("spec", emit, lp, n_emit)
 
     def _penalize(self, logits: torch.Tensor, pos: torch.Tensor
                   ) -> torch.Tensor:
@@ -652,10 +753,13 @@ class Engine:
 
     def _process_block(self, payload, slots_snapshot) -> None:
         """Read a dispatched block's tokens and do the bookkeeping."""
-        tok_host, lp_host, done = payload
+        kind, *hosts, done = payload
         if done is not None:
             done.synchronize()
-        toks_np, lps_np = tok_host.numpy(), lp_host.numpy()
+        if kind == "spec":
+            self._process_spec(*(h.numpy() for h in hosts), slots_snapshot)
+            return
+        toks_np, lps_np = (h.numpy() for h in hosts)
         for step in range(toks_np.shape[0]):
             for i, req in enumerate(slots_snapshot):
                 if req is not None and not req.done:
@@ -663,6 +767,24 @@ class Engine:
                     req.logprobs.append(float(lps_np[step, i]))
                     self.metrics.decode_tokens += 1
                     self._maybe_finish(req, i)
+
+    def _process_spec(self, emits, lps, counts, slots_snapshot) -> None:
+        """A speculative block: step k emitted emits[k, i, :counts[k, i]]
+        for slot i; each token may finish its request.  The slot's host
+        position drops from the dispatch's bound to the count."""
+        g1 = self.ec.speculate + 1
+        for step in range(emits.shape[0]):
+            for i, req in enumerate(slots_snapshot):
+                if req is None or req.done:
+                    continue
+                for j in range(counts[step, i]):
+                    req.tokens.append(int(emits[step, i, j]))
+                    req.logprobs.append(float(lps[step, i, j]))
+                    self.metrics.decode_tokens += 1
+                    self._maybe_finish(req, i)
+                    if req.done:
+                        break
+                self._host_pos[i] -= g1 - int(counts[step, i])
 
     def _step_decode(self) -> None:
         """Synchronous block step (dispatch, then process); run() pipelines
@@ -715,8 +837,10 @@ class Engine:
             "prefix_pool": [(k, host(c), eff)
                             for k, (c, eff) in self._prefix_pool.items()],
         })
-        if self.ec.track_history:
+        if hasattr(self, "_hist"):
             state["hist"] = self._hist.to("cpu", copy=True)
+        if self._draft is not None:
+            state["dcache"] = host(self._dcache)
         for f in self._SNAP_HOST:
             state[f] = getattr(self, f).copy()
         return state
@@ -742,6 +866,8 @@ class Engine:
             setattr(self, f, state[f].copy())
         if "hist" in state:
             self._hist = state["hist"].to(self.device, copy=True)
+        if "dcache" in state and self._draft is not None:
+            self._dcache = dev(state["dcache"])
         self._slot_state_dirty = True   # device mirrors rebuilt lazily
         self._bias_dirty = True
         self._pending_prefill = None

@@ -181,17 +181,52 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
 # Each refusal names its item in ROADMAP.md's queue 1 (--random
 # gpt_oss_20b and llama4_scout serve since item 5 was ported:
 # tests/test_torch_llama4_gpt_oss.py::test_cli_presets; --prefill-chunk and
-# --attn-windows since item 8: test_cli_serves_item8_flags).
+# --attn-windows since item 8: test_cli_serves_item8_flags; --speculate and
+# --draft-* since item 10: test_cli_serves_item10_flags).
 @pytest.mark.parametrize("argv,item", [
     (["--model", "/no/such/checkpoint"], 9), (["--random", "mla_v2_lite"], 11),
     (["--random", "mla_v2_moe"], 11), (["--random", "mla_tiny"], 11),
-    (["--speculate", "4"], 10), (["--draft-bits", "2", "--speculate", "2"], 10),
-    (["--serve", "8123"], 12),
-    (["--draft-group-size", "32", "--speculate", "2"], 10)])
+    (["--serve", "8123"], 12)])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\b"):
         S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
                 *argv])
+
+
+# The three flags of item 10 reach the engine as the reference CLI passes
+# them: --speculate as EngineConfig.speculate, --draft-bits (with
+# --draft-group-size) as a draft model re-quantized from the params on
+# their device; the tiny model serves its benchmark with each, every
+# request complete.
+@pytest.mark.parametrize("flags,draft", [
+    (("--speculate", "4"), None),
+    (("--draft-bits", "2", "--speculate", "2"), (2, None)),
+    (("--draft-group-size", "32", "--draft-bits", "2", "--speculate", "2"),
+     (2, 32))])
+def test_cli_serves_item10_flags(flags, draft):
+    args = S.build_parser().parse_args(
+        ["--random", "tiny", "--device", "cpu", "--benchmark", "2",
+         "--max-new", "6", "--max-seq-len", "256", *flags])
+    cfg, params, eng, sp = S.build(args)
+    assert eng.ec.speculate == args.speculate
+    if draft is None:
+        assert eng._draft is None
+    else:
+        dcfg, dparams = eng._draft
+        w = dparams["layers"][0]["wq"]
+        assert dcfg is cfg and (w.bits, w.group_size) == draft
+        assert w.data.device == params["embed"].device
+    m, done = S.benchmark(args, cfg, eng, sp)
+    assert m["completed"] == 2 and m["decode_tokens"] == 2 * 5
+    for r in done:
+        assert len(r.tokens) == 6 and all(0 <= t < 256 for t in r.tokens)
+        assert all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs)
+
+
+def test_cli_draft_bits_needs_speculate():
+    with pytest.raises(SystemExit, match="--speculate > 0"):
+        S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
+                "--draft-bits", "2"])
 
 
 # --repetition-penalty serves since item 7 was ported: it turns on the

@@ -1861,3 +1861,190 @@ def test_ring_selftest_and_refusals(dev):
         RG.ring_gather(odd, seg, 2, x)
     with pytest.raises(ValueError):
         RG.ring_hop(x, seg, 2, 0, odd)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and requantize_params on the card
+# ---------------------------------------------------------------------------
+
+# Llama-3-8B's projections (K, N) and the rows a verify sends them at 8
+# slots: M = 8 x (G + 1), G = 4 and 7 (the most at or under M_MAX = 64)
+@pytest.mark.parametrize("m", [40, 64])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096)])
+def test_w4_gemv_at_verify_rows(dev, m, k, n):
+    g = _gen(dev, m + n)
+    data = torch.randint(0, 256, (k // 2, n), generator=g, device=dev,
+                         dtype=torch.uint8)
+    scale = torch.rand(n, generator=g, device=dev) * 0.02 + 0.01
+    zp = torch.randint(0, 16, (n,), generator=g, device=dev, dtype=torch.int32)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    before = Q.w4_gemv.launches
+    got = Q.w4_gemv(x, data, scale, zp, None, torch.bfloat16).float()
+    assert Q.w4_gemv.launches == before + 1
+    want = Q.w4_gemv_plain(x, data, scale, zp, None, torch.bfloat16).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
+
+
+def _spec_model():
+    """A small head_dim-128 model (random INT4 codes, INT8 lm_head) whose
+    every projection takes the GEMVs on the card."""
+    from piquant_tpu_torch.models import llama as M
+
+    cfg = M.LlamaConfig(vocab_size=256, d_model=256, n_layers=2, n_heads=2,
+                        n_kv_heads=1, d_ff=512, max_seq_len=256)
+    return cfg, M.random_quantized_params(cfg, 3, lm_head_bits=8,
+                                          device="cpu")
+
+
+def _spec_start(cfg, params, d, rows):
+    """Prefill `rows` [B, T] on device d -> (tok, pos, cache, hist)."""
+    from piquant_tpu_torch.models import llama as M
+
+    b, t = rows.shape
+    cache = M.init_kv_cache(cfg, b, max_len=128, device=d)
+    logits, cache = M.prefill(cfg, params, rows.to(d), cache)
+    tok = logits.argmax(-1).to(torch.int32)
+    hist = torch.zeros((b, 128 + 6), dtype=torch.int32, device=d)
+    hist[:, :t] = rows.to(d)
+    hist[:, t] = tok
+    return tok, torch.full((b,), t, dtype=torch.int32, device=d), cache, hist
+
+
+def _emitted(out, b):
+    """Each row's emitted tokens over the block's steps."""
+    emit, _, n_emit = (t.cpu() for t in out[:3])
+    return [[int(x) for k in range(emit.shape[0])
+             for x in emit[k, i, :int(n_emit[k, i])]] for i in range(b)]
+
+
+def test_spec_block_on_card_matches_cpu(dev):
+    """spec_block at 8 rows x (G + 1) = 40 on the card (the GEMVs at M 40,
+    the INT8 lm_head) against the same block on the CPU (the plain
+    versions): each row's emitted tokens equal, or forking first where the
+    CPU's top-2 margin, read by a full forward along its tokens, is under
+    0.02 (tests/token_guard.py's near-tie guard)."""
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.models import speculative as SP
+
+    cfg, params = _spec_model()
+    g = torch.Generator().manual_seed(4)
+    seg = torch.randint(1, 256, (8, 12), generator=g, dtype=torch.int32)
+    rows = torch.cat([seg, seg, seg], dim=1)        # bigrams recur
+    rows[4:] = torch.randint(1, 256, (4, 36), generator=g, dtype=torch.int32)
+    active = torch.ones(8, dtype=torch.bool)
+    out = {}
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        tok, pos, cache, hist = _spec_start(cfg, p, d, rows)
+        if d == "cpu":
+            first = tok.clone()
+        before = (Q.w4_gemv.launches, Q.w8_gemv.launches)
+        out[d] = SP.spec_block(cfg, p, tok, pos, cache, hist, active.to(d),
+                               6, 4)
+        if d == dev:
+            assert (Q.w4_gemv.launches - before[0],
+                    Q.w8_gemv.launches - before[1]) == (7 * 2 * 6, 6)
+    want, got = _emitted(out["cpu"], 8), _emitted(out[dev], 8)
+    assert sum(len(w) for w in want) > 8 * 6, "no draft accepted"
+    for i in range(8):
+        if got[i] == want[i]:
+            continue
+        # the prompt, the prefill's token, then the emitted ones: emitted
+        # token t is chosen by the logits at position len(prompt) + t
+        seq = torch.cat([rows[i], first[i:i + 1],
+                         torch.tensor(want[i][:-1], dtype=torch.int32)])
+        lg, _ = M.forward(cfg, params, seq[None])
+        t = next(j for j, (a, b) in enumerate(zip(got[i], want[i]))
+                 if a != b)
+        top = lg[0, rows.shape[1] + t].topk(2).values
+        assert float(top[0] - top[1]) < 0.02, (i, t, got[i], want[i])
+
+
+def test_spec_blocks_no_host_sync_on_card(dev):
+    """Neither speculative block reads a tensor back to the host: a warm
+    block runs under CUDA's sync debug mode, which raises at a sync."""
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.models import speculative as SP
+
+    cfg, params = _spec_model()
+    p = _to(params, dev)
+    rows = torch.randint(1, 256, (8, 36), generator=torch.Generator()
+                         .manual_seed(5), dtype=torch.int32)
+    active = torch.ones(8, dtype=torch.bool, device=dev)
+    tok, pos, cache, hist = _spec_start(cfg, p, dev, rows)
+    dcache = M.init_kv_cache(cfg, 8, max_len=128, device=dev)
+    M.prefill(cfg, p, rows.to(dev), dcache)
+    gen = _gen(dev, 6)
+    temps = torch.full((8,), 0.9, device=dev)
+    blocks = (
+        lambda: SP.spec_block(cfg, p, tok, pos, cache, hist, active, 2, 4),
+        lambda: SP.draft_spec_block(cfg, p, cfg, p, tok, pos, cache, dcache,
+                                    active, 2, 4),
+        lambda: SP.draft_spec_block_sample(cfg, p, cfg, p, tok, pos, cache,
+                                           dcache, temps, gen, active, 2, 4))
+    for block in blocks:
+        block()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            block()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("bits,gs", [(2, None), (4, 32), (8, None),
+                                     ("nf4", 64), (2, 32)])
+def test_requantize_params_on_card_matches_cpu(dev, bits, gs):
+    """requantize_params of a tiny MoE model with an INT8 lm_head on CUDA
+    tensors: every field byte for byte the CPU's."""
+    import dataclasses
+
+    from piquant_tpu_torch.models import llama as M
+
+    cfg = M.LlamaConfig.tiny(n_experts=4, moe_top_k=2)
+    params = M.random_quantized_params(cfg, 7, lm_head_bits=8, device="cpu")
+    want = M.requantize_params(params, bits, group_size=gs)
+    got = M.requantize_params(_to(params, dev), bits, group_size=gs)
+    leaves = [(got["lm_head"], want["lm_head"])] + [
+        (gl[k], wl[k]) for gl, wl in zip(got["layers"], want["layers"])
+        for k in gl if dataclasses.is_dataclass(gl[k])]
+    assert len(leaves) == 1 + 2 * 7
+    for a, b in leaves:
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, torch.Tensor):
+                assert x.device.type == "cuda"
+                assert torch.equal(x.cpu().view(torch.uint8)
+                                   if x.dtype == torch.bfloat16 else x.cpu(),
+                                   y.view(torch.uint8)
+                                   if y.dtype == torch.bfloat16 else y), f.name
+            else:
+                assert x == y, f.name
+
+
+def test_rejection_sampling_marginal_on_card(dev):
+    """The reference's Monte-Carlo check of rejection_sample_step with a
+    CUDA generator: the first emitted token is distributed as p."""
+    from piquant_tpu_torch.models import speculative as SP
+
+    import numpy as np
+
+    v, g, n = 8, 2, 4096
+    gen = _gen(dev, 7)
+    rng = np.random.default_rng(0xACC)
+    p_row = torch.from_numpy(rng.dirichlet(np.ones(v)).astype(np.float32)
+                             ).to(dev)
+    q_row = torch.from_numpy(rng.dirichlet(np.ones(v) * 0.3).astype(
+        np.float32)).to(dev)
+    p = p_row.expand(n, g + 1, v)
+    q = q_row.expand(n, g, v)
+    drafts = torch.multinomial(q.reshape(-1, v), 1, generator=gen).reshape(
+        n, g).to(torch.int32)
+    n_acc, next_tok = SP.rejection_sample_step(p, q, drafts, gen)
+    first = torch.where(n_acc >= 1, drafts[:, 0], next_tok).long()
+    emp = torch.bincount(first, minlength=v).double() / n
+    tv = 0.5 * float((emp - p_row.double()).abs().sum())
+    acc = float((n_acc >= 1).double().mean())
+    assert tv < 0.04, tv
+    assert 0.05 < acc < 1.0, acc

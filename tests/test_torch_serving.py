@@ -1,6 +1,8 @@
 """The port's serving engine and sampler on the CPU, against the port's own
 single-request generation and against the JAX package's Engine / sampler."""
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -190,8 +192,16 @@ def test_engine_sampled_requests_complete(setup):
 
 def test_engine_unported_options_raise(setup, monkeypatch):
     _, _, cfg, params = setup
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        Engine(cfg, params, EngineConfig(speculate=2), device=CPU)
+    # speculation serves since queue 1 item 10 was ported
+    # (tests/test_torch_speculative.py); a draft model is refused with the
+    # reference's ValueErrors without speculate, or of another vocab
+    with pytest.raises(ValueError, match="speculate > 0"):
+        Engine(cfg, params, EngineConfig(max_seq_len=128),
+               draft=(cfg, params), device=CPU)
+    with pytest.raises(ValueError, match="vocab"):
+        Engine(cfg, params, EngineConfig(max_seq_len=128, speculate=2),
+               draft=(dataclasses.replace(cfg, vocab_size=128), params),
+               device=CPU)
     # track_history serves since queue 1 item 7 was ported
     # (test_engine_track_history_serves); without it a penalty is refused
     # with the reference's ValueError
