@@ -182,6 +182,26 @@ Phases (any failure exits non-zero):
      marginal of rejection_sample_step with a CUDA generator; (d) the
      CLI's --speculate, --draft-bits 2 and --draft-group-size 32 at
      CLI_DEPTH layers;
+ 18. the loader, the weight cache and GQA reps above 8: decode_attn2 (kv8
+     and kv4), decode_attn and flash (causal, a 256 window, sinks) against
+     their plain versions at reps 9, 12, 16 and 64 (head_dim 128) at
+     Qwen3-235B-A22B's decode (B 8, Hkv 4, S 2048) and prefill (B 8, Hkv
+     4, T 1024) geometries, each with its time, bound and SDPA's time; (a)
+     Llama-3.1-8B at its published widths (config.json, llama3 rope
+     scaling) and 4 of its 32 layers, bf16 weights from the seed written by
+     the port as two safetensors shards with their index, read back to the
+     card (every tensor, and every loaded leaf against
+     params_from_state_dict of the tensors in memory, bit for bit),
+     quantized to INT4 on the card, through the weight cache and the
+     safetensors export and back (bit for bit), served by the Engine from
+     both (identical greedy tokens; against single-request generation
+     under the near-tie guard) and through the CLI's `--model DIR --bits 4
+     --benchmark 8` (exact launches), with the seconds to write, read (GB/s),
+     quantize, save and reload; (b) Qwen3-235B-A22B's geometry (64 query
+     heads over 4 kv heads, 128 experts top 8) at 2 of its 94 layers
+     through params_from_state_dict on the card, served at INT4 with the
+     kv8 cache: flash and decode_attn2 launched at rep 16, tokens under the
+     guard;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -988,13 +1008,14 @@ def chunk_starts(plen: int, chunk: int, max_len: int):
 
 
 def generate_single(torch, M, cfg, params, prompt, n_new, dev, width=None,
-                    max_len=None, chunk=None):
+                    max_len=None, chunk=None, keep=None):
     """The port's own single-request greedy prefill + decode; with `width`
     the prompt is right-padded to it and prefilled into a cache of
     `max_len` positions, as the engine runs a request admitted alone; with
     `chunk` it is prefilled in the engine's chunks against a cache of
     `max_len` positions.  Returns the tokens and, for each, the top-2
-    margin of the logits that chose it."""
+    margin of the logits that chose it (and appends those logits, f32
+    [V], to the list `keep`)."""
     toks = list(prompt) + [0] * ((width or len(prompt)) - len(prompt))
     max_len = max_len or len(prompt) + n_new
     if cfg.kv_bits == 4:
@@ -1025,6 +1046,8 @@ def generate_single(torch, M, cfg, params, prompt, n_new, dev, width=None,
     pos = len(prompt)
     while True:
         top = logits[0].float().topk(2)
+        if keep is not None:
+            keep.append(logits[0].float())
         toks.append(int(top.indices[0]))
         margins.append(float(top.values[0] - top.values[1]))
         if len(toks) == n_new:
@@ -1567,19 +1590,24 @@ CLI_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
 
 def run_cli(torch, dev, args, runs=CLI_RUNS,
             counted=("w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped", "w4a8",
-                     "w8a8", "w2a8")):
-    """Phase 7 (and 10 (c)): each configuration of `runs` through the CLI's
-    own build and benchmark, with its launches, tokens and metrics checked.
-    Returns the launches of the `counted` wrappers summed over the runs."""
+                     "w8a8", "w2a8"), model=("--random", "llama3_8b"),
+            padded=False):
+    """Phase 7 (and 10 (c), 18 (a)): each configuration of `runs` through
+    the CLI's own build and benchmark of `model` (the flags that name it:
+    a --random preset's lm_head is INT8 and takes w8_gemv, a --model
+    checkpoint's stays bf16), with its launches, tokens and metrics
+    checked (`padded`: the single-request generation the tokens are
+    held against prefills at the engine's padded width).  Returns the
+    launches of the `counted` wrappers summed over the runs."""
     import numpy as np
 
     from piquant_tpu_torch.models import llama as M
     from piquant_tpu_torch.serving import __main__ as S
 
     total = dict.fromkeys(counted, 0)
+    int8_head = model[0] == "--random"
     for flags, per_layer in runs:
-        argv = ["--random", "llama3_8b", "--benchmark", "8", "--max-new",
-                "32", *flags]
+        argv = [*model, "--benchmark", "8", "--max-new", "32", *flags]
         cli_args = S.build_parser().parse_args(argv)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1622,7 +1650,7 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
         for cls, kernels in per_layer.items():
             for k, per in kernels.items():
                 expect[k] += per * nl * calls[cls]
-        expect["w8_gemv"] += steps + counts["prefills"]
+        expect["w8_gemv"] += (steps + counts["prefills"]) * int8_head
         expect["decode_attn2_kv4" if cfg.kv_bits == 4 else "decode_attn2"] = (
             nl * steps)
         expect["flash_prefill"] = nl * counts["flash_prefills"]
@@ -1640,8 +1668,10 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
             raise AssertionError(f"cli [{tag}]: {metrics['completed']} of "
                                  f"{cli_args.benchmark} requests finished")
         for r in done:
-            if len(r.tokens) != cli_args.max_new or not all(
-                    0 <= t < cfg.vocab_size for t in r.tokens):
+            # a --model checkpoint's requests may stop at its EOS id
+            if (len(r.tokens) != cli_args.max_new
+                    and r.tokens[-1:] != [sp.eos_token]) or not all(
+                        0 <= t < cfg.vocab_size for t in r.tokens):
                 raise AssertionError(f"cli [{tag}] request {r.rid}: tokens "
                                      f"{len(r.tokens)} or outside the vocab")
             if not all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs):
@@ -1651,8 +1681,10 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
         # alone as in the burst (under --act-quant-prefill the route, and
         # with it the numerics, depends on M)
         r = next(r for r in done if len(r.prompt) >= 256)
+        pad = (dict(width=eng._padded_len(len(r.prompt)),
+                    max_len=eng.ec.max_seq_len) if padded else {})
         want, margins = generate_single(torch, M, cfg, params, r.prompt,
-                                        cli_args.max_new, dev)
+                                        len(r.tokens), dev, **pad)
         verdict = check_tokens_guarded(r.tokens, want, margins)
         print(f"cli [{tag}]: request {r.rid} (prompt {len(r.prompt)}) vs "
               f"single-request generation: {verdict}", flush=True)
@@ -2605,15 +2637,16 @@ FAMILY_RUNS = (
 )
 # Qwen3-30B-A3B's decode runs its 128 experts dense-masked (3 GEMVs each
 # besides the 4 attention ones), every prefill ragged.  Its CLI run serves
-# A3B_DEPTH of its 48 layers at full width: a full-depth decode step takes
-# seconds of host launches, 32 steps of them the run's time limit; one
-# full-depth step is profiled on its own.
+# A3B_DEPTH of its 48 layers at full width (8 until phase 18 needed the
+# time): a full-depth decode step takes seconds of host launches, 32 steps
+# of them the run's time limit; one full-depth step is profiled on its
+# own.
 A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
             "8"),
            {"decode": {"w4_gemv": 4 + 3 * 128},
             "small": {"w4_gemv": 4, "wq_ragged": 3}, "mid": {"wq_ragged": 3},
             "big": {"wq_ragged": 3}})
-A3B_DEPTH = 8
+A3B_DEPTH = 4
 FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
                   "flash_prefill")
 
@@ -2893,10 +2926,14 @@ L4_RUNS = ((("--random", "llama4_scout", "--benchmark", "4", "--max-new",
             {"decode": {}, "small": {}, "mid": {}, "big": {}}))
 L4_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
               "nf4_gemv", "wq_ragged", "decode_attn2", "flash_prefill")
-# GPT-OSS's CLI run serves 8 of its 24 layers (its alternation kept, full
-# width): every product of it runs off the kernels, about 59k launches a
-# decode step, and the run's time limit needs the time
-GPT_OSS_DEPTH = 8
+# GPT-OSS's CLI run serves 4 of its 24 layers (8 until phase 18 needed
+# the time; its alternation kept, full width): every product of it runs
+# off the kernels, about 59k launches a full-depth decode step, and the
+# run's time limit needs the time.  Scout's CLI run serves 8 of its 48
+# layers (full depth until phase 18; its nope layer every 4th kept, full
+# width); its long request serves the full depth.
+GPT_OSS_DEPTH = 4
+SCOUT_DEPTH = 8
 # Scout's long request: 9060 tokens pad to 9088 (the CLI's prefill_pad of
 # 64; whole 128-row tiles, so flash takes it), past position 8191, where
 # the chunk and the temperature bite; a few decode tokens
@@ -2916,8 +2953,9 @@ def run_llama4_gpt_oss(torch, dev, gen, args, rows):
         row["variants"][what] = res
         row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
     counted = ("flash_prefill", "decode_attn2", "w4_gemv")
-    total = run_preset_cli(torch, dev, args, L4_RUNS[:1], L4_KERNELS,
-                           "llama4 cli", counted)
+    with cut_depth("llama4_scout", SCOUT_DEPTH):
+        total = run_preset_cli(torch, dev, args, L4_RUNS[:1], L4_KERNELS,
+                               "llama4 cli", counted)
     got = run_long(torch, dev, args, "llama4_scout", SCOUT_LONG,
                    SCOUT_MAX_LEN, "long llama4_scout", SCOUT_NEW)
     for k in got:
@@ -3074,69 +3112,84 @@ V1_POS = (0, 300, 2047, 1000, 1500, 511, 273, 1800)
 V1_LAYERS = 8                 # distinct caches the timing cycles over
 
 
-def check_decode_attn_v1(torch, dev, gen):
-    """decode_attn against its plain version on one layer's kv8 cache at
-    each V1_GEOMETRY (ragged positions V1_POS: position 0 with one live
+def hold_v1(torch, dev, gen, b, hkv, rep, s, d, label):
+    """decode_attn against its plain version on one layer's kv8 cache of
+    (b, hkv, rep, s, d) (ragged positions V1_POS: position 0 with one live
     key, S - 1, chunks wholly past pos; the K scale of position 5 raised
     in rows 2 and 3 so one key dominates them), atol 2e-3, rtol 2e-2 as
-    the other attention holds; then at Llama-3-8B's geometry its device ms
-    with every position at S - 1 (the whole cache live) and ragged, the
-    plain version's, SDPA's on the bf16-dequantized cache with the bool
-    mask idx <= pos, and the bound (the live code and scale bytes)."""
+    the other attention holds, at the first and last of its caches
+    (V1_LAYERS at head_dim 128, else 1); then its device ms with every
+    position at S - 1 (the whole cache live) and ragged, the plain
+    version's, SDPA's on the bf16-dequantized cache with the bool mask idx
+    <= pos, and the bound (the live code and scale bytes).  Returns (max
+    abs error, {"full": ..., "ragged": ...})."""
     import torch.nn.functional as F
 
     from piquant_tpu_torch.ops.cuda import attention as AT
 
+    nl = V1_LAYERS if d == 128 else 1
+    shape = (nl, b, hkv, s, d)
+    kc, vc = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+              * 0.02 for _ in range(2))
+    ks[:, 2:4, :, 5] = 0.5
+    q = torch.randn((b, hkv, rep, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.tensor(V1_POS[:b], dtype=torch.int32, device=dev)
+    sm = d ** -0.5
+    err = 0.0
+    for li in sorted({0, nl - 1}):
+        got = AT.decode_attn(q, kc[li], ks[li], vc[li], vs[li], pos, sm)
+        want = AT.decode_attn_plain(q, kc[li], ks[li], vc[li], vs[li],
+                                    pos, sm)
+        err = max(err, hold(torch, f"decode_attn {label} cache {li}", got,
+                            want, 2e-3, 2e-2))
+    print(f"decode_attn {label}: max_abs_err {err:.3e}", flush=True)
+    full = torch.full_like(pos, s - 1)
+    out = {}
+    for what, p in (("full", full), ("ragged", pos)):
+        call = lambda i, p=p: AT.decode_attn(  # noqa: E731
+            q, kc[i % nl], ks[i % nl], vc[i % nl], vs[i % nl], p, sm)
+        t_k = cuda_ms(call, 64)
+        t_e = host_ms(call)
+        t_p = event_ms(lambda i, p=p: AT.decode_attn_plain(
+            q, kc[0], ks[0], vc[0], vs[0], p, sm), 4)
+        kf = (kc[0].float() * ks[0]).to(torch.bfloat16)
+        vf = (vc[0].float() * vs[0]).to(torch.bfloat16)
+        mask = (torch.arange(s, device=dev)[None] <= p[:, None])[
+            :, None, None, :]
+        q4 = q.reshape(b, hkv * rep, 1, d)
+        t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q4, kf, vf, attn_mask=mask, enable_gqa=True), 20)
+        live = float((p + 1).sum())
+        nbytes = (live * hkv * (2 * d + 2 * 4) + q.numel() * 2
+                  + b * hkv * rep * d * 4)
+        bnd, by = bound_ms(nbytes, 4 * live * hkv * rep * d)
+        print(f"decode_attn {label} {what}: kernel {t_k:.4f} ms "
+              f"({bound_share(t_k, bnd)} {bnd:.4f} ms, {by}), sdpa(bf16 "
+              f"cache) {t_l:.4f} ms, plain {t_p:.4f} ms, eager "
+              f"{t_e:.4f} ms [{card_line()}]", flush=True)
+        out[what] = dict(max_abs_err=err, ms=t_k, bound_ms=bnd, bound_by=by,
+                         plain_ms=t_p, library_ms=t_l, eager_ms=t_e)
+        del kf, vf
+    del kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    return err, out
+
+
+def check_decode_attn_v1(torch, dev, gen):
+    """decode_attn against its plain version at each V1_GEOMETRY
+    (`hold_v1`); the kernels line times Llama-3-8B's geometry with every
+    position at S - 1."""
     err, variants, main = 0.0, {}, None
     for b, hkv, rep, s, d, label in V1_GEOMETRY:
-        nl = V1_LAYERS if d == 128 else 1
-        shape = (nl, b, hkv, s, d)
-        kc, vc = (torch.randint(-127, 128, shape, generator=gen, device=dev,
-                                dtype=torch.int8) for _ in range(2))
-        ks, vs = (torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
-                  * 0.02 for _ in range(2))
-        ks[:, 2:4, :, 5] = 0.5
-        q = torch.randn((b, hkv, rep, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        pos = torch.tensor(V1_POS[:b], dtype=torch.int32, device=dev)
-        sm = d ** -0.5
-        for li in sorted({0, nl - 1}):
-            got = AT.decode_attn(q, kc[li], ks[li], vc[li], vs[li], pos, sm)
-            want = AT.decode_attn_plain(q, kc[li], ks[li], vc[li], vs[li],
-                                        pos, sm)
-            e = hold(torch, f"decode_attn {label} cache {li}", got, want,
-                     2e-3, 2e-2)
-            err = max(err, e)
-        print(f"decode_attn {label}: max_abs_err {err:.3e}", flush=True)
-        full = torch.full_like(pos, s - 1)
-        for what, p in (("full", full), ("ragged", pos)):
-            call = lambda i, p=p: AT.decode_attn(  # noqa: E731
-                q, kc[i % nl], ks[i % nl], vc[i % nl], vs[i % nl], p, sm)
-            t_k = cuda_ms(call, 64)
-            t_e = host_ms(call)
-            t_p = event_ms(lambda i, p=p: AT.decode_attn_plain(
-                q, kc[0], ks[0], vc[0], vs[0], p, sm), 4)
-            kf = (kc[0].float() * ks[0]).to(torch.bfloat16)
-            vf = (vc[0].float() * vs[0]).to(torch.bfloat16)
-            mask = (torch.arange(s, device=dev)[None] <= p[:, None])[
-                :, None, None, :]
-            q4 = q.reshape(b, hkv * rep, 1, d)
-            t_l = cuda_ms(lambda i: F.scaled_dot_product_attention(
-                q4, kf, vf, attn_mask=mask, enable_gqa=True), 20)
-            live = float((p + 1).sum())
-            nbytes = (live * hkv * (2 * d + 2 * 4) + q.numel() * 2
-                      + b * hkv * rep * d * 4)
-            bnd, by = bound_ms(nbytes, 4 * live * hkv * rep * d)
-            print(f"decode_attn {label} {what}: kernel {t_k:.4f} ms "
-                  f"({bound_share(t_k, bnd)} {bnd:.4f} ms, {by}), sdpa(bf16 "
-                  f"cache) {t_l:.4f} ms, plain {t_p:.4f} ms, eager "
-                  f"{t_e:.4f} ms [{card_line()}]", flush=True)
-            res = dict(ms=t_k, bound_ms=bnd, bound_by=by, plain_ms=t_p,
-                       library_ms=t_l, eager_ms=t_e)
-            main = main or res
-            variants[f"{label} {what}"] = res
-            del kf, vf
-        del kc, vc, ks, vs
+        e, res = hold_v1(torch, dev, gen, b, hkv, rep, s, d, label)
+        err = max(err, e)
+        for what, r in res.items():
+            r.pop("max_abs_err")
+            main = main or r
+            variants[f"{label} {what}"] = r
     return dict(name="decode_attn", route="cuda",
                 source="piquant_tpu_torch/csrc/decode_attn2.cu",
                 replaces="piquant_tpu/ops/pallas/attention.py:35 "
@@ -4486,6 +4539,471 @@ def run_speculative(torch, dev, gen, args, w4_row):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the loader, the weight cache and GQA reps above 8
+# ---------------------------------------------------------------------------
+
+GQA_REPS = (9, 12, 16, 64)    # odd, Mistral-Large-2's, Qwen3-235B-A22B's,
+                              # a multi-query layer of 64 heads
+# Qwen3-235B-A22B's decode cache at the CLI's 2048 positions (8 of its 94
+# layers, enough that the timing's layers stream from HBM) and prefill; its
+# 4 kv heads at every rep
+GQA_CACHE = (8, 8, 4, 2048)
+GQA_POS = (1, 300, 2047, 1000, 1501, 511, 273, 2048)
+GQA_STARTS = (0, 0, 1024, 0, 900, 0, 0, 1000)
+GQA_FLASH = (8, 4, 1024)      # B, Hkv, T of the causal holds
+GQA_FLASH_SMALL = (2, 4, 1024)  # of the window and sinks holds
+GQA_WINDOW = 256
+
+
+def check_gqa_reps(torch, dev, gen, rows):
+    """Phase 18's kernel holds: decode_attn2 (kv8 and kv4), decode_attn
+    (the V1 form) and flash (causal, window, sinks) against their plain
+    versions at each of GQA_REPS with head_dim 128, at Qwen3-235B-A22B's
+    decode (B 8, Hkv 4, S 2048; live windows from GQA_STARTS to GQA_POS)
+    and prefill (B 8, Hkv 4, T 1024) geometries, each with its ms, bound
+    and SDPA's time, as a variant of its kernels-line row in `rows`."""
+    by_name = {r["name"]: r for r in rows}
+
+    def add(name, what, res):
+        row = by_name[name]
+        row.setdefault("variants", {})[what] = res
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+
+    nl, b, hkv, s = GQA_CACHE
+    fb, fh, ft = GQA_FLASH
+    sb, sh, st = GQA_FLASH_SMALL
+    for rep in GQA_REPS:
+        tag = f"rep {rep}: L={nl}, B={b}, Hkv={hkv}, S={s}"
+        for kv4, name in ((False, "decode_attn2"), (True, "decode_attn2_kv4")):
+            add(name, tag, hold_decode(torch, dev, gen, kv4,
+                                       (nl, b, hkv, rep, s), GQA_POS,
+                                       GQA_STARTS))
+        _, res = hold_v1(torch, dev, gen, b, hkv, rep, s, 128,
+                         f"rep {rep}")
+        for what, r in res.items():
+            add("decode_attn", f"rep {rep}: B={b}, Hkv={hkv}, S={s}, {what}",
+                r)
+        add("flash_prefill", f"rep {rep}: B={fb}, Hkv={fh}, T={ft}, causal",
+            hold_flash(torch, dev, gen, fb, fh, rep, ft, None))
+        add("flash_prefill", f"rep {rep}: B={sb}, Hkv={sh}, T={st}, window "
+            f"{GQA_WINDOW}", hold_flash(torch, dev, gen, sb, sh, rep, st,
+                                        GQA_WINDOW))
+        add("flash_prefill", f"rep {rep}: B={sb}, Hkv={sh}, T={st}, causal, "
+            "sinks", hold_flash(torch, dev, gen, sb, sh, rep, st, None,
+                                sinks=True))
+        torch.cuda.empty_cache()
+
+
+# Llama-3.1-8B's published config.json (meta-llama/Llama-3.1-8B), the
+# checkpoint phase 18 (a) writes from a seed and serves from disk at
+# LOADER_DEPTH of its 32 layers
+LLAMA31_8B = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128001, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 131072, "mlp_bias": False,
+    "model_type": "llama", "num_attention_heads": 32,
+    "num_hidden_layers": 32, "num_key_value_heads": 8, "pretraining_tp": 1,
+    "rms_norm_eps": 1e-05,
+    "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "rope_theta": 500000.0, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256}
+# Qwen3-235B-A22B's (Qwen/Qwen3-235B-A22B): rep 16 attention, 128 experts,
+# served by phase 18 (b) at QWEN235_DEPTH of its 94 layers
+QWEN3_235B = {
+    "architectures": ["Qwen3MoeForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 151643,
+    "decoder_sparse_step": 1, "eos_token_id": 151645, "head_dim": 128,
+    "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 12288, "max_position_embeddings": 40960,
+    "max_window_layers": 94, "mlp_only_layers": [],
+    "model_type": "qwen3_moe", "moe_intermediate_size": 1536,
+    "norm_topk_prob": True, "num_attention_heads": 64, "num_experts": 128,
+    "num_experts_per_tok": 8, "num_hidden_layers": 94,
+    "num_key_value_heads": 4, "output_router_logits": False,
+    "rms_norm_eps": 1e-06, "rope_scaling": None, "rope_theta": 1000000.0,
+    "router_aux_loss_coef": 0.001, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "use_sliding_window": False, "vocab_size": 151936}
+LOADER_DEPTH = 4
+QWEN235_DEPTH = 2             # its bf16 experts: 4.8 GB a layer
+LOADER_NEW = 16               # greedy tokens a request of (a)'s engine runs
+QWEN235_NEW = 32
+LOADER_CLI_RUNS = (((), _gemv_only({"w4_gemv": 7})),)
+
+
+def hf_state_dict(torch, conf, dev, gen):
+    """A checkpoint's state dict in HF names and nn.Linear's [out, in]
+    layout (rotate-half q / k, as HF stores them), bf16 on the card from
+    the generator: N(0, 0.02) weights, norms near 1 (so a swapped norm
+    shows); Qwen3-MoE's qk-norms, router and per-expert projections."""
+    d, v = conf["hidden_size"], conf["vocab_size"]
+    nh, nkv = conf["num_attention_heads"], conf["num_key_value_heads"]
+    hd = conf.get("head_dim") or d // nh
+    moe = conf["model_type"] == "qwen3_moe"
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn(n, generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(v, d), "model.norm.weight": norm(d),
+          "lm_head.weight": w(v, d)}
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = norm(d)
+        sd[p + "post_attention_layernorm.weight"] = norm(d)
+        for name, n_out, n_in in (("q_proj", nh * hd, d), ("k_proj", nkv * hd, d),
+                                  ("v_proj", nkv * hd, d), ("o_proj", d, nh * hd)):
+            sd[p + f"self_attn.{name}.weight"] = w(n_out, n_in)
+        if not moe:
+            f = conf["intermediate_size"]
+            sd[p + "mlp.gate_proj.weight"] = w(f, d)
+            sd[p + "mlp.up_proj.weight"] = w(f, d)
+            sd[p + "mlp.down_proj.weight"] = w(d, f)
+            continue
+        sd[p + "self_attn.q_norm.weight"] = norm(hd)
+        sd[p + "self_attn.k_norm.weight"] = norm(hd)
+        f, ne = conf["moe_intermediate_size"], conf["num_experts"]
+        sd[p + "mlp.gate.weight"] = w(ne, d)
+        for e in range(ne):
+            sd[p + f"mlp.experts.{e}.gate_proj.weight"] = w(f, d)
+            sd[p + f"mlp.experts.{e}.up_proj.weight"] = w(f, d)
+            sd[p + f"mlp.experts.{e}.down_proj.weight"] = w(d, f)
+    return sd
+
+
+def leaves_equal(torch, a, b, path=""):
+    """Two param trees leaf for leaf, bit for bit (quantized leaves field
+    by field); raises naming the first leaf that differs."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(set(a) ^ set(b))}")
+        for k in a:
+            leaves_equal(torch, a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, list):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            leaves_equal(torch, x, y, f"{path}/{i}")
+    elif isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.view(torch.uint8) if a.dtype == torch.uint16 else a,
+                b.view(torch.uint8) if b.dtype == torch.uint16 else b):
+            raise AssertionError(f"{path}: leaves differ")
+    elif a is None or isinstance(a, (int, str)):
+        if a != b:
+            raise AssertionError(f"{path}: {a} != {b}")
+    else:
+        for f in ("data", "scale", "zero_point", "s_chunk", "z_chunk",
+                  "bits", "k", "group_size", "codebook"):
+            leaves_equal(torch, getattr(a, f), getattr(b, f), f"{path}.{f}")
+
+
+def tree_bytes(torch, tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(torch, v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(tree_bytes(torch, getattr(tree, f)) for f in
+               ("data", "scale", "zero_point", "s_chunk", "z_chunk")
+               if isinstance(getattr(tree, f, None), torch.Tensor))
+
+
+def loader_engine(torch, dev, args, cfg, params, n_req, lens, n_new,
+                  label):
+    """n_req greedy requests (prompt lengths in [lens[0], lens[1]) from the
+    seed) through an Engine of 8 slots whose prefills pad to 128-row tiles
+    (so flash takes them); every request complete, tokens in the vocab.
+    Returns (finished requests by rid, the engine, launches)."""
+    import numpy as np
+
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    rng = np.random.default_rng(args.seed + 18)
+    ec = EngineConfig(batch_slots=8, max_seq_len=1024, prefill_pad=128,
+                      decode_block=8)
+    eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
+    for i in range(n_req):
+        plen = int(rng.integers(*lens))
+        eng.submit(Request(rid=i, prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab_size, plen)], sampling=SamplingParams(
+                max_new_tokens=n_new)))
+    zero_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernel_wrappers().items()
+                if v.launches}
+    if len(done) != n_req or any(len(r.tokens) != n_new or not all(
+            0 <= t < cfg.vocab_size for t in r.tokens) for r in done):
+        raise AssertionError(f"{label}: requests unfinished or tokens "
+                             "outside the vocab")
+    m = eng.metrics.to_dict()
+    print(f"{label}: {n_req} requests in {wall:.2f} s, launches {launches}; "
+          f"metrics {json.dumps(m)} [{card_line()}]", flush=True)
+    return {r.rid: r for r in done}, eng, launches
+
+
+def guard_engine(torch, M, cfg, params, dev, done, eng, n, n_new, label):
+    """The first n finished requests' greedy tokens against the port's own
+    single-request generation at the engine's padded width and cache
+    length (the prefill's shapes, and with them its kernels, the same),
+    under the near-tie guard."""
+    for r in [done[k] for k in sorted(done)][:n]:
+        want, margins = generate_single(
+            torch, M, cfg, params, r.prompt, n_new, dev,
+            width=eng._padded_len(len(r.prompt)), max_len=eng.ec.max_seq_len)
+        print(f"{label}: request {r.rid} (prompt {len(r.prompt)}) vs "
+              f"single-request generation: "
+              f"{check_tokens_guarded(r.tokens, want, margins)}", flush=True)
+
+
+def f32_logits(torch, M, cfg, params, tokens, dev):
+    """Logits [T, V] of a plain f32 forward of a dense Llama over `tokens`
+    (no cache, no kernel): every weight dequantized to f32, f32 activations
+    and scores, an exact causal softmax, TF32 off."""
+    def dense(w):
+        return (w.float() if isinstance(w, torch.Tensor)
+                else w.dequantize(torch.float32))
+
+    t, hd = len(tokens), cfg.head_dim
+    rep = cfg.n_heads // cfg.n_kv_heads
+    cos, sin = M._rope_freqs(cfg, torch.arange(t, device=dev)[None])
+    dead = torch.ones(t, t, dtype=torch.bool, device=dev).triu(1)
+    x = params["embed"][torch.tensor(tokens, device=dev)][None].float()
+    for layer in params["layers"]:
+        h = M.rms_norm(x, layer["attn_norm"].float(), cfg.rms_eps)
+        q, k, v = ((h @ dense(layer[n])).reshape(1, t, -1, hd).transpose(1, 2)
+                   for n in ("wq", "wk", "wv"))
+        q, k = M.apply_rope(q, cos, sin), M.apply_rope(k, cos, sin)
+        k, v = (a.repeat_interleave(rep, dim=1) for a in (k, v))
+        p = torch.softmax((q @ k.transpose(-1, -2) * hd ** -0.5).masked_fill(
+            dead, float("-inf")), dim=-1)
+        x = x + (p @ v).transpose(1, 2).reshape(1, t, -1) @ dense(layer["wo"])
+        h = M.rms_norm(x, layer["mlp_norm"].float(), cfg.rms_eps)
+        x = x + (torch.nn.functional.silu(h @ dense(layer["w1"]))
+                 * (h @ dense(layer["w3"]))) @ dense(layer["w2"])
+    x = M.rms_norm(x, params["final_norm"].float(), cfg.rms_eps)
+    return (x @ dense(params["lm_head"]))[0]
+
+
+def prefill_witness(torch, M, cfg, params, prompt, n_new, dev, width,
+                    max_len):
+    """Phase 18 (a)'s witness of its two prefill paths: single-request
+    generation prefilled at the engine's padded `width` (flash) and at the
+    prompt's own length (the materialized path), each path's logits at the
+    first step and at the first step where their tokens part (else the
+    last) against a plain f32 forward of the tokens both chose before it.
+    Prints what it reads and checks nothing."""
+    paths = {}
+    for name, kw in (("flash", dict(width=width, max_len=max_len)),
+                     ("materialized", {})):
+        kept = []
+        toks, margins = generate_single(torch, M, cfg, params, prompt, n_new,
+                                        dev, keep=kept, **kw)
+        paths[name] = toks, margins, kept
+    (ft, fm, fl), (mt, mm, ml) = paths["flash"], paths["materialized"]
+    fork = next((i for i, (a, b) in enumerate(zip(ft, mt)) if a != b), None)
+    step = n_new - 1 if fork is None else fork
+    ref = f32_logits(torch, M, cfg, params, list(prompt) + ft[:step], dev)
+    n0 = len(prompt) - 1
+
+    def err(kept, i):
+        d = kept[i] - ref[n0 + i]
+        return f"{d.abs().max():.4e} max, {d.pow(2).mean().sqrt():.4e} rms"
+
+    head = f"loader (a) witness, prompt {len(prompt)}: "
+    if fork is None:
+        head += f"flash (width {width}) and materialized agree for {n_new}"
+    else:
+        a, b = ft[fork], mt[fork]
+        f32 = ref[-1]
+        head += (f"flash (width {width}) takes {a} (margin {fm[fork]:.4e}) "
+                 f"and materialized {b} (margin {mm[fork]:.4e}) at step "
+                 f"{fork}; f32 logit({a}) - logit({b}) "
+                 f"{float(f32[a] - f32[b]):.4e}, f32's top {int(f32.argmax())}")
+    print(head + f"; against f32 at step 0: flash {err(fl, 0)}, materialized "
+          f"{err(ml, 0)}; at step {step}: flash {err(fl, step)}, materialized "
+          f"{err(ml, step)} [{card_line()}]", flush=True)
+
+
+def run_loader(torch, dev, gen, args):
+    """Phase 18: (a) Llama-3.1-8B from a sharded safetensors directory the
+    port writes, loaded, quantized, cached, served through the Engine and
+    the CLI's --model; (b) Qwen3-235B-A22B's rep-16 geometry through
+    params_from_state_dict on the card, served at INT4.  Returns the
+    kernels' launches summed over both."""
+    import shutil
+    import tempfile
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.models import loader as L
+    from piquant_tpu_torch.utils import safetensors_io as ST
+    from piquant_tpu_torch.utils import weight_cache as WC
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # ---- (a) Llama-3.1-8B from disk
+    conf = dict(LLAMA31_8B, num_hidden_layers=LOADER_DEPTH)
+    print(f"loader (a): Llama-3.1-8B at its published widths, "
+          f"num_hidden_layers cut to {LOADER_DEPTH} of "
+          f"{LLAMA31_8B['num_hidden_layers']}", flush=True)
+    sd = hf_state_dict(torch, conf, dev, gen)
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    tmp = tempfile.mkdtemp(prefix="pq_loader_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        need = 3 * nbytes          # the checkpoint, the cache, the export
+        if free < need:
+            raise RuntimeError(f"loader: {free / 1e9:.1f} GB free under "
+                               f"{tmp}, {need / 1e9:.1f} GB needed")
+        ckpt = os.path.join(tmp, "llama31_8b")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        files = ST.save_checkpoint(sd, ckpt, shards=2)
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(conf, f)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        disk = ST.load_checkpoint(ckpt, dev)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        print(f"loader (a): wrote {len(files)} shards, {nbytes / 1e9:.3f} "
+              f"GB, in {t_write:.2f} s; read them back to the card in "
+              f"{t_read:.2f} s ({nbytes / 1e9 / t_read:.2f} GB/s; page cache "
+              f"warm from the write) [{card_line()}]", flush=True)
+        for k, t in sd.items():
+            if not torch.equal(disk[k], t):
+                raise AssertionError(f"loader (a): {k} read back differs")
+        cfg = L.config_from_hf(L.read_config(ckpt))
+        if cfg.llama3_rope is None or cfg.llama3_rope.factor != 8.0:
+            raise AssertionError("loader (a): llama3 rope scaling lost")
+        t0 = time.perf_counter()
+        _, fparams = L.load_from_hf(ckpt, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        leaves_equal(torch, fparams, L.params_from_state_dict(sd, cfg,
+                                                              device=dev))
+        del disk, sd
+        print(f"loader (a): load_from_hf in {t_load:.2f} s; every leaf "
+              "equal to params_from_state_dict of the tensors in memory",
+              flush=True)
+        t0 = time.perf_counter()
+        qparams = M.quantize_params(fparams, bits=4)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        del fparams
+        qbytes = tree_bytes(torch, qparams)
+        cache = os.path.join(tmp, "cache")
+        t0 = time.perf_counter()
+        WC.save_quantized(cache, qparams)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = WC.load_quantized(cache, device=dev)
+        torch.cuda.synchronize()
+        t_reload = time.perf_counter() - t0
+        leaves_equal(torch, back, qparams)
+        st = os.path.join(tmp, "export.safetensors")
+        t0 = time.perf_counter()
+        ST.save_safetensors(st, qparams)
+        t_st_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        leaves_equal(torch, ST.load_safetensors(st, device=dev), qparams)
+        t_st_load = time.perf_counter() - t0
+        print(f"loader (a): quantize_params INT4 on the card in "
+              f"{t_quant:.2f} s; weight cache of {qbytes / 1e9:.3f} GB saved "
+              f"in {t_save:.2f} s, reloaded in {t_reload:.2f} s; safetensors "
+              f"export saved in {t_st_save:.2f} s, reloaded in "
+              f"{t_st_load:.2f} s; every leaf back bit for bit "
+              f"[{card_line()}]", flush=True)
+        done, eng, launches = loader_engine(torch, dev, args, cfg, qparams,
+                                            8, (128, 513), LOADER_NEW,
+                                            "loader (a) engine")
+        add(launches)
+        again, _, launches = loader_engine(torch, dev, args, cfg, back, 8,
+                                           (128, 513), LOADER_NEW,
+                                           "loader (a) engine, reloaded")
+        add(launches)
+        if any(again[k].tokens != done[k].tokens for k in done):
+            raise AssertionError("loader (a): the reloaded params' tokens "
+                                 "differ from the params' before saving")
+        guard_engine(torch, M, cfg, qparams, dev, done, eng, 2, LOADER_NEW,
+                     "loader (a) engine")
+        prefill_witness(torch, M, cfg, qparams, done[0].prompt, LOADER_NEW,
+                        dev, eng._padded_len(len(done[0].prompt)),
+                        eng.ec.max_seq_len)
+        del back, qparams, done, again, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        add(run_cli(torch, dev, args, LOADER_CLI_RUNS,
+                    counted=("w4_gemv", "decode_attn2", "flash_prefill"),
+                    model=("--model", ckpt, "--bits", "4"), padded=True))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) Qwen3-235B-A22B's geometry, no disk
+    conf = dict(QWEN3_235B, num_hidden_layers=QWEN235_DEPTH)
+    print(f"loader (b): Qwen3-235B-A22B at its published widths (64 query "
+          f"heads over 4 kv heads: rep 16; 128 experts, top 8), "
+          f"num_hidden_layers cut to {QWEN235_DEPTH} of "
+          f"{QWEN3_235B['num_hidden_layers']}", flush=True)
+    sd = hf_state_dict(torch, conf, dev, gen)
+    cfg = L.config_from_hf(conf)
+    if cfg.n_heads // cfg.n_kv_heads != 16 or not cfg.qk_norm:
+        raise AssertionError(f"loader (b): config {cfg}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fparams = L.params_from_state_dict(sd, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    del sd
+    t0 = time.perf_counter()
+    qparams = M.quantize_params(fparams, bits=4)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"loader (b): params_from_state_dict in {t_map:.2f} s, INT4 "
+          f"quantize_params in {t_quant:.2f} s [{card_line()}]", flush=True)
+    done, eng, launches = loader_engine(torch, dev, args, cfg, qparams, 8,
+                                        (128, 513), QWEN235_NEW,
+                                        "loader (b) engine")
+    nl = cfg.n_layers
+    if not (launches.get("flash_prefill", 0) and launches.get(
+            "decode_attn2", 0)) or launches["decode_attn2"] % nl:
+        raise AssertionError(f"loader (b): flash and decode_attn2 must run "
+                             f"at rep 16, launches {launches}")
+    print(f"loader (b): flash {launches['flash_prefill']} and decode_attn2 "
+          f"{launches['decode_attn2']} launches at rep "
+          f"{cfg.n_heads // cfg.n_kv_heads}", flush=True)
+    add(launches)
+    guard_engine(torch, M, cfg, qparams, dev, done, eng, 2, QWEN235_NEW,
+                 "loader (b) engine")
+    del qparams, done, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"loader: launches {total}", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4600,10 +5118,17 @@ def main() -> int:
     for name, n in spec.items():
         launches[name] += n
     phase_done(17)
+    check_gqa_reps(torch, dev, gen, kernels)
+    loader = run_loader(torch, dev, gen, args)
+    for name, n in loader.items():
+        launches[name] = launches.get(name, 0) + n
+    phase_done(18)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in spec:
             kern["speculative_launches"] = spec[kern["name"]]
+        if kern["name"] in loader:
+            kern["loader_launches"] = loader[kern["name"]]
         if kern["name"] in gemma:
             kern["gemma_launches"] = gemma[kern["name"]]
         if kern["name"] in l4:

@@ -154,7 +154,7 @@ def config_from_jax(jcfg) -> LlamaConfig:
     if unsupported:
         raise NotImplementedError(
             f"LlamaConfig flags not ported yet: {unsupported} (expert "
-            "parallelism: ROADMAP.md queue 1 item 16)")
+            "parallelism: ROADMAP.md queue 1 item 16b)")
     if jcfg.llama3_rope is not None:
         r = jcfg.llama3_rope
         kw["llama3_rope"] = Llama3Rope(

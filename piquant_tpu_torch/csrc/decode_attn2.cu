@@ -50,8 +50,13 @@
 //     ticket (an int32 atomic per (b, h)), and the split that takes the
 //     last ticket merges all partials in split order (identical bits on
 //     every call and graph replay) and resets the ticket to 0;
-//   * REP is a runtime count of live N columns: one instance per D (128,
-//     256) and form (kv8, kv4, V1), six in all.
+//   * REP is a runtime count: a block holds at most 8 rep heads (the live
+//     N columns of one n8 tile of O^T), so a GQA rep above 8 takes its
+//     heads in groups of 8, a group index in the grid's x: (B * Hkv *
+//     ceil(rep / 8), splits).  Each group re-reads its kv head's codes
+//     (from L2 after the first), has its own ticket and merges its own
+//     rows of the partials.  One instance per D (128, 256) and form (kv8,
+//     kv4, V1), six in all.
 // The probabilities are rounded to bf16 at each split's maximum, as the TPU
 // kernel rounds them at its 512-position chunk's running maximum (the same
 // function within those roundings).
@@ -90,7 +95,7 @@ struct Args {
   float* l;
   float* part_acc;           // [B, Hkv, nsplit, rep, D]
   float* part_ml;            // [B, Hkv, nsplit, rep, 2]
-  int* tickets;              // [B * Hkv], zero between calls
+  int* tickets;              // [B * Hkv * groups], zero between calls
   int layer, nb, nh, rep, s_len, tps, nstage, region;
   float sm_scale;
 };
@@ -103,7 +108,7 @@ struct Form {
   static constexpr int kWarps = D / 32;   // a block: D threads
   static constexpr int kThreads = D;
   static constexpr int kNt = 8 / kWarps;  // n8 tiles of scores a warp a tile
-  static constexpr int kOut4 = 2;         // float4s of rep 8 x D a thread
+  static constexpr int kOut4 = 2;         // float4s of 8 heads x D a thread
 };
 
 __device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
@@ -182,22 +187,27 @@ decode_attn2_kernel(const Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
-  const int b = bh / a.nh, rep = a.rep;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  // the block's rep heads: group grp of kv head row bh, heads r0 .. r0+rep-1
+  const int ngrp = (a.rep + 7) / 8;
+  const int bh = blockIdx.x / ngrp, grp = blockIdx.x % ngrp;
+  const int r0 = 8 * grp, rep = min(8, a.rep - r0), nrep = a.rep;
+  const int b = bh / a.nh;
   const int span = a.tps * kTile;
   const int lo = V1 ? 0 : max(a.start[b], 0);
   const int hi = min(V1 ? a.pos[b] + 1 : a.pos[b], a.s_len);
   const int first = lo / span;
   const int nlive = hi > lo ? (hi - 1) / span - first + 1 : 0;
-  const int n4 = rep * D / 4;   // float4s of a (b, h)'s rep x D result
+  const int n4 = rep * D / 4;   // float4s of the group's rep x D result
+  const size_t row0 = (size_t)bh * nrep + r0;   // its first head's row
   if (nlive == 0) {             // no live position: split 0 writes the sentinel
     if (split == 0) {
       for (int i = tid; i < n4; i += kThreads)
-        reinterpret_cast<float4*>(a.acc)[(size_t)bh * n4 + i] =
+        reinterpret_cast<float4*>(a.acc)[row0 * (D / 4) + i] =
             make_float4(0.f, 0.f, 0.f, 0.f);
       if (!V1 && tid < rep) {
-        a.m[bh * rep + tid] = kNegInf;
-        a.l[bh * rep + tid] = 0.f;
+        a.m[row0 + tid] = kNegInf;
+        a.l[row0 + tid] = 0.f;
       }
     }
     return;
@@ -276,7 +286,7 @@ decode_attn2_kernel(const Args a) {
   {
     // q as the A operand of S^T (rows >= rep zero), in the K bytes' order
     uint32_t qa[F::kSteps][2];
-    const __nv_bfloat16* qrow = a.q + ((size_t)bh * rep + g) * D;
+    const __nv_bfloat16* qrow = a.q + (row0 + g) * D;
 #pragma unroll
     for (int kk = 0; kk < F::kSteps; ++kk) {
       uint2 v = make_uint2(0u, 0u);
@@ -461,8 +471,8 @@ decode_attn2_kernel(const Args a) {
   }
   __syncthreads();
   const size_t part = (size_t)bh * nsplit + split;
-  float* dst = nlive > 1 ? a.part_acc + part * rep * D
-                         : a.acc + (size_t)bh * rep * D;
+  float* dst = nlive > 1 ? a.part_acc + (part * nrep + r0) * D
+                         : a.acc + row0 * D;
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
@@ -476,19 +486,20 @@ decode_attn2_kernel(const Args a) {
     }
   if (nlive == 1) {
     if (!V1 && tid < rep) {
-      a.m[bh * rep + tid] = fin[tid * 2];
-      a.l[bh * rep + tid] = fin[tid * 2 + 1];
+      a.m[row0 + tid] = fin[tid * 2];
+      a.l[row0 + tid] = fin[tid * 2 + 1];
     }
     return;
   }
 
-  // ---- partial (m, l), ticket; the last split merges them in split order
+  // ---- partial (m, l), ticket (one a group); the last split merges the
+  // group's rows of them in split order
   if (tid < rep)
-    reinterpret_cast<float2*>(a.part_ml)[part * rep + tid] =
+    reinterpret_cast<float2*>(a.part_ml)[part * nrep + r0 + tid] =
         make_float2(fin[tid * 2], fin[tid * 2 + 1]);
   __threadfence();
   __syncthreads();
-  if (tid == 0) *flag = atomicAdd(a.tickets + bh, 1) == nlive - 1;
+  if (tid == 0) *flag = atomicAdd(a.tickets + blockIdx.x, 1) == nlive - 1;
   __syncthreads();
   if (!*flag) return;
   __threadfence();
@@ -496,7 +507,8 @@ decode_attn2_kernel(const Args a) {
   float* wgt = msl + 2 * nlive * rep;             // [nlive][rep]
   const size_t part0 = (size_t)bh * nsplit + first;
   for (int i = tid; i < 2 * nlive * rep; i += kThreads)
-    msl[i] = __ldcg(a.part_ml + part0 * rep * 2 + i);
+    msl[i] = __ldcg(a.part_ml + ((part0 + i / (2 * rep)) * nrep + r0) * 2 +
+                    i % (2 * rep));
   __syncthreads();
   if (tid < rep) {
     float mm = kNegInf, ll = 0.f;
@@ -525,7 +537,8 @@ decode_attn2_kernel(const Args a) {
       for (int k = 0; k < F::kOut4; ++k) {
         const int i4 = tid + kThreads * k;
         xs[u][k] = s0 + u < nlive && i4 < n4
-                       ? __ldcg(pacc + (part0 + s0 + u) * n4 + i4)
+                       ? __ldcg(pacc + ((part0 + s0 + u) * nrep + r0) *
+                                           (D / 4) + i4)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -542,7 +555,7 @@ decode_attn2_kernel(const Args a) {
         }
       }
   }
-  if (tid == 0) a.tickets[bh] = 0;
+  if (tid == 0) a.tickets[blockIdx.x] = 0;
 #pragma unroll
   for (int k = 0; k < F::kOut4; ++k) {
     const int i4 = tid + kThreads * k;
@@ -552,12 +565,12 @@ decode_attn2_kernel(const Args a) {
         const float ll = fin[((4 * i4) / D) * 2 + 1];
         v = make_float4(v.x / ll, v.y / ll, v.z / ll, v.w / ll);
       }
-      reinterpret_cast<float4*>(a.acc)[(size_t)bh * n4 + i4] = v;
+      reinterpret_cast<float4*>(a.acc)[row0 * (D / 4) + i4] = v;
     }
   }
   if (!V1 && tid < rep) {
-    a.m[bh * rep + tid] = fin[tid * 2];
-    a.l[bh * rep + tid] = fin[tid * 2 + 1];
+    a.m[row0 + tid] = fin[tid * 2];
+    a.l[row0 + tid] = fin[tid * 2 + 1];
   }
 }
 
@@ -575,7 +588,8 @@ size_t smem_bytes(Args& a, int nsplit) {
   if (st > 2 * a.tps) st = 2 * a.tps;
   a.nstage = st;
   size_t region = (size_t)st * F::kTileBytes;
-  const size_t merge = (size_t)12 * nsplit * a.rep;       // 3 x nsplit x rep
+  const size_t merge = (size_t)12 * nsplit * (a.rep < 8 ? a.rep : 8);
+                                                // 3 x nsplit x a group's rep
   if (merge > region) region = merge;
   region = (region + 127) & ~(size_t)127;
   a.region = (int)region;
@@ -593,13 +607,14 @@ int launch(Args a, cudaStream_t st) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   decode_attn2_kernel<KV4, D, V1>
-      <<<dim3(a.nb * a.nh, nsplit), Form<KV4, D>::kThreads, smem, st>>>(a);
+      <<<dim3(a.nb * a.nh * ((a.rep + 7) / 8), nsplit), Form<KV4, D>::kThreads,
+         smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool KV4, bool V1>
 int dispatch(const Args& a, int d, void* stream) {
-  if (a.rep < 1 || a.rep > 8 || a.tps < 1 || a.tps > kMaxTps || a.s_len < 1)
+  if (a.rep < 1 || a.tps < 1 || a.tps > kMaxTps || a.s_len < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d == 128) return launch<KV4, 128, V1>(a, st);
@@ -658,10 +673,11 @@ int attributes(int* out) {
 // q [B,H,rep,D] bf16; k/v codes [L,B,H,S,D] int8; k/v scales [L,B,H,S] f32;
 // pos/start [B] int32; outputs acc [B,H,rep,D], m/l [B,H,rep] f32; scratch
 // part_acc [B,H,nsplit,rep,D] and part_ml [B,H,nsplit,rep,2] f32 with
-// nsplit = ceil(ceil(S/64) / tps), tickets [B*H] int32 zeroed before the
-// first call (every call leaves them zero); tps: 64-position tiles a split,
-// 1 to 16.  D must be 128 or 256, rep 1 to 8.  Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for an unsupported D, rep or tps.
+// nsplit = ceil(ceil(S/64) / tps), tickets [B*H*ceil(rep/8)] int32 zeroed
+// before the first call (every call leaves them zero); tps: 64-position
+// tiles a split, 1 to 16.  D must be 128 or 256, rep 1 or more.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D, rep or
+// tps.
 extern "C" int pq_decode_attn2(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* pos,
                                const void* start, void* acc, void* m, void* l,

@@ -21,7 +21,7 @@
 // j <= i is j >= start(i).  Both starts are non-decreasing in i.
 //
 // q [B, Hkv, rep, T, D] bf16, k/v [B, Hkv, T, D] bf16, out f32, D 128 or
-// 256; any GQA rep from 1 to 8; the window w is T for the plain causal mask
+// 256; any GQA rep of 1 or more; the window w is T for the plain causal mask
 // (every key j <= i < T then has j > i - T).  Mask on indices (positions
 // are contiguous per row), the softcap on the scaled score before the mask
 // (tanhf, not the approximate tanh: at c = 50 its 2^-11 relative error is
@@ -66,8 +66,12 @@
 //      heads of ONE kv head times bq = 128 / rep (integer division)
 //      positions, head-major (row r * bq + i, the reference's order), so
 //      every K/V tile serves all rep heads and rep 3, 5, 6, 7 fill 126,
-//      125, 126, 126 rows; the padding rows are zeroed once and never
-//      stored.  Two consumer warpgroups own 64 rows each (wgmma M 64);
+//      125, 126, 126 rows (rep 12 and 16: 10 and 8 positions, 120 and 128
+//      rows; rep 64: 2 positions); the padding rows are zeroed once and
+//      never stored.  A rep above 128 cannot share an item: its heads go
+//      in groups of 128, one position an item (the group a coordinate of
+//      the item, as the kv head is).  Two consumer warpgroups own 64 rows
+//      each (wgmma M 64);
 //   4. per-element expf and a separate scale: here the scale and log2(e)
 //      are one multiply and the exponent one ex2 (MUFU).  Folding the
 //      scale into the exponent's FFMA saved an instruction an element but
@@ -113,7 +117,6 @@ using namespace pq;
 constexpr int kThreads = 256;       // two consumer warpgroups
 constexpr int kBlockThreads = 384;  // and a producer warpgroup
 constexpr int kRows = 128;          // query rows a block (64 a warpgroup)
-constexpr int kMaxRep = 8;
 constexpr int kSmemMax = 232448;    // a block's shared memory
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -510,20 +513,23 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
   blk.vempty = blk.kempty + S;
   blk.qempty = blk.vempty + S;
 
-  const int bq = kRows / rep;                    // positions a block
-  const int live = rep * bq;                     // rows holding a query
+  const int hpi = min(rep, kRows);               // heads an item
+  const int ngrp = (rep + hpi - 1) / hpi;        // head groups a kv head
+  const int bq = kRows / hpi;                    // positions an item
+  const int live = hpi * bq;                     // rows holding a query
   const int nq = (t + bq - 1) / bq;
-  const int rows_kv = nb * nh;
+  const int rows_kv = nb * nh * ngrp;
   const int items = nq * rows_kv;
-  // item i: its first position, kv head row and key walk
-  int q0 = 0, p0 = 0, kend = 0, last_start = 0;
+  // item i: its first position, kv head row, head group and key walk
+  int q0 = 0, p0 = 0, kend = 0, last_start = 0, h0 = 0;
   auto row_start = [&](int qp) -> int {
     if constexpr (kMode == kWindow) return qp - (window - 1);
     else return (p0 + qp) / chunk * chunk - p0;
   };
   auto item = [&](int i) {
     q0 = (nq - 1 - i / rows_kv) * bq;
-    blk.bh = i % rows_kv;
+    blk.bh = i % rows_kv / ngrp;
+    h0 = i % rows_kv % ngrp * hpi;
     p0 = kMode == kChunk ? __ldg(pos0 + blk.bh / nh) : 0;
     kend = min(t, q0 + bq);
     blk.kbegin = kStarts ? max(0, row_start(q0)) / N * N : 0;
@@ -571,12 +577,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
       int g = 0;
       for (int k = 0; item_of(k) < items; ++k) {
         item(item_of(k));
-        // Q: a (64, bq, rep) box an atom, head-major rows, zeros past T
+        // Q: a (64, bq, hpi) box an atom, head-major rows, zeros past T
+        // (a last head group past rep reads rows it never stores)
         if (k > 0) mbar_wait(blk.qempty, (k - 1) & 1);
         mbar_arrive_tx(qfull, kAtoms * 128 * live, true);
         for (int a = 0; a < kAtoms; ++a)
           tma_load_3d(qs + a * kQAtom, &q_map, qfull, 64 * a, q0,
-                      blk.bh * rep, true);
+                      blk.bh * rep + h0, true);
         for (int n = 0; n < blk.n_tiles; ++n, ++g) {
           if (g >= S) mbar_wait(&blk.kempty[g % S], ((g - S) / S) & 1);
           blk.load_k(g, n, true);
@@ -592,11 +599,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
     blk.lane = threadIdx.x % 32;
     blk.tq = blk.lane % 4;
     // the thread's rows a and b (g, g + 8 of its warp's 16) and their
-    // heads; a padding row (head >= rep) repeats a position and is never
-    // stored
+    // heads in the item's group; a padding row (past the group's heads or
+    // rep) repeats a position and is never stored
     const int row_a = 64 * wg + 16 * warp + blk.lane / 4, row_b = row_a + 8;
     const int hr_a = row_a / bq, hr_b = row_b / bq;
-    const int ha = min(hr_a, rep - 1), hb = min(hr_b, rep - 1);
     blk.q_addr = smem_u32(qs) + wg * 64 * 128;
     blk.k_addr = smem_u32(blk.ks);
     blk.v_addr = smem_u32(blk.vs);
@@ -610,6 +616,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
     blk.pass(wg == 1);                          // warpgroup 0 goes first
     for (int k = 0; item_of(k) < items; ++k) {
       item(item_of(k));
+      const int ha = min(h0 + hr_a, rep - 1), hb = min(h0 + hr_b, rep - 1);
       blk.qp_a = q0 + row_a % bq;
       blk.qp_b = q0 + row_b % bq;
       blk.st_a = kStarts ? row_start(blk.qp_a) : 0;
@@ -645,8 +652,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
         l_a += exp2f(__ldg(sinks + hh * rep + ha) * kLog2e - blk.m_a);
         l_b += exp2f(__ldg(sinks + hh * rep + hb) * kLog2e - blk.m_b);
       }
-      const bool out_a = hr_a < rep && blk.qp_a < t;
-      const bool out_b = hr_b < rep && blk.qp_b < t;
+      const bool out_a = hr_a < hpi && h0 + hr_a < rep && blk.qp_a < t;
+      const bool out_b = hr_b < hpi && h0 + hr_b < rep && blk.qp_b < t;
       float* const oa = out + (((size_t)blk.bh * rep + ha) * t + blk.qp_a) * D;
       float* const ob = out + (((size_t)blk.bh * rep + hb) * t + blk.qp_b) * D;
 #pragma unroll
@@ -676,10 +683,11 @@ int launch(const void* q, const void* k, const void* v, void* out,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  const int bq = kRows / rep;
+  const int hpi = rep < kRows ? rep : kRows;
+  const int bq = kRows / hpi;
   CUtensorMap qm, km, vm;
   const uint64_t qd[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)nb * nh * rep};
-  const uint32_t qbox[3] = {64, (uint32_t)bq, (uint32_t)rep};
+  const uint32_t qbox[3] = {64, (uint32_t)bq, (uint32_t)hpi};
   const uint64_t kd[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)nb * nh};
   const uint32_t kbox[3] = {64, (uint32_t)keys<D>(), 1};
   if (!encode(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, q, qd, qbox,
@@ -690,7 +698,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   // one block an SM (its shared memory allows no more), none idle
-  const int items = (t + bq - 1) / bq * nb * nh;
+  const int items = (t + bq - 1) / bq * nb * nh * ((rep + hpi - 1) / hpi);
   static const int sms = [] {
     int dev = 0, n = 0;
     cudaGetDevice(&dev);
@@ -770,7 +778,7 @@ int attributes_mode(int mode, int softcap, int sinks, int* out) {
 // from the absolute position pos0[b] of row 0 (pos0: [B] int32 on the
 // device); their scaled scores capped at softcap (0: no cap); sinks [H *
 // rep] f32 on the device (null: none) join each row's denominator.  rep
-// must be 1 to 8, window >= 1, chunk >= 0 and softcap >= 0.  Returns
+// must be 1 or more, window >= 1, chunk >= 0 and softcap >= 0.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D, rep,
 // window, chunk or softcap, a chunk beside a window, or a chunk without
 // pos0.
@@ -781,7 +789,7 @@ extern "C" int pq_flash_prefill(const void* q, const void* k, const void* v,
                                 float sm_scale, float softcap, void* stream) {
   const int* pos0 = static_cast<const int*>(pos0_ptr);
   const float* sinks = static_cast<const float*>(sinks_ptr);
-  if (rep < 1 || rep > kMaxRep || window < 1 || chunk < 0 ||
+  if (rep < 1 || window < 1 || chunk < 0 ||
       !(softcap >= 0.f) || (chunk > 0 && (window < t || pos0 == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -661,7 +661,7 @@ def _tp_not_ported(tp: int) -> None:
     if tp != 1:
         raise NotImplementedError(
             f"fused projections at tp={tp}: tensor parallelism is not ported "
-            "yet (ROADMAP.md queue 1 item 16)")
+            "yet (ROADMAP.md queue 1 item 16b)")
 
 
 def _interleave_cols(ws, tp: int):
@@ -687,7 +687,7 @@ def fuse_layer_projections(params: Dict, cfg: LlamaConfig,
     concat), with `fused_tp` (an int) recorded: 7 -> 4 projections a dense
     layer.  qkv_bias models keep their params unfused; MoE layers fuse only
     the attention projections.  tp > 1 raises (ROADMAP.md queue 1 item
-    16)."""
+    16b)."""
     if cfg.qkv_bias:
         return params
     _tp_not_ported(tp)

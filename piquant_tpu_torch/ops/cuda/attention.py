@@ -18,11 +18,10 @@ from typing import Optional
 import torch
 
 from piquant_tpu_torch.ops.cuda import _build
-from piquant_tpu_torch.ops.cuda.decode_attn2 import scratch
+from piquant_tpu_torch.ops.cuda.decode_attn2 import check_head_dim, scratch
 
 S_CHUNK = 512      # the reference's chunk of the online softmax
 NEG_INF = -1e30
-_D = (128, 256)      # head dims the kernel takes
 
 
 def decode_attn_plain(q, k_codes, k_scale, v_codes, v_scale, positions,
@@ -71,13 +70,8 @@ def decode_attn(q, k_codes, k_scale, v_codes, v_scale, positions,
     name = "decode_attn"
     b, hkv, rep, d = q.shape
     nb, nh, s_len, cd = k_codes.shape
-    if d not in _D or cd != d:
-        raise NotImplementedError(
-            f"{name}: head_dim {d} (the kernel takes 128 and 256)")
-    if not 1 <= rep <= 8:
-        raise NotImplementedError(f"{name}: GQA rep {rep} "
-                                  "(the kernel takes 1 to 8)")
-    if (nb, nh) != (b, hkv):
+    check_head_dim(name, d)
+    if (nb, nh) != (b, hkv) or cd != d:
         raise ValueError(f"{name}: q and cache shapes disagree")
     if (k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8
             or k_scale.dtype != torch.float32

@@ -24,7 +24,17 @@ NEG_INF = -1e30
 TILE = 64          # cache positions a ring stage holds (csrc/decode_attn2.cu)
 MAX_TILES = 16     # tiles a split at most (the kernel keeps their scores)
 SPLITS = 8         # splits a (b, kv head) at most, where S allows
+GROUP = 8          # rep heads a block: a rep above takes groups of 8
 _D = (128, 256)      # head dims the kernel takes
+
+
+def check_head_dim(name: str, d: int) -> None:
+    """Raise for a head dim the decode kernels do not take (wider heads
+    wait for another tiling: ROADMAP.md queue 2 item 3)."""
+    if d not in _D:
+        raise NotImplementedError(
+            f"{name}: head_dim {d} (the kernel takes 128 and 256; wider "
+            "heads: ROADMAP.md queue 2 item 3)")
 
 
 def split_tiles(s_len: int) -> Tuple[int, int]:
@@ -43,13 +53,14 @@ def split_tiles(s_len: int) -> Tuple[int, int]:
 
 def scratch(q: torch.Tensor, s_len: int):
     """(tiles a split, partial acc, partial (m, l), tickets) of one launch
-    on q's device (q [B, Hkv, rep, D])."""
+    on q's device (q [B, Hkv, rep, D]): a ticket for each group of up to
+    GROUP rep heads of a (b, kv head), the kernel's blocks."""
     b, hkv, rep, d = q.shape
     tps, nsplit = split_tiles(s_len)
     f32 = dict(dtype=torch.float32, device=q.device)
     return (tps, torch.empty((b, hkv, nsplit, rep, d), **f32),
             torch.empty((b, hkv, nsplit, rep, 2), **f32),
-            _build.tickets(q.device, b * hkv))
+            _build.tickets(q.device, b * hkv * -(-rep // GROUP)))
 
 
 def decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale, positions,
@@ -88,13 +99,8 @@ def _launch(entry, kv4, q, k_codes, k_scale, v_codes, v_scale, positions,
     b, hkv, rep, d = q.shape
     nl, nb, nh, rows, cd = k_codes.shape
     s_len = 2 * rows if kv4 else rows
-    if d not in _D or cd != d:
-        raise NotImplementedError(
-            f"{name}: head_dim {d} (the kernel takes 128 and 256)")
-    if not 1 <= rep <= 8:
-        raise NotImplementedError(f"{name}: GQA rep {rep} "
-                                  "(the kernel takes 1 to 8)")
-    if (nb, nh) != (b, hkv) or not 0 <= layer < nl:
+    check_head_dim(name, d)
+    if (nb, nh) != (b, hkv) or cd != d or not 0 <= layer < nl:
         raise ValueError(f"{name}: q and cache shapes disagree")
     cdt = torch.uint8 if kv4 else torch.int8
     if (k_codes.dtype != cdt or v_codes.dtype != cdt

@@ -90,9 +90,6 @@ def flash_attn(q, k, v, sm_scale: float, window: Optional[int] = None,
         raise NotImplementedError(
             f"flash_attn: head_dim {d} (the kernel takes 128 and 256; wider "
             "heads: ROADMAP.md queue 2 item 3)")
-    if not 1 <= rep <= 8:
-        raise NotImplementedError(f"flash_attn: GQA rep {rep} (the kernel "
-                                  "takes 1 to 8)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attn: window {window} < 1")
     if chunk is not None and (chunk < 1 or window is not None):

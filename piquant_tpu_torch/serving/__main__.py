@@ -1,12 +1,17 @@
 """Serving CLI of the port:  python -m piquant_tpu_torch.serving [options]
 
-The counterpart of `python -m piquant_tpu.serving` for random-weight
-models: builds the model, then serves the token-id prompts given on the
-command line (comma-separated ids, or stdin) or runs a synthetic load
-benchmark through the continuous-batching engine.  Runs on the GPU;
-`--device cpu` runs it on the CPU.
+The counterpart of `python -m piquant_tpu.serving`: loads an HF checkpoint
+directory (`--model DIR`: config.json and safetensors shards, read without
+transformers) or builds a random-weight preset, quantizes its weights, then
+serves the prompts given on the command line (or stdin) or runs a
+synthetic load benchmark through the continuous-batching engine.  Prompts
+are text under `--model` (encoded and decoded by the checkpoint's
+transformers tokenizer, imported only then) and comma-separated token ids
+otherwise.  Runs on the GPU; `--device cpu` runs it on the CPU.
 
 Examples:
+  python -m piquant_tpu_torch.serving --model /path/to/llama --bits 4 "Hello"
+  python -m piquant_tpu_torch.serving --model /path/to/llama --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --group-size 128 --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --act-quant-prefill --benchmark 8
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -56,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                                                "token ids")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
-    ap.add_argument("--model", help="HF checkpoint path (not ported)")
+    ap.add_argument("--model", help="HF checkpoint directory (config.json "
+                                    "and safetensors shards)")
     ap.add_argument("--random", metavar="PRESET", choices=PRESETS,
                     help="random-weight model preset (tiny, llama3_8b, "
                          "mistral_7b, qwen2_7b, qwen3_8b, phi3_mini, "
@@ -128,8 +135,6 @@ def _not_ported(args) -> None:
     """Raise for every flag of the reference CLI the port does not have
     yet, naming its ROADMAP.md item."""
     todo = []
-    if args.model:
-        todo.append("--model (HF loader: queue 1 item 9)")
     if args.random not in (None,) + FLOAT_INIT + RANDOM_CODES:
         todo.append(f"--random {args.random} (queue 1 item 11 (MLA))")
     if args.serve is not None:
@@ -152,7 +157,11 @@ def build(args):
     """The model, the engine and the sampling parameters the flags ask for:
     (cfg, params, engine, sampling).
 
-    The RANDOM_CODES presets are built from random codes with the
+    `--model` loads the checkpoint in bf16 (`load_from_hf`, unquantized)
+    and quantizes it as the reference CLI does (`quantize_params` with
+    --bits, --group-size and the --mlp-* overrides; the lm_head stays
+    bf16), and its requests stop at the checkpoint's EOS id
+    (`checkpoint_eos`).  The RANDOM_CODES presets are built from random codes with the
     reference CLI's INT8 lm_head; the port also passes them the
     weight-format flags (--group-size, --mlp-bits, --mlp-group-size), which
     the reference CLI applies only to the float-quantized presets; the MoE
@@ -168,12 +177,20 @@ def build(args):
 
     dev = resolve_device(args.device)
     preset = args.random or "tiny"
-    cfg = dataclasses.replace(getattr(M.LlamaConfig, preset)(),
-                              kv_bits=args.kv_bits,
+    mlp = _mlp_overrides(args)
+    if args.model:
+        from piquant_tpu_torch.models.loader import load_from_hf
+
+        cfg, params = load_from_hf(args.model, quantize_bits=None, device=dev)
+    else:
+        cfg = getattr(M.LlamaConfig, preset)()
+    cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits,
                               act_quant_prefill=args.act_quant_prefill,
                               act_quant_decode=args.act_quant_decode)
-    mlp = _mlp_overrides(args)
-    if preset in RANDOM_CODES:
+    if args.model:
+        params = M.quantize_params(params, bits=args.bits,
+                                   group_size=args.group_size, overrides=mlp)
+    elif preset in RANDOM_CODES:
         mlp_bits, mlp_gs = mlp["w1"] if mlp else (None, None)
         params = M.random_quantized_params(
             cfg, 0, bits=args.bits, lm_head_bits=8, group_size=args.group_size,
@@ -197,11 +214,51 @@ def build(args):
         draft = (cfg, M.requantize_params(params, args.draft_bits,
                                           group_size=args.draft_group_size))
     eng = Engine(cfg, params, ec, draft=draft, device=dev)
+    eos = checkpoint_eos(args.model) if args.model else None
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, min_p=args.min_p,
                         repetition_penalty=args.repetition_penalty,
-                        max_new_tokens=args.max_new, eos_token=-1)
+                        max_new_tokens=args.max_new,
+                        eos_token=-1 if eos is None else eos)
     return cfg, params, eng, sp
+
+
+def _read_json(path, name):
+    full = os.path.join(path, name)
+    if not os.path.exists(full):
+        return {}
+    with open(full) as f:
+        return json.load(f)
+
+
+def checkpoint_eos(path):
+    """The checkpoint's EOS id, read from its files without transformers
+    (the reference takes its tokenizer's eos_token_id): tokenizer_config's
+    eos_token resolved through its added_tokens_decoder or tokenizer.json's
+    added tokens and vocab; else generation_config.json's eos_token_id, else
+    config.json's (the first of a list).  None if no file names one."""
+    tc = _read_json(path, "tokenizer_config.json")
+    name = tc.get("eos_token")
+    if isinstance(name, dict):
+        name = name.get("content")
+    if name is not None:
+        ids = {t["content"]: int(i)
+               for i, t in tc.get("added_tokens_decoder", {}).items()}
+        tj = _read_json(path, "tokenizer.json")
+        ids.update({t["content"]: t["id"]
+                    for t in tj.get("added_tokens", ())})
+        vocab = tj.get("model", {}).get("vocab")
+        if isinstance(vocab, dict):
+            ids = {**vocab, **ids}
+        if name in ids:
+            return ids[name]
+    for f in ("generation_config.json", "config.json"):
+        eos = _read_json(path, f).get("eos_token_id")
+        if isinstance(eos, list):
+            eos = eos[0] if eos else None
+        if eos is not None:
+            return int(eos)
+    return None
 
 
 def benchmark(args, cfg, eng, sp):
@@ -231,11 +288,43 @@ def benchmark(args, cfg, eng, sp):
     return m, done
 
 
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
+                   "tokenizer.model")
+
+
+def tokenizer(path):
+    """The checkpoint's transformers tokenizer: the one import of
+    transformers, made only where text is encoded or decoded (the reference
+    CLI builds it first, unconditionally)."""
+    if not any(os.path.exists(os.path.join(path, f))
+               for f in TOKENIZER_FILES):
+        raise FileNotFoundError(
+            f"{path} holds no tokenizer ({', '.join(TOKENIZER_FILES)}): text "
+            "prompts need one (--benchmark does not)")
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError("text prompts under --model need the "
+                          "`transformers` package for the checkpoint's "
+                          "tokenizer (--benchmark needs none)") from e
+    return AutoTokenizer.from_pretrained(path)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from piquant_tpu_torch.serving import Request
 
+    raw = []
+    if not args.benchmark:
+        raw = args.prompts or [l.strip() for l in sys.stdin if l.strip()]
+        if not raw:
+            print("no prompts (pass as args or stdin); see --help",
+                  file=sys.stderr)
+            return 2
+    tok = tokenizer(args.model) if args.model and raw else None
     cfg, params, eng, sp = build(args)
+    if tok is not None and tok.eos_token_id is not None:
+        sp = dataclasses.replace(sp, eos_token=tok.eos_token_id)
     if args.benchmark:
         m, _ = benchmark(args, cfg, eng, sp)
         print(json.dumps(m), flush=True)
@@ -243,15 +332,13 @@ def main(argv=None) -> int:
             eng.metrics.emit(args.metrics_out)
         return 0
 
-    raw = args.prompts or [l.strip() for l in sys.stdin if l.strip()]
-    if not raw:
-        print("no prompts (pass as args or stdin); see --help", file=sys.stderr)
-        return 2
     for i, text in enumerate(raw):
-        eng.submit(Request(rid=i, prompt=[int(t) for t in text.split(",")],
-                           sampling=sp))
+        ids = (tok.encode(text) if tok
+               else [int(t) for t in text.split(",")])
+        eng.submit(Request(rid=i, prompt=ids, sampling=sp))
     for r in sorted(eng.run(), key=lambda r: r.rid):
-        print(f"[{r.rid}] ttft={r.ttft_s * 1e3:.0f}ms | {r.tokens}")
+        out = tok.decode(r.tokens) if tok else r.tokens
+        print(f"[{r.rid}] ttft={r.ttft_s * 1e3:.0f}ms | {out}")
     if args.metrics_out:
         eng.metrics.emit(args.metrics_out)
     return 0

@@ -182,11 +182,13 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
 # gpt_oss_20b and llama4_scout serve since item 5 was ported:
 # tests/test_torch_llama4_gpt_oss.py::test_cli_presets; --prefill-chunk and
 # --attn-windows since item 8: test_cli_serves_item8_flags; --speculate and
-# --draft-* since item 10: test_cli_serves_item10_flags).
+# --draft-* since item 10: test_cli_serves_item10_flags; --model since item
+# 9: test_cli_serves_model; the cases keep the ids they had beside it).
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "/no/such/checkpoint"], 9), (["--random", "mla_v2_lite"], 11),
-    (["--random", "mla_v2_moe"], 11), (["--random", "mla_tiny"], 11),
-    (["--serve", "8123"], 12)])
+    pytest.param(["--random", "mla_v2_lite"], 11, id="argv1-11"),
+    pytest.param(["--random", "mla_v2_moe"], 11, id="argv2-11"),
+    pytest.param(["--random", "mla_tiny"], 11, id="argv3-11"),
+    pytest.param(["--serve", "8123"], 12, id="argv4-12")])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\b"):
         S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
@@ -408,3 +410,119 @@ def test_cli_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         S.main(["--random", "tiny", "--benchmark", "1"])
+
+
+@pytest.fixture(scope="module")
+def tiny_checkpoint(tmp_path_factory):
+    """A tiny random-init Llama checkpoint (head_dim 128, rep 2) saved by
+    transformers, and a word-level tokenizer of its 256 ids ("w0" ..
+    "w255", eos "w1") saved beside it in a second directory."""
+    import transformers
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    torch.manual_seed(SEED)
+    conf = transformers.LlamaConfig(
+        vocab_size=256, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        max_position_embeddings=512, tie_word_embeddings=False)
+    model = transformers.LlamaForCausalLM(conf).eval()
+    path = tmp_path_factory.mktemp("ckpt")
+    model.save_pretrained(path, safe_serialization=True)
+    with_tok = tmp_path_factory.mktemp("ckpt_tok")
+    model.save_pretrained(with_tok, safe_serialization=True)
+    tok = Tokenizer(models.WordLevel({f"w{i}": i for i in range(256)},
+                                     unk_token="w0"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    transformers.PreTrainedTokenizerFast(
+        tokenizer_object=tok, unk_token="w0",
+        eos_token="w1").save_pretrained(with_tok)
+    return model, str(path), str(with_tok)
+
+
+# --model DIR as the reference CLI: the checkpoint loaded unquantized, then
+# quantize_params with --bits, --group-size and the --mlp-* overrides (the
+# lm_head left bf16): every leaf equal to the JAX package's load of the
+# same model quantized alike; the benchmark serves every request.
+@pytest.mark.parametrize("flags,kw", [
+    ((), dict(bits=4)),
+    (("--group-size", "64", "--mlp-bits", "2", "--mlp-group-size", "32"),
+     dict(bits=4, group_size=64, overrides=MLP2))])
+def test_cli_serves_model(tiny_checkpoint, capsys, flags, kw):
+    from piquant_tpu.models.loader import load_from_hf as j_load
+    from test_torch_loader import assert_trees_equal
+
+    model, path, _ = tiny_checkpoint
+    argv = ["--model", path, "--device", "cpu", "--benchmark", "2",
+            "--slots", "2", "--max-new", "4", "--max-seq-len", "256", *flags]
+    args = S.build_parser().parse_args(argv)
+    cfg, params, eng, sp = S.build(args)
+    assert isinstance(params["lm_head"], torch.Tensor)
+    assert params["lm_head"].dtype == torch.bfloat16
+    jcfg, jparams = j_load(model, quantize_bits=None)
+    assert cfg == convert.config_from_jax(jcfg)
+    assert_trees_equal(params, convert.params_from_jax(
+        JM.quantize_params(jparams, **kw), device=CPU))
+    assert S.main(argv) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["completed"] == 2
+
+
+def test_cli_model_text_prompts(tiny_checkpoint, capsys, monkeypatch):
+    """Text prompts under --model go through the checkpoint's tokenizer
+    (encoded, decoded, its eos); without a tokenizer in the directory, or
+    without transformers, they raise before the model loads; --benchmark
+    needs no tokenizer."""
+    import sys
+
+    _, path, with_tok = tiny_checkpoint
+    argv = ["--device", "cpu", "--max-new", "3", "--max-seq-len", "256"]
+    assert S.main(["--model", with_tok, *argv, "w5 w6 w7", "w9"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert [o.split(" | ")[0].split()[0] for o in out] == ["[0]", "[1]"]
+    for o in out:
+        words = o.split(" | ")[1].split()
+        assert 1 <= len(words) <= 3 and all(w[0] == "w" for w in words)
+    with pytest.raises(FileNotFoundError, match="no tokenizer"):
+        S.main(["--model", path, *argv, "w5 w6"])
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(ImportError, match="transformers"):
+        S.main(["--model", with_tok, *argv, "w5 w6"])
+    assert S.main(["--model", path, *argv, "--benchmark", "1"]) == 0
+
+
+def test_cli_model_eos(tiny_checkpoint, tmp_path):
+    """Under --model the requests stop at the checkpoint's EOS id, read
+    without transformers as the reference's tokenizer gives it
+    (tokenizer_config's eos_token), else from generation_config.json or
+    config.json; the benchmark's requests end at it."""
+    import shutil
+
+    import transformers
+
+    _, path, with_tok = tiny_checkpoint
+    assert S.checkpoint_eos(with_tok) == (
+        transformers.AutoTokenizer.from_pretrained(with_tok).eos_token_id)
+    assert S.checkpoint_eos(path) == transformers.AutoConfig.from_pretrained(
+        path).eos_token_id
+    ckpt = tmp_path / "ckpt"
+    shutil.copytree(path, ckpt)
+    (ckpt / "generation_config.json").unlink()
+    conf = json.loads((ckpt / "config.json").read_text())
+
+    def serve(eos):
+        (ckpt / "config.json").write_text(json.dumps(
+            dict(conf, eos_token_id=eos)))
+        args = S.build_parser().parse_args(
+            ["--model", str(ckpt), "--device", "cpu", "--benchmark", "2",
+             "--slots", "2", "--max-new", "6", "--max-seq-len", "256"])
+        cfg, params, eng, sp = S.build(args)
+        assert sp.eos_token == (-1 if eos is None else eos[0])
+        m, done = S.benchmark(args, cfg, eng, sp)
+        assert m["completed"] == 2
+        return {r.rid: r.tokens for r in done}
+
+    free = serve(None)
+    assert all(len(t) == 6 for t in free.values())
+    eos = free[0][2]
+    stop = free[0].index(eos) + 1
+    assert serve([eos, 5])[0] == free[0][:stop]

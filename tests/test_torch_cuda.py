@@ -577,9 +577,10 @@ def test_decode_attn2_kv4_refuses(dev):
     with pytest.raises(ValueError):           # scales not parity-split
         flat = ks.reshape(1, 1, 1, 256, 1)
         DA.decode_attn2_kv4(q, kc, flat, vc, flat, pos, pos, 1.0, 0)
-    with pytest.raises(NotImplementedError):  # rep 9
-        DA.decode_attn2_kv4(torch.zeros((1, 1, 9, 128), device=dev), kc, ks,
-                            vc, vs, pos, pos, 1.0, 0)
+    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
+        kc3, ks3, vc3, vs3 = _kv4_cache(dev, g, 1, 1, 1, 256, 384)
+        DA.decode_attn2_kv4(torch.zeros((1, 1, 2, 384), device=dev), kc3,
+                            ks3, vc3, vs3, pos, pos, 1.0, 0)   # head_dim 384
 
 
 def test_kv4_decode_step_on_card(dev):
@@ -767,9 +768,11 @@ def test_decode_attn2_refuses(dev):
     kc = torch.zeros((1, 1, 1, 256, 128), dtype=torch.int8, device=dev)
     ks = torch.zeros((1, 1, 1, 256, 1), device=dev)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):          # rep 9
-        DA.decode_attn2(q, kc, ks, kc, ks, pos, pos, 1.0, 0)
-    with pytest.raises(NotImplementedError):          # head_dim 384
+    with pytest.raises(ValueError):                   # 2 kv heads for 1
+        DA.decode_attn2(q.expand(1, 2, 9, 128), kc, ks, kc, ks, pos, pos,
+                        1.0, 0)
+    with pytest.raises(NotImplementedError,           # head_dim 384
+                       match="queue 2 item 3"):
         DA.decode_attn2(torch.zeros((1, 1, 2, 384), device=dev),
                         torch.zeros((1, 1, 1, 256, 384), dtype=torch.int8,
                                     device=dev), ks, kc, ks, pos, pos, 1.0, 0)
@@ -993,10 +996,10 @@ def test_flash_refuses(dev):
                       torch.zeros((1, 1, 128, 128), device=dev),
                       torch.zeros((1, 1, 128, 128), device=dev), 1.0,
                       softcap=0.0)
-    with pytest.raises(NotImplementedError):          # rep 9
+    with pytest.raises(ValueError):                   # k of 2 kv heads
         FL.flash_attn(torch.zeros((1, 1, 9, 128, 128), device=dev),
-                      torch.zeros((1, 1, 128, 128), device=dev),
-                      torch.zeros((1, 1, 128, 128), device=dev), 1.0)
+                      torch.zeros((1, 2, 128, 128), device=dev),
+                      torch.zeros((1, 2, 128, 128), device=dev), 1.0)
     with pytest.raises(ValueError):                   # window 0
         FL.flash_attn(torch.zeros((1, 1, 2, 128, 128), device=dev),
                       torch.zeros((1, 1, 128, 128), device=dev),
@@ -1682,9 +1685,10 @@ def test_decode_attn_refuses(dev):
     kc, ks, vc, vs = _v1_cache(dev, g, 2, 2, 256, 128)
     q = torch.zeros((2, 2, 4, 128), dtype=torch.bfloat16, device=dev)
     pos = torch.zeros(2, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="rep"):
-        AT.decode_attn(torch.zeros((2, 2, 9, 128), device=dev), kc, ks, vc,
-                       vs, pos, 0.1)
+    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
+        kc3, ks3, vc3, vs3 = _v1_cache(dev, g, 2, 2, 256, 384)
+        AT.decode_attn(torch.zeros((2, 2, 9, 384), device=dev), kc3, ks3,
+                       vc3, vs3, pos, 0.1)
     with pytest.raises(NotImplementedError, match="head_dim"):
         AT.decode_attn(torch.zeros((2, 2, 4, 64), device=dev), kc[..., :64],
                        ks, vc[..., :64], vs, pos, 0.1)
@@ -2048,3 +2052,185 @@ def test_rejection_sampling_marginal_on_card(dev):
     acc = float((n_acc >= 1).double().mean())
     assert tv < 0.04, tv
     assert 0.05 < acc < 1.0, acc
+
+
+# GQA reps above 8: the decode kernels take a group of 8 rep heads a block
+# (a group index in the grid, a ticket and a merge of its own), flash a
+# 128-row item of rep heads x 128 // rep positions (rep 16: 8 positions,
+# rep 64: 2).  Reps 9 (a group of 1 beside one of 8), 12 (Mistral-Large-2),
+# 16 (Qwen3-235B-A22B, Llama-3.1-405B) and 64 (a multi-query layer of 64
+# heads); kv8 and kv4 with rows of one split and of several (merged), a
+# row with no live position and window starts; bounds as at reps 1-8.
+GQA_REPS = [9, 12, 16, 64]
+
+
+@pytest.mark.parametrize("rep", GQA_REPS)
+@pytest.mark.parametrize("kv", ["kv8", "kv4"])
+@pytest.mark.parametrize("d", [128, 256])
+def test_decode_attn2_reps_above_8(dev, rep, kv, d):
+    g = _gen(dev, 9000 + rep + d + (kv == "kv4"))
+    nl, b, hkv, s = 2, 4, 2, 2048
+    if kv == "kv4":
+        kc, ks, vc, vs = _kv4_cache(dev, g, nl, b, hkv, s, d)
+        kern = DA.decode_attn2_kv4
+    else:
+        shape = (nl, b, hkv, s, d)
+        kc, vc = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1] + (1,), generator=g, device=dev)
+                  * 0.02 for _ in range(2))
+        kern = DA.decode_attn2
+    q = torch.randn((b, hkv, rep, d), generator=g, device=dev)
+    pos = torch.tensor([0, 33, 2047, 1501], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 1025, 3], dtype=torch.int32, device=dev)
+    before = kern.launches
+    acc, m, l = kern(q, kc, ks, vc, vs, pos, start, d ** -0.5, 1)
+    assert kern.launches == before + 1
+    pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                         d ** -0.5, 1)
+    assert (m[0] == -1e30).all() and (l[0] == 0).all() and (acc[0] == 0).all()
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=2e-2, atol=0)
+    torch.testing.assert_close(acc[1:] / l[1:], pacc[1:] / pl[1:],
+                               atol=2e-3, rtol=2e-2)
+    # every group's ticket is back at zero, and a second call is bit-equal
+    torch.cuda.synchronize()
+    assert int(_build.tickets(dev, b * hkv * -(-rep // 8)).abs().sum()) == 0
+    again = kern(q, kc, ks, vc, vs, pos, start, d ** -0.5, 1)
+    assert all(torch.equal(x, y) for x, y in zip(again, (acc, m, l)))
+
+
+@pytest.mark.parametrize("rep", GQA_REPS)
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("peaked", [False, True])
+def test_decode_attn_reps_above_8(dev, rep, d, peaked):
+    g = _gen(dev, 9100 + rep + d + peaked)
+    b, hkv, s = 3, 2, 2048
+    kc, ks, vc, vs = _v1_cache(dev, g, b, hkv, s, d, peaked)
+    q = torch.randn((b, hkv, rep, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = torch.tensor([0, s - 1, 700], dtype=torch.int32, device=dev)
+    before = AT.decode_attn.launches
+    got = AT.decode_attn(q, kc, ks, vc, vs, pos, d ** -0.5)
+    assert AT.decode_attn.launches == before + 1
+    want = AT.decode_attn_plain(q, kc, ks, vc, vs, pos, d ** -0.5)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
+
+
+# flash at each rep: causal at T of whole 128-row tiles and ragged (T 1
+# and a T of fewer positions than an item holds), a window, Llama-4's
+# chunk with pos0, GPT-OSS's sinks, and the softcap; D 128 and 256.  The
+# causal and window cases within the stated bound 2e-3 + 2e-2 |want|, but
+# for at most one element in 2^22, and that one within twice the
+# probabilities' rounding (`rounding_bound`); the chunk, sinks and softcap
+# within the stated bound plus that, as test_flash_chunk_sinks_match_plain.
+# The gap's tail grows with the elements, not the rep: over 16 seeds on the
+# card (tools/flash_rep_tail.py), rep 8 at B 16 and D 128 (8.4M elements)
+# put one element past the stated bound, rep 64 at B 2 and D 256 (16.8M)
+# one, every case within a third of the wider bound.
+FLASH_ROUNDING_MODES = ("chunk", "sinks", "softcap")
+FLASH_REP_MODES = {
+    "causal": {}, "window": dict(window=63), "window_wide": dict(window=200),
+    "chunk": dict(chunk=96, pos0=(40, 1000)), "sinks": dict(sinks=True),
+    "softcap": dict(softcap=2.0)}
+
+
+@pytest.mark.parametrize("rep", GQA_REPS)
+@pytest.mark.parametrize("mode", list(FLASH_REP_MODES))
+@pytest.mark.parametrize("t", [256, 200, 5, 1])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_reps_above_8(dev, rep, mode, t, d):
+    g = _gen(dev, 9200 + rep * t + d + len(mode))
+    b, hkv = 2, 2
+    kw = dict(FLASH_REP_MODES[mode])
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn((hkv, rep), generator=g, device=dev)
+        kw["sinks"][:, 0] += 3.0
+    if "pos0" in kw:
+        kw["pos0"] = torch.tensor(kw["pos0"], dtype=torch.int32, device=dev)
+    q = torch.randn((b, hkv, rep, t, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    sm = d ** -0.5
+    before = FL.flash_attn.launches
+    got = FL.flash_attn(q, k, v, sm, **kw)
+    assert FL.flash_attn.launches == before + 1
+    want = FL.flash_attn_plain(q, k, v, sm, **kw)
+    assert bool(torch.isfinite(got).all())
+    gap, stated = (got - want).abs(), 2e-3 + 2e-2 * want.abs()
+    wide = stated + 2 * FL.rounding_bound(q, k, v, sm, **kw)
+    assert bool((gap <= wide).all())
+    if mode not in FLASH_ROUNDING_MODES:
+        assert int((gap > stated).sum()) <= got.numel() // 2 ** 22
+
+
+# A rep above 128 cannot share a 128-row flash item: its heads go in groups
+# of 128, one position an item (rep 160: a group of 128 and one of 32); the
+# decode kernels take its 20 groups of 8.
+@pytest.mark.parametrize("t", [130, 7])
+def test_flash_rep_above_128(dev, t):
+    g = _gen(dev, 9300 + t)
+    b, hkv, rep, d = 1, 2, 160, 128
+    q = torch.randn((b, hkv, rep, t, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    sinks = torch.randn((hkv, rep), generator=g, device=dev)
+    got = FL.flash_attn(q, k, v, d ** -0.5, sinks=sinks)
+    want = FL.flash_attn_plain(q, k, v, d ** -0.5, sinks=sinks)
+    lim = 2e-3 + 2e-2 * want.abs() + 2 * FL.rounding_bound(
+        q, k, v, d ** -0.5, sinks=sinks)
+    assert bool(((got - want).abs() <= lim).all())
+
+
+def test_decode_attn2_rep_160(dev):
+    g = _gen(dev, 9400)
+    nl, b, hkv, s, d = 1, 2, 1, 1024, 128
+    shape = (nl, b, hkv, s, d)
+    kc, vc = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:-1] + (1,), generator=g, device=dev) * 0.02
+              for _ in range(2))
+    q = torch.randn((b, hkv, 160, d), generator=g, device=dev)
+    pos = torch.tensor([1000, 17], dtype=torch.int32, device=dev)
+    start = torch.zeros(2, dtype=torch.int32, device=dev)
+    acc, m, l = DA.decode_attn2(q, kc, ks, vc, vs, pos, start, d ** -0.5, 0)
+    pacc, pm, pl = DA.decode_attn2_plain(q, kc, ks, vc, vs, pos, start,
+                                         d ** -0.5, 0)
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(acc / l, pacc / pl, atol=2e-3, rtol=2e-2)
+
+
+def test_safetensors_shards_to_card(dev, tmp_path):
+    """A checkpoint written in shards and read back straight to the card:
+    every tensor (bf16, f32, int8, bool) bit for bit on the device, by the
+    index's weight_map; the weight cache and the safetensors export of a
+    quantized tree come back on the card leaf for leaf."""
+    from piquant_tpu_torch.utils import safetensors_io as ST
+    from piquant_tpu_torch.utils import weight_cache as WC
+    from piquant_tpu_torch.quant.linear import quantize_linear_weight
+
+    g = _gen(dev, 20)
+    sd = {"a.bf16": torch.randn(300, 257, generator=g,
+                                device=dev).bfloat16(),
+          "b.f32": torch.randn(1000, generator=g, device=dev),
+          "c.i8": torch.randint(-128, 128, (7, 9), generator=g, device=dev,
+                                dtype=torch.int8),
+          "d.bool": torch.rand(33, generator=g, device=dev) > 0.5}
+    ST.save_checkpoint(sd, str(tmp_path / "ckpt"), shards=3)
+    back = ST.load_checkpoint(str(tmp_path / "ckpt"), dev)
+    for k, t in sd.items():
+        assert back[k].device == t.device and back[k].dtype == t.dtype
+        assert torch.equal(back[k], t), k
+    tree = {"w": quantize_linear_weight(
+        torch.randn(512, 256, generator=g, device=dev), 4, group_size=32),
+        "e": sd["a.bf16"], "n": [sd["b.f32"]]}
+    WC.save_quantized(str(tmp_path / "cache"), tree)
+    ST.save_safetensors(str(tmp_path / "x.safetensors"), tree)
+    for got in (WC.load_quantized(str(tmp_path / "cache"), device=dev),
+                ST.load_safetensors(str(tmp_path / "x.safetensors"),
+                                    device=dev)):
+        assert torch.equal(got["e"], tree["e"])
+        assert torch.equal(got["n"][0], tree["n"][0])
+        for f in ("data", "scale", "zero_point", "s_chunk", "z_chunk"):
+            assert torch.equal(getattr(got["w"], f), getattr(tree["w"], f))
+            assert getattr(got["w"], f).device.type == "cuda"
