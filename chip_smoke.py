@@ -30,8 +30,8 @@ Phases (any failure exits non-zero):
      INT4-g128 projections; the INT2-g32 MLP; the INT4-g256 w2) at M = 8,
      1, 33 and 64, with their times, bounds and a torch.matmul yardstick;
   7. CLI: `python -m piquant_tpu_torch.serving --random llama3_8b
-     --benchmark 8 --max-new 32` in process (at 4 of its 32 layers since
-     phase 11 came, full width), in four weight formats
+     --benchmark 8 --max-new 32` in process (at CLI_DEPTH of its 32
+     layers, 2 since phase 19 came, full width), in four weight formats
      (INT4-g128; INT4 attention with an INT2-g32 MLP; INT4-g256; INT2) and
      four activation-quantized runs (--act-quant-prefill at INT4 and INT8;
      --act-quant-decode at INT2 and with the INT2-g32 MLP), each with the
@@ -53,7 +53,7 @@ Phases (any failure exits non-zero):
      and a torch._grouped_mm yardstick; (b) one full-width MoE layer's
      ragged route against its dense-masked route at 256 tokens; (c) `python
      -m piquant_tpu_torch.serving --random mixtral_8x7b --benchmark 8
-     --max-new 32` in process at 4 of its 32 layers, full width (INT4,
+     --max-new 32` in process at CLI_DEPTH of its 32 layers, full width (INT4,
      --group-size 128, --act-quant-prefill)
      with exact launch counts, greedy tokens against single-request
      generation, its metrics and peak memory;
@@ -64,7 +64,7 @@ Phases (any failure exits non-zero):
      its plain version on a stacked kv4 cache of Llama-3-8B's geometry
      (ragged positions, a row with no live position, odd positions and
      starts), with an SDPA yardstick; (c) the CLI at full Llama-3-8B width
-     (at 4 of its 32 layers since phase 14 came) with `--bits nf4` and
+     (at CLI_DEPTH of its 32 layers) with `--bits nf4` and
      with `--kv-bits 4`, exact launch counts (7 nf4_gemv or one kv4
      decode_attn2 launch a layer a decode step), greedy tokens against
      single-request generation and its metrics;
@@ -75,9 +75,10 @@ Phases (any failure exits non-zero):
      at Qwen2-7B's rep 7, w4_gemv at Qwen2-7B's shapes, each with its
      time, bound and an SDPA or torch.matmul yardstick; (b) `python -m
      piquant_tpu_torch.serving --random <preset> --benchmark 8 --max-new
-     32` in process for mistral_7b, qwen2_7b, qwen3_8b and phi3_mini (at 4
-     of their layers since phase 13 came), and `--benchmark 4 --max-new 8`
-     for qwen3_moe_a3b (at 8 of its 48 layers), at their published widths:
+     32` in process for mistral_7b, qwen2_7b, qwen3_8b and phi3_mini (at
+     CLI_DEPTH of their layers), and `--benchmark 4 --max-new 8` for
+     qwen3_moe_a3b (at A3B_DEPTH of its 48 layers), at their published
+     widths:
      exact launch counts, greedy
      tokens against single-request generation, metrics and peak memory;
      one full-depth qwen3_moe_a3b decode step profiled; (c) one
@@ -113,7 +114,8 @@ Phases (any failure exits non-zero):
      softcap), each against its plain version with its time, bound and an
      SDPA yardstick where one SDPA call computes it; (b) `python -m
      piquant_tpu_torch.serving --random llama4_scout --benchmark 4
-     --max-new 8` in process at full width and depth (exact launches:
+     --max-new 8` in process at full width and SCOUT_DEPTH layers (exact
+     launches:
      every projection and expert on w4_gemv at decode, the INT8 lm_head
      off the w8_gemv gate), tokens against single-request generation; (c)
      one 9060-token Scout request (T 9088, max_seq_len 10240): 48 flash
@@ -202,6 +204,26 @@ Phases (any failure exits non-zero):
      through params_from_state_dict on the card, served at INT4 with the
      kv8 cache: flash and decode_attn2 launched at rep 16, tokens under the
      guard;
+ 19. MLA (DeepSeek-V2-style latent attention, models/mla.py): (a) the
+     `mla_v2_lite` preset (DeepSeek-V2-Lite's attention geometry with its
+     dense MLP width) at its full width and all 27 layers, random INT4
+     codes and the INT8 lm_head, served by an Engine of 8 slots (8
+     requests of 128-512 tokens, 32 new) with the kv8 and the kv4 latent
+     cache: every request complete, greedy tokens against the port's own
+     single-request `mla.generate` at the engine's padded width under the
+     near-tie guard, the launches of a decode step by kernel and by
+     dequant-path product (against the gates' routes), the dequant
+     products' share of a step, the device's busy share, the latent
+     cache's bytes a position and layer against its shapes; then `python
+     -m piquant_tpu_torch.serving --random mla_v2_lite --benchmark 8` in
+     process at CLI_DEPTH layers; (b) DeepSeek-V2-Lite's published
+     config.json (MoE: 64 routed experts top 6, 2 shared, YaRN factor 40)
+     at MLA_MOE_DEPTH of its 27 layers through `mla.config_from_hf` and
+     `mla.params_from_hf` on bf16 weights from the seed, INT4 (INT8
+     lm_head), served by the Engine (8 requests, 16 new) with the same
+     checks; (c) speculation over (a)'s model: prompt lookup (speculate 4)
+     and the model as its own draft against plain greedy decoding under
+     the guard, tokens a verify row and decode tok/s beside plain;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -1707,8 +1729,8 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
 # Mixtral-8x7B's 32 layers), since phase 13 came of phase 11's four dense
 # family presets, and since phase 14 came of phase 10's and phase 14's
 # (widths unchanged): the later phases need the time, and phases 5 and 14
-# (b) and the long requests serve the full depth.
-CLI_DEPTH = 4
+# (b) and the long requests serve the full depth.  4 until phase 19 came.
+CLI_DEPTH = 2
 
 
 @contextlib.contextmanager
@@ -2638,7 +2660,7 @@ FAMILY_RUNS = (
 # Qwen3-30B-A3B's decode runs its 128 experts dense-masked (3 GEMVs each
 # besides the 4 attention ones), every prefill ragged.  Its CLI run serves
 # A3B_DEPTH of its 48 layers at full width (8 until phase 18 needed the
-# time): a full-depth decode step takes seconds of host launches, 32 steps
+# time, 4 until phase 19 did): a full-depth decode step takes seconds of host launches, 32 steps
 # of them the run's time limit; one full-depth step is profiled on its
 # own.
 A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
@@ -2646,12 +2668,13 @@ A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
            {"decode": {"w4_gemv": 4 + 3 * 128},
             "small": {"w4_gemv": 4, "wq_ragged": 3}, "mid": {"wq_ragged": 3},
             "big": {"wq_ragged": 3}})
-A3B_DEPTH = 4
+A3B_DEPTH = 2
 FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
                   "flash_prefill")
 
 
-LONG_PROMPT, LONG_NEW = 6000, 32
+# the long requests' greedy tokens (32 until phase 19 needed the time)
+LONG_PROMPT, LONG_NEW = 6000, 16
 
 
 def run_long(torch, dev, args, preset, prompt_len, max_seq_len, label,
@@ -2926,18 +2949,19 @@ L4_RUNS = ((("--random", "llama4_scout", "--benchmark", "4", "--max-new",
             {"decode": {}, "small": {}, "mid": {}, "big": {}}))
 L4_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
               "nf4_gemv", "wq_ragged", "decode_attn2", "flash_prefill")
-# GPT-OSS's CLI run serves 4 of its 24 layers (8 until phase 18 needed
-# the time; its alternation kept, full width): every product of it runs
+# GPT-OSS's CLI run serves 2 of its 24 layers (8 until phase 18 needed
+# the time, 4 until phase 19 did; its alternation kept, full width): every product of it runs
 # off the kernels, about 59k launches a full-depth decode step, and the
-# run's time limit needs the time.  Scout's CLI run serves 8 of its 48
-# layers (full depth until phase 18; its nope layer every 4th kept, full
-# width); its long request serves the full depth.
-GPT_OSS_DEPTH = 4
-SCOUT_DEPTH = 8
+# run's time limit needs the time.  Scout's CLI run serves 4 of its 48
+# layers (full depth until phase 18, 8 until phase 19; its nope layer
+# every 4th kept, full width); its long request serves the full depth.
+GPT_OSS_DEPTH = 2
+SCOUT_DEPTH = 4
 # Scout's long request: 9060 tokens pad to 9088 (the CLI's prefill_pad of
 # 64; whole 128-row tiles, so flash takes it), past position 8191, where
-# the chunk and the temperature bite; a few decode tokens
-SCOUT_LONG, SCOUT_MAX_LEN, SCOUT_NEW = 9060, 10240, 16
+# the chunk and the temperature bite; a few decode tokens (16 until phase
+# 19 needed the time: a step takes ~1.7 s at batch 1)
+SCOUT_LONG, SCOUT_MAX_LEN, SCOUT_NEW = 9060, 10240, 8
 
 
 def run_llama4_gpt_oss(torch, dev, gen, args, rows):
@@ -5004,6 +5028,397 @@ def run_loader(torch, dev, gen, args):
     return total
 
 
+# DeepSeek-V2-Lite's published config.json (deepseek-ai/DeepSeek-V2-Lite),
+# served by phase 19 (b) at MLA_MOE_DEPTH of its 27 layers
+DEEPSEEK_V2_LITE = {
+    "architectures": ["DeepseekV2ForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "aux_loss_alpha": 0.001,
+    "bos_token_id": 100000, "eos_token_id": 100001,
+    "first_k_dense_replace": 1, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 10944,
+    "kv_lora_rank": 512, "max_position_embeddings": 163840,
+    "model_type": "deepseek_v2", "moe_intermediate_size": 1408,
+    "moe_layer_freq": 1, "n_group": 1, "n_routed_experts": 64,
+    "n_shared_experts": 2, "norm_topk_prob": False,
+    "num_attention_heads": 16, "num_experts_per_tok": 6,
+    "num_hidden_layers": 27, "num_key_value_heads": 16,
+    "pretraining_tp": 1, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "rms_norm_eps": 1e-06,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rope_theta": 10000, "routed_scaling_factor": 1.0,
+    "scoring_func": "softmax", "seq_aux": True, "tie_word_embeddings": False,
+    "topk_group": 1, "topk_method": "greedy", "torch_dtype": "bfloat16",
+    "use_cache": True, "v_head_dim": 128, "vocab_size": 102400}
+MLA_MOE_DEPTH = 4             # of 27: layer 0 dense, three MoE layers
+MLA_LENS = (128, 513)         # prompt lengths, [lo, hi)
+MLA_NEW = 32
+MLA_MOE_NEW = 16
+MLA_GUARDED = 1               # requests held against mla.generate
+MLA_SPEC_NEW = 16             # (c)'s greedy tokens a request
+MLA_CACHE_BYTES = {8: 512 + 4 + 128, 4: 256 + 4 + 128}
+MLA_KERNELS = ("w4_gemv", "w8_gemv")
+
+
+class MLACheckpoint:
+    """What mla.params_from_hf reads: a config.json dict and a state dict
+    (the card's machine has no transformers)."""
+
+    def __init__(self, config, sd):
+        self.config, self._sd = config, sd
+
+    def state_dict(self):
+        return self._sd
+
+
+def mla_state_dict(torch, conf, dev, gen):
+    """DeepseekV2ForCausalLM's state dict in HF names and nn.Linear's [out,
+    in] layout, bf16 on the card from the generator: N(0, 0.02) weights,
+    norms near 1; the MoE layers' router, routed and shared experts."""
+    d, v = conf["hidden_size"], conf["vocab_size"]
+    h, r = conf["num_attention_heads"], conf["kv_lora_rank"]
+    nope, rope, vd = (conf["qk_nope_head_dim"], conf["qk_rope_head_dim"],
+                      conf["v_head_dim"])
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn(n, generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(v, d), "model.norm.weight": norm(d),
+          "lm_head.weight": w(v, d)}
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        sd.update({
+            p + "input_layernorm.weight": norm(d),
+            p + "post_attention_layernorm.weight": norm(d),
+            a + "q_proj.weight": w(h * (nope + rope), d),
+            a + "kv_a_proj_with_mqa.weight": w(r + rope, d),
+            a + "kv_a_layernorm.weight": norm(r),
+            a + "kv_b_proj.weight": w(h * (nope + vd), r),
+            a + "o_proj.weight": w(d, h * vd)})
+
+        def mlp(pre, f):
+            sd[pre + "gate_proj.weight"] = w(f, d)
+            sd[pre + "up_proj.weight"] = w(f, d)
+            sd[pre + "down_proj.weight"] = w(d, f)
+
+        if i < conf["first_k_dense_replace"]:
+            mlp(p + "mlp.", conf["intermediate_size"])
+            continue
+        f, ne = conf["moe_intermediate_size"], conf["n_routed_experts"]
+        sd[p + "mlp.gate.weight"] = w(ne, d)
+        for e in range(ne):
+            mlp(p + f"mlp.experts.{e}.", f)
+        mlp(p + "mlp.shared_experts.", f * conf["n_shared_experts"])
+    return sd
+
+
+@contextlib.contextmanager
+def counting_dequant():
+    """While the block runs, every dequant-path product (the projections
+    no kernel's gate takes) is counted by its (K, N) in the dict it
+    yields, and recorded for replay in its "calls" list."""
+    from piquant_tpu_torch.quant import linear as Lin
+
+    real = Lin._matmul_dequant
+    seen = {"calls": []}
+
+    def counted(x, ql, out_dtype):
+        key = (ql.k, ql.n)
+        seen[key] = seen.get(key, 0) + 1
+        seen["calls"].append((x, ql, out_dtype))
+        return real(x, ql, out_dtype)
+
+    Lin._matmul_dequant = counted
+    try:
+        yield seen
+    finally:
+        Lin._matmul_dequant = real
+
+
+def mla_routes(cfg, params, m=8):
+    """The routes the gates give each projection of a decode step at M =
+    m rows (N % 128, K % 256, M <= 64, as in the reference): the kernel
+    launches by wrapper and the dequant-path products by (K, N)."""
+    from piquant_tpu_torch.quant.linear import (QuantizedExpertStack,
+                                                QuantizedLinear)
+
+    kern, dq = dict.fromkeys(MLA_KERNELS, 0), {}
+
+    def route(w, times=1):
+        if w.n % 128 == 0 and w.k % 256 == 0 and m <= 64:
+            name = {4: "w4_gemv", 8: "w8_gemv"}[w.bits]
+            kern[name] += times
+        else:
+            dq[(w.k, w.n)] = dq.get((w.k, w.n), 0) + times
+
+    for layer in params["layers"]:
+        for name, w in layer.items():
+            if name == "kv_b":           # dequantized whole, no product
+                continue
+            if isinstance(w, QuantizedExpertStack):
+                route(w.expert(0), w.n_experts)
+            elif isinstance(w, QuantizedLinear):
+                route(w)
+    if isinstance(params["lm_head"], QuantizedLinear):
+        route(params["lm_head"])
+    return kern, dq
+
+
+def mla_step(torch, ML, cfg, params, dev):
+    """One decode step at batch 8 (positions ~500): the kernels it
+    launches, its dequant-path products by (K, N) against the gates'
+    routes, its host ms and the dequant products' share of it (the same
+    products replayed alone, synchronised)."""
+    want_k, want_dq = mla_routes(cfg, params)
+    cache = ML.init_kv_cache(cfg, 8, max_len=1024, device=dev)
+    tok = torch.ones(8, dtype=torch.int32, device=dev)
+    pos = torch.arange(500, 516, 2, dtype=torch.int32, device=dev)
+    ML.decode_step(cfg, params, tok, pos, cache)
+    torch.cuda.synchronize()
+    zero_counts()
+    with counting_dequant() as seen:
+        ML.decode_step(cfg, params, tok, pos, cache)
+    torch.cuda.synchronize()
+    wr = kernel_wrappers()
+    got_k = {k: wr[k].launches for k in MLA_KERNELS}
+    calls = seen.pop("calls")
+    if got_k != want_k or seen != want_dq:
+        raise AssertionError(f"mla step: launches {got_k}, dequant {seen}; "
+                             f"the gates give {want_k}, {want_dq}")
+    t0 = time.perf_counter()
+    for i in range(3):
+        ML.decode_step(cfg, params, tok, pos + i, cache)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    from piquant_tpu_torch.quant import linear as Lin
+
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for x, ql, od in calls:
+            Lin._matmul_dequant(x, ql, od)
+    torch.cuda.synchronize()
+    dq_ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"mla step: {got_k} kernel launches, dequant-path products "
+          f"{ {f'{k}x{n}': c for (k, n), c in sorted(seen.items())} } (the "
+          f"gates' routes); a step {step_ms:.2f} ms on the host clock, its "
+          f"{len(calls)} dequant products replayed alone {dq_ms:.2f} ms "
+          f"({100 * dq_ms / step_ms:.1f}%) [{card_line()}]", flush=True)
+    return got_k
+
+
+def mla_engine(torch, dev, args, ML, cfg, params, n_new, label):
+    """8 greedy requests (prompt lengths in MLA_LENS from the seed) through
+    an Engine of 8 slots: every request complete with n_new tokens in the
+    vocab and finite log-probs, launches of MLA_KERNELS (each launched),
+    the latent cache's bytes a position and layer against its shapes, the
+    first MLA_GUARDED requests against `mla.generate` at the engine's
+    padded width under the near-tie guard.  Returns (metrics, launches,
+    finished requests by rid)."""
+    import numpy as np
+
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    rng = np.random.default_rng(args.seed + 19)
+    eng = Engine(cfg, params, EngineConfig(batch_slots=8, max_seq_len=1024,
+                                           decode_block=8),
+                 rng_seed=args.seed, device=dev)
+    c = eng.cache
+    per_pos = sum(t.numel() * t.element_size() for t in (
+        c.c_codes, c.c_scale, c.k_pe)) // (cfg.n_layers * 8 * c.max_len)
+    if per_pos != MLA_CACHE_BYTES[cfg.kv_bits]:
+        raise AssertionError(f"{label}: {per_pos} cache bytes a position "
+                             f"and layer, not {MLA_CACHE_BYTES[cfg.kv_bits]}")
+    for i in range(8):
+        plen = int(rng.integers(*MLA_LENS))
+        eng.submit(Request(rid=i, prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab_size, plen)], sampling=SamplingParams(
+                max_new_tokens=n_new)))
+    zero_counts()
+    t0 = time.perf_counter()
+    done = {r.rid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wr = kernel_wrappers()
+    launches = {k: wr[k].launches for k in MLA_KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"{label}: a kernel of the path never launched "
+                             f"{launches}")
+    if len(done) != 8 or any(
+            len(r.tokens) != n_new
+            or not all(0 <= t < cfg.vocab_size for t in r.tokens)
+            or not all(math.isfinite(lp) and lp <= 0 for lp in r.logprobs)
+            for r in done.values()):
+        raise AssertionError(f"{label}: requests unfinished, tokens outside "
+                             "the vocab or non-finite log-probs")
+    m = eng.metrics.to_dict()
+    print(f"{label}: 8 requests in {wall:.2f} s, launches {launches}, "
+          f"{per_pos} latent-cache bytes a position and layer; metrics "
+          f"{json.dumps(m)} [{card_line()}]", flush=True)
+    for r in [done[k] for k in sorted(done)][:MLA_GUARDED]:
+        width = eng._padded_len(len(r.prompt))
+        want = ML.generate(cfg, params, torch.tensor(
+            [r.prompt], dtype=torch.int32, device=dev), n_new, width=width,
+            max_len=eng.ec.max_seq_len)[0].tolist()
+        verdict = "equal"
+        if r.tokens != want:
+            toks, margins = generate_single(
+                torch, ML, cfg, params, r.prompt, n_new, dev, width=width,
+                max_len=eng.ec.max_seq_len)
+            if toks != want:
+                raise AssertionError(f"{label}: mla.generate and the "
+                                     "one-row decode part")
+            verdict = check_tokens_guarded(r.tokens, want, margins)
+        print(f"{label}: request {r.rid} (prompt {len(r.prompt)}, padded "
+              f"to {width}) vs mla.generate: {verdict}", flush=True)
+    del eng
+    gc.collect()
+    return m, launches, done
+
+
+@contextlib.contextmanager
+def mla_preset_depth(n_layers: int):
+    """The CLI builds mla_v2_lite at `n_layers` layers, its full width,
+    while the block runs."""
+    from piquant_tpu_torch.models import mla as ML
+
+    full = ML.v2_lite_config
+    ML.v2_lite_config = lambda **kw: dataclasses.replace(full(**kw),
+                                                         n_layers=n_layers)
+    try:
+        yield
+    finally:
+        ML.v2_lite_config = full
+
+
+def run_mla(torch, dev, gen, args):
+    """Phase 19: MLA at DeepSeek-V2-Lite's widths. Returns the launches of
+    MLA_KERNELS summed over its engine and CLI runs."""
+    from piquant_tpu_torch.models import mla as ML
+    from piquant_tpu_torch.quant.linear import quantize_linear_weight
+    from piquant_tpu_torch.serving import SamplingParams
+    from piquant_tpu_torch.serving import __main__ as S
+
+    total = dict.fromkeys(MLA_KERNELS, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # ---- (a) the mla_v2_lite preset at full width and depth
+    cfg = ML.v2_lite_config()
+    t0 = time.perf_counter()
+    params = ML.random_quantized_params(cfg, args.seed, bits=4,
+                                        lm_head_bits=8, device=dev)
+    torch.cuda.synchronize()
+    print(f"mla (a): mla_v2_lite, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, kv_lora_rank "
+          f"{cfg.kv_lora_rank}, rope {cfg.qk_rope_head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}; random INT4 codes, INT8 lm_head, "
+          f"{tree_bytes(torch, params) / 1e9:.3f} GB, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    mla_step(torch, ML, cfg, params, dev)
+    profile_decode(torch, ML, cfg, params, dev)
+    for kv in (8, 4):
+        kcfg = dataclasses.replace(cfg, kv_bits=kv)
+        _, launches, _ = mla_engine(torch, dev, args, ML, kcfg, params,
+                                    MLA_NEW, f"mla (a) engine kv{kv}")
+        add(launches)
+    # ---- (c) speculation over (a)'s model
+    prompts = spec_prompts(cfg, args.seed)
+    sps = [SamplingParams(max_new_tokens=MLA_SPEC_NEW)] * len(prompts)
+    base, bm, _, launches = spec_engine(torch, dev, args, cfg, params,
+                                        prompts, sps, 0)
+    add({k: launches[k] for k in MLA_KERNELS})
+    print(f"mla (c) plain: decode {bm.decode_tokens_per_s:.2f} tok/s",
+          flush=True)
+    for label, draft in (("prompt lookup", None), ("self draft",
+                                                   (cfg, params))):
+        done, m, counts, launches = spec_engine(
+            torch, dev, args, cfg, params, prompts, sps, SPEC_G, draft=draft)
+        add({k: launches[k] for k in MLA_KERNELS})
+        st = spec_stats(counts, SPEC_G)
+        verdicts = [guard_fork(torch, ML, cfg, params, p.prompt, p.tokens,
+                               b.tokens, dev) for p, b in zip(done, base)]
+        if not st["accepted_rows"]:
+            raise AssertionError(f"mla (c) {label}: no draft accepted")
+        print(f"mla (c) {label}: {st['tokens_per_row']:.2f} tokens a verify "
+              f"row ({st['verify_rows']} rows, {st['full_rows']} emitting "
+              f"all {SPEC_G + 1}), decode {m.decode_tokens_per_s:.2f} tok/s "
+              f"(plain {bm.decode_tokens_per_s:.2f}); against plain greedy: "
+              f"{verdicts} [{card_line()}]", flush=True)
+    del params, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- (a) the CLI
+    argv = ["--random", "mla_v2_lite", "--benchmark", "8", "--max-new",
+            str(MLA_NEW), "--max-seq-len", "1024"]
+    with mla_preset_depth(CLI_DEPTH):
+        cli_args = S.build_parser().parse_args(argv)
+        cfg_c, params_c, eng, sp = S.build(cli_args)
+        zero_counts()
+        metrics, done = S.benchmark(cli_args, cfg_c, eng, sp)
+        torch.cuda.synchronize()
+    wr = kernel_wrappers()
+    launches = {k: wr[k].launches for k in MLA_KERNELS}
+    if metrics["completed"] != 8 or not all(launches.values()) or any(
+            len(r.tokens) != MLA_NEW for r in done):
+        raise AssertionError(f"mla cli: {metrics}, launches {launches}")
+    add(launches)
+    print(f"mla cli [{' '.join(argv)}] at {cfg_c.n_layers} of 27 layers: "
+          f"launches {launches}; cli_metrics {json.dumps(metrics)} "
+          f"[{card_line()}]", flush=True)
+    del params_c, eng, done
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) DeepSeek-V2-Lite's config.json, MoE
+    conf = dict(DEEPSEEK_V2_LITE, num_hidden_layers=MLA_MOE_DEPTH)
+    cfg = ML.config_from_hf(conf)
+    rs = conf["rope_scaling"]
+    if (cfg.n_experts, cfg.moe_top_k, cfg.n_shared_experts, cfg.first_k_dense,
+            cfg.topk_method, cfg.yarn and cfg.yarn.factor,
+            cfg.yarn and cfg.yarn.mscale_all_dim) != (
+                conf["n_routed_experts"], conf["num_experts_per_tok"],
+                conf["n_shared_experts"], conf["first_k_dense_replace"],
+                conf["topk_method"], rs["factor"], rs["mscale_all_dim"]):
+        raise AssertionError(f"mla (b): config {cfg}")
+    t0 = time.perf_counter()
+    sd = mla_state_dict(torch, conf, dev, gen)
+    _, fparams = ML.params_from_hf(MLACheckpoint(conf, sd), device=dev)
+    del sd
+    params = ML.quantize_params(fparams, bits=4)
+    params["lm_head"] = quantize_linear_weight(fparams["lm_head"], 8)
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"mla (b): DeepSeek-V2-Lite's config.json at {MLA_MOE_DEPTH} of "
+          f"{DEEPSEEK_V2_LITE['num_hidden_layers']} layers (64 routed "
+          f"experts top 6, 2 shared, YaRN factor 40), bf16 weights from the "
+          f"seed through params_from_hf, INT4 (INT8 lm_head), "
+          f"{tree_bytes(torch, params) / 1e9:.3f} GB, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    mla_step(torch, ML, cfg, params, dev)
+    profile_decode(torch, ML, cfg, params, dev)
+    _, launches, _ = mla_engine(torch, dev, args, ML, cfg, params,
+                                MLA_MOE_NEW, "mla (b) engine")
+    add(launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mla: launches {total}", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5123,12 +5538,18 @@ def main() -> int:
     for name, n in loader.items():
         launches[name] = launches.get(name, 0) + n
     phase_done(18)
+    mla = run_mla(torch, dev, gen, args)
+    for name, n in mla.items():
+        launches[name] += n
+    phase_done(19)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in spec:
             kern["speculative_launches"] = spec[kern["name"]]
         if kern["name"] in loader:
             kern["loader_launches"] = loader[kern["name"]]
+        if kern["name"] in mla:
+            kern["mla_launches"] = mla[kern["name"]]
         if kern["name"] in gemma:
             kern["gemma_launches"] = gemma[kern["name"]]
         if kern["name"] in l4:

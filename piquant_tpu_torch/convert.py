@@ -15,6 +15,7 @@ import torch
 from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.api import QuantizedTensor
 from piquant_tpu_torch.dtypes import dtype_of
+from piquant_tpu_torch.models import mla as ML
 from piquant_tpu_torch.models.llama import Llama3Rope, LlamaConfig, YarnRope
 from piquant_tpu_torch.quant.kv_cache import KVCache
 from piquant_tpu_torch.quant.linear import (QuantizedExpertStack,
@@ -125,15 +126,40 @@ def quantized_tensor_from_jax(qt, *, device: DeviceLike = None
         qdtype=dt.name, shape=tuple(int(s) for s in qt.shape))
 
 
-def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> KVCache:
+def kv_cache_from_jax(cache, *, device: DeviceLike = None):
     """A JAX KVCache (kv8 or the pair-packed kv4, stacked or not) -> the
-    port's, byte for byte."""
+    port's, byte for byte; an MLA LatentKVCache (int8 or pack4'ed codes,
+    f32 scales, bf16 rope keys, [L, B] lengths) -> the port's
+    `mla.LatentKVCache`."""
     dev = resolve_device(device)
+    if hasattr(cache, "c_codes"):
+        return ML.LatentKVCache(*(
+            tensor_from_numpy(getattr(cache, f), dev)
+            for f in ("c_codes", "c_scale", "k_pe", "length")))
     return KVCache(*(tensor_from_numpy(getattr(cache, f), dev) for f in
                      ("k_codes", "v_codes", "k_scale", "v_scale", "length")))
 
 
-def config_from_jax(jcfg) -> LlamaConfig:
+def _torch_dtype(jdtype) -> torch.dtype:
+    name = np.dtype(jdtype).name
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def mla_config_from_jax(jcfg) -> "ML.MLAConfig":
+    """The JAX package's MLAConfig -> the port's, field for field (YaRN
+    included); expert parallelism (ep_axis), which the port does not have
+    yet, raises NotImplementedError when set."""
+    if jcfg.ep_axis is not None:
+        raise NotImplementedError("MLA expert parallelism (ep_axis) is not "
+                                  "ported yet (ROADMAP.md queue 1 item 16b)")
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
+          if f.name not in ("dtype", "yarn")}
+    if jcfg.yarn is not None:
+        kw["yarn"] = ML.YarnParams(**dataclasses.asdict(jcfg.yarn))
+    return ML.MLAConfig(dtype=_torch_dtype(jcfg.dtype), **kw)
+
+
+def config_from_jax(jcfg):
     """The JAX package's LlamaConfig -> the port's.  The Mistral / Qwen /
     Phi-3 flags (qkv_bias, sliding_window, rotary_dim_override, qk_norm),
     the Gemma / Granite ones (norm_plus_one, mlp_act, scale_embed,
@@ -145,7 +171,9 @@ def config_from_jax(jcfg) -> LlamaConfig:
     moe_input_scaled, the shared expert) carry across; expert parallelism
     (ep_axis, moe_a2a and its capacity and wire settings), which the port
     does not have yet, raises NotImplementedError when set off its
-    default."""
+    default.  An MLAConfig goes through `mla_config_from_jax`."""
+    if hasattr(jcfg, "kv_lora_rank"):
+        return mla_config_from_jax(jcfg)
     kw = {f: getattr(jcfg, f) for f in _CONFIG_FIELDS}
     handled = set(_CONFIG_FIELDS) | {"llama3_rope", "yarn", "dtype"}
     unsupported = [f.name for f in dataclasses.fields(jcfg)
@@ -165,6 +193,5 @@ def config_from_jax(jcfg) -> LlamaConfig:
         kw["yarn"] = YarnRope(y.factor, y.original_max_position_embeddings,
                               y.beta_fast, y.beta_slow, y.attention_factor,
                               y.truncate)
-    name = np.dtype(jcfg.dtype).name
-    kw["dtype"] = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    kw["dtype"] = _torch_dtype(jcfg.dtype)
     return LlamaConfig(**kw)

@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from piquant_tpu_torch.models import llama as M
+from piquant_tpu_torch.models import mla as ML
 from piquant_tpu_torch.quant.kv_cache import KVCache
 from piquant_tpu_torch.serving.sampler import _categorical
 
@@ -39,20 +40,20 @@ __all__ = ["ngram_draft", "spec_block", "draft_spec_block",
            "rejection_sample_step", "draft_spec_block_sample"]
 
 
-def _llama_only(cfg) -> None:
-    if not isinstance(cfg, M.LlamaConfig):
-        raise NotImplementedError(
-            f"speculation over {type(cfg).__name__}: MLA's forward_verify "
-            "is not ported yet (ROADMAP.md queue 1 item 11)")
-
-
 def _verify_forward(cfg, params: Dict, tokens: torch.Tensor,
-                    positions: torch.Tensor, cache: KVCache):
+                    positions: torch.Tensor, cache):
     """The T = G + 1 verify forward against the cache -> (logits [B, T, V]
     f32, cache): materialized attention over the cache after each layer's
-    scattered append."""
-    _llama_only(cfg)
+    scattered append, or for an MLA config `mla.forward_verify` (the
+    absorbed path over the latent cache)."""
+    if isinstance(cfg, ML.MLAConfig):
+        return ML.forward_verify(cfg, params, tokens, positions, cache)
     return M.forward(cfg, params, tokens, positions=positions, cache=cache)
+
+
+def _decode_step_fn(dcfg):
+    """The draft model's decode step: MLA's absorbed one or llama's."""
+    return ML.decode_step if isinstance(dcfg, ML.MLAConfig) else M.decode_step
 
 
 def ngram_draft(hist: torch.Tensor, pos: torch.Tensor, G: int
@@ -151,10 +152,10 @@ def _draft_round(dcfg, dparams: Dict, tok: torch.Tensor, pos: torch.Tensor,
     G, the next round starts past that position, and the draft must not
     attend to a position it never wrote.  Returns (drafts [B, G] int32,
     the picks, dcache)."""
-    _llama_only(dcfg)
+    step = _decode_step_fn(dcfg)
     t, p, drafts, picks = tok, pos, [], []
     for i in range(G + 1):
-        dlogits, dcache = M.decode_step(dcfg, dparams, t, p, dcache)
+        dlogits, dcache = step(dcfg, dparams, t, p, dcache)
         if i == G:
             break
         t, extra = pick(dlogits.float())

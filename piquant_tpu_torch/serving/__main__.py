@@ -24,6 +24,8 @@ Examples:
   python -m piquant_tpu_torch.serving --random llama3_8b --bits nf4 --kv-bits 4 --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --prefill-chunk 256 --attn-windows 512,1024,2048 --benchmark 8
   python -m piquant_tpu_torch.serving --random llama3_8b --speculate 4 --draft-bits 2 --benchmark 4
+  python -m piquant_tpu_torch.serving --random mla_v2_lite --benchmark 8
+  python -m piquant_tpu_torch.serving --random mla_tiny --device cpu --kv-bits 4 --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --bits 2 --act-quant-decode --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --benchmark 4
   python -m piquant_tpu_torch.serving --random tiny --device cpu --speculate 2 --benchmark 2
@@ -69,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "mistral_7b, qwen2_7b, qwen3_8b, phi3_mini, "
                          "mixtral_8x7b, qwen3_moe_a3b, gemma_2b, gemma_7b, "
                          "gemma2_9b, gemma3_12b, llama4_scout, "
-                         "gpt_oss_20b)")
+                         "gpt_oss_20b, mla_v2_lite, mla_tiny, mla_v2_moe)")
     ap.add_argument("--bits", type=_bits_arg, default=4,
                     choices=[2, 4, 8, "nf4"],
                     help="weight quantization bits (default 4)")
@@ -129,14 +131,15 @@ RANDOM_CODES = ("llama3_8b", "mistral_7b", "qwen2_7b", "gemma_7b",
 # the presets quantized from a random float init, as the reference CLI
 # builds them
 FLOAT_INIT = ("tiny", "gemma_2b")
+# the MLA presets (models/mla.py), built as the reference CLI builds them:
+# they take --bits (and --kv-bits), not the other weight-format flags
+MLA_PRESETS = ("mla_v2_lite", "mla_tiny", "mla_v2_moe")
 
 
 def _not_ported(args) -> None:
     """Raise for every flag of the reference CLI the port does not have
     yet, naming its ROADMAP.md item."""
     todo = []
-    if args.random not in (None,) + FLOAT_INIT + RANDOM_CODES:
-        todo.append(f"--random {args.random} (queue 1 item 11 (MLA))")
     if args.serve is not None:
         todo.append("--serve (HTTP server: queue 1 item 12)")
     if todo:
@@ -153,6 +156,26 @@ def _mlp_overrides(args):
     return {k: (bits, args.mlp_group_size) for k in ("w1", "w3", "w2")}
 
 
+def build_mla(preset: str, bits, dev):
+    """An MLA preset (the reference CLI's): DeepSeek-V2-Lite's geometry
+    with random codes and an INT8 lm_head, the tiny MoE-MLA with YaRN
+    quantized from a float init, or the tiny dense MLA with random
+    codes."""
+    from piquant_tpu_torch.models import mla as ML
+
+    if preset == "mla_v2_lite":
+        cfg = ML.v2_lite_config()
+        return cfg, ML.random_quantized_params(cfg, 0, bits=bits,
+                                               lm_head_bits=8, device=dev)
+    if preset == "mla_v2_moe":
+        cfg = ML.MLAConfig.tiny_moe(vocab=2048)
+        return cfg, ML.quantize_params(ML.init_params(cfg, 0, device=dev),
+                                       bits=bits)
+    cfg = ML.MLAConfig.tiny(vocab=2048)
+    return cfg, ML.random_quantized_params(cfg, 0, bits=bits, lm_head_bits=8,
+                                           device=dev)
+
+
 def build(args):
     """The model, the engine and the sampling parameters the flags ask for:
     (cfg, params, engine, sampling).
@@ -166,7 +189,11 @@ def build(args):
     weight-format flags (--group-size, --mlp-bits, --mlp-group-size), which
     the reference CLI applies only to the float-quantized presets; the MoE
     experts take --bits and --group-size.  The FLOAT_INIT presets quantize
-    a random float init, as the reference CLI builds them.  --draft-bits
+    a random float init, as the reference CLI builds them.  The
+    MLA_PRESETS are built as the reference CLI builds them (`build_mla`);
+    of the format flags they take --bits and --kv-bits, and the
+    act-quant flags, which an MLA config has no field for, pass them by,
+    as there.  --draft-bits
     gives the engine a draft model: the params re-quantized at that width
     (and --draft-group-size) where they lie."""
     _not_ported(args)
@@ -182,11 +209,14 @@ def build(args):
         from piquant_tpu_torch.models.loader import load_from_hf
 
         cfg, params = load_from_hf(args.model, quantize_bits=None, device=dev)
+    elif preset in MLA_PRESETS:
+        cfg, params = build_mla(preset, args.bits, dev)
     else:
         cfg = getattr(M.LlamaConfig, preset)()
-    cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits,
-                              act_quant_prefill=args.act_quant_prefill,
-                              act_quant_decode=args.act_quant_decode)
+    if hasattr(cfg, "act_quant_prefill"):
+        cfg = dataclasses.replace(cfg, act_quant_prefill=args.act_quant_prefill,
+                                  act_quant_decode=args.act_quant_decode)
+    cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
     if args.model:
         params = M.quantize_params(params, bits=args.bits,
                                    group_size=args.group_size, overrides=mlp)
@@ -195,7 +225,7 @@ def build(args):
         params = M.random_quantized_params(
             cfg, 0, bits=args.bits, lm_head_bits=8, group_size=args.group_size,
             mlp_bits=mlp_bits, mlp_group_size=mlp_gs, device=dev)
-    else:
+    elif preset in FLOAT_INIT:
         params = M.quantize_params(M.init_params(cfg, 0, device=dev),
                                    bits=args.bits, group_size=args.group_size,
                                    overrides=mlp)

@@ -3,7 +3,8 @@ piquant_tpu/serving/engine.py).
 
 A host scheduler drives slot-wise prefill admission and whole-batch decode
 blocks over a fixed pool of batch slots backed by the stacked kv8 or kv4
-cache.
+cache of a Llama-family model, or the latent cache of an MLA model
+(models/mla.py: its chunks take the absorbed path, `forward_chunk`).
 Queued prompts of one pad bucket are admitted in ONE prefill call (bursts
 truncated to a power of two, as in the reference), or, with
 `prefill_chunk`, one prompt at a time in fixed-size chunks against a
@@ -48,6 +49,7 @@ import torch
 
 from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.models import llama as M
+from piquant_tpu_torch.models import mla as ML
 from piquant_tpu_torch.models import speculative as SP
 from piquant_tpu_torch.quant.kv_cache import KVCache, kv_cache_copy_rows
 from piquant_tpu_torch.serving.sampler import (TOPK_CAND, SamplingParams,
@@ -140,6 +142,33 @@ class EngineMetrics:
             f.write(json.dumps({"ts": time.time(), **self.to_dict()}) + "\n")
 
 
+def _model_for(cfg):
+    """The model module of a config (the reference's `_model_for`): the
+    engine serves any module with init_kv_cache / prefill / decode_step
+    whose cache holds batch on axis 1 of every leaf (llama.py's KVCache,
+    mla.py's LatentKVCache)."""
+    return ML if isinstance(cfg, ML.MLAConfig) else M
+
+
+def _copy_rows(dst, src, rows: torch.Tensor, n: Optional[int] = None):
+    """Copy a one-request or burst cache's first `n` positions into the
+    batch rows `rows` of the engine's cache, in place."""
+    if isinstance(dst, KVCache):
+        return kv_cache_copy_rows(dst, src, rows, n)
+    return ML.copy_cache_rows(dst, src, rows, n)
+
+
+def _burst_len(model, cfg, width: int) -> int:
+    """The positions of a prefill burst's own cache: its padded width, for
+    llama's kv4 cache the next even one (whole pair rows)."""
+    return width + width % 2 if model is M and cfg.kv_bits == 4 else width
+
+
+def _cache_like(cache, tensors):
+    """A cache of `cache`'s type over `tensors` (its leaves, in order)."""
+    return type(cache)(*tensors)
+
+
 def _tok_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
     """log p(tok) under the RAW model distribution ([B, V] f32 logits)."""
     lf = logits.float()
@@ -148,7 +177,7 @@ def _tok_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
 
 
 class Engine:
-    def __init__(self, cfg: M.LlamaConfig, params: Dict,
+    def __init__(self, cfg, params: Dict,
                  econfig: EngineConfig, *, rng_seed: int = 0, draft=None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -158,8 +187,11 @@ class Engine:
         if econfig.prefill_pad > econfig.max_seq_len:
             econfig = dataclasses.replace(econfig,
                                           prefill_pad=econfig.max_seq_len)
-        if cfg.kv_bits == 4 and econfig.max_seq_len % 2:
-            # the reference's init_kv_cache refuses it too
+        self._model = _model_for(cfg)
+        if (self._model is M and cfg.kv_bits == 4
+                and econfig.max_seq_len % 2):
+            # the reference's init_kv_cache refuses it too (the latent
+            # cache packs kv4 along its rank, not its positions)
             raise ValueError("kv_bits=4 needs an even max_seq_len")
         if (econfig.prefill_chunk
                 and econfig.prefill_chunk > econfig.max_seq_len):
@@ -178,8 +210,8 @@ class Engine:
         b = econfig.batch_slots
         self._slots: List[Optional[Request]] = [None] * b
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        self.cache = M.init_kv_cache(cfg, b, max_len=econfig.max_seq_len,
-                                     device=self.device)
+        self.cache = self._model.init_kv_cache(
+            cfg, b, max_len=econfig.max_seq_len, device=self.device)
         self._cur_tok = torch.zeros(b, dtype=torch.int32, device=self.device)
         self._positions = torch.zeros(b, dtype=torch.int32, device=self.device)
         self._active = np.zeros((b,), bool)
@@ -211,9 +243,9 @@ class Engine:
         if draft is not None:
             dcfg, _ = draft
             self._check_draft(dcfg, econfig)
-            self._dcache = M.init_kv_cache(dcfg, b,
-                                           max_len=econfig.max_seq_len,
-                                           device=self.device)
+            self._dmodel = _model_for(dcfg)
+            self._dcache = self._dmodel.init_kv_cache(
+                dcfg, b, max_len=econfig.max_seq_len, device=self.device)
         # token-tuple key -> (one-slot cache, prefix length); insertion
         # order is the LRU order
         self._prefix_pool: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -221,11 +253,8 @@ class Engine:
         self._inflight = None          # the dispatched, unprocessed block
 
     def _check_draft(self, dcfg, ec: EngineConfig) -> None:
-        """The reference's checks of a draft model."""
-        if not isinstance(dcfg, M.LlamaConfig):
-            raise NotImplementedError(
-                f"a {type(dcfg).__name__} draft model: MLA is not ported yet "
-                "(ROADMAP.md queue 1 item 11)")
+        """The reference's checks of a draft model (a Llama-family or an
+        MLA config)."""
         if dcfg.vocab_size != self.cfg.vocab_size:
             raise ValueError(f"draft vocab {dcfg.vocab_size} != target "
                              f"vocab {self.cfg.vocab_size}")
@@ -354,26 +383,30 @@ class Engine:
     # chunked prefill and the prefix cache
     # ------------------------------------------------------------------
     def _prefill_chunk(self, tokens: List[int], offset: int, last: int,
-                       cache: KVCache) -> torch.Tensor:
+                       cache) -> torch.Tensor:
         """One chunk of a prompt through the model against the one-slot
         `cache` (appended in place at `offset`) -> logits [1, V] at chunk
-        row `last`."""
+        row `last`; MLA's chunk takes its absorbed path (`forward_chunk`),
+        as in the reference."""
         dev = self.device
         c = len(tokens)
         positions = (offset + torch.arange(c, dtype=torch.int32,
                                            device=dev))[None]
-        logits, _ = M.forward(
-            self.cfg, self.params,
-            torch.tensor([tokens], dtype=torch.int32, device=dev),
-            positions=positions, cache=cache,
-            logit_positions=torch.tensor([last], dtype=torch.int32,
-                                         device=dev),
-            kv_write_start=offset)
+        toks = torch.tensor([tokens], dtype=torch.int32, device=dev)
+        last_t = torch.tensor([last], dtype=torch.int32, device=dev)
+        if self._model is ML:
+            logits, _ = ML.forward_chunk(self.cfg, self.params, toks,
+                                         positions, cache, last_t, offset)
+            return logits
+        logits, _ = M.forward(self.cfg, self.params, toks,
+                              positions=positions, cache=cache,
+                              logit_positions=last_t, kv_write_start=offset)
         return logits[:, 0]
 
-    def _new_slot_cache(self) -> KVCache:
-        return M.init_kv_cache(self.cfg, 1, max_len=self.ec.max_seq_len,
-                               device=self.device)
+    def _new_slot_cache(self):
+        return self._model.init_kv_cache(self.cfg, 1,
+                                         max_len=self.ec.max_seq_len,
+                                         device=self.device)
 
     def _complete_chunks(self, n_tokens: int) -> int:
         """The whole prefill_chunk multiples of `n_tokens` a pool entry may
@@ -402,7 +435,7 @@ class Engine:
         self._pool_put((adapter_id, tuple(tokens[:eff])), fresh, eff)
         return eff
 
-    def _pool_put(self, key: tuple, cache: KVCache, eff: int) -> None:
+    def _pool_put(self, key: tuple, cache, eff: int) -> None:
         pool = self._prefix_pool
         if key in pool:
             pool.move_to_end(key)
@@ -439,7 +472,8 @@ class Engine:
             if hit is not None:
                 _, pcache, eff = hit
                 m0 = min(eff, plen - 1)
-                fresh = KVCache(*(t.clone() for t in pcache.tensors()))
+                fresh = _cache_like(pcache,
+                                    (t.clone() for t in pcache.tensors()))
                 self.metrics.prefix_hits += 1
                 self.metrics.prefix_tokens_saved += m0
         if fresh is None:
@@ -462,7 +496,7 @@ class Engine:
                 self._pool_put((req.adapter_id, tuple(req.prompt[:ceff])),
                                p["fresh"], ceff)
         slots = torch.tensor([slot], device=self.device)
-        kv_cache_copy_rows(self.cache, p["fresh"], slots)
+        _copy_rows(self.cache, p["fresh"], slots)
         tok, lp = self._sample_first(p["last"], [req])
         self._cur_tok[slots] = tok
         self._positions[slots] = plen
@@ -485,21 +519,23 @@ class Engine:
         # the next even width, whole pair rows) and its first `width`
         # positions are copied into the slots; positions past it are never
         # read before decode writes them
-        even = width + width % 2 if self.cfg.kv_bits == 4 else width
-        fresh = M.init_kv_cache(self.cfg, bq, max_len=even, device=dev)
-        last, fresh = M.prefill(self.cfg, self.params,
-                                torch.from_numpy(rows).to(dev), fresh,
-                                last_positions=plens - 1)
-        kv_cache_copy_rows(self.cache, fresh, slots, width)
+        fresh = self._model.init_kv_cache(
+            self.cfg, bq, max_len=_burst_len(self._model, self.cfg, width),
+            device=dev)
+        last, fresh = self._model.prefill(self.cfg, self.params,
+                                          torch.from_numpy(rows).to(dev),
+                                          fresh, last_positions=plens - 1)
+        _copy_rows(self.cache, fresh, slots, width)
         if self._draft is not None:
             # the draft model needs the prompts' KV too, in the same slots
             dcfg, dparams = self._draft
-            even = width + width % 2 if dcfg.kv_bits == 4 else width
-            dfresh = M.init_kv_cache(dcfg, bq, max_len=even, device=dev)
-            _, dfresh = M.prefill(dcfg, dparams,
-                                  torch.from_numpy(rows).to(dev), dfresh,
-                                  last_positions=plens - 1)
-            kv_cache_copy_rows(self._dcache, dfresh, slots, width)
+            dfresh = self._dmodel.init_kv_cache(
+                dcfg, bq, max_len=_burst_len(self._dmodel, dcfg, width),
+                device=dev)
+            _, dfresh = self._dmodel.prefill(dcfg, dparams,
+                                             torch.from_numpy(rows).to(dev),
+                                             dfresh, last_positions=plens - 1)
+            _copy_rows(self._dcache, dfresh, slots, width)
         tok, lp = self._sample_first(last, [req for req, _, _, _ in batch])
         self._cur_tok[slots] = tok
         self._positions[slots] = plens
@@ -676,8 +712,9 @@ class Engine:
                                               and self._draft is None)
         toks, lps = [], []
         for _ in range(kblk):
-            logits, self.cache = M.decode_step(self.cfg, self.params, tok, pos,
-                                               self.cache, attn_window=window)
+            logits, self.cache = self._model.decode_step(
+                self.cfg, self.params, tok, pos, self.cache,
+                attn_window=window)
             raw = logits
             if self.ec.track_history:
                 logits = self._penalize(logits, pos)
@@ -847,10 +884,12 @@ class Engine:
 
     def restore(self, state: dict) -> None:
         """Load a snapshot() into this (freshly built) engine."""
-        def dev(ts):
-            return KVCache(*(t.to(self.device, copy=True) for t in ts))
+        def dev(ts, like):
+            return _cache_like(like, (t.to(self.device, copy=True)
+                                      for t in ts))
 
-        self.cache = dev(state["cache"])
+        like = self.cache
+        self.cache = dev(state["cache"], like)
         self._cur_tok = state["cur_tok"].to(self.device, copy=True)
         self._positions = state["positions"].to(self.device, copy=True)
         self._gen.set_state(state["generator"])
@@ -861,13 +900,13 @@ class Engine:
         self._all = list(reqs["all"])
         self.metrics = reqs["metrics"]
         self._prefix_pool = OrderedDict(
-            (k, (dev(c), eff)) for k, c, eff in state["prefix_pool"])
+            (k, (dev(c, like), eff)) for k, c, eff in state["prefix_pool"])
         for f in self._SNAP_HOST:
             setattr(self, f, state[f].copy())
         if "hist" in state:
             self._hist = state["hist"].to(self.device, copy=True)
         if "dcache" in state and self._draft is not None:
-            self._dcache = dev(state["dcache"])
+            self._dcache = dev(state["dcache"], self._dcache)
         self._slot_state_dirty = True   # device mirrors rebuilt lazily
         self._bias_dirty = True
         self._pending_prefill = None

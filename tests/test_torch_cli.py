@@ -4,6 +4,7 @@ package's on the CPU, its random-weight constructor against the
 reference's rules, and the serving CLI (`python -m
 piquant_tpu_torch.serving`) driven in process."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -183,16 +184,56 @@ def test_cli_act_quant(monkeypatch, flags, int8_chunk):
 # tests/test_torch_llama4_gpt_oss.py::test_cli_presets; --prefill-chunk and
 # --attn-windows since item 8: test_cli_serves_item8_flags; --speculate and
 # --draft-* since item 10: test_cli_serves_item10_flags; --model since item
-# 9: test_cli_serves_model; the cases keep the ids they had beside it).
+# 9: test_cli_serves_model; the three MLA presets since item 11:
+# test_cli_serves_mla_presets; the cases keep the ids they had beside it).
 @pytest.mark.parametrize("argv,item", [
-    pytest.param(["--random", "mla_v2_lite"], 11, id="argv1-11"),
-    pytest.param(["--random", "mla_v2_moe"], 11, id="argv2-11"),
-    pytest.param(["--random", "mla_tiny"], 11, id="argv3-11"),
     pytest.param(["--serve", "8123"], 12, id="argv4-12")])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\b"):
         S.main(["--random", "tiny", "--device", "cpu", "--benchmark", "1",
                 *argv])
+
+
+# The MLA presets, built as the reference CLI builds them: mla_v2_lite
+# (DeepSeek-V2-Lite's geometry, here patched to a tiny width) and mla_tiny
+# from random codes with an INT8 lm_head, mla_v2_moe (MoE-MLA with YaRN)
+# quantized from a float init; --kv-bits reaches MLAConfig.kv_bits, and
+# --act-quant-prefill, which an MLAConfig has no field for, passes by, as
+# in the reference.  Each serves its benchmark, every request complete.
+@pytest.mark.parametrize("preset,flags", [
+    pytest.param("mla_v2_lite", (), id="argv1-11"),
+    pytest.param("mla_v2_moe", ("--kv-bits", "4"), id="argv2-11"),
+    pytest.param("mla_tiny", ("--kv-bits", "4", "--act-quant-prefill"),
+                 id="argv3-11")])
+def test_cli_serves_mla_presets(preset, flags, monkeypatch):
+    from piquant_tpu_torch.models import mla as ML
+    from piquant_tpu_torch.quant.linear import QuantizedLinear
+
+    full = ML.v2_lite_config()
+    monkeypatch.setattr(ML, "v2_lite_config", lambda: dataclasses.replace(
+        full, vocab_size=512, d_model=256, n_layers=2, n_heads=2, d_ff=512,
+        kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16,
+        v_head_dim=32))
+    args = S.build_parser().parse_args(
+        ["--random", preset, "--device", "cpu", "--benchmark", "2",
+         "--max-new", "4", "--max-seq-len", "256", *flags])
+    cfg, params, eng, sp = S.build(args)
+    assert isinstance(cfg, ML.MLAConfig)
+    assert cfg.kv_bits == args.kv_bits
+    assert isinstance(eng.cache, ML.LatentKVCache)
+    assert eng.cache.bits == args.kv_bits
+    if preset == "mla_v2_moe":
+        assert cfg.n_experts == 4 and cfg.yarn is not None
+        assert "router" in params["layers"][1]
+    else:
+        assert isinstance(params["lm_head"], QuantizedLinear)
+        assert params["lm_head"].bits == 8
+    m, done = S.benchmark(args, cfg, eng, sp)
+    assert m["completed"] == 2 and m["decode_tokens"] == 2 * 3
+    for r in done:
+        assert len(r.tokens) == 4
+        assert all(0 <= t < cfg.vocab_size for t in r.tokens)
+        assert all(np.isfinite(lp) and lp <= 0 for lp in r.logprobs)
 
 
 # The three flags of item 10 reach the engine as the reference CLI passes

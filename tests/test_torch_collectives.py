@@ -26,6 +26,16 @@ SEED = 0x9032002
 TOL = dict(rtol=3e-7, atol=2e-6)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _addends(p, n, seed):
     rng = np.random.default_rng(seed)
     return rng.normal(0, 1, (p, n)).astype(np.float32)
@@ -53,9 +63,11 @@ def want():
         x[0], "x", "uint8", "nearest")[None], mesh)(a["rs"]),
         "ag": _smap(lambda x: JC.quantized_all_gather(
             x[0], "x", "uint8", "nearest")[None], mesh)(a["ag"]),
-        "psum": JC.quantized_psum(a["psum"], mesh, "x", "uint8", "nearest"),
-        "psum_tp": JC.quantized_psum(a["psum_tp"], grid, "tp", "uint8",
-                                     "nearest")}
+        # jitted: an eager shard_map runs op by op over 8 devices (~30 s)
+        "psum": jax.jit(lambda v: JC.quantized_psum(
+            v, mesh, "x", "uint8", "nearest"))(a["psum"]),
+        "psum_tp": jax.jit(lambda v: JC.quantized_psum(
+            v, grid, "tp", "uint8", "nearest"))(a["psum_tp"])}
     for q in ("uint8", "uint4"):
         w[f"ar_{q}"] = _smap(lambda x: JC.quantized_all_reduce(
             x[0], "x", q, "nearest")[None], mesh)(a["ar"])

@@ -2234,3 +2234,48 @@ def test_safetensors_shards_to_card(dev, tmp_path):
         for f in ("data", "scale", "zero_point", "s_chunk", "z_chunk"):
             assert torch.equal(getattr(got["w"], f), getattr(tree["w"], f))
             assert getattr(got["w"], f).device.type == "cuda"
+
+
+def test_mla_decode_step_on_card_matches_cpu(dev):
+    """MLA's decode_step at a tiny width whose projections take the GEMV
+    kernels on the card (wq, wo and the MLP at N % 128 and K % 256: five a
+    layer; the INT8 lm_head), kv8 and kv4, against the same steps on the CPU
+    (the plain versions): logits within 2e-2 of the largest (bf16
+    activations, other summation orders), the latent codes within one
+    step, and the kernels launched."""
+    import dataclasses
+
+    from piquant_tpu_torch.models import mla as ML
+
+    base = ML.MLAConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
+                        d_ff=512, kv_lora_rank=64, qk_nope_head_dim=128,
+                        qk_rope_head_dim=64, v_head_dim=128, max_seq_len=64)
+    params = ML.random_quantized_params(base, 3, bits=4, lm_head_bits=8,
+                                        device="cpu")
+    rows = torch.randint(1, 512, (4, 20), generator=torch.Generator()
+                         .manual_seed(8), dtype=torch.int32)
+    for kv_bits in (8, 4):
+        cfg = dataclasses.replace(base, kv_bits=kv_bits)
+        out = {}
+        for d in ("cpu", dev):
+            p = _to(params, d)
+            cache = ML.init_kv_cache(cfg, 4, max_len=64, device=d)
+            _, cache = ML.prefill(cfg, p, rows[:, :16].to(d), cache)
+            before = (Q.w4_gemv.launches, Q.w8_gemv.launches)
+            logits = []
+            for i in range(3):
+                lg, cache = ML.decode_step(
+                    cfg, p, rows[:, 16 + i].to(d),
+                    torch.full((4,), 16 + i, dtype=torch.int32, device=d),
+                    cache)
+                logits.append(lg.float().cpu())
+            if d == dev:
+                assert (Q.w4_gemv.launches - before[0],
+                        Q.w8_gemv.launches - before[1]) == (3 * 2 * 5, 3)
+            out[d] = (torch.stack(logits), cache)
+        want, got = out["cpu"][0], out[dev][0]
+        assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+        codes = [c.c_codes.cpu() for c in (out["cpu"][1], out[dev][1])]
+        if kv_bits == 4:
+            codes = [ML.unpack4(c) for c in codes]
+        assert (codes[0].int() - codes[1].int()).abs().max() <= 1

@@ -27,6 +27,16 @@ from piquant_tpu_torch.quant import linear as TL
 SEED = 0x7E57
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return tensor_from_numpy(a, torch.device("cpu"))
 

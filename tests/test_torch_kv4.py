@@ -40,6 +40,16 @@ CPU = torch.device("cpu")
 KV4_LOGIT_TOL = 3e-2
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return convert.tensor_from_numpy(a, CPU)
 

@@ -35,6 +35,16 @@ KCFG = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
 LOGIT_TOL = 1.5e-2
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(jcfg, seed):
     jparams = JM.quantize_params(JM.init_params(jcfg, jax.random.key(seed)),
                                  bits=4)

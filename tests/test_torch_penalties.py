@@ -33,6 +33,16 @@ SEED = 0x0A1
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = JM.LlamaConfig.tiny(vocab=64)

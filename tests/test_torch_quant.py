@@ -46,6 +46,16 @@ EDGE = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.49999997, -0.49999997,
                  128.5, -128.5], np.float32)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return tensor_from_numpy(a, torch.device("cpu"))
 

@@ -30,6 +30,16 @@ SEED = 0x5150
 TOL = dict(rtol=3e-7, atol=2e-6)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _addends(p, shape, seed=SEED):
     rng = np.random.default_rng(seed)
     return rng.normal(0, 1, (p,) + shape).astype(np.float32)

@@ -38,6 +38,16 @@ LP_ATOL = 2e-2
 KV4_LP_ATOL = 5e-2       # 2.5 times: the kv4 gap's (measured 2.2e-2)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -190,14 +200,35 @@ def test_draft_spec_block_matches_jax(f32):
         "no round after a full acceptance accepted a draft")
 
 
-def test_verify_refuses_other_configs(f32):
-    cfg, params = f32[3], f32[4]
-    x = torch.zeros((1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 11\b"):
-        TS._verify_forward(object(), params, x, x, None)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 11\b"):
-        TS.draft_spec_block(cfg, params, object(), params, x[0], x[0], None,
-                            None, x[0] == 0, 1, 1)
+def test_verify_takes_mla_configs(f32):
+    """An MLA config verifies through mla.forward_verify (the absorbed
+    path over the latent cache), and an MLA draft drafts through
+    mla.decode_step: the MLA model as its own draft accepts every
+    proposal (tests/test_torch_mla.py holds the MLA blocks against
+    JAX)."""
+    from piquant_tpu_torch.models import mla as ML
+
+    mcfg = ML.MLAConfig.tiny(vocab=f32[3].vocab_size, dtype=torch.float32)
+    mparams = ML.init_params(mcfg, SEED, device=CPU)
+    rows = _t(np.array(PROMPTS, np.int32))
+    pos = torch.full((3,), 20, dtype=torch.int32)
+    toks = torch.tensor([[3, 4, 5]] * 3, dtype=torch.int32)
+    positions = pos[:, None] + torch.arange(3, dtype=torch.int32)[None]
+    caches = []
+    for _ in range(3):
+        c = ML.init_kv_cache(mcfg, 3, max_len=MAX_LEN, device=CPU)
+        last, _ = ML.prefill(mcfg, mparams, rows, c)
+        caches.append(c)
+    got, _ = TS._verify_forward(mcfg, mparams, toks, positions, caches[0])
+    want, _ = ML.forward_verify(mcfg, mparams, toks, positions, caches[1])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    tok = last.argmax(-1).to(torch.int32)
+    dcache = ML.init_kv_cache(mcfg, 3, max_len=MAX_LEN, device=CPU)
+    ML.prefill(mcfg, mparams, rows, dcache)
+    n_emit = TS.draft_spec_block(mcfg, mparams, mcfg, mparams, tok, pos,
+                                 caches[2], dcache, _t(ACTIVE), 2, 2)[2]
+    assert n_emit[:, ACTIVE].tolist() == [[3, 3], [3, 3]]
+    assert not n_emit[:, ~ACTIVE].any()
 
 
 # ---------------------------------------------------------------------------
@@ -447,22 +478,35 @@ def test_perfect_draft_accepts_everything(bf16, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["no_speculate", "prefill_chunk",
-                                  "prefix_cache", "vocab", "not_llama"])
+                                  "prefix_cache", "vocab", "mla_draft"])
 def test_draft_validations(bf16, case):
     cfg, params, draft4 = bf16
     ec = dict(batch_slots=1, max_seq_len=64, speculate=2)
     dcfg = cfg
     err, match = ValueError, None
+    if case == "mla_draft":
+        # an MLA draft of the target's vocab passes the checks and serves
+        # the target's greedy tokens
+        from piquant_tpu_torch.models import mla as ML
+
+        mcfg = ML.MLAConfig.tiny(vocab=cfg.vocab_size)
+        mdraft = ML.quantize_params(ML.init_params(mcfg, SEED, device=CPU),
+                                    bits=4)
+        want, _ = _serve(cfg, params, [[5, 6, 7]], 8, batch_slots=1,
+                         max_seq_len=64)
+        got, eng = _serve(cfg, params, [[5, 6, 7]], 8, draft=(mcfg, mdraft),
+                          speculate=2, batch_slots=1, max_seq_len=64)
+        assert isinstance(eng._dcache, ML.LatentKVCache)
+        assert got == want
+        return
     if case == "no_speculate":
         ec["speculate"], match = 0, "speculate"
     elif case in ("prefill_chunk", "prefix_cache"):
         ec["prefill_chunk"], match = 8, "one-shot"
         if case == "prefix_cache":
             ec["prefix_cache"] = 2
-    elif case == "vocab":
-        dcfg, match = dataclasses.replace(cfg, vocab_size=32), "vocab"
     else:
-        dcfg, err, match = object(), NotImplementedError, r"queue 1 item 11\b"
+        dcfg, match = dataclasses.replace(cfg, vocab_size=32), "vocab"
     with pytest.raises(err, match=match):
         Engine(cfg, params, EngineConfig(**ec), draft=(dcfg, draft4),
                device=CPU)

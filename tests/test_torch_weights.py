@@ -20,6 +20,16 @@ SEED = 0x3E16
 WRAPPERS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tiny models' small ops stall on a thread
+    pool whose cores the other test workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return tensor_from_numpy(a, torch.device("cpu"))
 
