@@ -204,13 +204,16 @@ Phases (any failure exits non-zero):
      through params_from_state_dict on the card, served at INT4 with the
      kv8 cache: flash and decode_attn2 launched at rep 16, tokens under the
      guard;
- 19. MLA (DeepSeek-V2-style latent attention, models/mla.py): (a) the
+ 19. MLA (DeepSeek-V2-style latent attention, models/mla.py): w4_gemv
+     at DeepSeek-V2-Lite's decode shapes (wq, wo, the experts', the shared
+     experts') and w8_gemv at its lm_head against their plain versions, as
+     variants of their kernels-line rows; (a) the
      `mla_v2_lite` preset (DeepSeek-V2-Lite's attention geometry with its
      dense MLP width) at its full width and all 27 layers, random INT4
      codes and the INT8 lm_head, served by an Engine of 8 slots (8
      requests of 128-512 tokens, 32 new) with the kv8 and the kv4 latent
-     cache: every request complete, greedy tokens against the port's own
-     single-request `mla.generate` at the engine's padded width under the
+     cache: every request complete, every request's greedy tokens against
+     the port's own single-request `mla.generate` at the engine's padded width under the
      near-tie guard, the launches of a decode step by kernel and by
      dequant-path product (against the gates' routes), the dequant
      products' share of a step, the device's busy share, the latent
@@ -1205,8 +1208,10 @@ def profile_decode(torch, M, cfg, params, dev, steps=4):
         M.decode_step(cfg, params, tok, pos + i, cache)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the kernel rows are all this reads, and the
+    # host ops' events would triple the profiler's own time
+    # (tools/profiler_cost.py)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             M.decode_step(cfg, params, tok, pos + i, cache)
@@ -2660,7 +2665,7 @@ FAMILY_RUNS = (
 # Qwen3-30B-A3B's decode runs its 128 experts dense-masked (3 GEMVs each
 # besides the 4 attention ones), every prefill ragged.  Its CLI run serves
 # A3B_DEPTH of its 48 layers at full width (8 until phase 18 needed the
-# time, 4 until phase 19 did): a full-depth decode step takes seconds of host launches, 32 steps
+# time): a full-depth decode step takes seconds of host launches, 32 steps
 # of them the run's time limit; one full-depth step is profiled on its
 # own.
 A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
@@ -2668,12 +2673,13 @@ A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
            {"decode": {"w4_gemv": 4 + 3 * 128},
             "small": {"w4_gemv": 4, "wq_ragged": 3}, "mid": {"wq_ragged": 3},
             "big": {"wq_ragged": 3}})
-A3B_DEPTH = 2
+A3B_DEPTH = 4
 FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
                   "flash_prefill")
 
 
-# the long requests' greedy tokens (32 until phase 19 needed the time)
+# the long requests' greedy tokens (32 until phase 19 came: a whole run
+# took 1090 s on a slow host with them)
 LONG_PROMPT, LONG_NEW = 6000, 16
 
 
@@ -2949,18 +2955,18 @@ L4_RUNS = ((("--random", "llama4_scout", "--benchmark", "4", "--max-new",
             {"decode": {}, "small": {}, "mid": {}, "big": {}}))
 L4_KERNELS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped",
               "nf4_gemv", "wq_ragged", "decode_attn2", "flash_prefill")
-# GPT-OSS's CLI run serves 2 of its 24 layers (8 until phase 18 needed
-# the time, 4 until phase 19 did; its alternation kept, full width): every product of it runs
+# GPT-OSS's CLI run serves 4 of its 24 layers (8 until phase 18 needed
+# the time; its alternation kept, full width): every product of it runs
 # off the kernels, about 59k launches a full-depth decode step, and the
 # run's time limit needs the time.  Scout's CLI run serves 4 of its 48
 # layers (full depth until phase 18, 8 until phase 19; its nope layer
 # every 4th kept, full width); its long request serves the full depth.
-GPT_OSS_DEPTH = 2
+GPT_OSS_DEPTH = 4
 SCOUT_DEPTH = 4
 # Scout's long request: 9060 tokens pad to 9088 (the CLI's prefill_pad of
 # 64; whole 128-row tiles, so flash takes it), past position 8191, where
 # the chunk and the temperature bite; a few decode tokens (16 until phase
-# 19 needed the time: a step takes ~1.7 s at batch 1)
+# 19 came: a step takes ~1.7 s at batch 1, twice over with the reference)
 SCOUT_LONG, SCOUT_MAX_LEN, SCOUT_NEW = 9060, 10240, 8
 
 
@@ -4012,8 +4018,7 @@ def compare_history_steps(torch, dev, args, cfg, params, prompts):
     prof = {}
     for history, eng in engines.items():
         eng.ec = dataclasses.replace(eng.ec, decode_block=HIST_PROFILED)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as pr:
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
             eng._process_block(*eng._dispatch_block())
             torch.cuda.synchronize()
         rows = [(e.device_time_total / 1e3, e.count)
@@ -5056,10 +5061,16 @@ MLA_MOE_DEPTH = 4             # of 27: layer 0 dense, three MoE layers
 MLA_LENS = (128, 513)         # prompt lengths, [lo, hi)
 MLA_NEW = 32
 MLA_MOE_NEW = 16
-MLA_GUARDED = 1               # requests held against mla.generate
 MLA_SPEC_NEW = 16             # (c)'s greedy tokens a request
 MLA_CACHE_BYTES = {8: 512 + 4 + 128, 4: 256 + 4 + 128}
 MLA_KERNELS = ("w4_gemv", "w8_gemv")
+# (K, N, uses) of DeepSeek-V2-Lite's INT4 GEMVs in a MoE layer's decode
+# step: wq, wo (mla_v2_lite's two a layer), the 64 experts' w1 / w3, the
+# shared experts' w1 / w3 and w2; the experts' w2 (K 1408) and kv_a (N
+# 576) take the dequant path
+MLA_W4_SHAPES = ((2048, 3072, 1), (2048, 2048, 1), (2048, 1408, 128),
+                 (2048, 2816, 2), (2816, 2048, 1))
+MLA_LM_HEAD = ((2048, 102400, 1),)
 
 
 class MLACheckpoint:
@@ -5218,9 +5229,9 @@ def mla_engine(torch, dev, args, ML, cfg, params, n_new, label):
     """8 greedy requests (prompt lengths in MLA_LENS from the seed) through
     an Engine of 8 slots: every request complete with n_new tokens in the
     vocab and finite log-probs, launches of MLA_KERNELS (each launched),
-    the latent cache's bytes a position and layer against its shapes, the
-    first MLA_GUARDED requests against `mla.generate` at the engine's
-    padded width under the near-tie guard.  Returns (metrics, launches,
+    the latent cache's bytes a position and layer against its shapes, every
+    request against `mla.generate` at the engine's padded width under the
+    near-tie guard.  Returns (metrics, launches,
     finished requests by rid)."""
     import numpy as np
 
@@ -5263,7 +5274,7 @@ def mla_engine(torch, dev, args, ML, cfg, params, n_new, label):
     print(f"{label}: 8 requests in {wall:.2f} s, launches {launches}, "
           f"{per_pos} latent-cache bytes a position and layer; metrics "
           f"{json.dumps(m)} [{card_line()}]", flush=True)
-    for r in [done[k] for k in sorted(done)][:MLA_GUARDED]:
+    for r in [done[k] for k in sorted(done)]:
         width = eng._padded_len(len(r.prompt))
         want = ML.generate(cfg, params, torch.tensor(
             [r.prompt], dtype=torch.int32, device=dev), n_new, width=width,
@@ -5299,9 +5310,34 @@ def mla_preset_depth(n_layers: int):
         ML.v2_lite_config = full
 
 
-def run_mla(torch, dev, gen, args):
-    """Phase 19: MLA at DeepSeek-V2-Lite's widths. Returns the launches of
-    MLA_KERNELS summed over its engine and CLI runs."""
+def check_mla_gemvs(torch, dev, gen, rows):
+    """Phase 19's GEMV holds: w4_gemv at DeepSeek-V2-Lite's decode shapes
+    and w8_gemv at its INT8 lm_head, each as a variant of its kernels-line
+    row in `rows`."""
+    by_name = {r["name"]: r for r in rows}
+    for name, bits, shapes, odt, what in (
+            ("w4_gemv", 4, MLA_W4_SHAPES, torch.bfloat16,
+             "DeepSeek-V2-Lite: one MoE decode layer's 133 INT4 GEMVs at M=8 "
+             "(wq, wo, 64 experts' w1 / w3, the shared experts' w1 / w3, "
+             "w2)"),
+            ("w8_gemv", 8, MLA_LM_HEAD, torch.float32,
+             "DeepSeek-V2-Lite INT8 lm_head: M=8, K=2048, N=102400, f32 "
+             "out")):
+        res = check_gemv(torch, dev, gen, name, bits, None, shapes, odt)
+        print(f"{name} {what}: kernel {res['ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}), plain "
+              f"{res['plain_ms']:.4f} ms, torch.matmul "
+              f"{res['library_ms']:.4f} ms [{card_line()}]", flush=True)
+        row = by_name[name]
+        row.setdefault("variants", {})[what] = res
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+        torch.cuda.empty_cache()
+
+
+def run_mla(torch, dev, gen, args, rows):
+    """Phase 19: MLA at DeepSeek-V2-Lite's widths, its GEMV holds added to
+    `rows`. Returns the launches of MLA_KERNELS summed over its engine and
+    CLI runs."""
     from piquant_tpu_torch.models import mla as ML
     from piquant_tpu_torch.quant.linear import quantize_linear_weight
     from piquant_tpu_torch.serving import SamplingParams
@@ -5313,6 +5349,7 @@ def run_mla(torch, dev, gen, args):
         for k, v in launches.items():
             total[k] += v
 
+    check_mla_gemvs(torch, dev, gen, rows)
     # ---- (a) the mla_v2_lite preset at full width and depth
     cfg = ML.v2_lite_config()
     t0 = time.perf_counter()
@@ -5538,7 +5575,7 @@ def main() -> int:
     for name, n in loader.items():
         launches[name] = launches.get(name, 0) + n
     phase_done(18)
-    mla = run_mla(torch, dev, gen, args)
+    mla = run_mla(torch, dev, gen, args, kernels)
     for name, n in mla.items():
         launches[name] += n
     phase_done(19)

@@ -32,7 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from piquant_tpu_torch.models import llama as M
-from piquant_tpu_torch.models import mla as ML
+from piquant_tpu_torch.models import model_for
 from piquant_tpu_torch.quant.kv_cache import KVCache
 from piquant_tpu_torch.serving.sampler import _categorical
 
@@ -46,14 +46,11 @@ def _verify_forward(cfg, params: Dict, tokens: torch.Tensor,
     f32, cache): materialized attention over the cache after each layer's
     scattered append, or for an MLA config `mla.forward_verify` (the
     absorbed path over the latent cache)."""
-    if isinstance(cfg, ML.MLAConfig):
-        return ML.forward_verify(cfg, params, tokens, positions, cache)
-    return M.forward(cfg, params, tokens, positions=positions, cache=cache)
-
-
-def _decode_step_fn(dcfg):
-    """The draft model's decode step: MLA's absorbed one or llama's."""
-    return ML.decode_step if isinstance(dcfg, ML.MLAConfig) else M.decode_step
+    model = model_for(cfg)
+    if model is M:
+        return M.forward(cfg, params, tokens, positions=positions,
+                         cache=cache)
+    return model.forward_verify(cfg, params, tokens, positions, cache)
 
 
 def ngram_draft(hist: torch.Tensor, pos: torch.Tensor, G: int
@@ -152,7 +149,7 @@ def _draft_round(dcfg, dparams: Dict, tok: torch.Tensor, pos: torch.Tensor,
     G, the next round starts past that position, and the draft must not
     attend to a position it never wrote.  Returns (drafts [B, G] int32,
     the picks, dcache)."""
-    step = _decode_step_fn(dcfg)
+    step = model_for(dcfg).decode_step
     t, p, drafts, picks = tok, pos, [], []
     for i in range(G + 1):
         dlogits, dcache = step(dcfg, dparams, t, p, dcache)

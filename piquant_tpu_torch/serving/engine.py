@@ -50,6 +50,7 @@ import torch
 from piquant_tpu_torch._device import DeviceLike, resolve_device
 from piquant_tpu_torch.models import llama as M
 from piquant_tpu_torch.models import mla as ML
+from piquant_tpu_torch.models import model_for
 from piquant_tpu_torch.models import speculative as SP
 from piquant_tpu_torch.quant.kv_cache import KVCache, kv_cache_copy_rows
 from piquant_tpu_torch.serving.sampler import (TOPK_CAND, SamplingParams,
@@ -142,14 +143,6 @@ class EngineMetrics:
             f.write(json.dumps({"ts": time.time(), **self.to_dict()}) + "\n")
 
 
-def _model_for(cfg):
-    """The model module of a config (the reference's `_model_for`): the
-    engine serves any module with init_kv_cache / prefill / decode_step
-    whose cache holds batch on axis 1 of every leaf (llama.py's KVCache,
-    mla.py's LatentKVCache)."""
-    return ML if isinstance(cfg, ML.MLAConfig) else M
-
-
 def _copy_rows(dst, src, rows: torch.Tensor, n: Optional[int] = None):
     """Copy a one-request or burst cache's first `n` positions into the
     batch rows `rows` of the engine's cache, in place."""
@@ -187,7 +180,7 @@ class Engine:
         if econfig.prefill_pad > econfig.max_seq_len:
             econfig = dataclasses.replace(econfig,
                                           prefill_pad=econfig.max_seq_len)
-        self._model = _model_for(cfg)
+        self._model = model_for(cfg)
         if (self._model is M and cfg.kv_bits == 4
                 and econfig.max_seq_len % 2):
             # the reference's init_kv_cache refuses it too (the latent
@@ -243,7 +236,7 @@ class Engine:
         if draft is not None:
             dcfg, _ = draft
             self._check_draft(dcfg, econfig)
-            self._dmodel = _model_for(dcfg)
+            self._dmodel = model_for(dcfg)
             self._dcache = self._dmodel.init_kv_cache(
                 dcfg, b, max_len=econfig.max_seq_len, device=self.device)
         # token-tuple key -> (one-slot cache, prefix length); insertion

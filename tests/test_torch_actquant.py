@@ -20,6 +20,7 @@ from piquant_tpu_torch.ops.cuda import qmatmul as TQ
 from piquant_tpu_torch.quant import linear as TL
 from test_torch_model import _run_jax, _run_port
 from token_guard import assert_tokens_match_guarded
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0xA8
 CPU = torch.device("cpu")
@@ -45,16 +46,6 @@ def counted(monkeypatch):
 
         monkeypatch.setattr(TQ, name + "_plain", bump)
     return calls
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread, as the CLI tests: the model's many small ops
-    stall on a thread pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -18,20 +18,11 @@ from piquant_tpu_torch import convert
 from piquant_tpu_torch.models import llama as TM
 from piquant_tpu_torch.serving import __main__ as S
 from test_torch_model import _check_logits, _run_jax, _run_port
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0xC11
 CPU = torch.device("cpu")
 MLP2 = {k: (2, 32) for k in ("w1", "w3", "w2")}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny model's thousands of small ops stall
-    on a thread pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # weight format -> quantize_params keywords (every one with the INT8 lm_head)

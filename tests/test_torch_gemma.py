@@ -35,6 +35,7 @@ from test_torch_model import LOGIT_TOL, _run_jax, _run_port
 from test_torch_serving import (_engine_tokens, _port_forward, _prompts,
                                 _single)
 from token_guard import assert_tokens_match_guarded
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x6E3
 CPU = torch.device("cpu")
@@ -43,16 +44,6 @@ PRESETS = ("gemma_2b", "gemma_7b", "gemma2_9b", "gemma3_12b")
 
 def _t(a):
     return convert.tensor_from_numpy(a, CPU)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread, as the CLI tests: the models' many small ops
-    stall on a thread pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from piquant_tpu_torch.ops.cuda import flash as TF
 from test_torch_kernels import _stacked_cache
 from test_torch_kv4 import _random_kv4
 from test_torch_model import _check_logits, _run_jax, _run_port
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x6A16
 CPU = torch.device("cpu")
@@ -38,14 +39,6 @@ REPS = [12, 16]
 
 def _t(a):
     return convert.tensor_from_numpy(a, CPU)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # Flash output element by element within atol 2e-3, rtol 2e-2 (the causal

@@ -23,18 +23,9 @@ from piquant_tpu_torch.ops.cuda import qmatmul as TQ
 from piquant_tpu_torch.ops.reference import round_half_away
 from piquant_tpu_torch.quant import kv_cache as TKV
 from piquant_tpu_torch.quant import linear as TL
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x7E57
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -25,6 +25,7 @@ from test_torch_model import KCFG, _run_jax, _run_port
 from test_torch_serving import (_engine_tokens, _port_forward, _prompts,
                                 _single)
 from tests.token_guard import assert_tokens_match_guarded
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x4B34
 CPU = torch.device("cpu")
@@ -38,16 +39,6 @@ CPU = torch.device("cpu")
 # cross-package band is wider than kv8's LOGIT_TOL too.  3e-2 is about 2.5
 # times the 1.0-1.2% that script measures between the packages.
 KV4_LOGIT_TOL = 3e-2
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

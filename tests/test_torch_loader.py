@@ -32,6 +32,7 @@ from piquant_tpu_torch.models import llama as TM
 from piquant_tpu_torch.models import loader as TL
 from piquant_tpu_torch.utils import safetensors_io as TST
 from piquant_tpu_torch.utils import weight_cache as TWC
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x10AD
 CPU = torch.device("cpu")
@@ -109,14 +110,6 @@ def _hf_model(family, seed=SEED):
     torch.manual_seed(seed + sorted(FAMILIES).index(family))
     conf = getattr(transformers, conf_cls)(**{**_BASE, **over})
     return getattr(transformers, model_cls)(conf).eval()
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -42,6 +42,7 @@ from piquant_tpu_torch.models import speculative as TS
 from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
                                        SamplingParams)
 from token_guard import assert_tokens_match_guarded
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x3A1A
 CPU = torch.device("cpu")
@@ -56,16 +57,6 @@ HF_TOL = 3e-3
 # apart at most, the MLP's route gap
 LP_ATOL = 1e-2
 G = 3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny model's small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

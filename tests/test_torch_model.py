@@ -18,6 +18,7 @@ from piquant_tpu_torch.models import llama as TM
 from piquant_tpu_torch.ops.cuda import decode_attn2 as TDA
 from piquant_tpu_torch.ops.cuda import flash as TF
 from piquant_tpu_torch.ops.cuda import qmatmul as TQ
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x11A3
 CPU = torch.device("cpu")
@@ -33,16 +34,6 @@ KCFG = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
 # package materializes scores unless forced), and bf16 activations round at
 # slightly different places.
 LOGIT_TOL = 1.5e-2
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(jcfg, seed):

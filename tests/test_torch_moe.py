@@ -26,6 +26,7 @@ from piquant_tpu_torch.quant import linear as TL
 from piquant_tpu_torch.quant import moe as TMOE
 from test_torch_model import _check_logits, _run_jax, _run_port
 from token_guard import assert_tokens_match_guarded
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x3E
 CPU = torch.device("cpu")
@@ -36,16 +37,6 @@ GEMVS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped", "w4a8",
 
 def _t(a):
     return convert.tensor_from_numpy(a, CPU)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread, as the CLI tests: the model's many small ops
-    stall on a thread pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

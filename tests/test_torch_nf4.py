@@ -19,19 +19,10 @@ from piquant_tpu_torch.models import llama as TM
 from piquant_tpu_torch.ops.cuda import qmatmul as TQ
 from piquant_tpu_torch.quant import linear as TL
 from test_torch_model import KCFG, _check_logits, _run_jax, _run_port
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x4F4
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

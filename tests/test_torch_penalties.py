@@ -28,19 +28,10 @@ from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
 from piquant_tpu_torch.serving.sampler import (apply_freq_presence,
                                                apply_repetition_penalty)
 from tests.token_guard import assert_tokens_match_guarded
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x0A1
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ import piquant_tpu_torch as tq
 from piquant_tpu_torch import dtypes as tdt
 from piquant_tpu_torch.convert import tensor_from_numpy
 from piquant_tpu_torch.ops import reference as tref
+from _torch_threads import one_thread  # noqa: F401
 
 JDT = jdt.DTYPES
 SEED = 0x9032002
@@ -44,16 +45,6 @@ ALL_QUANTS = ["uint2", "uint4", "int4", "uint8", "int8", "uint16", "int16",
 EDGE = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.49999997, -0.49999997,
                  np.nan, np.inf, -np.inf, 3e9, -3e9, 1e-45, -0.0, 7.5, -7.5,
                  128.5, -128.5], np.float32)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

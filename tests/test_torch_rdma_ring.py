@@ -25,19 +25,10 @@ from piquant_tpu_torch.parallel import (make_mesh, rdma_all_reduce_shard,
                                         rdma_ring_selftest)
 from tests import torch_dist_worker as W
 from tests.test_rdma_ring import _simulate
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x5150
 TOL = dict(rtol=3e-7, atol=2e-6)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _addends(p, shape, seed=SEED):

@@ -21,22 +21,13 @@ from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
                                        SamplingParams, sample)
 from piquant_tpu_torch.serving.sampler import batch_keep_mask, sample_batch
 from tests.token_guard import assert_tokens_match_guarded
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x5E7
 CPU = torch.device("cpu")
 # head_dim 128: decode goes through the decode_attn2 path (plain on CPU)
 KCFG = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
             d_ff=512, max_seq_len=128)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

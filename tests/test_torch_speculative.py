@@ -27,6 +27,7 @@ from piquant_tpu_torch.quant.linear import (QuantizedExpertStack,
                                             QuantizedLinear)
 from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
                                        SamplingParams)
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x5BEC
 CPU = torch.device("cpu")
@@ -36,16 +37,6 @@ G = 4
 # LOGIT_TOL is 1.5e-2 of the largest logit); measured 1.2e-2 at most here
 LP_ATOL = 2e-2
 KV4_LP_ATOL = 5e-2       # 2.5 times: the kv4 gap's (measured 2.2e-2)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

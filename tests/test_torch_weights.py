@@ -15,19 +15,10 @@ from piquant_tpu.quant import linear as JL
 from piquant_tpu_torch.convert import params_from_jax, tensor_from_numpy
 from piquant_tpu_torch.ops.cuda import qmatmul as TQ
 from piquant_tpu_torch.quant import linear as TL
+from _torch_threads import one_thread  # noqa: F401
 
 SEED = 0x3E16
 WRAPPERS = ("w4_gemv", "w8_gemv", "w2_gemv", "wg_chunk", "w4_grouped")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models' small ops stall on a thread
-    pool whose cores the other test workers hold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):
