@@ -31,7 +31,7 @@ Phases (any failure exits non-zero):
      1, 33 and 64, with their times, bounds and a torch.matmul yardstick;
   7. CLI: `python -m piquant_tpu_torch.serving --random llama3_8b
      --benchmark 8 --max-new 32` in process (at CLI_DEPTH of its 32
-     layers, 2 since phase 19 came, full width), in four weight formats
+     layers, 1 since phase 20 came, full width), in four weight formats
      (INT4-g128; INT4 attention with an INT2-g32 MLP; INT4-g256; INT2) and
      four activation-quantized runs (--act-quant-prefill at INT4 and INT8;
      --act-quant-decode at INT2 and with the INT2-g32 MLP), each with the
@@ -227,6 +227,21 @@ Phases (any failure exits non-zero):
      checks; (c) speculation over (a)'s model: prompt lookup (speculate 4)
      and the model as its own draft against plain greedy decoding under
      the guard, tokens a verify row and decode tok/s beside plain;
+ 20. head_dims of 384 to 1024: (a) decode_attn2 (kv8 and kv4),
+     decode_attn and flash (causal; a window of 256, a softcap of 50, a
+     chunk of 512 with pos0 300, sinks) against their plain versions at D
+     384, 512 and 1024, rep 4 (decode on 8 layers of B 8, Hkv 2, S 2048,
+     every position at S - 1 and ragged windows; flash at B 8, Hkv 2, T
+     1024 causal, B 2 for the rest), each with its time, bound, plain time,
+     SDPA's time and the fused SDPA backends that take its form, as
+     variants of their kernels-line rows; (b) Llama-3-8B's widths with 8
+     query heads of 512 over 2 at all 32 layers (random INT4 codes, INT8
+     lm_head, kv8) served by the Engine (8 requests, 16 new tokens):
+     exact flash and decode_attn2 launches, all through the wide entry
+     points, every request's tokens against single-request generation
+     under the near-tie guard, a profiled decode step; (c) head_dim 384 at
+     4 layers over the kv4 cache; (d) head_dim 512 at 2 layers on the V1
+     route (PIQUANT_TPU_PALLAS_ATTN=1, PIQUANT_DEFER_APPEND=0);
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -1734,8 +1749,9 @@ def run_cli(torch, dev, args, runs=CLI_RUNS,
 # Mixtral-8x7B's 32 layers), since phase 13 came of phase 11's four dense
 # family presets, and since phase 14 came of phase 10's and phase 14's
 # (widths unchanged): the later phases need the time, and phases 5 and 14
-# (b) and the long requests serve the full depth.  4 until phase 19 came.
-CLI_DEPTH = 2
+# (b) and the long requests serve the full depth.  4 until phase 19 came,
+# 2 until phase 20 came.
+CLI_DEPTH = 1
 
 
 @contextlib.contextmanager
@@ -3142,22 +3158,22 @@ V1_POS = (0, 300, 2047, 1000, 1500, 511, 273, 1800)
 V1_LAYERS = 8                 # distinct caches the timing cycles over
 
 
-def hold_v1(torch, dev, gen, b, hkv, rep, s, d, label):
+def hold_v1(torch, dev, gen, b, hkv, rep, s, d, label, layers=None):
     """decode_attn against its plain version on one layer's kv8 cache of
     (b, hkv, rep, s, d) (ragged positions V1_POS: position 0 with one live
     key, S - 1, chunks wholly past pos; the K scale of position 5 raised
     in rows 2 and 3 so one key dominates them), atol 2e-3, rtol 2e-2 as
     the other attention holds, at the first and last of its caches
-    (V1_LAYERS at head_dim 128, else 1); then its device ms with every
-    position at S - 1 (the whole cache live) and ragged, the plain
-    version's, SDPA's on the bf16-dequantized cache with the bool mask idx
-    <= pos, and the bound (the live code and scale bytes).  Returns (max
-    abs error, {"full": ..., "ragged": ...})."""
+    (`layers`, by default V1_LAYERS at head_dim 128, else 1); then its
+    device ms with every position at S - 1 (the whole cache live) and
+    ragged, the plain version's, SDPA's on the bf16-dequantized cache with
+    the bool mask idx <= pos, and the bound (the live code and scale
+    bytes).  Returns (max abs error, {"full": ..., "ragged": ...})."""
     import torch.nn.functional as F
 
     from piquant_tpu_torch.ops.cuda import attention as AT
 
-    nl = V1_LAYERS if d == 128 else 1
+    nl = layers or (V1_LAYERS if d == 128 else 1)
     shape = (nl, b, hkv, s, d)
     kc, vc = (torch.randint(-127, 128, shape, generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(2))
@@ -5456,6 +5472,311 @@ def run_mla(torch, dev, gen, args, rows):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 20: head_dims of 384 to 1024
+# ---------------------------------------------------------------------------
+
+WIDE_D = (384, 512, 1024)     # the head dims of (a)'s kernel holds
+WIDE_REP = 4
+# (a)'s decode cache: 8 layers (the timing's caches stream from HBM), 8
+# slots, 2 kv heads, 2048 positions; every position at S - 1, then ragged
+WIDE_CACHE = (8, 8, 2, 2048)
+WIDE_FLASH = (8, 2, 1024)     # B, Hkv, T of the causal flash holds
+WIDE_FLASH_SMALL = (2, 2, 1024)   # of the window, softcap, chunk and sinks
+WIDE_WINDOW, WIDE_SOFTCAP, WIDE_CHUNK, WIDE_POS0 = 256, 50.0, 512, 300
+WIDE_NEW = 16                 # greedy tokens a request of (b)-(d)
+WIDE_KV4_DEPTH = 4            # (c): D 384 over the kv4 cache
+WIDE_V1_DEPTH = 2             # (d): the V1 route at D 512
+SDPA_FUSED = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_backends(torch, call) -> str:
+    """SDPA's fused backends that take `call`, each tried alone; "none"
+    where none does (the math path then runs the call)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    took = []
+    for name in SDPA_FUSED:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+            took.append(name.split("_")[0].lower())
+        except RuntimeError:
+            pass
+    return ", ".join(took) or "none"
+
+
+def wide_sdpa_backends(torch, dev, d):
+    """The fused SDPA backends that take phase 20's three yardstick forms
+    at head dim d (probed on small tensors of the same dtype, head dim,
+    GQA and mask form): flash's causal GQA call, its bool-mask call on
+    repeated K/V, and decode's one-query call with a bool mask and GQA."""
+    import torch.nn.functional as F
+
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.zeros((1, 8, 128, d), **bf)
+    k = torch.zeros((1, 2, 128, d), **bf)
+    kr = torch.zeros((1, 8, 128, d), **bf)
+    band = torch.ones((128, 128), dtype=torch.bool, device=dev).tril()
+    q1 = torch.zeros((1, 8, 1, d), **bf)
+    m1 = torch.ones((1, 1, 1, 128), dtype=torch.bool, device=dev)
+    return {
+        "causal": sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
+            q, k, k, is_causal=True, enable_gqa=True)),
+        "mask": sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
+            q, kr, kr, attn_mask=band)),
+        "decode": sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
+            q1, k, k, attn_mask=m1, enable_gqa=True))}
+
+
+def wide_attributes(torch, d) -> str:
+    """Registers, local (spill) bytes, dynamic shared memory and ring
+    stages of the three decode_wide_kernel instances (rep 8, 16 tiles a
+    split: the most) and of flash_wide_kernel at head dim d
+    (cudaFuncGetAttributes)."""
+    import ctypes
+
+    from piquant_tpu_torch.ops.cuda import _build
+
+    lib, parts = _build.library(), []
+    for form, tag in ((0, "decode kv8"), (1, "decode kv4"), (2, "decode v1"),
+                      (None, "flash")):
+        a = (ctypes.c_int * 4)()
+        if form is None:
+            _build.check(lib.pq_flash_wide_attributes(d, a),
+                         "pq_flash_wide_attributes")
+        else:
+            _build.check(lib.pq_decode_wide_attributes(d, form, a),
+                         "pq_decode_wide_attributes")
+        parts.append(f"{tag}: {a[0]} registers, {a[1]} B local, {a[2]} B "
+                     f"shared, {a[3]} stages")
+    return "; ".join(parts)
+
+
+def check_wide_heads(torch, dev, gen, rows):
+    """Phase 20 (a): decode_attn2 (kv8 and kv4), decode_attn (the V1 form)
+    and flash (causal; window, softcap, chunk with pos0, sinks) against
+    their plain versions at each of WIDE_D, rep 4: decode on WIDE_CACHE
+    with every position at S - 1 and with GQA_STARTS to GQA_POS, flash at
+    WIDE_FLASH (causal) and WIDE_FLASH_SMALL; each with its ms, bound,
+    plain ms and SDPA's ms beside the fused SDPA backends that take its
+    form, as a variant of its kernels-line row in `rows`.  Flash at these
+    widths recomputes Q K^T for each 128-column slab of O: its operations
+    are (D / 128 + 1) / 2 times the bound's, stated beside each hold."""
+    by_name = {r["name"]: r for r in rows}
+
+    def add(name, what, res, backends):
+        res["library_backend"] = backends
+        res["source"] = ("piquant_tpu_torch/csrc/" +
+                         ("flash_wide.cu" if name == "flash_prefill"
+                          else "decode_wide.cu"))
+        row = by_name[name]
+        row.setdefault("variants", {})[what] = res
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+
+    nl, b, hkv, s = WIDE_CACHE
+    fb, fh, ft = WIDE_FLASH
+    sb, sh, st = WIDE_FLASH_SMALL
+    full = (s - 1,) * b
+    for d in WIDE_D:
+        print(f"wide D={d} instances: {wide_attributes(torch, d)}",
+              flush=True)
+        sdpa = wide_sdpa_backends(torch, dev, d)
+        print(f"wide D={d}: fused SDPA backends taking flash's causal GQA "
+              f"call: {sdpa['causal']}; its bool-mask call: {sdpa['mask']}; "
+              f"decode's masked GQA call: {sdpa['decode']}", flush=True)
+        geo = (nl, b, hkv, WIDE_REP, s)
+        for kv4, name in ((False, "decode_attn2"), (True, "decode_attn2_kv4")):
+            for what, pos, start in (("full", full, (0,) * b),
+                                     ("ragged", GQA_POS, GQA_STARTS)):
+                add(name, f"D {d}: L={nl}, B={b}, Hkv={hkv}, rep "
+                    f"{WIDE_REP}, S={s}, {what}",
+                    hold_decode(torch, dev, gen, kv4, geo, pos, start, d=d),
+                    sdpa["decode"])
+        _, res = hold_v1(torch, dev, gen, b, hkv, WIDE_REP, s, d,
+                         f"D {d}", layers=4)
+        for what, r in res.items():
+            add("decode_attn", f"D {d}: B={b}, Hkv={hkv}, rep {WIDE_REP}, "
+                f"S={s}, {what}", r, sdpa["decode"])
+        ops = (d / 128 + 1) / 2
+        for tag, shape, kw, backends in (
+                ("causal", WIDE_FLASH, {}, sdpa["causal"]),
+                (f"window {WIDE_WINDOW}", WIDE_FLASH_SMALL,
+                 dict(window=WIDE_WINDOW), sdpa["mask"]),
+                (f"softcap {WIDE_SOFTCAP:g}", WIDE_FLASH_SMALL,
+                 dict(window=None, softcap=WIDE_SOFTCAP), "none (no softcap)"),
+                (f"chunk {WIDE_CHUNK}, pos0 {WIDE_POS0}", WIDE_FLASH_SMALL,
+                 dict(window=None, chunk=WIDE_CHUNK,
+                      pos0=(WIDE_POS0,) * sb), sdpa["mask"]),
+                ("causal, sinks", WIDE_FLASH_SMALL,
+                 dict(window=None, sinks=True), sdpa["mask"])):
+            bb, hh, tt = shape
+            kw = dict(kw)
+            window = kw.pop("window", None)
+            res = hold_flash(torch, dev, gen, bb, hh, WIDE_REP, tt, window,
+                             d=d, **kw)
+            res["kernel_operations"] = (f"{ops:g}x the bound's (Q K^T once "
+                                        "for each 128-column slab)")
+            add("flash_prefill", f"D {d}: B={bb}, Hkv={hh}, rep {WIDE_REP}, "
+                f"T={tt}, {tag}", res, backends)
+        torch.cuda.empty_cache()
+
+
+def wide_config(M, hd, **kw):
+    """Llama-3-8B's published widths (d_model 4096, d_ff 14336, vocab
+    128256) with 8 query heads over 2 kv heads of head_dim hd: at 512 every
+    projection keeps Llama-3-8B's shapes (q 4096, kv 1024)."""
+    return dataclasses.replace(M.LlamaConfig.llama3_8b(), n_heads=8,
+                               n_kv_heads=2, head_dim_override=hd, **kw)
+
+
+@contextlib.contextmanager
+def attention_entries():
+    """Count the C entry points the attention wrappers launch (each launch
+    asks `_build.attention_entry` once) while the block runs."""
+    from piquant_tpu_torch.ops.cuda import _build
+
+    real, seen = _build.attention_entry, {}
+
+    def spy(name, d):
+        entry = real(name, d)
+        seen[entry] = seen.get(entry, 0) + 1
+        return entry
+
+    _build.attention_entry = spy
+    try:
+        yield seen
+    finally:
+        _build.attention_entry = real
+
+
+def wide_engine(torch, dev, args, cfg, params, kern, label):
+    """8 greedy requests (prompts of 128-512 tokens from the seed, padded
+    to whole 128-row tiles so flash takes the prefill; WIDE_NEW new
+    tokens) through an Engine of 8 slots; exactly n_layers flash launches
+    a prefill call and n_layers `kern` launches a decode step, every one
+    through the wide C entry points and no other attention kernel; every
+    request's tokens against single-request generation under the near-tie
+    guard.  Returns (launches, metrics)."""
+    import numpy as np
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.serving import (Engine, EngineConfig, Request,
+                                           SamplingParams)
+
+    ec = EngineConfig(batch_slots=8, max_seq_len=1024, prefill_pad=128,
+                      decode_block=8)
+    eng = Engine(cfg, params, ec, rng_seed=args.seed, device=dev)
+    counts = {"blocks": 0, "prefills": 0}
+    dispatch, admit = eng._dispatch_block, eng._admit_one_shot
+
+    def counted_dispatch():
+        counts["blocks"] += 1
+        return dispatch()
+
+    def counted_admit(batch):
+        counts["prefills"] += 1
+        return admit(batch)
+
+    eng._dispatch_block, eng._admit_one_shot = counted_dispatch, counted_admit
+    rng = np.random.default_rng(args.seed + 20)
+    for i in range(8):
+        eng.submit(Request(rid=i, prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab_size, int(rng.integers(128, 513)))],
+            sampling=SamplingParams(max_new_tokens=WIDE_NEW)))
+    zero_counts()
+    t0 = time.perf_counter()
+    with attention_entries() as entries:
+        done = eng.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernel_wrappers().items()
+                if v.launches}
+    if len(done) != 8 or any(len(r.tokens) != WIDE_NEW or not all(
+            0 <= t < cfg.vocab_size for t in r.tokens) for r in done):
+        raise AssertionError(f"{label}: requests unfinished or tokens "
+                             "outside the vocab")
+    nl, steps = cfg.n_layers, counts["blocks"] * ec.decode_block
+    attn = {"flash_prefill": nl * counts["prefills"], kern: nl * steps}
+    entry = {"flash_prefill": "pq_flash_prefill_wide",
+             "decode_attn2": "pq_decode_attn2_wide",
+             "decode_attn2_kv4": "pq_decode_attn2_kv4_wide",
+             "decode_attn": "pq_decode_attn_wide"}
+    got = {k: launches.get(k, 0) for k in entry}
+    want = {k: attn.get(k, 0) for k in entry}
+    wide = {entry[k]: n for k, n in want.items() if n}
+    if got != want or entries != wide:
+        raise AssertionError(f"{label}: attention launches {got} through "
+                             f"{entries}, expected {want} through {wide}")
+    m = eng.metrics.to_dict()
+    print(f"{label}: {counts['prefills']} prefill calls, "
+          f"{counts['blocks']} decode blocks ({steps} steps), launches "
+          f"{launches}, wide entries {entries}; {wall:.2f} s; metrics "
+          f"{json.dumps(m)} [{card_line()}]", flush=True)
+    guard_engine(torch, M, cfg, params, dev, {r.rid: r for r in done}, eng,
+                 8, WIDE_NEW, label)
+    return launches, m
+
+
+def run_wide(torch, dev, gen, args, rows):
+    """Phase 20: (a) the kernel holds; (b) Llama-3-8B's widths with 8 heads
+    of 512 over 2, all 32 layers, INT4 with the INT8 lm_head, kv8, served
+    by the Engine, one decode step profiled; (c) head_dim 384 at
+    WIDE_KV4_DEPTH layers over the kv4 cache; (d) head_dim 512 at
+    WIDE_V1_DEPTH layers on the V1 route (PIQUANT_TPU_PALLAS_ATTN=1,
+    PIQUANT_DEFER_APPEND=0).  Returns the kernels' launches summed over
+    (b)-(d)."""
+    from piquant_tpu_torch.models import llama as M
+
+    check_wide_heads(torch, dev, gen, rows)
+    total = {}
+
+    def serve(cfg, kern, label, profiled=False):
+        params = M.random_quantized_params(cfg, seed=args.seed,
+                                           lm_head_bits=8, device=dev)
+        launches, m = wide_engine(torch, dev, args, cfg, params, kern, label)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if profiled:
+            profile_decode(torch, M, cfg, params, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return m
+
+    cfg = wide_config(M, 512)
+    print(f"wide (b): Llama-3-8B's widths, 8 heads of 512 over 2 (q "
+          f"{cfg.n_heads * cfg.head_dim}, kv {cfg.n_kv_heads * cfg.head_dim})"
+          f", {cfg.n_layers} layers, kv8", flush=True)
+    serve(cfg, "decode_attn2", "wide (b) D 512", profiled=True)
+    cfg = wide_config(M, 384, n_layers=WIDE_KV4_DEPTH, kv_bits=4)
+    print(f"wide (c): 8 heads of 384 over 2 (q {cfg.n_heads * 384}, kv "
+          f"{cfg.n_kv_heads * 384}), {cfg.n_layers} layers, kv4", flush=True)
+    serve(cfg, "decode_attn2_kv4", "wide (c) D 384 kv4")
+    old = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update(PIQUANT_TPU_PALLAS_ATTN="1", PIQUANT_DEFER_APPEND="0")
+    try:
+        cfg = wide_config(M, 512, n_layers=WIDE_V1_DEPTH)
+        print(f"wide (d): 8 heads of 512 over 2, {cfg.n_layers} layers, the "
+              "V1 route", flush=True)
+        serve(cfg, "decode_attn", "wide (d) D 512 V1")
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"wide: launches {total}", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5579,6 +5900,10 @@ def main() -> int:
     for name, n in mla.items():
         launches[name] += n
     phase_done(19)
+    wide = run_wide(torch, dev, gen, args, kernels)
+    for name, n in wide.items():
+        launches[name] = launches.get(name, 0) + n
+    phase_done(20)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in spec:
@@ -5587,6 +5912,8 @@ def main() -> int:
             kern["loader_launches"] = loader[kern["name"]]
         if kern["name"] in mla:
             kern["mla_launches"] = mla[kern["name"]]
+        if kern["name"] in wide:
+            kern["wide_launches"] = wide[kern["name"]]
         if kern["name"] in gemma:
             kern["gemma_launches"] = gemma[kern["name"]]
         if kern["name"] in l4:

@@ -71,34 +71,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pq_decode.cuh"
 #include "pq_hopper.cuh"
+#include "pq_mma.cuh"
 
 namespace {
 
-constexpr int kTile = 64;        // cache positions a ring stage holds
+using namespace pq;
+
+constexpr int kTile = kDecodeTile;
 constexpr int kMaxStages = 8;
 constexpr int kRingBytes = 98304;   // the ring's K or V tiles in flight
-constexpr int kMaxTps = 16;         // tiles a split (its scores: 2 KB each)
+constexpr int kMaxTps = kDecodeMaxTps;
 constexpr int kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;
 
-struct Args {
-  const __nv_bfloat16* q;    // [B, Hkv, rep, D]
-  const uint8_t* kc;         // [L, B, Hkv, S, D] int8 / [L, B, Hkv, S/2, D] u8
-  const float* ks;           // [L, B, Hkv, S] / [L, B, Hkv, 2, S/2]
-  const uint8_t* vc;
-  const float* vs;
-  const int* pos;            // [B]
-  const int* start;          // [B]
-  float* acc;                // [B, Hkv, rep, D] (V1: the context)
-  float* m;                  // [B, Hkv, rep]
-  float* l;
-  float* part_acc;           // [B, Hkv, nsplit, rep, D]
-  float* part_ml;            // [B, Hkv, nsplit, rep, 2]
-  int* tickets;              // [B * Hkv * groups], zero between calls
-  int layer, nb, nh, rep, s_len, tps, nstage, region;
-  float sm_scale;
-};
+using Args = DecodeArgs;
 
 template <bool KV4, int D>
 struct Form {
@@ -110,65 +98,6 @@ struct Form {
   static constexpr int kNt = 8 / kWarps;  // n8 tiles of scores a warp a tile
   static constexpr int kOut4 = 2;         // float4s of 8 heads x D a thread
 };
-
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// int8 codes in bytes 0 and 2 of w -> bf16x2 (low half: byte 0), exactly:
-// (128 + low 7 bits) - (128, or 256 when the sign bit is set)
-__device__ __forceinline__ uint32_t s8_pair(uint32_t w) {
-  return bf16x2_sub((w & 0x007F007Fu) | 0x43004300u,
-                    (w & 0x00800080u) | 0x43004300u);
-}
-
-// offset-8 nibbles in bits 0-3 of bytes 0 and 2 of w -> bf16x2, exactly
-__device__ __forceinline__ uint32_t u4_pair(uint32_t w) {
-  return bf16x2_sub((w & 0x000F000Fu) | 0x43004300u, 0x43084308u);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// byte j of a into bytes 0 and 1, byte j of b into bytes 2 and 3
-__device__ __forceinline__ uint32_t gather(uint32_t a, uint32_t b, int j) {
-  return __byte_perm(a, b, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   pq::smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-template <bool KV4>
-__device__ __forceinline__ size_t scale_at(int p, int s_len) {
-  if constexpr (KV4) return (size_t)(p & 1) * (s_len / 2) + (p >> 1);
-  return (size_t)p;
-}
 
 // First of the 4 dims (d0, d0+2 | d0+1, d0+3) of k16 step kk for thread t.
 template <bool KV4, int D>
@@ -574,11 +503,6 @@ decode_attn2_kernel(const Args a) {
   }
 }
 
-int n_splits(int s_len, int tps) {
-  const int tiles = (s_len + kTile - 1) / kTile;
-  return (tiles + tps - 1) / tps;
-}
-
 // Dynamic shared memory of a launch; sets a.nstage and a.region.
 template <bool KV4, int D>
 size_t smem_bytes(Args& a, int nsplit) {
@@ -599,7 +523,7 @@ size_t smem_bytes(Args& a, int nsplit) {
 
 template <bool KV4, int D, bool V1>
 int launch(Args a, cudaStream_t st) {
-  const int nsplit = n_splits(a.s_len, a.tps);
+  const int nsplit = decode_splits(a.s_len, a.tps);
   const size_t smem = smem_bytes<KV4, D>(a, nsplit);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -622,48 +546,17 @@ int dispatch(const Args& a, int d, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-Args make_args(const void* q, const void* kc, const void* ks, const void* vc,
-               const void* vs, const void* pos, const void* start, void* acc,
-               void* m, void* l, void* part_acc, void* part_ml, void* tickets,
-               int layer, int nb, int nh, int rep, int s_len, int tps,
-               float sm_scale) {
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kc = static_cast<const uint8_t*>(kc);
-  a.ks = static_cast<const float*>(ks);
-  a.vc = static_cast<const uint8_t*>(vc);
-  a.vs = static_cast<const float*>(vs);
-  a.pos = static_cast<const int*>(pos);
-  a.start = static_cast<const int*>(start);
-  a.acc = static_cast<float*>(acc);
-  a.m = static_cast<float*>(m);
-  a.l = static_cast<float*>(l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.part_ml = static_cast<float*>(part_ml);
-  a.tickets = static_cast<int*>(tickets);
-  a.layer = layer;
-  a.nb = nb;
-  a.nh = nh;
-  a.rep = rep;
-  a.s_len = s_len;
-  a.tps = tps;
-  a.nstage = 0;
-  a.region = 0;
-  a.sm_scale = sm_scale;
-  return a;
-}
-
 template <bool KV4, int D, bool V1>
 int attributes(int* out) {
   cudaFuncAttributes fa;
   const cudaError_t err =
       cudaFuncGetAttributes(&fa, decode_attn2_kernel<KV4, D, V1>);
-  Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, 0, 1, 1, 8, 2048, kMaxTps, 1.f);
+  Args a = decode_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, 0, 1, 1, 8, 2048, D, kMaxTps, 1.f);
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)smem_bytes<KV4, D>(a, n_splits(a.s_len, a.tps));
+  out[2] = (int)smem_bytes<KV4, D>(a, decode_splits(a.s_len, a.tps));
   out[3] = a.nstage;
   return (int)err;
 }
@@ -685,8 +578,9 @@ extern "C" int pq_decode_attn2(const void* q, const void* kc, const void* ks,
                                int layer, int nb, int nh, int rep, int s_len,
                                int d, int tps, float sm_scale, void* stream) {
   return dispatch<false, false>(
-      make_args(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml,
-                tickets, layer, nb, nh, rep, s_len, tps, sm_scale),
+      decode_args(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
+                  part_ml, tickets, layer, nb, nh, rep, s_len, d, tps,
+                  sm_scale),
       d, stream);
 }
 
@@ -701,8 +595,9 @@ extern "C" int pq_decode_attn2_kv4(const void* q, const void* kc,
                                    int rep, int s_len, int d, int tps,
                                    float sm_scale, void* stream) {
   return dispatch<true, false>(
-      make_args(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml,
-                tickets, layer, nb, nh, rep, s_len, tps, sm_scale),
+      decode_args(q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc,
+                  part_ml, tickets, layer, nb, nh, rep, s_len, d, tps,
+                  sm_scale),
       d, stream);
 }
 
@@ -717,8 +612,9 @@ extern "C" int pq_decode_attn(const void* q, const void* kc, const void* ks,
                               int s_len, int d, int tps, float sm_scale,
                               void* stream) {
   return dispatch<false, true>(
-      make_args(q, kc, ks, vc, vs, pos, pos, ctx, nullptr, nullptr, part_acc,
-                part_ml, tickets, 0, nb, nh, rep, s_len, tps, sm_scale),
+      decode_args(q, kc, ks, vc, vs, pos, pos, ctx, nullptr, nullptr,
+                  part_acc, part_ml, tickets, 0, nb, nh, rep, s_len, d, tps,
+                  sm_scale),
       d, stream);
 }
 

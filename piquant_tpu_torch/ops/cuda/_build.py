@@ -25,9 +25,11 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "qmatmul_ragged.cu",
-           "qmatmul_mlp.cu", "decode_attn2.cu", "flash.cu", "quantize.cu",
-           "dequantize.cu", "requantize.cu", "minmax.cu", "ring.cu")
-HEADERS = ("pq_quant.cuh", "pq_tile.cuh", "pq_hopper.cuh", "pq_gemv.cuh")
+           "qmatmul_mlp.cu", "decode_attn2.cu", "decode_wide.cu", "flash.cu",
+           "flash_wide.cu", "quantize.cu", "dequantize.cu", "requantize.cu",
+           "minmax.cu", "ring.cu")
+HEADERS = ("pq_quant.cuh", "pq_tile.cuh", "pq_hopper.cuh", "pq_gemv.cuh",
+           "pq_mma.cuh", "pq_decode.cuh")
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -77,17 +79,24 @@ SIGNATURES = {
     # q, kc, ks, vc, vs, pos, ctx, part_acc, part_ml, tickets, nb, nh, rep,
     # s_len, d, tps, sm_scale, stream
     "pq_decode_attn": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "pq_decode_attn_wide": [_P] * 10 + [_I] * 6 + [_F, _P],
     # q, kc, ks, vc, vs, pos, start, acc, m, l, part_acc, part_ml, tickets,
     # layer, nb, nh, rep, s_len, d, tps, sm_scale, stream
     "pq_decode_attn2": [_P] * 13 + [_I] * 7 + [_F, _P],
     "pq_decode_attn2_kv4": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "pq_decode_attn2_wide": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "pq_decode_attn2_kv4_wide": [_P] * 13 + [_I] * 7 + [_F, _P],
     # d, form (0 kv8, 1 kv4, 2 V1), out[4]
     "pq_decode_attn2_attributes": [_I, _I, _P],
+    "pq_decode_wide_attributes": [_I, _I, _P],
     # q, k, v, out, pos0, sinks, nb, nh, rep, t, window, chunk, d,
     # sm_scale, softcap, stream
     "pq_flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+    "pq_flash_prefill_wide": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
     # d, mode, softcap, sinks, out[4]
     "pq_flash_attributes": [_I] * 4 + [_P],
+    # d, out[4]
+    "pq_flash_wide_attributes": [_I, _P],
     # x, out, n, in_bf16, bits, is_signed, scale_ptr, scale_val, zp_ptr,
     # zp_val, stochastic, seed, stream
     "pq_quantize": [_P, _P, _I64, _I, _I, _I, _P, _F, _P, _I, _I, _U64, _P],
@@ -173,6 +182,28 @@ def library() -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+# head dims of the attention kernels: flash.cu's and decode_attn2.cu's
+# instances, and flash_wide.cu's and decode_wide.cu's runtime range
+NARROW_D = (128, 256)
+WIDE_D = tuple(range(384, 1025, 128))
+
+
+def attention_entry(name: str, d: int) -> str:
+    """The C entry point of attention kernel `name` ("pq_flash_prefill",
+    "pq_decode_attn2", "pq_decode_attn2_kv4", "pq_decode_attn") at head dim
+    d: `name` at 128 and 256, its `_wide` form at the multiples of 128 from
+    384 to 1024; raises for any other head dim (wider heads: ROADMAP.md
+    queue 2 item 3)."""
+    if d in NARROW_D:
+        return name
+    if d in WIDE_D:
+        return name + "_wide"
+    raise NotImplementedError(
+        f"{name[3:]}: head_dim {d} (the kernels take 128, 256 and the "
+        "multiples of 128 from 384 to 1024; wider heads: ROADMAP.md queue 2 "
+        "item 3)")
 
 
 def check(err: int, name: str) -> None:

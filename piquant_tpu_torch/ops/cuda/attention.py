@@ -3,10 +3,11 @@ piquant_tpu/ops/pallas/attention.py: `decode_attention` and
 `_decode_attn_kernel`).
 
 `decode_attn` launches the hand-written kernel (the V1 mode of
-csrc/decode_attn2.cu) on CUDA tensors and runs `decode_attn_plain`, the
-same function in plain PyTorch, on CPU tensors.  Both return the
-NORMALIZED context over the cache positions 0 <= p <= pos: the current
-token is already in the cache.  The model reaches it only on the
+csrc/decode_attn2.cu at head_dim 128 and 256, of csrc/decode_wide.cu at the
+multiples of 128 from 384 to 1024) on CUDA tensors and runs
+`decode_attn_plain`, the same function in plain PyTorch, on CPU tensors.
+Both return the NORMALIZED context over the cache positions 0 <= p <= pos:
+the current token is already in the cache. The model reaches it only on the
 non-deferred decode path under PIQUANT_TPU_PALLAS_ATTN=1, as the reference
 does (models/llama.py `_attention`).
 """
@@ -18,7 +19,7 @@ from typing import Optional
 import torch
 
 from piquant_tpu_torch.ops.cuda import _build
-from piquant_tpu_torch.ops.cuda.decode_attn2 import check_head_dim, scratch
+from piquant_tpu_torch.ops.cuda.decode_attn2 import scratch
 
 S_CHUNK = 512      # the reference's chunk of the online softmax
 NEG_INF = -1e30
@@ -70,7 +71,7 @@ def decode_attn(q, k_codes, k_scale, v_codes, v_scale, positions,
     name = "decode_attn"
     b, hkv, rep, d = q.shape
     nb, nh, s_len, cd = k_codes.shape
-    check_head_dim(name, d)
+    entry = _build.attention_entry("pq_decode_attn", d)
     if (nb, nh) != (b, hkv) or cd != d:
         raise ValueError(f"{name}: q and cache shapes disagree")
     if (k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8
@@ -92,7 +93,7 @@ def decode_attn(q, k_codes, k_scale, v_codes, v_scale, positions,
     ctx = torch.empty((b, hkv, rep, d), dtype=torch.float32,
                       device=q.device)
     tps, part_acc, part_ml, tick = scratch(q, s_len)
-    err = _build.library().pq_decode_attn(
+    err = getattr(_build.library(), entry)(
         qb.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
         ctx.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),

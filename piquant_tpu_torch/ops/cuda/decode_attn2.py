@@ -3,11 +3,12 @@ piquant_tpu/ops/pallas/decode_attn2.py: `decode_attention_state` and both
 forms of `_kernel`).
 
 `decode_attn2` (kv8) and `decode_attn2_kv4` (the pair-packed kv4 cache of
-quant/kv_cache.py) launch the hand-written kernel (csrc/decode_attn2.cu) on
-CUDA tensors and run `decode_attn2_plain`, the same function in plain
-PyTorch, on CPU tensors.  All return the UNNORMALIZED state (acc, m, l)
-over the live window start <= p < pos, with m = -1e30, l = 0, acc = 0 for
-a row with no live position.
+quant/kv_cache.py) launch the hand-written kernel (csrc/decode_attn2.cu at
+head_dim 128 and 256, csrc/decode_wide.cu at the multiples of 128 from 384
+to 1024) on CUDA tensors and run `decode_attn2_plain`, the same function in
+plain PyTorch, on CPU tensors. All return the UNNORMALIZED state (acc, m,
+l) over the live window start <= p < pos, with m = -1e30, l = 0, acc = 0
+for a row with no live position.
 """
 
 from __future__ import annotations
@@ -25,16 +26,6 @@ TILE = 64          # cache positions a ring stage holds (csrc/decode_attn2.cu)
 MAX_TILES = 16     # tiles a split at most (the kernel keeps their scores)
 SPLITS = 8         # splits a (b, kv head) at most, where S allows
 GROUP = 8          # rep heads a block: a rep above takes groups of 8
-_D = (128, 256)      # head dims the kernel takes
-
-
-def check_head_dim(name: str, d: int) -> None:
-    """Raise for a head dim the decode kernels do not take (wider heads
-    wait for another tiling: ROADMAP.md queue 2 item 3)."""
-    if d not in _D:
-        raise NotImplementedError(
-            f"{name}: head_dim {d} (the kernel takes 128 and 256; wider "
-            "heads: ROADMAP.md queue 2 item 3)")
 
 
 def split_tiles(s_len: int) -> Tuple[int, int]:
@@ -68,7 +59,7 @@ def decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale, positions,
     """q [B,Hkv,rep,D]; stacked kv8 cache [L,B,Hkv,S,D] int8 with scales
     [L,B,Hkv,S,1] f32, or kv4 cache [L,B,Hkv,S/2,D] uint8 with scales
     [L,B,Hkv,2,S/2] f32 (its codes unpacked to [-7, 7]); positions/starts
-    [B] int32; any D (the kernels take 128 and 256)."""
+    [B] int32; any D (the kernels take the multiples of 128 up to 1024)."""
     kc, vc = k_codes[layer], v_codes[layer]
     ks, vs = k_scale[layer], v_scale[layer]
     if kc.dtype == torch.uint8:
@@ -99,7 +90,7 @@ def _launch(entry, kv4, q, k_codes, k_scale, v_codes, v_scale, positions,
     b, hkv, rep, d = q.shape
     nl, nb, nh, rows, cd = k_codes.shape
     s_len = 2 * rows if kv4 else rows
-    check_head_dim(name, d)
+    entry = _build.attention_entry(entry, d)
     if (nb, nh) != (b, hkv) or cd != d or not 0 <= layer < nl:
         raise ValueError(f"{name}: q and cache shapes disagree")
     cdt = torch.uint8 if kv4 else torch.int8

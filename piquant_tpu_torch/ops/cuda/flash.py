@@ -1,15 +1,15 @@
 """GQA-native flash-attention prefill (counterpart of
 piquant_tpu/ops/pallas/flash.py: `flash_prefill_masked` and `_kernel`).
 
-`flash_attn` launches the hand-written kernel (csrc/flash.cu) on CUDA
-tensors and runs `flash_attn_plain`, the same function in plain PyTorch, on
-CPU tensors.  Both take the causal mask, the sliding window (Mistral,
-Gemma, GPT-OSS: kp > qp - w beside kp <= qp), Llama-4's chunk ((pos0 + kp)
-// C == (pos0 + qp) // C, pos0 [B] the absolute position of row 0), the
-logit softcap (Gemma-2: cap * tanh(s / cap) on the scaled score, before
-the mask) and attention sinks (GPT-OSS: a logit for each query head that
-joins the softmax denominator alone) at any GQA rep; the kernel takes
-head_dim 128 and 256.
+`flash_attn` launches the hand-written kernel (csrc/flash.cu at head_dim
+128 and 256, csrc/flash_wide.cu at the multiples of 128 from 384 to 1024)
+on CUDA tensors and runs `flash_attn_plain`, the same function in plain
+PyTorch, on CPU tensors. Both take the causal mask, the sliding window
+(Mistral, Gemma, GPT-OSS: kp > qp - w beside kp <= qp), Llama-4's chunk
+((pos0 + kp) // C == (pos0 + qp) // C, pos0 [B] the absolute position of
+row 0), the logit softcap (Gemma-2: cap * tanh(s / cap) on the scaled
+score, before the mask) and attention sinks (GPT-OSS: a logit for each
+query head that joins the softmax denominator alone) at any GQA rep.
 """
 
 from __future__ import annotations
@@ -19,9 +19,6 @@ from typing import Optional
 import torch
 
 from piquant_tpu_torch.ops.cuda import _build
-
-_D = (128, 256)
-
 
 def flash_attn_plain(q, k, v, sm_scale: float, window: Optional[int] = None,
                      softcap: Optional[float] = None,
@@ -86,10 +83,7 @@ def flash_attn(q, k, v, sm_scale: float, window: Optional[int] = None,
         return flash_attn_plain(q, k, v, sm_scale, window, softcap, chunk,
                                 pos0, sinks)
     b, hkv, rep, t, d = q.shape
-    if d not in _D:
-        raise NotImplementedError(
-            f"flash_attn: head_dim {d} (the kernel takes 128 and 256; wider "
-            "heads: ROADMAP.md queue 2 item 3)")
+    entry = _build.attention_entry("pq_flash_prefill", d)
     if window is not None and window < 1:
         raise ValueError(f"flash_attn: window {window} < 1")
     if chunk is not None and (chunk < 1 or window is not None):
@@ -119,7 +113,7 @@ def flash_attn(q, k, v, sm_scale: float, window: Optional[int] = None,
     # a window of t is the plain causal mask: every key kp <= qp < t
     # satisfies kp > qp - t
     win = t if window is None else min(window, t)
-    err = _build.library().pq_flash_prefill(
+    err = getattr(_build.library(), entry)(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
         None if p0 is None else p0.data_ptr(),
         None if snk is None else snk.data_ptr(), b, hkv, rep, t, win,
