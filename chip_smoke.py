@@ -242,6 +242,23 @@ Phases (any failure exits non-zero):
      under the near-tie guard, a profiled decode step; (c) head_dim 384 at
      4 layers over the kv4 cache; (d) head_dim 512 at 2 layers on the V1
      route (PIQUANT_TPU_PALLAS_ATTN=1, PIQUANT_DEFER_APPEND=0);
+ 21. training: (b) Llama-3-8B's widths (d_model 4096, 32 / 8 heads of
+     128, d_ff 14336, vocab 128,256) at 2 of its 32 layers, f32 params
+     from the seed, trained by the port's data-parallel step
+     (piquant_tpu_torch/train.py) over 4 ranks stacked on the card, a
+     batch of 4 x 2049 tokens through flash, Adam at lr 1e-4, 4 steps
+     under the exact wire, the uint8 wire, ZeRO exact and ZeRO uint8:
+     one batch's gradients through flash against the materialized path's,
+     the loss falling in every run, the uint8 losses tracking the exact
+     ones, ZeRO exact equal to the replicated step, the uint8 run's state
+     at step 2 checkpointed (utils/checkpoint.py, on a thread beside the
+     rest) and restored into a fresh template equal to the unbroken run
+     bit for bit, each step's host time and the last step's device share,
+     the sync's quantize / dequantize / min_max launches; (a) the three
+     flash backward kernels (csrc/flash_bwd.cu) against the plain
+     version's f32 autograd at row 4's shape, Mistral's window, a chunk
+     with pos0 300 and rep 16, each with its time (CUDA-graph replay), its
+     bound, its plain version's time and SDPA's backward;
 then one JSON line with the kernels, and a last JSON line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -2689,7 +2706,7 @@ A3B_RUN = (("--random", "qwen3_moe_a3b", "--benchmark", "4", "--max-new",
            {"decode": {"w4_gemv": 4 + 3 * 128},
             "small": {"w4_gemv": 4, "wq_ragged": 3}, "mid": {"wq_ragged": 3},
             "big": {"wq_ragged": 3}})
-A3B_DEPTH = 4
+A3B_DEPTH = 4                 # since phase 18
 FAMILY_KERNELS = ("w4_gemv", "w8_gemv", "wq_ragged", "decode_attn2",
                   "flash_prefill")
 
@@ -2858,10 +2875,12 @@ GEMMA_RUNS = tuple(
     (("--random", preset, "--benchmark", "4", "--max-new", "8"), _dense7())
     for preset in ("gemma_2b", "gemma_7b", "gemma2_9b", "gemma3_12b"))
 GEMMA_KERNELS = ("w4_gemv", "w8_gemv", "decode_attn2", "flash_prefill")
-# Depth of the Gemma CLI runs since phase 13 came (full width): 6 layers
-# keep Gemma-2's alternation (even) and Gemma-3's 5:1 pattern (a multiple
-# of 6); the long requests serve the full depth
-GEMMA_DEPTH = 6
+# Depth of each Gemma CLI run (full width; 6 for all four from phase 13
+# until phase 21 came): Gemma-2's 2 keep its alternation (one local, one
+# global layer), 6 Gemma-3's 5:1 pattern; the long requests serve the full
+# depth
+GEMMA_DEPTH = {"gemma_2b": 6, "gemma_7b": 6, "gemma2_9b": 2,
+               "gemma3_12b": 6}
 # the long requests: (preset, prompt tokens, max_seq_len); Gemma-3's prompt
 # pads to 3072 positions, whole 128-row tiles, so its prefill takes flash
 # with the 1024 window biting
@@ -2923,7 +2942,7 @@ def run_gemma(torch, dev, gen, args, rows):
     check_gemma_kernels(torch, dev, gen, rows)
     with contextlib.ExitStack() as cuts:
         for flags, _ in GEMMA_RUNS:
-            cuts.enter_context(cut_depth(flags[1], GEMMA_DEPTH))
+            cuts.enter_context(cut_depth(flags[1], GEMMA_DEPTH[flags[1]]))
         total = run_preset_cli(torch, dev, args, GEMMA_RUNS, GEMMA_KERNELS,
                                "gemma cli", ("flash_prefill", "decode_attn2"))
     for preset, n, max_len in GEMMA_LONG:
@@ -5777,6 +5796,609 @@ def run_wide(torch, dev, gen, args, rows):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training: the flash backward and a data-parallel trainer
+# ---------------------------------------------------------------------------
+
+# (label, B, Hkv, rep, T, window, chunk, pos0 a row) of (a)'s holds; the
+# first is row 4's main-path shape and the kernels line's
+BWD_SHAPES = (("causal", 8, 8, 4, 1024, None, None, None),
+              ("Mistral window", 2, 8, 4, 2048, 1000, None, None),
+              ("chunk", 2, 8, 4, 2048, None, 1024, (300, 300)),
+              ("rep 16", 2, 4, 16, 1024, None, None, None))
+BWD_SOURCE = "piquant_tpu_torch/csrc/flash_bwd.cu"
+BWD_SHIPPED = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq")
+TRAIN_DEPTH = 2               # of Llama-3-8B's 32 layers, full width
+TRAIN_DP = 4                  # data-parallel ranks stacked on the card
+TRAIN_T = 2048                # tokens a row through flash (2049 with targets)
+TRAIN_STEPS = 4
+# Adam's lr: the reference's tests take 3e-3 at d_model 256; at d_model
+# 4096 it diverges (losses 12.60, 1.75, 0.46, 8.60, the uint8 run 0.17
+# at step 3), and 1e-4 falls smoothly (12.60, 7.00, 2.27, 0.17)
+TRAIN_LR = 1e-4
+TRAIN_SAVE_AT = 2             # the restart check's checkpoint step
+# the uint8 run first: its checkpoint is written and read beside the rest
+TRAIN_WIRES = (("uint8", "uint8", False), ("exact", None, False),
+               ("ZeRO exact", None, True), ("ZeRO uint8", "uint8", True))
+# flash's gradients against the materialized path's, leaf by leaf, of the
+# leaf's largest |gradient| (tests/test_torch_flash_grad.py MODEL_RTOL: the
+# two round the probabilities to bf16 before and after normalizing)
+TRAIN_GRAD_RTOL = 2e-2
+
+
+def bwd_attributes(torch) -> str:
+    """Registers, local (spill) bytes and dynamic shared memory of the three
+    backward kernels (cudaFuncGetAttributes)."""
+    import ctypes
+
+    from piquant_tpu_torch.ops.cuda import _build
+
+    parts = []
+    for which, name in enumerate(BWD_KERNELS):
+        a = (ctypes.c_int * 3)()
+        _build.check(_build.library().pq_flash_bwd_attributes(which, a),
+                     "pq_flash_bwd_attributes")
+        parts.append(f"{name}: {a[0]} registers, {a[1]} B local, {a[2]} B "
+                     "shared")
+    return "; ".join(parts)
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, window, chunk, p0, iters=5):
+    """SDPA's backward on the same inputs, as fwd + bwd minus fwd (events):
+    the flash backend with GQA on the causal mask, else the memory-efficient
+    one on a bool mask with K/V repeated; (ms or None, the call)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, hkv, rep, t, d = q.shape
+    q4 = q.reshape(b, hkv * rep, t, d).detach().requires_grad_()
+    do4 = do.reshape(q4.shape).to(torch.bfloat16)
+    kw = dict(is_causal=True)
+    if window is None and chunk is None:
+        backend, call = SDPBackend.FLASH_ATTENTION, "flash backend, GQA"
+        kk, vv = (a.detach().requires_grad_() for a in (k, v))
+        kw["enable_gqa"] = True
+    else:
+        backend = SDPBackend.EFFICIENT_ATTENTION
+        call = "memory-efficient backend, bool mask, K/V repeated"
+        idx = torch.arange(t, device=q.device)
+        band = idx[None] <= idx[:, None]
+        if window is not None:
+            band = band & (idx[None] > idx[:, None] - window)
+        else:
+            cid = (p0[:, None].long() + idx) // chunk
+            band = (band & (cid[:, None] == cid[:, :, None]))[:, None]
+        kw = dict(attn_mask=band)
+        kk, vv = (a.repeat_interleave(rep, 1).detach().requires_grad_()
+                  for a in (k, v))
+
+    def fwd(i):
+        return F.scaled_dot_product_attention(q4, kk, vv, **kw)
+
+    try:
+        with sdpa_kernel([backend]):
+            t_f = event_ms(fwd, iters)
+            t_fb = event_ms(lambda i: torch.autograd.grad(
+                fwd(i), (q4, kk, vv), do4), iters)
+    except RuntimeError as e:
+        return None, f"none ({call} refused: {str(e).splitlines()[0]})"
+    return t_fb - t_f, call
+
+
+def planted_faults(torch, FL, args, want):
+    """The norm-wise check against backward faults planted through the
+    kernels' arguments (args: q, k, v, dO, lse, delta, scale, window,
+    chunk, pos0): delta left 0; one 64-row query tile skipped (its dO and
+    delta 0 for dK / dV, its dQ rows 0); that tile's log-sum-exps taken
+    from the tile before; the window's start one key off either way; pos0
+    one off under a chunk.  {fault: the largest `bwd_norm_gap`}."""
+    names = ("qb", "kb", "vb", "dob", "lse", "delta", "sm_scale", "window",
+             "chunk", "pos0")
+    base = dict(zip(names, args))
+    t = base["qb"].shape[-2]
+    s0 = t // 128 * 64
+    tile = slice(s0, s0 + 64)
+
+    def run(dq_rows=None, **kw):
+        a = {**base, **kw}
+        dk, dv = FL.flash_bwd_dkv(**a)
+        dq = FL.flash_bwd_dq(**{**a, **(dq_rows or {})})
+        return dq, dk, dv
+
+    dob, delta, lse = base["dob"].clone(), base["delta"].clone(), \
+        base["lse"].clone()
+    dob[..., tile, :] = 0
+    delta[..., tile] = 0
+    lse[..., tile] = base["lse"][..., s0 - 64:s0]
+    faults = {"delta 0": run(delta=torch.zeros_like(delta))}
+    dq, dk, dv = run(dob=dob, delta=delta, dq_rows=dict(
+        dob=base["dob"], delta=base["delta"]))
+    dq[..., tile, :] = 0
+    faults["a query tile skipped"] = (dq, dk, dv)
+    faults["a tile's lse from the tile before"] = run(lse=lse)
+    if base["window"] is not None:
+        for step in (1, -1):
+            faults[f"window {base['window'] + step}"] = run(
+                window=base["window"] + step)
+    if base["chunk"] is not None:
+        faults["pos0 + 1"] = run(pos0=base["pos0"] + 1)
+    return {k: max(FL.bwd_norm_gap(g, want)) for k, g in faults.items()}
+
+
+def hold_flash_bwd(torch, dev, gen, label, b, hkv, rep, t, window, chunk,
+                   pos0, iters=10):
+    """flash_attn's gradients through FlashAttnFunction (one forward with
+    the log-sum-exps, the three backward kernels) against the f32 autograd
+    of the plain version: element by element within `bwd_rounding_bound`
+    (five bf16 roundings of the summed |terms| of dQ and dK, four of dV's)
+    plus one bf16 rounding of the gradient (the inputs' dtype), and each
+    (b, head) slice within BWD_NORM_RTOL norm-wise, a check that every
+    fault of `planted_faults` must fail; then each kernel's time and the
+    three
+    together (CUDA-graph replay), their plain versions', the bounds (the
+    live pairs: 10 D operations a pair for the whole backward, 8 D for dK /
+    dV, 6 D for dQ, at the bf16 peak; or their bytes) and SDPA's
+    backward."""
+    from piquant_tpu_torch.ops.cuda import _build
+    from piquant_tpu_torch.ops.cuda import flash as FL
+
+    d = 128
+    sm = d ** -0.5
+    q = torch.randn((b, hkv, rep, t, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k = torch.randn((b, hkv, t, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hkv, t, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    do = torch.randn((b, hkv, rep, t, d), generator=gen, device=dev)
+    p0 = (None if pos0 is None
+          else torch.tensor(pos0, dtype=torch.int32, device=dev))
+    tag = (f"flash backward {label} (B={b} Hkv={hkv} rep={rep} T={t} "
+           f"window={window} chunk={chunk} pos0={pos0})")
+    qs, ks, vs = (a.detach().requires_grad_() for a in (q, k, v))
+    out = FL.flash_attn(qs, ks, vs, sm, window, None, chunk, p0)
+    got = torch.autograd.grad(out, (qs, ks, vs), do)
+    del out
+    want = FL.flash_attn_bwd_plain(q, k, v, do, sm, window, chunk, p0)
+    bounds = FL.bwd_rounding_bound(q, k, v, do, sm, window, chunk, p0)
+    errs, shares = {}, {}
+    for name, g, w, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+        gap = (g.float() - w).abs()
+        lim = bd + 2.0 ** -8 * w.abs()
+        if not bool(torch.isfinite(g).all()) or bool((gap > lim).any()):
+            raise AssertionError(
+                f"{tag}: {name} disagrees: {int((gap > lim).sum())} of "
+                f"{gap.numel()} elements beyond the bound, max abs err "
+                f"{float(gap.max())}")
+        errs[name] = float(gap.max())
+        shares[name] = float((gap / lim).max())
+    del bounds, gap, lim
+    norm = FL.bwd_norm_gap(got, want)
+    if max(norm) > FL.BWD_NORM_RTOL:
+        raise AssertionError(f"{tag}: norm-wise gaps dq / dk / dv {norm} "
+                             f"beyond {FL.BWD_NORM_RTOL}")
+    del got
+    torch.cuda.empty_cache()
+
+    p0c = FL._chunk_pos0(q, chunk, p0)
+    o, lse = FL._forward(q, k, v, sm, window, None, chunk, p0c, None, True,
+                         _build.attention_entry("pq_flash_prefill", d))
+    delta, dob = FL.flash_bwd_delta(o, do)
+    args = (q, k, v, dob, lse, delta, sm, window, chunk, p0c)
+    faults = planted_faults(torch, FL, args, want)
+    missed = [f for f, r in faults.items() if not r > FL.BWD_NORM_RTOL]
+    if missed:
+        raise AssertionError(f"{tag}: the norm-wise check passes the planted"
+                             f" faults {missed} ({faults})")
+    del want
+    torch.cuda.empty_cache()
+
+    def whole(i):
+        dl, db = FL.flash_bwd_delta(o, do)
+        FL.flash_bwd_dkv(q, k, v, db, lse, dl, sm, window, chunk, p0c)
+        FL.flash_bwd_dq(q, k, v, db, lse, dl, sm, window, chunk, p0c)
+
+    ms = {"flash_bwd_delta": cuda_ms(lambda i: FL.flash_bwd_delta(o, do),
+                                     iters),
+          "flash_bwd_dkv": cuda_ms(lambda i: FL.flash_bwd_dkv(*args), iters),
+          "flash_bwd_dq": cuda_ms(lambda i: FL.flash_bwd_dq(*args), iters)}
+    t_sum = cuda_ms(whole, iters)
+    plain = {"flash_bwd_delta": event_ms(
+        lambda i: FL.flash_bwd_delta_plain(o, do), 1, warmup=1),
+        "flash_bwd_dkv": event_ms(
+            lambda i: FL.flash_bwd_dkv_plain(*args), 1, warmup=1),
+        "flash_bwd_dq": event_ms(
+            lambda i: FL.flash_bwd_dq_plain(*args), 1, warmup=1)}
+    torch.cuda.empty_cache()
+    t_plain = event_ms(lambda i: FL.flash_attn_bwd_plain(
+        q, k, v, do, sm, window, chunk, p0), 1, warmup=1)
+    torch.cuda.empty_cache()
+    t_lib, call = sdpa_bwd_ms(torch, q, k, v, do, window, chunk, p0)
+    pairs = sum(live_pairs(t, window, chunk, p) * hkv * rep
+                for p in (pos0 or (0,) * b))
+    nq, nk, rows = q.numel(), k.numel(), q.numel() // d
+    # q, k, v, lse, delta and dO read once
+    ins = nq * 2 + 2 * nk * 2 + 2 * rows * 4 + nq * 2
+    bnd = {"flash_bwd_delta": bound_ms(nq * (4 + 4 + 2) + rows * 4,
+                                       2.0 * nq),
+           "flash_bwd_dkv": bound_ms(ins + 2 * nk * 4, 8.0 * d * pairs),
+           "flash_bwd_dq": bound_ms(ins + nq * 4, 6.0 * d * pairs)}
+    b_sum = bound_ms(nq * (4 + 4 + 2) + 2 * nk * 2 + rows * 4 + nq * 4
+                     + 2 * nk * 4, 10.0 * d * pairs)
+    lib = "none" if t_lib is None else f"{t_lib:.4f} ms"
+    print(f"{tag}: max_abs_err dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, "
+          f"dv {errs['dv']:.3e} (up to {max(shares.values()):.2f} of the "
+          f"bound); norm-wise dq / dk / dv {norm[0]:.3e} / {norm[1]:.3e} / "
+          f"{norm[2]:.3e} (limit {FL.BWD_NORM_RTOL:.3e}), planted faults "
+          + ", ".join(f"{f} {r:.3e}" for f, r in faults.items()) + "; " +
+          ", ".join(
+              f"{n} {ms[n]:.4f} ms (bound {bnd[n][0]:.4f}, {bnd[n][1]}; "
+              f"plain {plain[n]:.4f})" for n in BWD_KERNELS) +
+          f"; the three {t_sum:.4f} ms ({10.0 * d * pairs / (t_sum * 1e9):.1f}"
+          f" TFLOP/s, {100 * b_sum[0] / t_sum:.1f}% of the bound "
+          f"{b_sum[0]:.4f}, {b_sum[1]}), plain backward {t_plain:.4f} ms, "
+          f"SDPA backward {lib} ({call}) [{card_line()}]", flush=True)
+    del q, k, v, do, o, lse, delta, dob, qs, ks, vs
+    torch.cuda.empty_cache()
+    return dict(errs=errs, norm=norm, faults=faults, ms=ms, plain=plain,
+                bnd=bnd, sum_ms=t_sum, sum_bound=b_sum, plain_ms=t_plain,
+                library_ms=t_lib, library_call=call)
+
+
+def train_loss(cfg):
+    """The next-token loss of the reference's training tests: the mean
+    negative log-likelihood of tokens[:, 1:] under the f32 log-softmax of
+    the logits of tokens[:, :-1]."""
+    import torch
+
+    from piquant_tpu_torch.models import llama as M
+
+    def loss_fn(p, tokens):
+        logits, _ = M.forward(cfg, p, tokens[:, :-1])
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        return -lp.gather(-1, tokens[:, 1:, None].long()).mean()
+    return loss_fn
+
+
+def flash_vs_mask_grads(torch, dev, cfg, params, tokens):
+    """One batch's gradients through the flash kernels (mask None) against
+    the materialized path's (an explicit additive causal mask, which
+    replaces flash), leaf by leaf within TRAIN_GRAD_RTOL of the leaf's
+    largest |gradient|."""
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.ops.cuda import flash as FL
+    from piquant_tpu_torch.utils import tree
+
+    t = tokens.shape[1] - 1
+    idx = torch.arange(t, device=dev)
+    causal = torch.where(idx[None] <= idx[:, None], 0.0, -1e9)[None, None]
+    leaves, unflatten = tree.flatten(params)
+
+    def grads(mask):
+        views = [x.detach().requires_grad_() for x in leaves]
+        logits, _ = M.forward(cfg, unflatten(views), tokens[:, :-1],
+                              mask=mask)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -lp.gather(-1, tokens[:, 1:, None].long()).mean()
+        del logits, lp
+        return torch.autograd.grad(loss, views)
+
+    n0 = FL.flash_attn.launches
+    g_flash = grads(None)
+    if FL.flash_attn.launches - n0 != cfg.n_layers:
+        raise AssertionError("the flash forward did not take flash on every "
+                             "layer")
+    n1 = FL.flash_attn.launches
+    g_mask = grads(causal)
+    if FL.flash_attn.launches != n1:
+        raise AssertionError("the masked forward launched flash")
+    worst = 0.0
+    for a, b in zip(g_flash, g_mask):
+        share = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, share)
+    del g_flash, g_mask
+    torch.cuda.empty_cache()
+    if worst > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"flash gradients {worst:.3e} of a leaf's "
+                             f"largest from the masked path's (limit "
+                             f"{TRAIN_GRAD_RTOL})")
+    print(f"train: one batch's gradients through flash against the "
+          f"materialized path's: at most {worst:.3e} of a leaf's largest "
+          f"|gradient| (limit {TRAIN_GRAD_RTOL})", flush=True)
+    return worst
+
+
+def step_profile(torch, fn):
+    """fn() once under torch.profiler (device activity): (kernel ms summed,
+    kernels launched, wall ms), or None where the trace holds no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    if not rows:
+        return None
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), wall
+
+
+def host_copy(torch, tree_, dev=None):
+    """The tree's tensors copied to the host (dev None) or to `dev`, the
+    optimizer's step counts left on the host, as torch keeps them."""
+    from piquant_tpu_torch.utils import tree
+
+    def move(path_leaf):
+        return path_leaf.detach().to(dev or "cpu", copy=True)
+
+    if dev is None:
+        return tree.tree_map(move, tree_)
+    out = dict(tree_)
+    out["params"] = tree.tree_map(move, tree_["params"])
+    out["opt"] = [{k: (v if k == "step" else move(v)) for k, v in st.items()}
+                  for st in tree_["opt"]]
+    return out
+
+
+def checkpoint_roundtrip(path, state, step):
+    """Write the host snapshot `state` with save_checkpoint and read it back
+    with restore_checkpoint (the snapshot as the template): (the restored
+    state, its step, write s, read s).  Runs on a thread beside the card's
+    work: the disk moves ~0.6 GB/s, and the state is 18 GB."""
+    from piquant_tpu_torch.utils import checkpoint as CK
+
+    t0 = time.perf_counter()
+    CK.save_checkpoint(path, state, step=step)
+    t1 = time.perf_counter()
+    restored, at = CK.restore_checkpoint(path, state)
+    return restored, at, t1 - t0, time.perf_counter() - t1
+
+
+def train_run(torch, dev, args, cfg, label, wire, zero, tokens, io=None):
+    """TRAIN_STEPS of Adam (lr TRAIN_LR) on the repeated batch over
+    TRAIN_DP ranks stacked on the card, from init_params at the seed:
+    (losses, params, per-step host ms).  With `io` (an executor, a path)
+    the state after TRAIN_SAVE_AT steps is snapshotted to the host and
+    checkpointed there on the executor's thread; the future lands in
+    io[2]."""
+    from piquant_tpu_torch import train as T
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.ops.cuda import dequantize as DQ
+    from piquant_tpu_torch.ops.cuda import minmax as MM
+    from piquant_tpu_torch.ops.cuda import quantize as QK
+    from piquant_tpu_torch.parallel import make_mesh
+
+    params = M.init_params(cfg, seed=args.seed, device=dev)
+    opt = T.Optimizer(torch.optim.Adam, lr=TRAIN_LR)
+    mesh = make_mesh([("dp", TRAIN_DP)], devices=[dev] * TRAIN_DP)
+    if zero:
+        init, step = T.make_zero_train_step(train_loss(cfg), opt, mesh, "dp",
+                                            grad_wire=wire)
+    else:
+        init = opt.init
+        step = T.make_train_step(train_loss(cfg), opt, mesh, "dp",
+                                 grad_wire=wire)
+    state = init(params)
+    losses, hosts = [], []
+    lib = (QK.quantize, DQ.dequantize, MM.min_max)
+    for i in range(TRAIN_STEPS):
+        before = [f.launches for f in lib]
+        gen = torch.Generator().manual_seed(1000 + i)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        if i + 1 < TRAIN_STEPS:
+            params, state, loss = step(params, state, tokens, gen)
+        else:   # the last step under the profiler, for the device's share
+            out = []
+            prof = step_profile(torch, lambda: out.extend(
+                step(params, state, tokens, gen)))
+            params, state, loss = out
+        ev[1].record()
+        torch.cuda.synchronize()
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        n = [f.launches - b for f, b in zip(lib, before)]
+        dev_t = ""
+        if i + 1 == TRAIN_STEPS:
+            dev_t = ("; profiled: device time not measured" if prof is None
+                     else f"; profiled: {prof[1]} kernels, {prof[0]:.1f} ms "
+                     f"on the device, {100 * prof[0] / prof[2]:.1f}% of "
+                     f"{prof[2]:.1f} ms")
+        print(f"train {label} step {i}: loss {losses[-1]:.6f}, host "
+              f"{hosts[-1]:.1f} ms, stream {ev[0].elapsed_time(ev[1]):.1f} "
+              f"ms; quantize / dequantize / min_max launches {n[0]} / {n[1]}"
+              f" / {n[2]}; peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+              f" GB{dev_t}", flush=True)
+        if io is not None and i + 1 == TRAIN_SAVE_AT:
+            t0 = time.perf_counter()
+            snap = host_copy(torch, {"params": params, "opt": state})
+            io.append(io[0].submit(checkpoint_roundtrip, io[1], snap, i + 1))
+            del snap
+            print(f"train {label}: state at step {i + 1} copied to the host "
+                  f"in {time.perf_counter() - t0:.1f} s, checkpointing on a "
+                  "thread", flush=True)
+    del state
+    return losses, params, hosts
+
+
+def zero_matches(torch, params, want):
+    """ZeRO exact's params (on the card) against the replicated step's (on
+    the host, brought over a leaf at a time): atol 2e-5, rtol 2e-4 (the
+    reference's bound: sharding the optimizer reorganizes it)."""
+    from piquant_tpu_torch.utils import tree
+
+    worst = 0.0
+    for a, b in zip(tree.leaves(params), want):
+        b = b.to(a.device)
+        torch.testing.assert_close(
+            a, b, atol=2e-5, rtol=2e-4,
+            msg=lambda m: f"ZeRO exact parts from replicated: {m}")
+        worst = max(worst, float((a - b).abs().max()))
+    print(f"train: ZeRO exact equals the replicated step within atol 2e-5, "
+          f"rtol 2e-4 (max {worst:.3e})", flush=True)
+
+
+def restart_equal(torch, dev, args, cfg, tokens, io, want):
+    """The checkpoint at TRAIN_SAVE_AT (read back on the thread) moved to
+    the card, the remaining steps of the uint8 run: the params equal `want`
+    (the unbroken run's, on the host) bit for bit."""
+    from piquant_tpu_torch import train as T
+    from piquant_tpu_torch.parallel import make_mesh
+    from piquant_tpu_torch.utils import tree
+
+    restored, at, w_s, r_s = io[2].result()
+    print(f"train: checkpoint of step {at} written in {w_s:.1f} s and read "
+          f"in {r_s:.1f} s on the thread", flush=True)
+    if at != TRAIN_SAVE_AT:
+        raise AssertionError(f"restored step {at}")
+    restored = host_copy(torch, restored, dev)
+    opt = T.Optimizer(torch.optim.Adam, lr=TRAIN_LR)
+    mesh = make_mesh([("dp", TRAIN_DP)], devices=[dev] * TRAIN_DP)
+    step = T.make_train_step(train_loss(cfg), opt, mesh, "dp",
+                             grad_wire="uint8")
+    params, state = restored["params"], restored["opt"]
+    del restored
+    for i in range(at, TRAIN_STEPS):
+        params, state, _ = step(params, state, tokens,
+                                torch.Generator().manual_seed(1000 + i))
+    same = all(torch.equal(a, b.to(a.device))
+               for a, b in zip(tree.leaves(params), want))
+    if not same:
+        raise AssertionError("the restored run parts from the unbroken one")
+    print(f"train: restart at step {at} equals the unbroken uint8 run bit "
+          "for bit", flush=True)
+
+
+def run_training(torch, dev, gen, args):
+    """Phase 21: (b) Llama-3-8B at full width and TRAIN_DEPTH layers (f32
+    params from the seed) trained by the port's DP step over TRAIN_DP
+    stacked ranks under the four wires, the uint8 run first: its state at
+    TRAIN_SAVE_AT is written and read back on a thread while the card runs
+    the other wires, the flash-vs-mask gradient check and (a), then
+    restored and run on; (a) the flash backward kernels against their
+    plain version at BWD_SHAPES, timed.
+    Returns the kernels-line rows of the three backward kernels and the
+    four runs' launches."""
+    import concurrent.futures
+    import shutil
+
+    from piquant_tpu_torch.models import llama as M
+    from piquant_tpu_torch.ops.cuda import dequantize as DQ
+    from piquant_tpu_torch.ops.cuda import flash as FL
+    from piquant_tpu_torch.ops.cuda import minmax as MM
+    from piquant_tpu_torch.ops.cuda import quantize as QK
+    from piquant_tpu_torch.utils import tree
+
+    cfg = dataclasses.replace(M.LlamaConfig.llama3_8b(),
+                              n_layers=TRAIN_DEPTH, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_DP, TRAIN_T + 1),
+                           generator=g, device=dev)
+    print(f"train (b): Llama-3-8B's widths (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}), {cfg.n_layers} layers, f32 "
+          f"params, dp {TRAIN_DP} stacked, a batch of {TRAIN_DP} x "
+          f"{TRAIN_T + 1} tokens, Adam lr {TRAIN_LR}", flush=True)
+    wrappers = {"flash_prefill": FL.flash_attn,
+                **{n: getattr(FL, n) for n in BWD_KERNELS},
+                "quantize": QK.quantize, "dequantize": DQ.dequantize,
+                "min_max": MM.min_max}
+    for w in wrappers.values():
+        w.launches = 0
+    ckpt = str(Path(__file__).resolve().parent / "build" / "train_ckpt")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    io = [pool, ckpt]
+    runs, finals = {}, {}
+    try:
+        for label, wire, zero in TRAIN_WIRES:
+            torch.cuda.reset_peak_memory_stats()
+            losses, params, hosts = train_run(
+                torch, dev, args, cfg, label, wire, zero, tokens,
+                io if label == "uint8" else None)
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"train {label}: the loss does not fall"
+                                     f" ({losses})")
+            runs[label] = (losses, hosts)
+            if label in ("uint8", "exact"):     # kept on the host
+                finals[label] = [x.cpu() for x in tree.leaves(params)]
+            if label == "ZeRO exact":
+                zero_matches(torch, params, finals["exact"])
+            del params
+            torch.cuda.empty_cache()
+        # the four runs' launches alone; the checks below launch more
+        launches = {n: w.launches for n, w in wrappers.items()}
+        base = runs["exact"][0]
+        for label in ("uint8", "ZeRO uint8"):
+            got = runs[label][0]
+            if any(abs(a - b) > 0.05 + 0.05 * abs(b)
+                   for a, b in zip(got, base)):
+                raise AssertionError(f"train {label}: losses {got} do not "
+                                     f"track the exact run's {base}")
+        print(f"train: launches {launches}; losses " + "; ".join(
+            f"{k} {[round(x, 6) for x in v[0]]}" for k, v in runs.items()) +
+            "; host ms a step " + "; ".join(
+                f"{k} {[round(x, 1) for x in v[1]]}"
+                for k, v in runs.items()), flush=True)
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise AssertionError(f"train: no launch of {missing} on the "
+                                 "path")
+
+        # beside the checkpoint's thread, as (a)
+        params = M.init_params(cfg, seed=args.seed, device=dev)
+        n = sum(x.numel() for x in tree.leaves(params))
+        print(f"train: {n} parameters ({n * 4 / 1e9:.2f} GB f32)",
+              flush=True)
+        flash_vs_mask_grads(torch, dev, cfg, params, tokens[:1])
+        del params
+        torch.cuda.empty_cache()
+        print(f"flash backward instances: {bwd_attributes(torch)}",
+              flush=True)
+        holds = [hold_flash_bwd(torch, dev, gen, *shape)
+                 for shape in BWD_SHAPES]
+        restart_equal(torch, dev, args, cfg, tokens, io, finals["uint8"])
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    main = holds[0]
+
+    replaces = {
+        "flash_bwd_delta": f"{BWD_SHIPPED}:254 (_flash_attention_bwd: di, "
+                           "plain jnp beside the two kernels)",
+        "flash_bwd_dkv": f"{BWD_SHIPPED}:941 (_flash_attention_bwd_dkv, "
+                         "pallas_call :1121)",
+        "flash_bwd_dq": f"{BWD_SHIPPED}:1287 (_flash_attention_bwd_dq, "
+                        "pallas_call :1456)"}
+    rows = []
+    for name in BWD_KERNELS:
+        rows.append(dict(
+            name=name, route="cuda", source=BWD_SOURCE,
+            replaces=replaces[name], tpu_kernel=replaces[name],
+            launches=launches[name],
+            max_abs_err=max(max(h["errs"].values()) for h in holds),
+            ms=main["ms"][name], plain_ms=main["plain"][name],
+            bound_ms=main["bnd"][name][0], bound_by=main["bnd"][name][1],
+            library_ms=None, backward_ms=main["sum_ms"],
+            backward_bound_ms=main["sum_bound"][0],
+            backward_plain_ms=main["plain_ms"],
+            backward_library_ms=main["library_ms"],
+            backward_library_call=main["library_call"],
+            timed="row 4's shape: B=8, Hkv=8, rep=4, T=1024, causal",
+            variants={BWD_SHAPES[i][0]: dict(
+                ms=h["ms"][name], bound_ms=h["bnd"][name][0],
+                backward_ms=h["sum_ms"], backward_library_ms=h["library_ms"])
+                for i, h in enumerate(holds)}))
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5904,6 +6526,12 @@ def main() -> int:
     for name, n in wide.items():
         launches[name] = launches.get(name, 0) + n
     phase_done(20)
+    torch.cuda.empty_cache()
+    train_rows, train = run_training(torch, dev, gen, args)
+    kernels += train_rows
+    for row in train_rows:
+        launches[row["name"]] = row["launches"]
+    phase_done(21)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         if kern["name"] in spec:
@@ -5920,6 +6548,8 @@ def main() -> int:
             kern["llama4_gpt_oss_launches"] = l4[kern["name"]]
         if kern["name"] in coll:
             kern["collectives_launches"] = coll[kern["name"]]
+        if kern["name"] in train and kern["name"] not in BWD_KERNELS:
+            kern["training_launches"] = train[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,6 +94,11 @@
 //      instantiations of the step; every branch taken while wgmmas are in
 //      flight lives inside an asm block.  A row with no live key yet keeps
 //      the sentinel max, and its exponents are taken against 0.
+// With an lse pointer the epilogue also stores each query row's f32
+// log-sum-exp of its live scaled scores, (m + log2 l) ln 2 with m and l in
+// the kernel's log2 units and the sinks left out: the backward
+// (csrc/flash_bwd.cu) recomputes the probabilities from it.  A null
+// pointer stores nothing (the serving launches).
 // The grid is persistent, one block an SM: the producer loads the next
 // item's Q and tiles while the consumers finish an item and store its
 // context (direct 8-byte stores, four lanes filling a 32-byte sector, none
@@ -120,6 +125,7 @@ constexpr int kRows = 128;          // query rows a block (64 a warpgroup)
 constexpr int kSmemMax = 232448;    // a block's shared memory
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>   // keys a tile
 __host__ __device__ constexpr int keys() { return D == 128 ? 128 : 64; }
@@ -485,6 +491,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
                      const __grid_constant__ CUtensorMap k_map,  // k
                      const __grid_constant__ CUtensorMap v_map,  // v
                      float* __restrict__ out,
+                     float* __restrict__ lse,
                      const int* __restrict__ pos0,
                      const float* __restrict__ sinks,
                      int nb, int nh, int rep, int t, int window, int chunk,
@@ -645,6 +652,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
         l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
         l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
       }
+      const bool out_a = hr_a < hpi && h0 + hr_a < rep && blk.qp_a < t;
+      const bool out_b = hr_b < hpi && h0 + hr_b < rep && blk.qp_b < t;
+      // the row's log-sum-exp before the sink joins (one lane of the four)
+      if (lse != nullptr && blk.tq == 0) {
+        if (out_a)
+          lse[((size_t)blk.bh * rep + ha) * t + blk.qp_a] =
+              (blk.m_a + log2f(l_a)) * kLn2;
+        if (out_b)
+          lse[((size_t)blk.bh * rep + hb) * t + blk.qp_b] =
+              (blk.m_b + log2f(l_b)) * kLn2;
+      }
       // the sink logit joins the denominator against the row's final
       // running max (log2 units, as m), which every lane of the row holds
       if constexpr (kSinks) {
@@ -652,8 +670,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
         l_a += exp2f(__ldg(sinks + hh * rep + ha) * kLog2e - blk.m_a);
         l_b += exp2f(__ldg(sinks + hh * rep + hb) * kLog2e - blk.m_b);
       }
-      const bool out_a = hr_a < hpi && h0 + hr_a < rep && blk.qp_a < t;
-      const bool out_b = hr_b < hpi && h0 + hr_b < rep && blk.qp_b < t;
       float* const oa = out + (((size_t)blk.bh * rep + ha) * t + blk.qp_a) * D;
       float* const ob = out + (((size_t)blk.bh * rep + hb) * t + blk.qp_b) * D;
 #pragma unroll
@@ -674,9 +690,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // q
 
 template <int D, int kMode, bool kSoftcap, bool kSinks>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const int* pos0, const float* sinks, int nb, int nh, int rep,
-           int t, int window, int chunk, float sm_scale, float softcap,
-           cudaStream_t stream) {
+           float* lse, const int* pos0, const float* sinks, int nb, int nh,
+           int rep, int t, int window, int chunk, float sm_scale,
+           float softcap, cudaStream_t stream) {
   auto kern = flash_prefill_kernel<D, kMode, kSoftcap, kSinks>;
   constexpr int smem = smem_bytes<D>();
   // once an instance: the opt-in above the 48 KB default
@@ -709,7 +725,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   // the softcap's reciprocal in f32, as the TPU kernel's 1.0 / softcap
   const float inv_softcap = kSoftcap ? (float)(1.0 / (double)softcap) : 0.f;
   kern<<<grid, kBlockThreads, smem, stream>>>(
-      qm, km, vm, static_cast<float*>(out), pos0, sinks, nb, nh, rep, t,
+      qm, km, vm, static_cast<float*>(out), lse, pos0, sinks, nb, nh, rep, t,
       window, chunk, sm_scale, softcap, inv_softcap);
   return (int)cudaGetLastError();
 }
@@ -726,14 +742,14 @@ int attributes(int* out) {
   return (int)err;
 }
 
-#define PQ_FLASH_ARGS q, k, v, out, pos0, sinks, nb, nh, rep, t, window, \
-                      chunk, sm_scale, softcap, st
+#define PQ_FLASH_ARGS q, k, v, out, lse, pos0, sinks, nb, nh, rep, t, \
+                      window, chunk, sm_scale, softcap, st
 
 template <int D, int kMode>
 int dispatch_epilogue(const void* q, const void* k, const void* v, void* out,
-                      const int* pos0, const float* sinks, int nb, int nh,
-                      int rep, int t, int window, int chunk, float sm_scale,
-                      float softcap, cudaStream_t st) {
+                      float* lse, const int* pos0, const float* sinks,
+                      int nb, int nh, int rep, int t, int window, int chunk,
+                      float sm_scale, float softcap, cudaStream_t st) {
   if (sinks != nullptr) {
     if (softcap > 0.f) return launch<D, kMode, true, true>(PQ_FLASH_ARGS);
     return launch<D, kMode, false, true>(PQ_FLASH_ARGS);
@@ -744,9 +760,9 @@ int dispatch_epilogue(const void* q, const void* k, const void* v, void* out,
 
 template <int D>
 int dispatch(const void* q, const void* k, const void* v, void* out,
-             const int* pos0, const float* sinks, int nb, int nh, int rep,
-             int t, int window, int chunk, float sm_scale, float softcap,
-             cudaStream_t st) {
+             float* lse, const int* pos0, const float* sinks, int nb, int nh,
+             int rep, int t, int window, int chunk, float sm_scale,
+             float softcap, cudaStream_t st) {
   // a window of T or more masks nothing the causal mask keeps
   if (chunk > 0) return dispatch_epilogue<D, kChunk>(PQ_FLASH_ARGS);
   if (window < t) return dispatch_epilogue<D, kWindow>(PQ_FLASH_ARGS);
@@ -773,8 +789,10 @@ int attributes_mode(int mode, int softcap, int sinks, int* out) {
 }  // namespace
 
 // q [B,H,rep,T,D] bf16, k/v [B,H,T,D] bf16, out [B,H,rep,T,D] f32, D 128 or
-// 256; keys i - window < j <= i attend (window T: the plain causal mask),
-// or under a chunk > 0 (window T) the keys j <= i of i's chunk, counted
+// 256; lse [B,H,rep,T] f32 (null: not stored) the rows' log-sum-exps of
+// their scaled scores, the sinks left out; keys i - window < j <= i attend
+// (window T: the plain causal mask), or under a chunk > 0 (window T) the
+// keys j <= i of i's chunk, counted
 // from the absolute position pos0[b] of row 0 (pos0: [B] int32 on the
 // device); their scaled scores capped at softcap (0: no cap); sinks [H *
 // rep] f32 on the device (null: none) join each row's denominator.  rep
@@ -783,12 +801,14 @@ int attributes_mode(int mode, int softcap, int sinks, int* out) {
 // window, chunk or softcap, a chunk beside a window, or a chunk without
 // pos0.
 extern "C" int pq_flash_prefill(const void* q, const void* k, const void* v,
-                                void* out, const void* pos0_ptr,
+                                void* out, void* lse_ptr,
+                                const void* pos0_ptr,
                                 const void* sinks_ptr, int nb, int nh,
                                 int rep, int t, int window, int chunk, int d,
                                 float sm_scale, float softcap, void* stream) {
   const int* pos0 = static_cast<const int*>(pos0_ptr);
   const float* sinks = static_cast<const float*>(sinks_ptr);
+  float* lse = static_cast<float*>(lse_ptr);
   if (rep < 1 || window < 1 || chunk < 0 ||
       !(softcap >= 0.f) || (chunk > 0 && (window < t || pos0 == nullptr)))
     return (int)cudaErrorInvalidValue;

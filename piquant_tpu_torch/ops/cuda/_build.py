@@ -26,8 +26,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("qmatmul_gemv.cu", "qmatmul_a8.cu", "qmatmul_ragged.cu",
            "qmatmul_mlp.cu", "decode_attn2.cu", "decode_wide.cu", "flash.cu",
-           "flash_wide.cu", "quantize.cu", "dequantize.cu", "requantize.cu",
-           "minmax.cu", "ring.cu")
+           "flash_bwd.cu", "flash_wide.cu", "quantize.cu", "dequantize.cu",
+           "requantize.cu", "minmax.cu", "ring.cu")
 HEADERS = ("pq_quant.cuh", "pq_tile.cuh", "pq_hopper.cuh", "pq_gemv.cuh",
            "pq_mma.cuh", "pq_decode.cuh")
 BUILD_DIR = _PKG.parent / "build" / "piquant_tpu_torch"
@@ -89,10 +89,22 @@ SIGNATURES = {
     # d, form (0 kv8, 1 kv4, 2 V1), out[4]
     "pq_decode_attn2_attributes": [_I, _I, _P],
     "pq_decode_wide_attributes": [_I, _I, _P],
+    # q, k, v, out, lse (or null), pos0, sinks, nb, nh, rep, t, window,
+    # chunk, d, sm_scale, softcap, stream
+    "pq_flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     # q, k, v, out, pos0, sinks, nb, nh, rep, t, window, chunk, d,
     # sm_scale, softcap, stream
-    "pq_flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
     "pq_flash_prefill_wide": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+    # o, dout, delta, dob, rows, stream
+    "pq_flash_bwd_delta": [_P] * 4 + [_I64, _P],
+    # q, k, v, dob, lse, delta, dk, dv, pos0, nb, nh, rep, t, window, chunk,
+    # d, sm_scale, stream
+    "pq_flash_bwd_dkv": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k, v, dob, lse, delta, dq, pos0, nb, nh, rep, t, window, chunk, d,
+    # sm_scale, stream
+    "pq_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # which (0 delta, 1 dkv, 2 dq), out[3]
+    "pq_flash_bwd_attributes": [_I, _P],
     # d, mode, softcap, sinks, out[4]
     "pq_flash_attributes": [_I] * 4 + [_P],
     # d, out[4]
@@ -204,6 +216,35 @@ def attention_entry(name: str, d: int) -> str:
         f"{name[3:]}: head_dim {d} (the kernels take 128, 256 and the "
         "multiples of 128 from 384 to 1024; wider heads: ROADMAP.md queue 2 "
         "item 3)")
+
+
+# why a kernel without a backward refuses an input that requires grad, by
+# the ROADMAP.md queue item that gives it one
+NO_BACKWARD = {
+    "13": "gradients through quantized weights and activations come with "
+          "QAT / LoRA (ROADMAP.md queue 1 item 13)",
+    "16c": "gradients through the MoE expert GEMMs and the collectives come "
+           "with expert and tensor parallelism (ROADMAP.md queue 1 item 16c)",
+    "serving": "decode attention serves only: training attends through "
+               "prefill's flash attention, or run decoding under "
+               "torch.no_grad()",
+    "bwd": "the flash backward's kernels have no backward of their own (no "
+           "higher-order gradients, as the JAX-shipped kernel's VJP has "
+           "none)",
+}
+
+
+def no_grad(name: str, item: str, *tensors) -> None:
+    """Raise NotImplementedError where kernel `name`, which has no backward,
+    is launched while grad mode is on and one of `tensors` requires grad:
+    its result would leave autograd's graph without a word (every wrapper
+    writes through raw pointers into a fresh tensor)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: an input requires grad and the kernel has no backward, "
+            f"so its result would not carry the gradient; "
+            f"{NO_BACKWARD[item]}")
 
 
 def check(err: int, name: str) -> None:

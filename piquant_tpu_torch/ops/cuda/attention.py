@@ -68,6 +68,8 @@ def decode_attn(q, k_codes, k_scale, v_codes, v_scale, positions,
     if not q.is_cuda:
         return decode_attn_plain(q, k_codes, k_scale, v_codes, v_scale,
                                  positions, sm_scale)
+    _build.no_grad("decode_attn", "serving", q, k_codes, k_scale, v_codes,
+                   v_scale)
     name = "decode_attn"
     b, hkv, rep, d = q.shape
     nb, nh, s_len, cd = k_codes.shape

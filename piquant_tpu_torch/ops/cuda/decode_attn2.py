@@ -133,6 +133,8 @@ def decode_attn2(q, k_codes, k_scale, v_codes, v_scale, positions, starts,
     if not q.is_cuda:
         return decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale,
                                   positions, starts, sm_scale, layer)
+    _build.no_grad("decode_attn2", "serving", q, k_codes, k_scale, v_codes,
+                   v_scale)
     out = _launch("pq_decode_attn2", False, q, k_codes, k_scale, v_codes,
                   v_scale, positions, starts, sm_scale, layer)
     decode_attn2.launches += 1
@@ -146,6 +148,8 @@ def decode_attn2_kv4(q, k_codes, k_scale, v_codes, v_scale, positions,
     if not q.is_cuda:
         return decode_attn2_plain(q, k_codes, k_scale, v_codes, v_scale,
                                   positions, starts, sm_scale, layer)
+    _build.no_grad("decode_attn2_kv4", "serving", q, k_codes, k_scale, v_codes,
+                   v_scale)
     out = _launch("pq_decode_attn2_kv4", True, q, k_codes, k_scale, v_codes,
                   v_scale, positions, starts, sm_scale, layer)
     decode_attn2_kv4.launches += 1

@@ -36,6 +36,7 @@ def dequantize(q: torch.Tensor, numel: int, scale, zero_point, dt, odt,
     dt, odt = dtype_of(dt), dtype_of(odt)
     if not q.is_cuda:
         return dequantize_plain(q, numel, scale, zero_point, dt, odt, add_into)
+    _build.no_grad("dequantize", "13", q, scale, zero_point)
     if (dt.name not in CODES or q.dtype != dt.storage
             or odt.storage not in FLOATS):
         raise TypeError(f"dequantize: {CODES} codes in their storage dtype "

@@ -29,6 +29,7 @@ def min_max(x: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper; see `min_max_plain` for the function."""
     if not x.is_cuda:
         return min_max_plain(x)
+    _build.no_grad("min_max", "13", x)
     if x.dtype not in FLOATS:
         raise TypeError(f"min_max: f32/bf16 expected, got {x.dtype}")
     check_flat("min_max", x, x.device)

@@ -216,6 +216,7 @@ def w4_gemv(x2: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     kernel sums the rows of x2 itself)."""
     if not x2.is_cuda:
         return w4_gemv_plain(x2, data, scale, zp, xsum, out_dtype)
+    _build.no_grad("w4_gemv", "13", x2, scale, zp)
     out = _channel("w4_gemv", "pq_w4_gemv", 2, x2, data, scale, zp, xsum,
                    out_dtype)
     w4_gemv.launches += 1
@@ -226,6 +227,7 @@ def w8_gemv(x2, data, scale, zp, xsum, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `w8_gemv_plain` for the function."""
     if not x2.is_cuda:
         return w8_gemv_plain(x2, data, scale, zp, xsum, out_dtype)
+    _build.no_grad("w8_gemv", "13", x2, scale, zp)
     out = _channel("w8_gemv", "pq_w8_gemv", 1, x2, data, scale, zp, xsum,
                    out_dtype)
     w8_gemv.launches += 1
@@ -236,6 +238,7 @@ def w2_gemv(x2, data, scale, zp, xsum, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `w2_gemv_plain` for the function."""
     if not x2.is_cuda:
         return w2_gemv_plain(x2, data, scale, zp, xsum, out_dtype)
+    _build.no_grad("w2_gemv", "13", x2, scale, zp)
     _check("w2_gemv", x2.shape[1] % 512 == 0,
            what=f"K={x2.shape[1]} is not a multiple of 512")
     out = _channel("w2_gemv", "pq_w2_gemv", 4, x2, data, scale, zp, xsum,
@@ -313,6 +316,7 @@ def wg_chunk(x2, data, s_chunk, z_chunk, gs: int, ch: int, out_dtype,
     if not x2.is_cuda:
         return wg_chunk_plain(x2, data, s_chunk, z_chunk, gs, ch, out_dtype,
                               xs)
+    _build.no_grad("wg_chunk", "13", x2, s_chunk, z_chunk)
     name = "wg_chunk"
     planes = x2.shape[1] // data.shape[0]
     _grouped_shape(name, x2, data, s_chunk, z_chunk, gs, planes)
@@ -338,6 +342,7 @@ def w4_grouped(x2, data, scale, zp, gs: int, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `w4_grouped_plain` for the function."""
     if not x2.is_cuda:
         return w4_grouped_plain(x2, data, scale, zp, gs, out_dtype)
+    _build.no_grad("w4_grouped", "13", x2, scale, zp)
     name = "w4_grouped"
     _check(name, x2.shape[1] == 2 * data.shape[0],
            what="split-half INT4 codes expected")
@@ -383,6 +388,7 @@ def nf4_gemv(x2, data, scale, gs: int, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `nf4_gemv_plain` for the function."""
     if not x2.is_cuda:
         return nf4_gemv_plain(x2, data, scale, gs, out_dtype)
+    _build.no_grad("nf4_gemv", "13", x2, scale)
     name = "nf4_gemv"
     k, n = x2.shape[1], data.shape[1]
     _check(name, x2.shape[1] == 2 * data.shape[0],
@@ -596,6 +602,7 @@ def w4a8(xq, xs, data, scale, zs, xsum, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `w4a8_plain` for the function."""
     if not xq.is_cuda:
         return w4a8_plain(xq, xs, data, scale, zs, xsum, out_dtype)
+    _build.no_grad("w4a8", "13", xs, scale, zs)
     out = _a8("w4a8", "pq_w4a8", 2, xq, xs, data, scale, zs, xsum, out_dtype)
     w4a8.launches += 1
     return out
@@ -605,6 +612,7 @@ def w8a8(xq, xs, data, scale, zs, xsum, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `w8a8_plain` for the function."""
     if not xq.is_cuda:
         return w8a8_plain(xq, xs, data, scale, zs, xsum, out_dtype)
+    _build.no_grad("w8a8", "13", xs, scale, zs)
     out = _a8("w8a8", "pq_w8a8", 1, xq, xs, data, scale, zs, xsum, out_dtype)
     w8a8.launches += 1
     return out
@@ -614,6 +622,7 @@ def w2a8(xq, xs, data, scale, zs, xsum, out_dtype) -> torch.Tensor:
     """Kernel wrapper; see `w2a8_plain` for the function."""
     if not xq.is_cuda:
         return w2a8_plain(xq, xs, data, scale, zs, xsum, out_dtype)
+    _build.no_grad("w2a8", "13", xs, scale, zs)
     out = _a8("w2a8", "pq_w2a8", 4, xq, xs, data, scale, zs, xsum, out_dtype)
     w2a8.launches += 1
     return out
@@ -829,6 +838,7 @@ def mlp_fused(x2: torch.Tensor, w13: torch.Tensor, s13: torch.Tensor,
     if not x2.is_cuda:
         return mlp_fused_plain(x2, w13, s13, zp13, w2, s2, zp2, xsum, act,
                                out_dtype)
+    _build.no_grad("mlp_fused", "13", x2, s13, zp13, s2, zp2)
     name = "mlp_fused"
     m, k = x2.shape
     i_ff, n = w13.shape[1] // 2, w2.shape[1]

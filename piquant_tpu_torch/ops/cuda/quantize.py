@@ -59,6 +59,7 @@ def quantize(x: torch.Tensor, scale, zero_point, dt, stochastic: bool = False,
     dt = dtype_of(dt)
     if not x.is_cuda:
         return quantize_plain(x, scale, zero_point, dt, stochastic, seed)
+    _build.no_grad("quantize", "13", x, scale, zero_point)
     if x.dtype not in FLOATS or dt.name not in CODES:
         raise TypeError(f"quantize: f32/bf16 -> {CODES} expected, got "
                         f"{x.dtype} -> {dt.name}")

@@ -187,6 +187,7 @@ def wq_ragged(x, data, scale, zs, xsum, block_expert, out_dtype,
     if not x.is_cuda:
         return wq_ragged_plain(x, data, scale, zs, xsum, block_expert,
                                out_dtype, live_blocks)
+    _build.no_grad("wq_ragged", "16c", x, scale, zs)
     name = "wq_ragged"
     planes = _check_ragged(name, x, data, block_expert, out_dtype,
                            torch.bfloat16)
@@ -210,6 +211,7 @@ def wq_ragged_grouped(x, data, scale, zp, gs: int, block_expert, out_dtype,
     if not x.is_cuda:
         return wq_ragged_grouped_plain(x, data, scale, zp, gs, block_expert,
                                        out_dtype, live_blocks)
+    _build.no_grad("wq_ragged_grouped", "16c", x, scale, zp)
     name = "wq_ragged_grouped"
     planes = _check_ragged(name, x, data, block_expert, out_dtype,
                            torch.bfloat16)
@@ -236,6 +238,7 @@ def wq_ragged_a8(xq, xs, data, scale, zs, xsum, block_expert,
     if not xq.is_cuda:
         return wq_ragged_a8_plain(xq, xs, data, scale, zs, xsum,
                                   block_expert, out_dtype, live_blocks)
+    _build.no_grad("wq_ragged_a8", "16c", xs, scale, zs)
     name = "wq_ragged_a8"
     planes = _check_ragged(name, xq, data, block_expert, out_dtype,
                            torch.int8)

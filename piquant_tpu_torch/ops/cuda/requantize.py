@@ -38,6 +38,7 @@ def requantize(x: torch.Tensor, scale, zero_point, dt,
     if not x.is_cuda:
         return requantize_plain(x, scale, zero_point, dt, stochastic, seed,
                                 add_into)
+    _build.no_grad("requantize", "13", x, scale, zero_point)
     if x.dtype not in FLOATS or not dt.is_quant or dt.bits > 16:
         raise TypeError(f"requantize: f32/bf16 with a <= 16-bit code type "
                         f"expected, got {x.dtype} with {dt.name}")

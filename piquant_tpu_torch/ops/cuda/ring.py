@@ -227,6 +227,7 @@ def ring_hop(x: torch.Tensor, seg: Segment, p: int, hop: int,
     """Kernel wrapper; see `ring_hop_plain` for the function."""
     if not x.is_cuda:
         return ring_hop_plain(x, seg, p, hop, send, recv, my0, shift)
+    _build.no_grad("ring_hop", "16c", x)
     if x.dtype != torch.float32 or send.dtype != torch.uint8 or (
             recv is not None and (recv.dtype != torch.uint8
                                   or recv.shape != send.shape)):
@@ -245,6 +246,7 @@ def ring_gather(wire: torch.Tensor, seg: Segment, p: int, out: torch.Tensor,
     """Kernel wrapper; see `ring_gather_plain` for the function."""
     if not wire.is_cuda:
         return ring_gather_plain(wire, seg, p, out, loopback)
+    _build.no_grad("ring_gather", "16c", out)
     if wire.dtype != torch.uint8 or out.dtype != torch.float32:
         raise TypeError("ring_gather: u8 wire rows and f32 out expected")
     _check("ring_gather", wire, out)

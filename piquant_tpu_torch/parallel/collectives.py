@@ -202,7 +202,11 @@ def quantized_reduce_scatter(x: torch.Tensor, axis: Axis,
 # ---------------------------------------------------------------------------
 
 def _all_gather(rows: torch.Tensor, idx: List[int], axis: Axis, dt: QDType,
-                round_mode: str, base: Optional[int]) -> torch.Tensor:
+                round_mode: str, base: Optional[int],
+                shift: int = 0) -> torch.Tensor:
+    """[R, P * csize]: rank k's shard at position (k + shift) mod P of every
+    row, each dequantized into its place (no stacked copies: at a gradient
+    of Llama-3-8B's embedding the rows alone are 8 GB)."""
     p = _axis_size(axis)
     nr, csize = rows.shape
     odt = dtype_of(rows.dtype)
@@ -221,10 +225,13 @@ def _all_gather(rows: torch.Tensor, idx: List[int], axis: Axis, dt: QDType,
         wire = _send_recv(wire, axis)                   # ONE send per hop
         # after a right-hop each rank holds its left neighbour's shard
         src = [(v - 1) % p for v in src]
-    return torch.stack([
-        torch.cat([_dequantize_chunk(*_wire_split(out_wire[r, k], csize, dt),
-                                     csize, dt, odt) for k in range(p)])
-        for r in range(nr)])
+    out = torch.empty((nr, p * csize), dtype=rows.dtype, device=rows.device)
+    for r in range(nr):
+        for k in range(p):
+            at = (k + shift) % p
+            out[r, at * csize:(at + 1) * csize] = _dequantize_chunk(
+                *_wire_split(out_wire[r, k], csize, dt), csize, dt, odt)
+    return out
 
 
 def quantized_all_gather(shard: torch.Tensor, axis: Axis,
@@ -265,12 +272,10 @@ def quantized_all_reduce(x: torch.Tensor, axis: Axis,
         rows = torch.nn.functional.pad(rows, (0, pad))
     base = _base_seed(round_mode, generator)
     shard = _reduce_scatter(rows, idx, axis, dt, round_mode, base)
-    full = _all_gather(shard, idx, axis, dt, "nearest", base)
-    # the reduce-scatter leaves rank d holding chunk (d+1) mod p, and the
-    # all-gather writes by holder index: undo the +1 rotation
-    full = torch.roll(full.reshape(full.shape[0], p, -1), 1, 1)
-    full = full.reshape(full.shape[0], -1)[:, :n]
-    return _unrows(full, axis).reshape(x.shape)
+    # the reduce-scatter leaves rank d holding chunk (d+1) mod p: the
+    # all-gather places holder d's shard at chunk (d+1) mod p
+    full = _all_gather(shard, idx, axis, dt, "nearest", base, shift=1)
+    return _unrows(full[:, :n], axis).reshape(x.shape)
 
 
 def quantized_psum(x: torch.Tensor, mesh: Mesh, axis_name: str,

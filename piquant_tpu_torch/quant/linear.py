@@ -482,10 +482,15 @@ def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., K] @ b [K, N] with f32 accumulation and f32 output — the
     reference's `jnp.dot(..., preferred_element_type=float32)`.  bf16
     operands multiply exactly in f32 either way; on the GPU the bf16 GEMM
-    writes f32 directly instead of upcasting the weight."""
+    writes f32 directly instead of upcasting the weight, except where
+    autograd records the product: there the upcast product, the same
+    values, since torch.mm's out_dtype form has no derivative (its
+    backward raises "derivative for aten::mm is not implemented", torch
+    2.11 on an H100)."""
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
-    if a2.is_cuda and a2.dtype == b.dtype == torch.bfloat16:
+    grad = torch.is_grad_enabled() and (a2.requires_grad or b.requires_grad)
+    if a2.is_cuda and a2.dtype == b.dtype == torch.bfloat16 and not grad:
         y = torch.mm(a2, b, out_dtype=torch.float32)
     else:
         y = a2.float() @ b.float()

@@ -2437,3 +2437,220 @@ def test_wide_head_model_on_card(dev, kv_bits, hd):
         out.append(torch.stack([first, lg]).float().cpu())
     err = (out[1] - out[0]).abs().max() / out[0].abs().max()
     assert err < 2e-2, err
+
+
+# ---------------------------------------------------------------------------
+# the flash backward (csrc/flash_bwd.cu) and the no-grad guards
+# ---------------------------------------------------------------------------
+
+# (rep, t, window, chunk, pos0): causal at reps 1, 4, 5, 16 and ragged T;
+# windows of 100 and 1000 (off the 64-key tiles); chunks with row 0 past 0
+GRAD_CASES = [(1, 256, None, None, None), (4, 1024, None, None, None),
+              (5, 200, None, None, None), (16, 512, None, None, None),
+              (4, 1024, 100, None, None), (2, 2048, 1000, None, None),
+              (4, 1024, None, 256, (300, 0)), (3, 700, None, 128, (5, 77))]
+
+
+def _grad_inputs(dev, seed, b, hkv, rep, t, d=128):
+    g = _gen(dev, seed)
+    q = torch.randn((b, hkv, rep, t, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, t, d), generator=g, device=dev)
+    do = torch.randn((b, hkv, rep, t, d), generator=g, device=dev)
+    return (*(a.to(torch.bfloat16) for a in (q, k, v)), do)
+
+
+@pytest.mark.parametrize("rep,t,window,chunk,pos0", GRAD_CASES)
+def test_flash_grad_kernels_match_plain(dev, rep, t, window, chunk, pos0):
+    """flash_attn under grad goes through FlashAttnFunction: one forward
+    launch with the log-sum-exps and the three backward kernels once each;
+    dq, dk, dv within `bwd_rounding_bound` of the f32 autograd of the plain
+    version element by element and within BWD_NORM_RTOL norm-wise, in the
+    inputs' dtype, and bit-equal on a second run (no atomics)."""
+    b, hkv = 2, 2
+    q, k, v, do = _grad_inputs(dev, rep * 7 + t, b, hkv, rep, t)
+    p0 = None if pos0 is None else torch.tensor(pos0, device=dev)
+    sm = 128 ** -0.5
+    counts = [f.launches for f in (FL.flash_attn, FL.flash_bwd_delta,
+                                   FL.flash_bwd_dkv, FL.flash_bwd_dq)]
+
+    def grads():
+        qs, ks, vs = (a.detach().requires_grad_() for a in (q, k, v))
+        out = FL.flash_attn(qs, ks, vs, sm, window, None, chunk, p0)
+        assert out.grad_fn is not None
+        return torch.autograd.grad(out, (qs, ks, vs), do)
+
+    got = grads()
+    assert [f.launches for f in (FL.flash_attn, FL.flash_bwd_delta,
+                                 FL.flash_bwd_dkv, FL.flash_bwd_dq)] == [
+        c + 1 for c in counts]
+    want = FL.flash_attn_bwd_plain(q, k, v, do, sm, window, chunk, p0)
+    bounds = FL.bwd_rounding_bound(q, k, v, do, sm, window, chunk, p0)
+    for name, g_, w, bd in zip("qkv", got, want, bounds):
+        assert g_.dtype == torch.bfloat16
+        gap = (g_.float() - w).abs()
+        # the inputs' dtype rounds each gradient once more: u |w|
+        lim = bd + 2.0 ** -8 * w.abs()
+        assert bool(torch.isfinite(g_).all())
+        assert bool((gap <= lim).all()), (name, float(gap.max()))
+    assert max(FL.bwd_norm_gap(got, want)) <= FL.BWD_NORM_RTOL
+    again = grads()
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+# (rep, t, window, chunk, pos0) of the planted faults: Mistral's window of
+# 1000 (the window's start one key off moves pairs of ~1/1000 of their
+# row's probability), the causal mask, a chunk with row 0 past 0
+GRAD_FAULT_SHAPES = [(2, 2048, 1000, None, None), (4, 1024, None, None, None),
+                     (4, 1024, None, 256, (300, 0))]
+
+
+@pytest.mark.parametrize("rep,t,window,chunk,pos0", GRAD_FAULT_SHAPES)
+def test_flash_grad_norm_check_sees_faults(dev, rep, t, window, chunk, pos0):
+    """The kernels' gradients pass the norm-wise check (`bwd_norm_gap`
+    within BWD_NORM_RTOL of the f32 autograd of the plain version), and
+    the kernels with each fault of `chip_smoke.planted_faults` planted in
+    their arguments fail it: delta 0, a query tile skipped, a tile's
+    log-sum-exps from the tile before, the window's start one key off
+    either way, pos0 one off under a chunk."""
+    import chip_smoke
+
+    b, hkv = 2, 2
+    q, k, v, do = _grad_inputs(dev, 17, b, hkv, rep, t)
+    p0 = (None if pos0 is None
+          else torch.tensor(pos0, dtype=torch.int32, device=dev))
+    sm = 128 ** -0.5
+    want = FL.flash_attn_bwd_plain(q, k, v, do, sm, window, chunk, p0)
+    o, lse = FL._forward(q, k, v, sm, window, None, chunk, p0, None, True,
+                         _build.attention_entry("pq_flash_prefill", 128))
+    delta, dob = FL.flash_bwd_delta(o, do)
+    args = (q, k, v, dob, lse, delta, sm, window, chunk, p0)
+    sound = (FL.flash_bwd_dq(*args),) + FL.flash_bwd_dkv(*args)
+    assert max(FL.bwd_norm_gap(sound, want)) <= FL.BWD_NORM_RTOL
+    faults = chip_smoke.planted_faults(torch, FL, args, want)
+    assert len(faults) == 3 + 2 * (window is not None) + (chunk is not None)
+    assert all(r > FL.BWD_NORM_RTOL for r in faults.values()), faults
+
+
+def test_flash_grad_f32_inputs(dev):
+    """f32 q, k, v (the f32 training model's): the kernels take them rounded
+    to bf16, as the plain version does, and return f32 gradients."""
+    q, k, v, do = _grad_inputs(dev, 3, 1, 2, 4, 256)
+    q, k, v = (a.float().requires_grad_() for a in (q, k, v))
+    out = FL.flash_attn(q, k, v, 0.1)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = FL.flash_attn_bwd_plain(q.detach(), k.detach(), v.detach(), do,
+                                   0.1)
+    bounds = FL.bwd_rounding_bound(q.detach(), k.detach(), v.detach(), do,
+                                   0.1)
+    for g_, w, bd in zip(got, want, bounds):
+        assert g_.dtype == torch.float32
+        assert bool(((g_ - w).abs() <= bd).all())
+
+
+@pytest.mark.parametrize("case", ["softcap", "sinks", "d256"])
+def test_flash_grad_refuses_without_backward(dev, case):
+    """The softcap, the sinks and head_dim 256 have no backward kernel
+    (ROADMAP.md queue 2 item 4): under grad they raise by name; under
+    no_grad they run as before."""
+    d = 256 if case == "d256" else 128
+    q, k, v, _ = _grad_inputs(dev, 11, 1, 2, 2, 256, d)
+    kw = dict(softcap=30.0) if case == "softcap" else (
+        dict(sinks=torch.zeros(2, 2, device=dev)) if case == "sinks" else {})
+    qs = q.detach().requires_grad_()
+    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
+        FL.flash_attn(qs, k, v, 0.1, **kw)
+    with torch.no_grad():
+        FL.flash_attn(qs, k, v, 0.1, **kw)
+    FL.flash_attn(q, k, v, 0.1, **kw)
+
+
+def test_grad_guards_refuse(dev):
+    """Wrappers of kernels without a backward refuse an input that requires
+    grad (a result without grad_fn would detach the graph without a word),
+    and run under no_grad."""
+    g = _gen(dev, 5)
+    x = torch.randn((8, 256), generator=g, device=dev).to(torch.bfloat16)
+    data = torch.randint(0, 256, (128, 512), generator=g, device=dev,
+                         dtype=torch.uint8)
+    scale = torch.rand(512, generator=g, device=dev) + 0.01
+    zp = torch.zeros(512, dtype=torch.int32, device=dev)
+    xr = x.detach().requires_grad_()
+    with pytest.raises(NotImplementedError, match="w4_gemv.*item 13"):
+        Q.w4_gemv(xr, data, scale, zp, None, torch.float32)
+    with torch.no_grad():
+        Q.w4_gemv(xr, data, scale, zp, None, torch.float32)
+    xf = torch.randn(4096, generator=g, device=dev, requires_grad=True)
+    dt = DTYPES["uint8"]
+    with pytest.raises(NotImplementedError, match="quantize.*item 13"):
+        QK.quantize(xf, 0.1, 0, dt)
+    with pytest.raises(NotImplementedError, match="min_max"):
+        MM.min_max(xf)
+
+
+def test_forward_grad_reaches_wq(dev):
+    """The repaired silent detach: a flash-attended forward (head_dim 128,
+    T 256) with f32 params back-propagates into wq, wk and wv on the card
+    (before the slice their .grad stayed None), within 2e-2 of each leaf's
+    largest |gradient| of the same loss on the CPU (the plain version; f32
+    GEMMs in another order, bf16 roundings that can fall the other way) and
+    of the card's materialized path (an explicit causal mask)."""
+    import dataclasses
+
+    from piquant_tpu_torch.models import llama as M
+
+    cfg = dataclasses.replace(M.LlamaConfig.tiny(vocab=256),
+                              n_heads=2, n_kv_heads=1, dtype=torch.float32)
+    params = M.init_params(cfg, seed=3, device=dev)
+    toks = torch.randint(0, 256, (2, 257), generator=_gen(dev, 9),
+                         device=dev)
+    t = 256
+    causal = torch.where(torch.arange(t, device=dev)[None, :]
+                         <= torch.arange(t, device=dev)[:, None], 0.0, -1e9)
+
+    def grads(p, tk, mask=None):
+        names = ("wq", "wk", "wv")
+        for n in names:
+            p["layers"][0][n].requires_grad_()
+        logits, _ = M.forward(cfg, p, tk[:, :-1], mask=mask)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -lp.gather(-1, tk[:, 1:, None]).mean()
+        loss.backward()
+        out = [p["layers"][0][n].grad for n in names]
+        for n in names:
+            p["layers"][0][n].grad = None
+            p["layers"][0][n].requires_grad_(False)
+        return out
+
+    before = FL.flash_bwd_dq.launches
+    got = grads(params, toks)
+    assert FL.flash_bwd_dq.launches == before + cfg.n_layers
+    assert all(g_ is not None for g_ in got)
+    cpu = grads({k_: ([{n: w.cpu() for n, w in l.items()} for l in v_]
+                      if k_ == "layers" else v_.cpu())
+                 for k_, v_ in params.items()}, toks.cpu())
+    masked = grads(params, toks, causal[None, None])
+    for g_, c, m in zip(got, cpu, masked):
+        lim = 2e-2 * float(c.abs().max())
+        assert float((g_.cpu() - c).abs().max()) <= lim
+        assert float((g_ - m).abs().max()) <= lim
+
+
+def test_dot_f32_grad(dev):
+    """dot_f32 on bf16 operands that require grad takes the upcast product,
+    whose backward autograd has: the same values as the out_dtype GEMM."""
+    from piquant_tpu_torch.quant.linear import dot_f32
+
+    g = _gen(dev, 13)
+    a = torch.randn((64, 256), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((256, 128), generator=g, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        want = dot_f32(a, b)
+    ar = a.detach().requires_grad_()
+    y = dot_f32(ar, b)
+    assert y.grad_fn is not None and y.dtype == torch.float32
+    torch.testing.assert_close(y.detach(), want, atol=1e-4, rtol=1e-5)
+    (ga,) = torch.autograd.grad(y, ar, torch.ones_like(y))
+    torch.testing.assert_close(ga.float(), b.float().sum(1)[None].expand(
+        64, -1), atol=0.0, rtol=2.0 ** -8)

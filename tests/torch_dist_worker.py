@@ -13,19 +13,19 @@ import torch.multiprocessing as mp
 WORLD = 8
 
 
-def spawn(fn, tmp_path, inputs: dict) -> list:
-    """Run fn(rank, inputs) -> dict on WORLD gloo ranks; -> the ranks'
+def spawn(fn, tmp_path, inputs: dict, world: int = WORLD) -> list:
+    """Run fn(rank, inputs) -> dict on `world` gloo ranks; -> the ranks'
     saved results in rank order."""
     np.savez(tmp_path / "inputs.npz", **inputs)
-    mp.spawn(_main, args=(fn, str(tmp_path)), nprocs=WORLD, join=True)
+    mp.spawn(_main, args=(fn, str(tmp_path), world), nprocs=world, join=True)
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
-def _main(rank: int, fn, tmp: str) -> None:
+def _main(rank: int, fn, tmp: str, world: int) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
-                            rank=rank, world_size=WORLD)
+                            rank=rank, world_size=world)
     try:
         inputs = dict(np.load(os.path.join(tmp, "inputs.npz")))
         torch.save(fn(rank, inputs), os.path.join(tmp, f"rank{rank}.pt"))
@@ -115,3 +115,58 @@ def ring(rank: int, inputs: dict) -> dict:
         torch.from_numpy(inputs["bucketed"][rank]), mesh.axis("x"),
         max_chunk_elems=1024).numpy()
     return out
+
+
+def lm_loss(cfg):
+    """The next-token loss of tests/test_train.py, on the port: the mean
+    negative log-likelihood of batch[:, 1:] under the logits of
+    batch[:, :-1]."""
+    from piquant_tpu_torch.models import llama as TM
+
+    def loss_fn(p, batch):
+        logits, _ = TM.forward(cfg, p, batch[:, :-1])
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        return -lp.gather(-1, batch[:, 1:, None].long()).mean()
+    return loss_fn
+
+
+TRAIN_RUNS = (("exact", None, False), ("uint8", "uint8", False),
+              ("zero_uint8", "uint8", True))
+
+
+def train_runs(batch: np.ndarray, mesh, steps: int = 3) -> dict:
+    """The tiny f32 Llama (vocab 64, init_params from seed 0) trained with
+    Adam on `batch` over the mesh's dp axis: {name: (losses, leaves)} for
+    the replicated step under the exact and the uint8 wire and the uint8
+    ZeRO step (stochastic rounding, a generator a step seeded 100 + i)."""
+    from piquant_tpu_torch import train as T
+    from piquant_tpu_torch.models import llama as TM
+    from piquant_tpu_torch.utils import tree
+
+    cfg = TM.LlamaConfig.tiny(vocab=64, dtype=torch.float32)
+    b = torch.from_numpy(batch)
+    out = {}
+    for name, wire, zero in TRAIN_RUNS:
+        opt = T.Optimizer(torch.optim.Adam, lr=3e-3)
+        params = TM.init_params(cfg, seed=0, device="cpu")
+        if zero:
+            init, step = T.make_zero_train_step(lm_loss(cfg), opt, mesh,
+                                                "dp", grad_wire=wire)
+        else:
+            init = opt.init
+            step = T.make_train_step(lm_loss(cfg), opt, mesh, "dp",
+                                     grad_wire=wire)
+        state, losses = init(params), []
+        for i in range(steps):
+            params, state, loss = step(params, state, b,
+                                       torch.Generator().manual_seed(100 + i))
+            losses.append(float(loss))
+        out[name] = (np.array(losses),
+                     [x.numpy().copy() for x in tree.leaves(params)])
+    return out
+
+
+def train(rank: int, inputs: dict) -> dict:
+    from piquant_tpu_torch.parallel import make_mesh
+
+    return train_runs(inputs["batch"], make_mesh([("dp", -1)]))
